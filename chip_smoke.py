@@ -1,28 +1,53 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's search paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--rows 1000000] [--seed 0]
 
-Phases (any failure exits non-zero; nothing is caught and ignored):
+Phases (any failure exits non-zero; nothing is caught and ignored, and
+nothing falls back to the CPU or to a plain version):
 1. Setup: a CUDA device must exist; print the card's name and power limit
    (nvidia-smi) and build the kernels from ``vrod_tpu_torch/csrc``.
-2. Kernels vs plain on the card: K1 (``fused_topk``) and K3
+2. Kernels vs plain on the card, for every leg (int8 and packed int4 rows
+   with an int8 query, bfloat16 and float32 rows with a float query; each
+   with metric cosine, dot and l2): K1 (``fused_topk``) and K3
    (``sampled_submax``) against their plain PyTorch versions on the same
-   CUDA tensors. int8 scores are exact integer dots times one float32
-   multiply, so values and slots must be EXACTLY equal (tolerance 0).
-3. Main path through the entry points: ``Database.new`` ->
-   ``create_collection`` (dim 768, cosine, int8) -> ``bulk_insert`` of
-   ``--rows`` seeded rows in 65,536-row chunks (WAL first, fsync) -> 20 x
-   ``search_similar`` at batch 256, top-16, each checked against an exact
-   float32 full scan of the stored rows on the card (tie-aware recall 1.0,
-   unique ids) -> ``snapshot``, delete 1,000 ids, close, ``Database.load``
-   (snapshot restore + WAL replay) -> the same queries again: deleted ids
-   are gone and every other result is unchanged. The kernels' launch
-   counters must rise with every search. Then K1 and K3 are compared with
-   their plain versions, and timed, at the shapes this path gave them.
+   CUDA tensors at 65,536 x 768, b256, with the floor on and off, dead
+   rows, k 28, 112 and 1280, dims 96 and 30, tied rows, all rows dead and
+   fewer live rows than k. int8/int4 scores are exact integer dots
+   followed by the same rounded float32 ops, so values and slots must be
+   EXACTLY equal. bfloat16/float32 sums run in another order on the tensor
+   cores: values must agree within ``cuda_topk.score_error_bound``
+   (2^-22 * (sqrt(d) + 1) * |q| * max|x|, scaled by the metric) and slots
+   outside near-ties (``cuda_topk.topk_disagreement``); the largest error
+   seen, and its largest share of the bound, are printed. A control shows
+   the bound would catch a scorer of lower precision: the plain version
+   fed inputs truncated to TF32 (as cvt.rz would) or to bfloat16 must
+   fail the same comparison. For every leg theta0, the engine's floor from
+   K3, must be at or below K1's own k-th value, and K3's maximum must
+   equal K1's top-1 on the sample bit for bit.
+3. Database phases through the entry points: ``Database.new`` ->
+   ``create_collection`` (dim 768) -> ``bulk_insert`` of seeded rows in
+   65,536-row chunks (WAL first, fsync) -> 20 x ``search_similar`` at batch
+   256, each checked against an exact float32 full scan of the stored rows
+   on the card (tie-aware recall 1.0, unique ids; l2 ranks ascending by
+   squared distance). Each phase sets the launch counters to 0 before it
+   and reads them after it; its leg's K1 and K3 counters must rise with
+   every search. Then K1 and K3 are compared with their plain versions,
+   and timed, at the shapes the phase gave them.
+   - main path: int8 cosine, top-16, ``--rows`` rows, then ``snapshot``,
+     delete 1,000 ids, close, ``Database.load`` (snapshot restore + WAL
+     replay) and the same queries again: deleted ids are gone and every
+     other result is unchanged;
+   - (i) int8 l2, top-16, ``--rows`` rows, with the same reopen (the norms
+     lane is rebuilt from the restored rows);
+   - (ii) int4 l2, top-16; (iii) bfloat16 cosine, top-100; (iv) float32
+     dot, top-100 (with the float control): ``--rows`` rows each;
+   - every leg (12 collections), 3 searches each: int8/int4 at top-16 on
+     262,144 rows, bfloat16/float32 at top-100 on 131,072 rows.
 
 The last two lines of standard output are one JSON object per line: the
-kernels' account, then ``{"ok": true, "device": {...}}``.
+kernels' account (one entry per kernel and leg), then ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -38,10 +63,21 @@ from pathlib import Path
 
 import numpy as np
 
-DIM, BATCH, TOP_K, SEARCHES = 768, 256, 16, 20
+DIM, BATCH, SEARCHES = 768, 256, 20
 INGEST_CHUNK = 65536
 N_DELETE = 1000
 RECALL_EPS = 1e-5  # tie tolerance of the recall check (bench.py's)
+# The every-leg phase: int8/int4 legs at the headline's top-16 (262,144
+# rows: the least at which that floor opens), float legs at top-100
+# (131,072 rows; their floor opens from k_scan 64).
+LEG_SHAPES = {"quant": (262144, 16), "float": (131072, 100)}
+LEG_SEARCHES = 3
+DB_DTYPE = {"int8": "int8", "int4": "int4", "bf16": "bfloat16",
+            "f32": "float32"}
+SOURCES = {"fused_topk": ("vrod_tpu_torch/csrc/fused_topk.cu",
+                          "vrod_tpu/ops/pallas_topk.py:251"),
+           "sampled_submax": ("vrod_tpu_torch/csrc/sampled_submax.cu",
+                              "vrod_tpu/ops/pallas_topk.py:468")}
 
 
 def log(*a):
@@ -70,254 +106,418 @@ def cuda_time_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def make_int8_state(rng, n, d, b, dev, dead_every=0, ties=False):
+def row_dtype(dtype):
+    import torch
+    return {"int8": torch.int8, "int4": "int4", "bf16": torch.bfloat16,
+            "f32": torch.float32}[dtype]
+
+
+def kernel_inputs(x, q, leg, dev, dead_every=0):
+    """(x, aux, valid, kernel-ready q) on ``dev`` and the wrappers' extra
+    keywords, for float32 rows x and queries q of one leg."""
     import torch
     from vrod_tpu_torch.ops import distances as D
-    x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32))
-    if ties:
-        x[1000:1100] = x[7]
-        x[5000:5040] = x[9000]
-    rows, aux = D.prepare_rows(x.to(dev), metric="cosine", dtype=torch.int8)
-    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    dtype, metric = leg.split("-")
+    rows, aux = D.prepare_rows(x.to(dev), metric=metric,
+                               dtype=row_dtype(dtype))
+    valid = torch.ones(x.shape[0], dtype=torch.bool, device=dev)
     if dead_every:
         valid[::dead_every] = False
-    q = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32))
-    if ties:
-        q[0] = x[7]
-    q8 = D.prepare_queries(q.to(dev), metric="cosine", quantize=True)
-    return rows, aux, valid, q8
+    kw = dict(packed=dtype == "int4")
+    quant = dtype in ("int8", "int4")
+    if quant and metric == "l2":
+        qk, qs = D.prepare_queries(q.to(dev), metric=metric, quantize=True,
+                                   return_scale=True)
+        kw.update(row_bias=-D.row_norms2(rows, aux, kw["packed"]),
+                  q_scale=qs)
+    else:
+        qk = D.prepare_queries(q.to(dev), metric=metric, quantize=quant)
+    return [rows, aux, valid, qk], kw
+
+
+def sample_of(args, kw, ns):
+    skw = dict(kw)
+    if "row_bias" in kw:
+        skw["row_bias"] = kw["row_bias"][:ns]
+    return [a[:ns] for a in args[:3]] + [args[3]], skw
+
+
+def floor_theta(sub, k, args, leg):
+    """The engine's floor (``engine.floor_threshold``) from K3's
+    sub-maxima, for kernel inputs ``args`` of one leg."""
+    from vrod_tpu_torch.engine import floor_threshold
+    dtype, metric = leg.split("-")
+    return floor_threshold(sub, k, args[3], args[1], args[2],
+                           metric=metric, quant=dtype in ("int8", "int4"),
+                           dim=args[0].shape[1])
 
 
 class Compare:
-    """Kernel-vs-plain comparisons; tolerance 0 (exact equality)."""
+    """Kernel-vs-plain comparisons on the card, per kernel and leg."""
 
     def __init__(self):
-        self.max_err = {"fused_topk": 0.0, "sampled_submax": 0.0}
+        from vrod_tpu_torch.ops import cuda_topk as K
+        self.max_err = {name: 0.0 for name in K.launches}
+        # Largest |kernel - plain| / bound (float legs), and per float leg
+        # the smallest such share that a truncating control reached.
+        self.max_share = {name: 0.0 for name in K.launches}
+        self.control_share = {}
 
-    def check(self, name, got, want, what):
-        import torch
-        torch.cuda.synchronize()
+    @staticmethod
+    def _same_form(got, want, what):
         for g, w in zip(got, want):
             if g.shape != w.shape or g.dtype != w.dtype:
-                raise AssertionError(f"{what}: {name} gave {g.shape} "
-                                     f"{g.dtype}, plain {w.shape} {w.dtype}")
-            if g.dtype == torch.float32:
-                both = torch.isfinite(g) & torch.isfinite(w)
-                if not torch.equal(torch.isfinite(g), torch.isfinite(w)):
-                    raise AssertionError(f"{what}: {name} -inf ranks differ")
-                err = float((g[both] - w[both]).abs().max()) \
-                    if both.any() else 0.0
-                self.max_err[name] = max(self.max_err[name], err)
-            if not torch.equal(g, w):
-                raise AssertionError(f"{what}: {name} differs from plain")
+                raise AssertionError(f"{what}: kernel gave {tuple(g.shape)} "
+                                     f"{g.dtype}, plain {tuple(w.shape)} "
+                                     f"{w.dtype}")
 
-    def submax(self, x, aux, valid, q8, blk, what):
+    @staticmethod
+    def _share(got, want, bound):
+        """Largest |got - want| / bound over finite wanted values."""
+        import torch
+        fin = torch.isfinite(want)
+        if not fin.any() or not bool((bound > 0).all()):
+            return 0.0
+        err = (got - want).abs() / bound.reshape(-1, 1)
+        return float(err[fin].max())
+
+    def _err(self, name, got, want, bound):
+        import torch
+        fin = torch.isfinite(want)
+        if fin.any():
+            err = float((got[fin] - want[fin]).abs().max())
+            self.max_err[name] = max(self.max_err[name], err)
+        self.max_share[name] = max(self.max_share[name],
+                                   self._share(got, want, bound))
+
+    def submax(self, leg, args, kw, blk, what):
+        import torch
         from vrod_tpu_torch.ops import cuda_topk as K
-        got = K.sampled_submax(x, aux, valid, q8, metric="cosine",
-                               block_rows=blk)
-        want = K.sampled_submax_plain(x, aux, valid, q8, metric="cosine",
-                                      block_rows=blk)
-        self.check("sampled_submax", [got], [want], what)
+        metric = leg.split("-")[1]
+        got = K.sampled_submax(*args, metric=metric, block_rows=blk, **kw)
+        want = K.sampled_submax_plain(*args, metric=metric, block_rows=blk,
+                                      **kw)
+        bound = K.score_error_bound(*args, metric=metric)
+        torch.cuda.synchronize()
+        self._same_form((got,), (want,), f"{what}: K3")
+        if not torch.equal(torch.isneginf(got), torch.isneginf(want)):
+            raise AssertionError(f"{what}: K3 -inf lanes differ from plain")
+        fin = torch.isfinite(want)
+        if ((got - want).abs().where(fin, 0.0) > bound).any():
+            raise AssertionError(f"{what}: K3 differs from plain beyond "
+                                 "the bound")
+        self._err(f"sampled_submax[{leg}]", got, want, bound)
+        # K3 scores with K1's code: its maximum is K1's top-1, bit for bit.
+        top1, _ = K.fused_topk(*args, k=1, metric=metric, **kw)
+        if not torch.equal(top1[:, 0], got.amax(dim=1)):
+            raise AssertionError(f"{what}: K3's max is not K1's top-1")
         return got
 
-    def topk(self, x, aux, valid, q8, k, what, offset=0, theta0=None):
+    def topk(self, leg, args, kw, k, what, offset=0, theta0=None,
+             bound=None):
+        import torch
         from vrod_tpu_torch.ops import cuda_topk as K
-        kw = dict(k=k, metric="cosine", index_offset=offset, theta0=theta0)
-        got = K.fused_topk(x, aux, valid, q8, **kw)
-        want = K.fused_topk_plain(x, aux, valid, q8, **kw)
-        self.check("fused_topk", got, want, what)
+        metric = leg.split("-")[1]
+        kk = dict(k=k, metric=metric, index_offset=offset, theta0=theta0,
+                  **kw)
+        got = K.fused_topk(*args, **kk)
+        want = K.fused_topk_plain(*args, **kk)
+        if bound is None:
+            bound = K.score_error_bound(*args, metric=metric)
+        torch.cuda.synchronize()
+        self._same_form(got, want, f"{what}: K1")
+        msg = K.topk_disagreement(*got, *want, bound)
+        if msg:
+            raise AssertionError(f"{what}: K1 vs plain: {msg}")
+        self._err(f"fused_topk[{leg}]", got[0], want[0], bound)
         return got
 
+    def control(self, leg, args, kw, k, what):
+        """A float leg's bound must reject a scorer of lower precision: the
+        plain version fed inputs rounded toward zero (float32 rows and
+        query truncated to TF32, as cvt.rz would, and to bfloat16; the
+        bfloat16 leg's query truncated to bfloat16) must fail the K1
+        comparison that the kernel passes."""
+        from vrod_tpu_torch.ops import cuda_topk as K
+        dtype, metric = leg.split("-")
+        if dtype in ("int8", "int4"):
+            return
+        bound = K.score_error_bound(*args, metric=metric)
+        want = K.fused_topk_plain(*args, k=k, metric=metric, **kw)
+        for name, drop in ((("tf32-rz", 13), ("bf16-rz", 16))
+                           if dtype == "f32" else (("bf16-rz", 16),)):
+            cut = list(args)
+            if dtype == "f32":
+                cut[0] = truncated(args[0], drop)
+            cut[3] = truncated(args[3], drop)
+            got = K.fused_topk_plain(*cut, k=k, metric=metric, **kw)
+            if K.topk_disagreement(*got, *want, bound) is None:
+                raise AssertionError(f"{what}: the float bound passes a "
+                                     f"{name} control scorer")
+            share = self._share(got[0], want[0], bound)
+            self.control_share[leg] = min(
+                self.control_share.get(leg, share), share)
 
-def kernel_cases(cmp, rng, dev):
-    """Shape (a) and its variants; returns the times at shape (a)."""
+    def floor_sound(self, leg, args, kw, k, theta0, what):
+        """theta0 at or below K1's own k-th value for every query."""
+        from vrod_tpu_torch.ops import cuda_topk as K
+        v, _ = K.fused_topk(*args, k=k, metric=leg.split("-")[1], **kw)
+        if not bool((theta0[:, 0] <= v[:, k - 1]).all()):
+            raise AssertionError(f"{what}: theta0 above K1's k-th value")
+
+
+def truncated(t, drop):
+    """float32 ``t`` with its low ``drop`` mantissa bits cleared: rounded
+    toward zero (13 bits: TF32 as cvt.rz.tf32 rounds; 16: bfloat16)."""
+    import torch
+    bits = t.float().contiguous().view(torch.int32)
+    return (bits & -(1 << drop)).view(torch.float32)
+
+
+def tie_inputs(leg, dev, rng, n):
+    """Rows with copies of row 7 at 1000..1099 and of row 9000 at
+    5000..5039, query 0 = row 7: exact ties inside query 0's top-k and
+    inside other queries' lists. For the float legs every value is small
+    and exact (rows of -1/0/1, row 7 four 2s, queries four +-2s), so every
+    score is exact in any summation order and the kernel must equal the
+    plain version bit for bit."""
+    import torch
+    if leg.split("-")[0] in ("int8", "int4"):
+        x = torch.from_numpy(rng.standard_normal((n, DIM), dtype=np.float32))
+        q = torch.from_numpy(rng.standard_normal((BATCH, DIM),
+                                                 dtype=np.float32))
+    else:
+        x = torch.from_numpy(rng.integers(-1, 2, (n, DIM))
+                             .astype(np.float32))
+        x[7] = 0.0
+        x[7, :4] = 2.0
+        q = torch.zeros((BATCH, DIM))
+        for row in q:
+            row[torch.from_numpy(rng.choice(DIM, 4, replace=False))] = \
+                torch.from_numpy(rng.choice([-2.0, 2.0], 4)).float()
+    x[1000:1100] = x[7]
+    x[5000:5040] = x[9000]
+    q[0] = x[7]
+    return kernel_inputs(x, q, leg, dev)
+
+
+def kernel_cases(cmp, rng, dev, leg):
+    """Cases (a)-(f) for one leg; returns the times at shape (a)."""
     import torch
     from vrod_tpu_torch.ops import cuda_topk as K
-    from vrod_tpu_torch.ops import distances as D
+    metric = leg.split("-")[1]
     n = 65536
-    x, aux, valid, q8 = make_int8_state(rng, n, DIM, BATCH, dev,
-                                        dead_every=7)
-    sub = cmp.submax(x[:32768], aux[:32768], valid[:32768], q8, 16384,
-                     "(a) K3 32768 rows, blk 16384")
-    theta0 = D.threshold_from_submax(sub, 28, method="count")
-    cmp.topk(x, aux, valid, q8, 28, "(a) k 28, floor, offset", 12345, theta0)
-    cmp.topk(x, aux, valid, q8, 28, "(b) k 28, no floor")
-    sub = cmp.submax(x[:32768], aux[:32768], valid[:32768], q8, 1024,
-                     "(c) K3 blk 1024")
-    cmp.topk(x, aux, valid, q8, 112, "(c) k 112, floor", 0,
-             D.threshold_from_submax(sub, 112, method="count"))
-    cmp.topk(x, aux, valid, q8, 1280, "(c) k 1280")
+    x = torch.from_numpy(rng.standard_normal((n, DIM), dtype=np.float32))
+    q = torch.from_numpy(rng.standard_normal((BATCH, DIM), dtype=np.float32))
+    args, kw = kernel_inputs(x, q, leg, dev, dead_every=7)
+    sample, skw = sample_of(args, kw, 32768)
+    sub = cmp.submax(leg, sample, skw, 16384, f"{leg} (a) K3 32768 rows")
+    theta0 = floor_theta(sub, 28, args, leg)
+    cmp.topk(leg, args, kw, 28, f"{leg} (a) k 28, floor, offset", 12345,
+             theta0)
+    cmp.topk(leg, args, kw, 28, f"{leg} (b) k 28, no floor")
+    cmp.control(leg, args, kw, 28, f"{leg} (a) control")
+    cmp.floor_sound(leg, args, kw, 28, theta0, f"{leg} (a)")
+    sub_c = cmp.submax(leg, sample, skw, 1024, f"{leg} (c) K3 blk 1024")
+    theta_c = floor_theta(sub_c, 112, args, leg)
+    cmp.topk(leg, args, kw, 112, f"{leg} (c) k 112, floor", 0, theta_c)
+    cmp.floor_sound(leg, args, kw, 112, theta_c, f"{leg} (c)")
+    cmp.topk(leg, args, kw, 1280, f"{leg} (c) k 1280")
     for d in (96, 30):
-        xd, ad, vd, qd = make_int8_state(rng, 8192, d, BATCH, dev,
-                                         dead_every=5)
-        cmp.submax(xd, ad, vd, qd, 4096, f"(d) K3 dim {d}")
-        cmp.topk(xd, ad, vd, qd, 28, f"(d) dim {d}", 77)
-    xt, at, vt, qt = make_int8_state(rng, 16384, DIM, BATCH, dev, ties=True)
-    v, i = cmp.topk(xt, at, vt, qt, 112, "(e) ties")
+        xd = torch.from_numpy(rng.standard_normal((8192, d),
+                                                  dtype=np.float32))
+        qd = torch.from_numpy(rng.standard_normal((BATCH, d),
+                                                  dtype=np.float32))
+        ad, kd = kernel_inputs(xd, qd, leg, dev, dead_every=5)
+        cmp.submax(leg, ad, kd, 4096, f"{leg} (d) K3 dim {d}")
+        cmp.topk(leg, ad, kd, 28, f"{leg} (d) dim {d}", 77)
+    at, kt = tie_inputs(leg, dev, rng, 16384)
+    exact = torch.zeros((BATCH, 1), device=dev)
+    v, i = cmp.topk(leg, at, kt, 112, f"{leg} (e) ties", bound=exact)
     if i[0, :101].tolist() != [7] + list(range(1000, 1100)):
-        raise AssertionError("(e) ties: copies of row 7 not lowest slot first")
-    dead = torch.zeros_like(valid)
-    v, i = cmp.topk(x, aux, dead, q8, 28, "(f) all dead")
+        raise AssertionError(f"{leg} (e) ties: copies of row 7 not lowest "
+                             "slot first")
+    dead = torch.zeros_like(args[2])
+    v, i = cmp.topk(leg, args[:2] + [dead, args[3]], kw, 28,
+                    f"{leg} (f) all dead")
     if not bool((i == -1).all()) or not bool(torch.isneginf(v).all()):
-        raise AssertionError("(f) all dead: results not (-inf, -1)")
-    few = torch.zeros_like(valid)
+        raise AssertionError(f"{leg} (f) all dead: results not (-inf, -1)")
+    few = torch.zeros_like(args[2])
     few[[3, 700, 4000, 50000, 65535]] = True
-    v, i = cmp.topk(x, aux, few, q8, 28, "(f) k > live")
+    v, i = cmp.topk(leg, args[:2] + [few, args[3]], kw, 28,
+                    f"{leg} (f) k > live")
     if not bool(((i >= 0).sum(dim=1) == 5).all()):
-        raise AssertionError("(f) k > live: wrong number of results")
-    times = {
-        "fused_topk": cuda_time_ms(lambda: K.fused_topk(
-            x, aux, valid, q8, k=28, metric="cosine", theta0=theta0)),
-        "fused_topk_plain": cuda_time_ms(lambda: K.fused_topk_plain(
-            x, aux, valid, q8, k=28, metric="cosine", theta0=theta0)),
-        "sampled_submax": cuda_time_ms(lambda: K.sampled_submax(
-            x[:32768], aux[:32768], valid[:32768], q8, metric="cosine",
-            block_rows=16384)),
-        "sampled_submax_plain": cuda_time_ms(lambda: K.sampled_submax_plain(
-            x[:32768], aux[:32768], valid[:32768], q8, metric="cosine",
-            block_rows=16384)),
+        raise AssertionError(f"{leg} (f) k > live: wrong number of results")
+    k1 = dict(k=28, metric=metric, theta0=theta0, **kw)
+    k3 = dict(metric=metric, block_rows=16384, **skw)
+    return {
+        "fused_topk": cuda_time_ms(lambda: K.fused_topk(*args, **k1)),
+        "fused_topk_plain": cuda_time_ms(
+            lambda: K.fused_topk_plain(*args, **k1), iters=5),
+        "sampled_submax": cuda_time_ms(
+            lambda: K.sampled_submax(*sample, **k3)),
+        "sampled_submax_plain": cuda_time_ms(
+            lambda: K.sampled_submax_plain(*sample, **k3), iters=5),
     }
-    return times
 
 
-def oracle_kth(eng, q):
+def oracle_kth(eng, q, top_k):
     """Exact float32 full scan of the stored rows on the card: the k-th
-    best score per query (the plain blockwise scan, no quantized query)."""
-    from vrod_tpu_torch.ops import distances as D
+    best user-facing score per query (the plain blockwise scan with the
+    float32 query; l2: the k-th smallest squared distance)."""
     import torch
-    qp = D.prepare_queries(torch.from_numpy(q).to(eng.device),
-                           metric="cosine")
+    from vrod_tpu_torch.ops import distances as D
+    metric = eng.cfg.metric
+    q = torch.from_numpy(q).to(eng.device)
+    qp = D.prepare_queries(q, metric=metric)
     blk = 65536 if eng.capacity % 65536 == 0 else eng.capacity
-    vals, _ = D.blockwise_topk(eng.x, eng.aux, eng.valid, qp, k=TOP_K,
-                               metric="cosine", precision="exact",
-                               block_rows=blk, nblocks=eng.capacity // blk)
-    return vals[:, TOP_K - 1].cpu().numpy()
+    vals, _ = D.blockwise_topk(eng.x, eng.aux, eng.valid, qp, k=top_k,
+                               metric=metric, precision="exact",
+                               block_rows=blk, nblocks=eng.capacity // blk,
+                               packed=eng.packed)
+    vals = D.finalize_scores(vals, q, metric=metric)
+    return vals[:, top_k - 1].cpu().numpy()
 
 
-def check_hits(hits, kth, what):
+def check_hits(hits, kth, metric, top_k, what):
     for b, hs in enumerate(hits):
         ids = [h.record_id for h in hs]
-        if len(ids) != TOP_K or len(set(ids)) != TOP_K:
+        if len(ids) != top_k or len(set(ids)) != top_k:
             raise AssertionError(f"{what}: query {b} got ids {ids}")
         scores = np.array([h.score for h in hs], np.float64)
-        floor = kth[b] - RECALL_EPS * max(abs(kth[b]), 1.0)
-        if not (scores >= floor).all():
+        tol = RECALL_EPS * max(abs(kth[b]), 1.0)
+        if metric == "l2":
+            ok = (scores <= kth[b] + tol).all() and \
+                (np.diff(scores) >= 0).all()
+        else:
+            ok = (scores >= kth[b] - tol).all()
+        if not ok:
             raise AssertionError(
                 f"{what}: query {b} recall < 1 (scores {scores}, exact "
                 f"k-th {kth[b]})")
 
 
-def main_path(args, dev, card):
+def search_round(col, queries, leg, top_k, what, lat=None):
+    """Search every query batch: the leg's K1 and K3 launch counters must
+    rise with each; recall 1.0 against the exact scan."""
+    from vrod_tpu_torch.ops import cuda_topk as K
+    names = [f"fused_topk[{leg}]", f"sampled_submax[{leg}]"]
+    results = []
+    for b, q in enumerate(queries):
+        n0 = [K.launches[n] for n in names]
+        t0 = time.perf_counter()
+        hits = col.search_similar(q, top_k)
+        if lat is not None:
+            lat.append(time.perf_counter() - t0)
+        for name, before in zip(names, n0):
+            if K.launches[name] <= before:
+                raise AssertionError(f"{what} {b}: launched no {name}")
+        check_hits(hits, oracle_kth(col.engine, q, top_k),
+                   col.config.metric, top_k, f"{what} {b}")
+        results.append([[(h.record_id, h.score) for h in hs]
+                        for hs in hits])
+    return results
+
+
+def db_phase(dev, card, cmp, *, name, leg, top_k, rows, searches, reopen,
+             seed):
+    """One Database phase through the entry points (module docstring,
+    phase 3). Returns (launch counts of the phase, kernel times at its
+    shapes)."""
     import torch
     from vrod_tpu_torch import Database
+    from vrod_tpu_torch.engine import floor_gate
     from vrod_tpu_torch.ops import cuda_topk as K
-
-    rng = np.random.default_rng(args.seed)
+    dtype, metric = leg.split("-")
+    rng = np.random.default_rng(seed)
     queries = [rng.standard_normal((BATCH, DIM), dtype=np.float32)
-               for _ in range(SEARCHES)]
+               for _ in range(searches)]
     tmp = Path(tempfile.mkdtemp(prefix="vrod_smoke_"))
     try:
         torch.cuda.reset_peak_memory_stats(dev)
         K.reset_launches()
         db = Database.new(tmp, "smoke", device=dev)
-        col = db.create_collection("docs", dim=DIM, metric="cosine",
-                                   dtype="int8")
+        col = db.create_collection("docs", dim=DIM, metric=metric,
+                                   dtype=DB_DTYPE[dtype])
         ingest_s, ids = 0.0, []
-        for start in range(0, args.rows, INGEST_CHUNK):
-            rows = rng.standard_normal(
-                (min(INGEST_CHUNK, args.rows - start), DIM),
-                dtype=np.float32)
+        for start in range(0, rows, INGEST_CHUNK):
+            chunk = rng.standard_normal(
+                (min(INGEST_CHUNK, rows - start), DIM), dtype=np.float32)
             t0 = time.perf_counter()
-            ids.append(col.bulk_insert(rows))
+            ids.append(col.bulk_insert(chunk))
             torch.cuda.synchronize(dev)
             ingest_s += time.perf_counter() - t0
         ids = np.concatenate(ids)
-        log(f"ingest: {args.rows} rows in {ingest_s:.3f} s = "
-            f"{args.rows / ingest_s:.1f} rows/s [{card}]")
-
-        col.search_similar(queries[0], TOP_K)  # warm-up, not timed
-        lat, before = [], []
-        for b, q in enumerate(queries):
-            n0 = dict(K.launches)
-            t0 = time.perf_counter()
-            hits = col.search_similar(q, TOP_K)
-            lat.append(time.perf_counter() - t0)
-            for name in K.launches:
-                if K.launches[name] <= n0[name]:
-                    raise AssertionError(f"search {b} launched no {name}")
-            check_hits(hits, oracle_kth(col.engine, q), f"search {b}")
-            before.append([[(h.record_id, h.score) for h in hs]
-                           for hs in hits])
+        col.search_similar(queries[0], top_k)  # warm-up, not timed
+        lat = []
+        before = search_round(col, queries, leg, top_k, f"{name} search",
+                              lat)
         lat_ms = np.array(lat) * 1e3
-        log(f"search b{BATCH} top-{TOP_K}: p50 {np.percentile(lat_ms, 50):.3f}"
-            f" ms, p99 {np.percentile(lat_ms, 99):.3f} ms, "
-            f"{SEARCHES * BATCH / sum(lat):.1f} QPS over {SEARCHES} batches "
-            f"after one warm-up [{card}]")
-
-        col.snapshot()
-        top1 = [bq[j][0][0] for bq in before for j in range(0, BATCH, 4)]
-        extra = rng.choice(ids, N_DELETE, replace=False).tolist()
-        gone = list(dict.fromkeys(top1[:N_DELETE // 2] + extra))[:N_DELETE]
-        if col.delete_many(gone) != len(gone):
-            raise AssertionError("delete_many deleted fewer ids")
-        db.close()
-        db = Database.load(tmp / "smoke", device=dev)
-        col = db.collection("docs")
-        if col.count != args.rows - len(gone):
-            raise AssertionError(f"count after reopen {col.count}")
-        gone_set = set(gone)
-        for b, q in enumerate(queries):
-            n0 = dict(K.launches)
-            hits = col.search_similar(q, TOP_K)
-            for name in K.launches:
-                if K.launches[name] <= n0[name]:
-                    raise AssertionError(f"reopened search {b} launched "
-                                         f"no {name}")
-            check_hits(hits, oracle_kth(col.engine, q), f"reopened {b}")
-            for j, hs in enumerate(hits):
-                got = [(h.record_id, h.score) for h in hs]
-                if any(r in gone_set for r, _ in got):
-                    raise AssertionError("a deleted id came back")
-                kept = [p for p in before[b][j] if p[0] not in gone_set]
-                if got[:len(kept)] != kept:
-                    raise AssertionError(
-                        f"reopened {b}/{j}: {got} vs kept {kept}")
+        log(f"{name}: {leg}, {rows} rows, top-{top_k}: ingest "
+            f"{rows / ingest_s:.1f} rows/s; search_similar b{BATCH} p50 "
+            f"{np.percentile(lat_ms, 50):.3f} ms, max {lat_ms.max():.3f} ms "
+            f"over {searches} batches after one warm-up, recall 1.0 "
+            f"[{card}]")
+        if reopen:
+            col.snapshot()
+            top1 = [bq[j][0][0] for bq in before
+                    for j in range(0, BATCH, 4)]
+            extra = rng.choice(ids, N_DELETE, replace=False).tolist()
+            gone = list(dict.fromkeys(top1[:N_DELETE // 2] + extra))[
+                :N_DELETE]
+            if col.delete_many(gone) != len(gone):
+                raise AssertionError("delete_many deleted fewer ids")
+            db.close()
+            db = Database.load(tmp / "smoke", device=dev)
+            col = db.collection("docs")
+            if col.count != rows - len(gone):
+                raise AssertionError(f"count after reopen {col.count}")
+            after = search_round(col, queries, leg, top_k,
+                                 f"{name} reopened")
+            gone_set = set(gone)
+            for b, (bq, aq) in enumerate(zip(before, after)):
+                for j, (was, got) in enumerate(zip(bq, aq)):
+                    if any(r in gone_set for r, _ in got):
+                        raise AssertionError("a deleted id came back")
+                    kept = [p for p in was if p[0] not in gone_set]
+                    if got[:len(kept)] != kept:
+                        raise AssertionError(
+                            f"{name} reopened {b}/{j}: {got} vs kept {kept}")
+            log(f"{name}: snapshot, delete {len(gone)}, reopen: deleted ids "
+                "gone, every other result unchanged")
         torch.cuda.synchronize(dev)
         launches = dict(K.launches)
-        peak = torch.cuda.max_memory_allocated(dev)
-        log(f"kernel launches on the main path: {launches}")
-        log(f"peak device memory: {peak} bytes [{card}]")
+        ran = {n: c for n, c in launches.items() if c}
+        log(f"{name}: kernel launches {json.dumps(ran)}, "
+            f"peak device memory {torch.cuda.max_memory_allocated(dev)} "
+            f"bytes [{card}]")
 
-        # The kernels at the shapes this path gave them (not counted).
-        from vrod_tpu_torch.engine import floor_gate
-        from vrod_tpu_torch.ops import distances as D
+        # The kernels at the shapes this phase gave them (not counted).
         eng = col.engine
-        q8 = D.prepare_queries(torch.from_numpy(queries[0]).to(dev),
-                               metric="cosine", quantize=True)
-        ok, ns, blk = floor_gate(eng.capacity, TOP_K + 12, DIM)
+        k_scan = eng.scan_widths(top_k)[1]
+        q = torch.from_numpy(queries[0]).to(dev)
+        from vrod_tpu_torch.ops import distances as D
+        q_scan, extras = eng.scan_inputs(q, D.prepare_queries(
+            q, metric=metric))
+        ok, ns, blk = floor_gate(eng.capacity, k_scan, eng.storage_dim,
+                                 eng.x.element_size(), eng.quant)
         if not ok:
-            raise AssertionError("floor gate closed on the main path")
-        cmp = Compare()
-        sub = cmp.submax(eng.x[:ns], eng.aux[:ns], eng.valid[:ns], q8, blk,
-                         f"main path K3 {ns} rows")
-        theta0 = D.threshold_from_submax(sub, TOP_K + 12,
-                                            method="count")
-        cmp.topk(eng.x, eng.aux, eng.valid, q8, TOP_K + 12,
-                 f"main path K1 {eng.capacity} rows", theta0=theta0)
-        # Split of the search: the engine alone (device program and the
-        # copy of the results to the host) vs search_similar above.
+            raise AssertionError(f"{name}: floor gate closed")
+        a1 = [eng.x, eng.aux, eng.valid, q_scan]
+        a3, kw3 = sample_of(a1, extras, ns)
+        sub = cmp.submax(leg, a3, kw3, blk, f"{name} K3 {ns} rows")
+        theta0 = floor_theta(sub, k_scan, a1, leg)
+        cmp.topk(leg, a1, extras, k_scan, f"{name} K1 {eng.capacity} rows",
+                 theta0=theta0)
+        cmp.floor_sound(leg, a1, extras, k_scan, theta0, name)
+        cmp.control(leg, a1, extras, k_scan, f"{name} control")
         eng_lat = []
-        for q in queries:
+        for qb in queries:
             t0 = time.perf_counter()
-            eng.search(q, TOP_K)
+            eng.search(qb, top_k)
             eng_lat.append(time.perf_counter() - t0)
-        log(f"engine.search b{BATCH} top-{TOP_K}: p50 "
-            f"{np.percentile(np.array(eng_lat) * 1e3, 50):.3f} ms "
-            f"[{card}]")
-        kw1 = dict(k=TOP_K + 12, metric="cosine", theta0=theta0)
-        kw3 = dict(metric="cosine", block_rows=blk)
-        a3 = (eng.x[:ns], eng.aux[:ns], eng.valid[:ns], q8)
-        a1 = (eng.x, eng.aux, eng.valid, q8)
+        kw1 = dict(k=k_scan, metric=metric, theta0=theta0, **extras)
+        kw3 = dict(metric=metric, block_rows=blk, **kw3)
         times = {
             "fused_topk_plain": cuda_time_ms(
                 lambda: K.fused_topk_plain(*a1, **kw1), iters=5),
@@ -327,24 +527,28 @@ def main_path(args, dev, card):
             "sampled_submax_plain": cuda_time_ms(
                 lambda: K.sampled_submax_plain(*a3, **kw3), iters=5),
         }
-        log(f"kernels at the main path's shapes ({eng.capacity} rows, "
-            f"sample {ns}, b{BATCH}, k_scan {TOP_K + 12}), ms: "
-            f"{json.dumps(times)} [{card}]")
+        log(f"{name}: engine.search p50 "
+            f"{np.percentile(np.array(eng_lat) * 1e3, 50):.3f} ms; kernels "
+            f"at its shapes ({eng.capacity} rows, sample {ns} in blocks of "
+            f"{blk}, b{BATCH}, k_scan {k_scan}), ms: {json.dumps(times)} "
+            f"[{card}]")
         db.close()
-        return launches, cmp.max_err, times
+        return launches, times
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--rows", type=int, default=1_000_000,
-                   help="rows to ingest on the main path (default 1M)")
+                   help="rows of the main path and phases (i)-(iv) "
+                   "(default 1M)")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
     if args.rows < 262144:
-        p.error("--rows below 262,144 closes the sampled floor's gate, so "
-                "K3 would not run on the main path")
+        p.error("below 262,144 rows the sampled floor's gate closes, so K3 "
+                "would not run on the path")
 
     import torch
     if not torch.cuda.is_available():
@@ -352,8 +556,10 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from vrod_tpu_torch.ops import _build
+    from vrod_tpu_torch.ops import cuda_topk as K
 
-    # Exact float32 oracle products: no TF32 anywhere.
+    wall0 = time.perf_counter()
+    # Exact float32 oracle products: no TF32 anywhere outside the kernels.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -370,25 +576,59 @@ def main(argv=None) -> int:
             log("  ptxas:", line.strip())
 
     cmp = Compare()
-    times_a = kernel_cases(cmp, np.random.default_rng(args.seed + 1), dev)
-    log(f"kernel cases (a)-(f) equal to plain; shape (a) 65536 x {DIM}, "
-        f"b{BATCH}, k 28, ms: {json.dumps(times_a)} [{card}]")
+    rng = np.random.default_rng(args.seed + 1)
+    for leg in K.LEGS:
+        times = kernel_cases(cmp, rng, dev, leg)
+        log(f"kernel cases (a)-(f) {leg}: K1 max err "
+            f"{cmp.max_err[f'fused_topk[{leg}]']:.6g}, K3 max err "
+            f"{cmp.max_err[f'sampled_submax[{leg}]']:.6g}; shape (a) 65536 x "
+            f"{DIM}, b{BATCH}, k 28, ms: {json.dumps(times)} [{card}]")
 
-    launches, err_main, times = main_path(args, dev, card)
-    for name, n in launches.items():
-        if n < 2 * SEARCHES:
-            raise AssertionError(f"{name} launched {n} times on the main "
-                                 f"path, expected >= {2 * SEARCHES}")
-    src = {"fused_topk": ("vrod_tpu_torch/csrc/fused_topk.cu",
-                          "vrod_tpu/ops/pallas_topk.py:251"),
-           "sampled_submax": ("vrod_tpu_torch/csrc/sampled_submax.cu",
-                              "vrod_tpu/ops/pallas_topk.py:468")}
-    kernels = [{
-        "name": name, "route": "cuda", "source": src[name][0],
-        "replaces": src[name][1], "launches": launches[name],
-        "max_abs_err": max(cmp.max_err[name], err_main[name]),
-        "ms": times[name], "plain_ms": times[name + "_plain"],
-    } for name in ("fused_topk", "sampled_submax")]
+    phases = [
+        ("main path", "int8-cosine", 16, args.rows, True),
+        ("(i)", "int8-l2", 16, args.rows, True),
+        ("(ii)", "int4-l2", 16, args.rows, False),
+        ("(iii)", "bf16-cosine", 100, args.rows, False),
+        ("(iv)", "f32-dot", 100, args.rows, False),
+    ]
+    for leg in K.LEGS:
+        rows, top_k = LEG_SHAPES[
+            "quant" if leg.startswith(("int8", "int4")) else "float"]
+        phases.append((f"leg {leg}", leg, top_k, rows, False))
+    launches = dict.fromkeys(K.launches, 0)
+    times = {}
+    for i, (name, leg, top_k, rows, reopen) in enumerate(phases):
+        n, t = db_phase(dev, card, cmp, name=name, leg=leg,
+                        top_k=top_k, rows=rows,
+                        searches=LEG_SEARCHES if name.startswith("leg")
+                        else SEARCHES, reopen=reopen, seed=args.seed + 10 + i)
+        for kname, c in n.items():
+            launches[kname] += c
+        times.setdefault(leg, (name, rows, t))  # the first, largest phase
+    kernels = []
+    for kern in ("fused_topk", "sampled_submax"):
+        for leg in K.LEGS:
+            kname = f"{kern}[{leg}]"
+            if launches[kname] == 0:
+                raise AssertionError(f"{kname} launched no time on the "
+                                     "search paths")
+            phase, rows, t = times[leg]
+            log(f"{kname}: {launches[kname]} launches; at {phase}'s shapes "
+                f"({rows} rows) {t[kern]:.4f} ms vs plain "
+                f"{t[kern + '_plain']:.4f} ms; max abs err vs plain "
+                f"{cmp.max_err[kname]:.6g}, at most "
+                f"{cmp.max_share[kname]:.4g} of the bound [{card}]")
+            kernels.append({
+                "name": kname, "route": "cuda", "source": SOURCES[kern][0],
+                "replaces": SOURCES[kern][1], "launches": launches[kname],
+                "max_abs_err": cmp.max_err[kname], "ms": t[kern],
+                "plain_ms": t[kern + "_plain"]})
+    for leg, share in cmp.control_share.items():
+        log(f"float control {leg}: truncated inputs reached at least "
+            f"{share:.4g} x the bound (the kernels: K1 "
+            f"{cmp.max_share[f'fused_topk[{leg}]']:.4g}, K3 "
+            f"{cmp.max_share[f'sampled_submax[{leg}]']:.4g})")
+    log(f"wall time {time.perf_counter() - wall0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,17 +6,21 @@ it runs them with:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-int8 scores are exact integer dots times one float32 multiply (plus an
-exact 0/-inf mask), so kernel and plain version must be EQUAL: values and
-slots, ties and empty ranks included.
+Every leg of K1/K3 (int8 and packed int4 rows with an int8 query, bfloat16
+and float32 rows with a float query; metrics cosine, dot and l2):
+- int8/int4 scores are exact integer dots followed by the same rounded
+  float32 ops, so kernel and plain version must be EQUAL: values and
+  slots, ties and empty ranks included;
+- bfloat16/float32 sums run in another order on the tensor cores, so
+  values agree within ``cuda_topk.score_error_bound`` and slots are equal
+  outside near-ties (``cuda_topk.topk_disagreement``).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from vrod_tpu.config import CollectionConfig
-from vrod_tpu.errors import ConfigError
+from vrod_tpu.config import DTYPES, METRICS, CollectionConfig
 from vrod_tpu_torch.engine import DeviceEngine
 from vrod_tpu_torch.ops import cuda_topk
 from vrod_tpu_torch.ops import distances as TD
@@ -31,6 +35,8 @@ CASES = [
     ("dim80_b40", 4096, 80, 40, 28, 5, True, 3, False),
     ("k1280", 4096, 64, 16, 1280, 0, False, 0, False),
 ]
+_ROW_DTYPE = {"int8": torch.int8, "int4": "int4", "bf16": torch.bfloat16,
+              "f32": torch.float32}
 
 
 @pytest.fixture
@@ -42,47 +48,83 @@ def rng():
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda", 0)
 
 
-def make_state(rng, n, d, b, dev, dead_every=0, ties=False):
+def make_state(rng, n, d, b, dev, leg, dead_every=0, ties=False):
+    """(x, aux, valid, kernel-ready q) on ``dev`` and the wrappers' extra
+    keywords for one leg."""
+    dtype, metric = leg.split("-")
     x = rng.standard_normal((n, d)).astype(np.float32)
     if ties:
         x[200:260] = x[3]
         x[700:720] = x[900]
-    rows, aux = TD.prepare_rows(torch.from_numpy(x), metric="cosine",
-                                dtype=torch.int8)
+    rows, aux = TD.prepare_rows(torch.from_numpy(x), metric=metric,
+                                dtype=_ROW_DTYPE[dtype])
     valid = torch.ones(n, dtype=torch.bool)
     if dead_every:
         valid[::dead_every] = False
     q = rng.standard_normal((b, d)).astype(np.float32)
     if ties:
         q[0] = x[3]
-    q8 = TD.prepare_queries(torch.from_numpy(q), metric="cosine",
-                            quantize=True)
-    return [t.to(dev) for t in (rows, aux, valid, q8)]
+    q = torch.from_numpy(q)
+    kw = dict(packed=dtype == "int4")
+    if dtype in ("int8", "int4") and metric == "l2":
+        q, qs = TD.prepare_queries(q, metric=metric, quantize=True,
+                                   return_scale=True)
+        kw.update(row_bias=-TD.row_norms2(rows, aux, kw["packed"]).to(dev),
+                  q_scale=qs.to(dev))
+    else:
+        q = TD.prepare_queries(q, metric=metric,
+                               quantize=dtype in ("int8", "int4"))
+    return [t.to(dev) for t in (rows, aux, valid, q)], kw
+
+
+def sample_of(args, kw, ns):
+    skw = dict(kw)
+    if "row_bias" in kw:
+        skw["row_bias"] = kw["row_bias"][:ns]
+    return [a[:ns] for a in args[:3]] + [args[3]], skw
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
-def test_cuda_kernels_match_plain(rng, case, cuda_device):
+@pytest.mark.parametrize("case,leg", [
+    # The int8 cosine cases keep the bare case name they had before the
+    # other legs existed.
+    pytest.param(c, leg, id=c[0] if leg == "int8-cosine" else f"{c[0]}-{leg}")
+    for c in CASES for leg in cuda_topk.LEGS])
+def test_cuda_kernels_match_plain(rng, case, leg, cuda_device):
     _, n, d, b, k, dead_every, floor, offset, ties = case
-    args = make_state(rng, n, d, b, cuda_device, dead_every, ties)
-    sample = [a[:n // 2] for a in args[:3]] + [args[3]]
-    sub = cuda_topk.sampled_submax(*sample, metric="cosine", block_rows=256)
-    sub_p = cuda_topk.sampled_submax_plain(*sample, metric="cosine",
-                                           block_rows=256)
+    metric = leg.split("-")[1]
+    args, kw = make_state(rng, n, d, b, cuda_device, leg, dead_every, ties)
+    bound = cuda_topk.score_error_bound(*args, metric=metric)
+    sample, skw = sample_of(args, kw, n // 2)
+    sub = cuda_topk.sampled_submax(*sample, metric=metric, block_rows=256,
+                                   **skw)
+    sub_p = cuda_topk.sampled_submax_plain(*sample, metric=metric,
+                                           block_rows=256, **skw)
     torch.cuda.synchronize()
-    assert torch.equal(sub, sub_p)
+    assert torch.equal(torch.isneginf(sub), torch.isneginf(sub_p))
+    fin = torch.isfinite(sub_p)
+    assert ((sub - sub_p).abs().where(fin, 0.0) <= bound).all()
+    # K3 scores with K1's code: its maximum is K1's top-1 on the sample.
+    top1, _ = cuda_topk.fused_topk(*sample, k=1, metric=metric, **skw)
+    assert torch.equal(top1[:, 0], sub.amax(dim=1))
     theta0 = TD.threshold_from_submax(sub, k, method="count") \
         if floor else None
-    v, i = cuda_topk.fused_topk(*args, k=k, metric="cosine",
-                                index_offset=offset, theta0=theta0)
-    vp, ip = cuda_topk.fused_topk_plain(*args, k=k, metric="cosine",
-                                        index_offset=offset, theta0=theta0)
+    v, i = cuda_topk.fused_topk(*args, k=k, metric=metric,
+                                index_offset=offset, theta0=theta0, **kw)
+    vp, ip = cuda_topk.fused_topk_plain(*args, k=k, metric=metric,
+                                        index_offset=offset, theta0=theta0,
+                                        **kw)
     torch.cuda.synchronize()
-    assert torch.equal(i, ip) and torch.equal(v, vp)
-    if ties:
+    msg = cuda_topk.topk_disagreement(v, i, vp, ip, bound)
+    assert msg is None, msg
+    if floor:
+        fv, _ = cuda_topk.fused_topk(*args, k=k, metric=metric, **kw)
+        assert (theta0[:, 0] <= fv[:, k - 1]).all()
+    if ties and leg.split("-")[0] in ("int8", "int4"):
         assert i[0, :k].tolist() == [3 + offset] + list(
             range(200 + offset, 200 + offset + k - 1))
 
@@ -108,13 +150,32 @@ def test_cuda_engine_matches_cpu_engine(rng, cuda_device):
         vc, ic = cpu.search(q, k)
         np.testing.assert_array_equal(i, ic)
         np.testing.assert_allclose(v, vc, rtol=1e-6)
-    assert cuda_topk.launches == {"fused_topk": 2, "sampled_submax": 1}
+    assert {n: c for n, c in cuda_topk.launches.items() if c} == {
+        "fused_topk[int8-cosine]": 2, "sampled_submax[int8-cosine]": 1}
 
 
 @pytest.mark.cuda
-def test_cuda_engine_refuses_legs_without_kernels(cuda_device):
-    for dtype, metric in (("int8", "l2"), ("bfloat16", "cosine"),
-                          ("int4", "dot")):
-        cfg = CollectionConfig(name="r", dim=32, metric=metric, dtype=dtype)
-        with pytest.raises(ConfigError, match="ROADMAP Queue 2"):
-            DeviceEngine(cfg, device=cuda_device)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("metric", METRICS)
+def test_cuda_engine_launches_k1_for_every_leg(rng, cuda_device, dtype,
+                                               metric):
+    """Every dtype and metric searches on the card through K1 (no
+    ConfigError, no plain version), to the CPU engine's results."""
+    cfg = CollectionConfig(name="v", dim=48, metric=metric, dtype=dtype,
+                           segment_rows=4096, shards=1)
+    cpu = DeviceEngine(cfg, device="cpu")
+    cpu.write(np.arange(3000),
+              rng.standard_normal((3000, 48)).astype(np.float32))
+    cpu.erase(np.arange(0, 3000, 9))
+    gpu = DeviceEngine(cfg, device=cuda_device)
+    gpu.load_state(cpu.x, cpu.aux, cpu.valid)
+    if gpu.has_norms:
+        assert torch.equal(gpu.norms.cpu(), cpu.norms)
+    q = rng.standard_normal((10, 48)).astype(np.float32)
+    cuda_topk.reset_launches()
+    v, i = gpu.search(q, 10)
+    vc, ic = cpu.search(q, 10)
+    np.testing.assert_array_equal(i, ic)
+    np.testing.assert_allclose(v, vc, rtol=1e-5, atol=1e-5)
+    leg = cuda_topk.leg_name(gpu.x, metric, gpu.packed)
+    assert cuda_topk.launches[f"fused_topk[{leg}]"] == 1

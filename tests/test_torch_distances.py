@@ -195,3 +195,46 @@ def test_accumulation_margin_and_sampled_threshold(rng):
         j(rows), j(aux), j(valid), j(q), k=17, metric="dot",
         precision=lax.Precision.HIGHEST))
     np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_row_norms2_bit_equal_to_jax_and_rescore(rng, packed):
+    """The norms lane (int8/int4 + l2) is |x_hat|^2 = sum(row^2) * (aux *
+    aux), bit for bit the JAX engine's ``_row_norms2``, and in the same
+    multiply order as ``rescore``: with a zero query the rescore's l2 score
+    2 * (0 * aux) - n2 is exactly -norms."""
+    from vrod_tpu.engine import _row_norms2
+    x = rng.standard_normal((256, 48)).astype(np.float32)
+    rows, aux = JD.prepare_rows(j(x), metric="l2",
+                                dtype="int4" if packed else jnp.int8)
+    rows, aux = np.array(rows), np.array(aux)
+    got = TD.row_norms2(t(rows), t(aux), packed)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(_row_norms2(j(rows), j(aux), packed)))
+    cand = np.arange(256, dtype=np.int32).reshape(8, 32)
+    vals, idx = TD.rescore(t(rows), t(aux), t(np.ones(256, bool)),
+                           torch.zeros((8, 48)), t(cand), k=32, metric="l2",
+                           packed=packed)
+    np.testing.assert_array_equal(
+        -vals.numpy(), got.numpy()[idx.numpy().astype(np.int64)])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rescore_never_runs_as_tf32(rng, monkeypatch, dtype):
+    """The exact rescore of float rows is a float32 multiply-and-sum, not a
+    matmul that TF32 could reach: with TF32 switched on, its dot scores
+    stay within float32 summation error of a float64 reference, a bound
+    TF32's 10-bit mantissa would break by orders of magnitude."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    x = rng.standard_normal((512, 64)).astype(np.float32)
+    rows, aux = TD.prepare_rows(t(x), metric="dot", dtype=dtype)
+    q = rng.standard_normal((8, 64)).astype(np.float32)
+    cand = rng.choice(512, (8, 40), replace=False).astype(np.int32)
+    vals, idx = TD.rescore(rows, aux, torch.ones(512, dtype=torch.bool),
+                           t(q), t(cand), k=40, metric="dot")
+    r = rows.float().numpy().astype(np.float64)[idx.numpy().astype(np.int64)]
+    prods = r * q.astype(np.float64)[:, None, :]
+    want = prods.sum(axis=2)
+    bound = 64 * 2.0 ** -24 * np.abs(prods).sum(axis=2)
+    assert (np.abs(vals.numpy() - want) <= bound).all()
+    assert bound.max() < 2.0 ** -11 * np.abs(want).max()

@@ -175,3 +175,62 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_cli_default_float32_collection(tmp_path):
+    """``create`` without a dtype makes a float32 collection (the
+    default), which the port searches through K1/K3's float32 leg."""
+    def cli(*args):
+        res = subprocess.run(
+            [sys.executable, "-m", "vrod_tpu_torch.cli", *args],
+            cwd=tmp_path, env=_env(), capture_output=True, text=True,
+            timeout=120)
+        assert res.returncode == 0, res.stderr
+        return res.stdout
+
+    cli("--init-database", ".", "-n", "mydb")
+    assert "dtype=float32" in cli("-d", "mydb", "-e", "create", "-a",
+                                  "c;dim=4")
+    for vec, name in (("0.1,-0.2,0.3,0.4", "a"), ("-1,0,0,0", "b"),
+                      ("0.5,0.5,0.5,0.5", "c")):
+        cli("-d", "mydb", "-c", "c", "-e", "insert", "-a", f"{vec};{name}")
+    out = cli("-d", "mydb", "-c", "c", "-e", "searchsimilar", "-a",
+              "0.1,-0.2,0.3,0.4;k=3").splitlines()
+    assert [line.split("\t")[2] for line in out] == ["a", "c", "b"]
+    assert float(out[0].split("\t")[1]) > 0.9999
+
+
+@pytest.mark.parametrize("writer,reader", [(vrod_tpu, vrod_tpu_torch),
+                                           (vrod_tpu_torch, vrod_tpu)])
+def test_int8_l2_snapshot_loads_in_the_other_package(tmp_path, rng, writer,
+                                                     reader):
+    """An int8 l2 database written by one package (snapshot plus a WAL
+    tail) restores in both with identical rows, aux and norms lane (which
+    is rebuilt, never stored), and answers the same queries identically:
+    ids equal, squared distances to rtol 1e-6."""
+    vecs = rng.standard_normal((900, 32)).astype(np.float32)
+    queries = rng.standard_normal((6, 32)).astype(np.float32)
+    db = writer.Database.new(tmp_path, "db")
+    col = db.create_collection("docs", dim=32, metric="l2", dtype="int8",
+                               segment_rows=256)
+    ids = col.bulk_insert(vecs)
+    col.snapshot()
+    col.delete_many(ids[:50])
+    db.close()
+    states, results = [], []
+    for pkg in (writer, reader):
+        db = pkg.Database.load(tmp_path / "db")
+        col = db.collection("docs")
+        eng = col.engine
+        states.append([np.asarray(a.cpu() if hasattr(a, "cpu") else a)
+                       for a in (eng.x, eng.aux, eng.norms, eng.valid)])
+        results.append(col.search_similar(queries, 8))
+        db.close()
+    for a, b in zip(*states):
+        np.testing.assert_array_equal(a, b)
+    ia, sa = hits_arrays(results[0])
+    ib, sb = hits_arrays(results[1])
+    np.testing.assert_array_equal(ia, ib)
+    np.testing.assert_allclose(sa, sb, rtol=1e-6)
+    assert not set(ids[:50].tolist()) & set(ia.ravel().tolist())
+    assert (np.diff(sa, axis=1) >= 0).all()     # l2: ascending distances

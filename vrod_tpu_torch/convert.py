@@ -4,7 +4,9 @@
 (``np.asarray(eng.x)``, ``np.asarray(eng.aux)``, ``np.asarray(eng.valid)``)
 into the port's tensors without conversion, and
 ``DeviceEngine.load_state`` installs them, so both packages can search
-identical stored rows.
+identical stored rows. The int8/int4 l2 norms lane is derived state: it is
+never carried, and ``load_state`` rebuilds it from x and aux, bit for bit
+the JAX engine's.
 """
 
 from __future__ import annotations

@@ -1,19 +1,22 @@
-// K1: fused int8 distance scan + exact top-k, for metrics cosine and dot.
+// K1: fused distance scan + exact top-k, every leg of the TPU kernel:
+// int8 and packed int4 rows (metrics cosine, dot, l2), bfloat16 and
+// float32 rows (cosine, dot, l2). The scoring of each leg is score.cuh's.
 //
 // Replaces the Pallas kernel vrod_tpu/ops/pallas_topk.py: fused_topk ->
 // _fused_call_db -> _kernel_db (and _fused_call -> _kernel, the same math
 // on the auto-pipelined grid for dims that are not a multiple of 128).
 //
 // What bounds it on an H100: at 1M x 768 and B = 256 a search must read
-// 805 MB of int8 rows (0.24 ms at 3.35 TB/s) and do 2*B*N*D = 412 G integer
-// operations (0.21 ms at the tensor cores' 1,979 TOP/s), so bytes bound it,
-// with the operations close behind. The design: the dots run on the tensor
-// cores (mma.sync s8, score.cuh); the query tiles of one row chunk run as
-// neighbouring blocks, so L2 serves most of their re-reads of the chunk;
-// and the (B, N) score matrix never reaches device memory: scores live in
-// shared memory for one 512-row sub-chunk at a time, and only candidates
-// that beat the running k-th score (or the sampled floor theta0) are
-// written out.
+// 805 MB of int8 rows (0.24 ms at 3.35 TB/s; int4 half, bf16 twice, f32
+// four times that) and do 2*B*N*D = 412 G operations (0.21 ms at the
+// tensor cores' 1,979 int8 TOP/s; 0.42 ms at 989 bf16 TFLOP/s, 0.83 ms at
+// 495 TF32 TFLOP/s), so bytes bound it, with the operations close behind.
+// The design: the dots run on the tensor cores (mma.sync, score.cuh); the
+// query tiles of one row chunk run as neighbouring blocks, so L2 serves
+// most of their re-reads of the chunk; and the (B, N) score matrix never
+// reaches device memory: scores live in shared memory for one 512-row
+// sub-chunk at a time, and only candidates that beat the running k-th
+// score (or the sampled floor theta0) are written out.
 //
 // The TPU kernel walks the row blocks in order on one core and carries its
 // top-k in VMEM. Blocks on a GPU run in parallel and in no order, so:
@@ -120,13 +123,15 @@ __device__ int warp_select(float* v, int* ix, int n, int k) {
   return kth;
 }
 
+template <class Kind, int kEpi, bool kVec>
 __global__ void __launch_bounds__(kThreads) fused_topk_local(
-    const int8_t* __restrict__ x, const float* __restrict__ aux,
-    const float* __restrict__ mask, const int8_t* __restrict__ q,
-    const float* __restrict__ theta0, int n, int d, int b, int k,
-    int offset, int chunk_rows, int cap, bool vec16,
-    float* __restrict__ cand_v, int* __restrict__ cand_i,
-    int* __restrict__ cand_n) {
+    const int8_t* __restrict__ x, const int8_t* __restrict__ q,
+    const float* __restrict__ aux, const float* __restrict__ mask,
+    const float* __restrict__ qs2, int row_bytes,
+    const float* __restrict__ theta0, int n, int b, int k, int offset,
+    int chunk_rows, int cap, float* __restrict__ cand_v,
+    int* __restrict__ cand_i, int* __restrict__ cand_n) {
+  const Operands op = make_operands<Kind>(x, q, aux, mask, qs2, row_bytes);
   __shared__ __align__(16) int qs[kQT * kSt];
   __shared__ __align__(16) int xs[kTR * kSt];
   __shared__ float tau[kQT];  // k-th score of a full list, else -inf
@@ -146,17 +151,19 @@ __global__ void __launch_bounds__(kThreads) fused_topk_local(
   }
   for (int s0 = row_begin; s0 < row_end; s0 += kSub) {
     const int sub_end = min(row_end, s0 + kSub);
-    scan_dots(x, q, sub_end, b, d, s0, sub_end, q0, vec16, qs, xs,
-              [&](int r0, const int (&acc)[kAcc]) {
+    scan_dots<Kind, kVec>(op, sub_end, b, s0, sub_end, q0, qs, xs,
+                    [&](int r0, const auto& acc) {
 #pragma unroll
-                for (int i = 0; i < kAcc; ++i) {
-                  const int gr = r0 + acc_row(i);
-                  if (gr < sub_end) {
-                    sc[acc_query(i) * kScSt + (gr - s0)] =
-                        score_epilogue(acc[i], aux[gr], mask[gr]);
-                  }
-                }
-              });
+                      for (int i = 0; i < kAcc; ++i) {
+                        const int gr = r0 + acc_row(i);
+                        const int ql = acc_query(i);
+                        if (gr < sub_end) {
+                          sc[ql * kScSt + (gr - s0)] = score_epilogue<kEpi>(
+                              op, dot_value(acc[i]), gr,
+                              min(q0 + ql, b - 1));
+                        }
+                      }
+                    });
     __syncthreads();
     const int sub_n = sub_end - s0;
     for (int ql = warp; ql < kQT; ql += kWarps) {
@@ -267,32 +274,52 @@ extern "C" int vrod_fused_topk_plan(int n, int b, int k, int* out) {
   return 0;
 }
 
-extern "C" int vrod_fused_topk_i8(
-    const void* x, const void* aux, const void* mask, const void* q,
-    const void* theta0, int n, int d, int b, int k, int offset, int nchunks,
-    int chunk_rows, int cap, void* cand_v, void* cand_i, void* cand_n,
-    void* merge_v, void* merge_i, void* out_v, void* out_i, void* stream) {
-  const int smem = (int)(sizeof(float) * kQT * kScSt);
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_topk_local, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  const bool vec16 = d % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(q) % 16 == 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // The query tiles of a chunk are neighbouring blocks (x varies fastest).
-  fused_topk_local<<<dim3((b + kQT - 1) / kQT, nchunks), kThreads, smem, s>>>(
-      static_cast<const int8_t*>(x), static_cast<const float*>(aux),
-      static_cast<const float*>(mask), static_cast<const int8_t*>(q),
-      static_cast<const float*>(theta0), n, d, b, k, offset, chunk_rows, cap,
-      vec16, static_cast<float*>(cand_v), static_cast<int*>(cand_i),
-      static_cast<int*>(cand_n));
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  fused_topk_merge<<<(b + kWarps - 1) / kWarps, kThreads, 0, s>>>(
-      static_cast<const float*>(cand_v), static_cast<const int*>(cand_i),
-      static_cast<const int*>(cand_n), nchunks, cap, b, k,
-      static_cast<float*>(merge_v), static_cast<int*>(merge_i),
-      static_cast<float*>(out_v), static_cast<int*>(out_i));
-  return (int)cudaGetLastError();
+struct LaunchTopk {
+  template <class Kind, int kEpi, bool kVec>
+  static int run(const void* x, const void* aux, const void* mask,
+                 const void* q, const void* qs2, int row_bytes,
+                 const void* theta0, int n, int b, int k,
+                 int offset, int nchunks, int chunk_rows, int cap,
+                 void* cand_v, void* cand_i, void* cand_n, void* merge_v,
+                 void* merge_i, void* out_v, void* out_i, cudaStream_t s) {
+    const int smem = (int)(sizeof(float) * kQT * kScSt);
+    cudaError_t e = cudaFuncSetAttribute(
+        fused_topk_local<Kind, kEpi, kVec>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    // The query tiles of a chunk are neighbouring blocks (x varies
+    // fastest).
+    fused_topk_local<Kind, kEpi, kVec>
+        <<<dim3((b + kQT - 1) / kQT, nchunks), kThreads, smem, s>>>(
+            static_cast<const int8_t*>(x), static_cast<const int8_t*>(q),
+            static_cast<const float*>(aux), static_cast<const float*>(mask),
+            static_cast<const float*>(qs2), row_bytes,
+            static_cast<const float*>(theta0), n, b, k, offset,
+            chunk_rows, cap, static_cast<float*>(cand_v),
+            static_cast<int*>(cand_i), static_cast<int*>(cand_n));
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    fused_topk_merge<<<(b + kWarps - 1) / kWarps, kThreads, 0, s>>>(
+        static_cast<const float*>(cand_v), static_cast<const int*>(cand_i),
+        static_cast<const int*>(cand_n), nchunks, cap, b, k,
+        static_cast<float*>(merge_v), static_cast<int*>(merge_i),
+        static_cast<float*>(out_v), static_cast<int*>(out_i));
+    return (int)cudaGetLastError();
+  }
+};
+
+// elem/epi: score.cuh's Elem and Epi codes. row_bytes: bytes per stored
+// row (int4: dim / 2). qs2 (b,) is read by kScaleQs only.
+extern "C" int vrod_fused_topk(
+    int elem, int epi, const void* x, const void* aux, const void* mask,
+    const void* q, const void* qs2, const void* theta0, int n,
+    int row_bytes, int b, int k, int offset, int nchunks, int chunk_rows,
+    int cap, void* cand_v, void* cand_i, void* cand_n, void* merge_v,
+    void* merge_i, void* out_v, void* out_i, void* stream) {
+  return dispatch_leg<LaunchTopk>(
+      elem, epi, vector_units(x, q, row_bytes), x, aux, mask, q, qs2,
+      row_bytes,
+      theta0, n, b, k, offset, nchunks, chunk_rows, cap, cand_v, cand_i,
+      cand_n, merge_v, merge_i, out_v, out_i,
+      static_cast<cudaStream_t>(stream));
 }

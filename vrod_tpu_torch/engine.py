@@ -1,27 +1,31 @@
 """Device engine of the port: one collection's rows on one device.
 
 The port of ``vrod_tpu.engine`` for one shard. A collection's device state
-is three tensors:
+is three tensors, and a fourth for int8/int4 + l2:
 
   x     (capacity, dim)  stored dtype — the rows (int4: packed, dim/2 bytes)
   aux   (capacity,) f32  — int8/int4: the per-row dequant scale; float
                            rows: 1/|x| (cosine) or |x|^2 (l2, dot)
   valid (capacity,) bool — live bitmap (free-list holes and deletes False)
+  norms (capacity,) f32  — int8/int4 + l2 only: |x_hat|^2 per row
+                           (``distances.row_norms2``), K1/K3's -|x_hat|^2
+                           mask bias. Derived state: every mutation keeps
+                           it, ``load_state`` and ``rebuild_norms``
+                           recompute it, and snapshots never hold it.
 
 Capacity grows in whole segments. Where the JAX package rebuilt arrays in
 jitted scatters with donated buffers, the port updates these tensors in
 place (``index_copy_``, ``index_put_``). A JAX scatter with ``mode="drop"``
 ignores indices past the end; the port drops them before scattering.
 
-Search on int8 rows with metric cosine or dot — the main path — runs the
-program of ``vrod_tpu.engine._search_fn`` with the port's kernels: quantize
-the query, the sampled sub-max pre-pass (``cuda_topk.sampled_submax``) when
-the floor gate is open, the exact k-th sub-max by counting, the fused scan
-(``cuda_topk.fused_topk``), then the exact float32 rescore and
-``finalize_scores``. On a CUDA device that is the only path; other dtypes
-and metrics raise ``ConfigError`` there (ROADMAP Queue 2). On the CPU the
-kernels' wrappers run their plain versions, and the other dtypes and
-metrics run the plain blockwise scan (``distances.blockwise_topk``).
+Search, for every dtype and metric, runs the program of
+``vrod_tpu.engine._search_fn`` with the port's kernels: quantize the query
+(int8/int4; l2 keeps its scale), the sampled sub-max pre-pass
+(``cuda_topk.sampled_submax``) when the floor gate is open, the exact k-th
+sub-max by counting (less the accumulation margin for float dot/l2), the
+fused scan (``cuda_topk.fused_topk``), then the exact float32 rescore and
+``finalize_scores``. On a CUDA device the wrappers launch the CUDA kernels;
+on the CPU they run their plain versions.
 """
 
 from __future__ import annotations
@@ -33,7 +37,6 @@ import numpy as np
 import torch
 
 from vrod_tpu.config import CollectionConfig
-from vrod_tpu.errors import ConfigError
 
 from .convert import to_numpy, to_tensor
 from .ops import cuda_topk
@@ -45,16 +48,17 @@ from .runtime import resolve_device
 BATCH_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 K_BUCKETS = (8, 16, 32, 64, 96, 100, 112, 128, 256, 512, 1024)
 MAX_K = 1024
-DEFAULT_SEARCH_BLOCK_ROWS = 8192
 
 # Sampled-floor constants, the JAX engine's defaults (engine.py:106-158 and
 # the VROD_THETA0_* defaults at :829-844); their H100 values are not
 # measured yet (ROADMAP Queue 1 item 4). The tile budget is the TPU
 # pre-pass's (pallas_topk.SUBMAX_VMEM_BYTES): it only shapes which block
-# size the gate picks.
+# size the gate picks. The floor opens from k_scan THETA0_MINK on int8/int4
+# rows and from THETA0_MINK_FLOAT on float rows (engine.py:124).
 SUBMAX_TILE_BYTES = 24 * 1024 * 1024
 THETA0_FRAC = 8
 THETA0_MINK = 24
+THETA0_MINK_FLOAT = 64
 THETA0_MARGIN = 1e-3
 
 
@@ -65,39 +69,46 @@ def _bucket(n: int, buckets) -> int:
     return int(math.ceil(n / buckets[-1])) * buckets[-1]
 
 
-def _pick_block_rows(rows: int, segment_rows: int) -> int:
-    block = min(segment_rows, rows)
-    while block > DEFAULT_SEARCH_BLOCK_ROWS and block % 2 == 0:
-        block //= 2
-    while rows % block != 0:
-        block //= 2
-    return max(block, 8)
-
-
-def floor_gate(rows: int, k_scan: int, dim: int) -> tuple[bool, int, int]:
+def floor_gate(rows: int, k_scan: int, dim: int, itemsize: int,
+               quant: bool) -> tuple[bool, int, int]:
     """(open, n_sample, block rows) of the sampled floor for a scan of
-    ``rows`` int8 rows at ``k_scan``: the arithmetic of the JAX engine's
-    ``_gate_for``/``floor_gate`` for its int8 leg (one byte per element,
-    floor from k_scan 24). The sample is a prefix of whole pre-pass
-    blocks; the floor is sound only with at least 2 * k_scan sub-maxima.
-    Float rows (two or four bytes, floor from k_scan 64) come with their
-    kernel legs (ROADMAP Queue 2)."""
+    ``rows`` rows of ``dim`` stored elements of ``itemsize`` bytes at
+    ``k_scan``: the arithmetic of the JAX engine's ``_gate_for``/
+    ``floor_gate``. The pre-pass block is the largest of 16384/8192 rows
+    whose tile stays within SUBMAX_TILE_BYTES; the sample is a prefix of
+    whole blocks; the floor is sound only with at least 2 * k_scan
+    sub-maxima, and opens from k_scan 24 (int8/int4) or 64 (float)."""
     cands, fallback = [], 8192
     for blk in (16384, 8192):
-        while blk * dim > SUBMAX_TILE_BYTES and blk > 128:
+        while blk * dim * itemsize > SUBMAX_TILE_BYTES and blk > 128:
             blk //= 2
         fallback = blk
         if blk not in cands:
             cands.append(blk)
     frac = THETA0_FRAC if k_scan >= 64 else max(THETA0_FRAC, 32)
+    min_k = THETA0_MINK if quant else THETA0_MINK_FLOAT
     for blk in cands:
         n_sample = min(rows, max(128 * k_scan * 2, rows // frac))
         n_sample = (n_sample // blk) * blk
         nsub = (n_sample // blk) * 128
-        if (k_scan >= THETA0_MINK and nsub >= 2 * k_scan
+        if (k_scan >= min_k and nsub >= 2 * k_scan
                 and rows >= min(frac, 4) * n_sample):
             return True, n_sample, blk
     return False, 0, fallback
+
+
+def floor_threshold(sub, k_scan, q_scan, aux, valid, *, metric, quant,
+                    dim):
+    """The sampled floor theta0 (B, 1) from K3's sub-maxima ``sub``: the
+    exact k-th sub-max by counting, less its margins. K3 scores with K1's
+    own code, so its sub-maxima are K1 scores; float dot/l2 still subtract
+    the JAX engine's accumulation margin (:203-206)."""
+    extra = None
+    if metric != "cosine" and not quant:
+        extra = D.accumulation_margin(q_scan, aux, valid, metric=metric,
+                                      dim=dim)
+    return D.threshold_from_submax(sub, k_scan, margin_abs=THETA0_MARGIN,
+                                   extra=extra, method="count")
 
 
 class DeviceEngine:
@@ -110,16 +121,9 @@ class DeviceEngine:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.packed = cfg.dtype == "int4"
-        self.dtype = torch.int8 if cfg.dtype in ("int8", "int4") \
-            else D._as_dtype(cfg.dtype)
-        # The legs with kernels: unpacked int8 rows, metric cosine or dot.
-        self.uses_kernels = (cfg.dtype == "int8"
-                             and cfg.metric in cuda_topk.METRICS)
-        if self.device.type == "cuda" and not self.uses_kernels:
-            raise ConfigError(
-                f"dtype {cfg.dtype!r} with metric {cfg.metric!r} has no CUDA "
-                "kernel yet (ROADMAP Queue 2: the int8 l2, bfloat16/float32 "
-                "and int4 legs of K1/K3); int8 cosine and dot run on CUDA")
+        self.quant = cfg.dtype in ("int8", "int4")
+        self.dtype = torch.int8 if self.quant else D._as_dtype(cfg.dtype)
+        self.has_norms = self.quant and cfg.metric == "l2"
         if cfg.shards > 1:
             warnings.warn(
                 f"Collection {cfg.name!r} is configured for {cfg.shards} "
@@ -135,10 +139,14 @@ class DeviceEngine:
                                device=self.device)
         self.valid = torch.zeros(self.capacity, dtype=torch.bool,
                                  device=self.device)
+        self.norms = torch.zeros(self.capacity, dtype=torch.float32,
+                                 device=self.device) \
+            if self.has_norms else None
 
     def load_state(self, x, aux, valid) -> None:
         """Install state tensors (``convert.engine_state_from_numpy``);
-        the capacity becomes ``x.shape[0]``."""
+        the capacity becomes ``x.shape[0]``, and the norms lane is rebuilt
+        from x and aux."""
         cap = x.shape[0]
         if x.shape != (cap, self.storage_dim) or x.dtype != self.dtype:
             raise ValueError(f"x is {tuple(x.shape)} {x.dtype}")
@@ -148,6 +156,9 @@ class DeviceEngine:
         self.aux = aux.to(self.device, torch.float32).contiguous()
         self.valid = valid.to(self.device, torch.bool).contiguous()
         self.capacity = cap
+        if self.has_norms:
+            self.norms = torch.empty_like(self.aux)
+            self.rebuild_norms()
 
     # -- capacity ----------------------------------------------------------
 
@@ -163,6 +174,8 @@ class DeviceEngine:
                                                       self.storage_dim))])
         self.aux = torch.cat([self.aux, self.aux.new_zeros(pad)])
         self.valid = torch.cat([self.valid, self.valid.new_zeros(pad)])
+        if self.has_norms:
+            self.norms = torch.cat([self.norms, self.norms.new_zeros(pad)])
         self.capacity = new_cap
         return True
 
@@ -181,6 +194,8 @@ class DeviceEngine:
         self.x = self.x[:new_cap].clone()
         self.aux = self.aux[:new_cap].clone()
         self.valid = self.valid[:new_cap].clone()
+        if self.has_norms:
+            self.norms = self.norms[:new_cap].clone()
         self.capacity = new_cap
         return True
 
@@ -208,10 +223,8 @@ class DeviceEngine:
             v = to_tensor(chunk, self.device)
             rows, auxv = D.prepare_rows(v, metric=self.cfg.metric,
                                         dtype=dtype)
-            idx = torch.from_numpy(sl[keep]).to(self.device)
-            self.x.index_copy_(0, idx, rows)
-            self.aux.index_copy_(0, idx, auxv)
-            self.valid[idx] = True
+            self._scatter(torch.from_numpy(sl[keep]).to(self.device), rows,
+                          auxv)
 
     def write_raw(self, slots: np.ndarray, rows: np.ndarray,
                   aux: np.ndarray) -> None:
@@ -221,11 +234,19 @@ class DeviceEngine:
         keep = (slots >= 0) & (slots < self.capacity)
         if not keep.any():
             return
-        idx = torch.from_numpy(slots[keep]).to(self.device)
-        self.x.index_copy_(0, idx, to_tensor(np.asarray(rows)[keep],
-                                             self.device).to(self.dtype))
-        self.aux.index_copy_(0, idx, to_tensor(
-            np.asarray(aux, dtype=np.float32)[keep], self.device))
+        self._scatter(
+            torch.from_numpy(slots[keep]).to(self.device),
+            to_tensor(np.asarray(rows)[keep], self.device).to(self.dtype),
+            to_tensor(np.asarray(aux, dtype=np.float32)[keep], self.device))
+
+    def _scatter(self, idx, rows, auxv) -> None:
+        """Stored rows and aux into slots ``idx`` (all inside capacity),
+        their norms too, and mark them live."""
+        self.x.index_copy_(0, idx, rows)
+        self.aux.index_copy_(0, idx, auxv)
+        if self.has_norms:
+            self.norms.index_copy_(0, idx, D.row_norms2(rows, auxv,
+                                                        self.packed))
         self.valid[idx] = True
 
     def gather_raw(self, slots: np.ndarray, *, sync: bool = True):
@@ -243,11 +264,16 @@ class DeviceEngine:
         self.valid[self._kept(slots)] = False
 
     def rebuild_norms(self) -> None:
-        """The JAX engine's hook to recompute its int8 l2 ``norms`` lane
-        after ``x``/``aux`` were written directly. The port keeps no such
-        lane yet (it comes with the int8 l2 kernel leg, ROADMAP Queue 2):
-        its l2 scan and rescore rebuild ``|x_hat|^2`` from x and aux, so
-        there is nothing to recompute."""
+        """Recompute the int8/int4 + l2 norms lane from x and aux (after
+        they were written directly, or installed by ``load_state``), a
+        chunk of rows at a time. No-op for the other legs. Dead slots get
+        values that the mask never lets score."""
+        if not self.has_norms:
+            return
+        for lo in range(0, self.capacity, self.WRITE_CHUNK_ROWS):
+            hi = lo + self.WRITE_CHUNK_ROWS
+            self.norms[lo:hi] = D.row_norms2(self.x[lo:hi], self.aux[lo:hi],
+                                             self.packed)
 
     def move(self, src: np.ndarray, dst: np.ndarray) -> None:
         """Compaction: copy rows src -> dst, then invalidate src."""
@@ -261,6 +287,8 @@ class DeviceEngine:
         # Indexing copies, so every source is read before any write.
         self.x[d] = self.x[s]
         self.aux[d] = self.aux[s]
+        if self.has_norms:
+            self.norms[d] = self.norms[s]
         self.valid[d] = self.valid[s]
         self.valid[self._kept(src)] = False
 
@@ -283,38 +311,60 @@ class DeviceEngine:
         idx = torch.from_numpy(
             np.asarray(slots, dtype=np.int64).reshape(-1)).to(self.device)
         rows = self.x[idx]
-        if self.dtype == torch.int8:
+        if self.quant:
             rows = D.unpack_int4_rows(rows) if self.packed else rows.float()
             return to_numpy(rows * self.aux[idx][:, None])
         return to_numpy(rows.float())
 
-    def _scan(self, q, qp, valid, k_scan):
-        """Candidate top-k_scan of the padded query batch."""
+    def scan_widths(self, k: int) -> tuple[int, int]:
+        """(k_out, k_scan) of a search for top-k (k <= MAX_K): k bucketed,
+        and that plus the candidate margin, slack for the scan's rank
+        jitter that the exact rescore recovers from (JAX engine
+        :787-804)."""
+        k_out = min(_bucket(k, K_BUCKETS), self.capacity)
+        margin = max(self.cfg.rescore_margin,
+                     k_out // 8 if k_out > 100 else 0)
+        if self.quant:
+            margin = max(margin, 12, k_out // 4 if k_out > 100 else 0)
+        return k_out, min(k_out + margin, self.capacity)
+
+    def scan_inputs(self, q, qp):
+        """(query for K1/K3, their extra keywords) for a padded batch: the
+        int8-quantized query for int8/int4 rows (with its scale and the
+        -|x_hat|^2 row bias for l2), the prepared float query otherwise."""
         metric = self.cfg.metric
-        if self.uses_kernels:
-            q8 = D.prepare_queries(q, metric=metric, quantize=True)
-            theta0 = None
-            ok, n_sample, blk = floor_gate(self.capacity, k_scan,
-                                           self.storage_dim)
-            if ok:
-                sub = cuda_topk.sampled_submax(
-                    self.x[:n_sample], self.aux[:n_sample],
-                    valid[:n_sample], q8, metric=metric, block_rows=blk)
-                # int8 scores of the pre-pass and the scan agree bit for
-                # bit, so the floor needs no accumulation margin.
-                theta0 = D.threshold_from_submax(
-                    sub, k_scan, margin_abs=THETA0_MARGIN, method="count")
-            return cuda_topk.fused_topk(self.x, self.aux, valid, q8,
-                                        k=k_scan, metric=metric,
-                                        theta0=theta0)
-        quantize = self.dtype == torch.int8 and metric != "l2"
-        q_scan = D.prepare_queries(q, metric=metric, quantize=True) \
-            if quantize else qp
-        block_rows = _pick_block_rows(self.capacity, self.cfg.segment_rows)
-        return D.blockwise_topk(
-            self.x, self.aux, valid, q_scan, k=k_scan, metric=metric,
-            precision="high", block_rows=block_rows,
-            nblocks=self.capacity // block_rows, packed=self.packed)
+        extras = dict(packed=self.packed)
+        if self.has_norms:
+            q_scan, qs = D.prepare_queries(q, metric=metric, quantize=True,
+                                           return_scale=True)
+            extras.update(row_bias=-self.norms, q_scale=qs)
+            return q_scan, extras
+        if self.quant:
+            return D.prepare_queries(q, metric=metric, quantize=True), extras
+        return qp, extras
+
+    def _scan(self, q, qp, valid, k_scan):
+        """Candidate top-k_scan of the padded query batch: K3 and the floor
+        when the gate opens, then K1 (``_search_fn``'s ``local_topk``)."""
+        metric = self.cfg.metric
+        q_scan, extras = self.scan_inputs(q, qp)
+        theta0 = None
+        ok, n_sample, blk = floor_gate(self.capacity, k_scan,
+                                       self.storage_dim,
+                                       self.x.element_size(), self.quant)
+        if ok:
+            sub_extras = dict(extras)
+            if self.has_norms:
+                sub_extras["row_bias"] = extras["row_bias"][:n_sample]
+            sub = cuda_topk.sampled_submax(
+                self.x[:n_sample], self.aux[:n_sample], valid[:n_sample],
+                q_scan, metric=metric, block_rows=blk, **sub_extras)
+            theta0 = floor_threshold(sub, k_scan, q_scan, self.aux, valid,
+                                     metric=metric, quant=self.quant,
+                                     dim=self.storage_dim)
+        return cuda_topk.fused_topk(self.x, self.aux, valid, q_scan,
+                                    k=k_scan, metric=metric, theta0=theta0,
+                                    **extras)
 
     def search(self, queries, k: int, *, filter_mask=None):
         """Exact top-k. Returns numpy (values (B, k) f32, slots (B, k) i32).
@@ -330,14 +380,7 @@ class DeviceEngine:
             raise ValueError("k must be >= 1")
         k = min(k, MAX_K, self.capacity)
         Bp = _bucket(B, BATCH_BUCKETS)
-        k_out = min(_bucket(k, K_BUCKETS), self.capacity)
-        # Candidate margin: slack for the quantized scan's rank jitter that
-        # the exact rescore recovers from (JAX engine :787-804).
-        margin = max(self.cfg.rescore_margin,
-                     k_out // 8 if k_out > 100 else 0)
-        if self.dtype == torch.int8:
-            margin = max(margin, 12, k_out // 4 if k_out > 100 else 0)
-        k_scan = min(k_out + margin, self.capacity)
+        k_out, k_scan = self.scan_widths(k)
         if Bp != B:
             q = torch.cat([q, q.new_zeros((Bp - B, dim))])
         valid = self.valid if filter_mask is None \

@@ -1,6 +1,7 @@
 """Build and bind the port's CUDA kernels (``vrod_tpu_torch/csrc``).
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one compiler process
+per source, all started together) and links them into one shared library
 with a plain C interface, named by a hash of the sources, headers and flags,
 under ``csrc/build/`` (ignored by git). The build publishes atomically
 (compile into a temp dir, then ``os.replace``), so concurrent builders never
@@ -28,8 +29,7 @@ BUILD_DIR = _CSRC / "build"
 # No --use_fast_math; --fmad=false keeps every multiply and add rounded on
 # its own (the kernels also use __fmul_rn/__fadd_rn explicitly).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
-              "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
 
 _lib = None
 
@@ -67,16 +67,38 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        srcs = _sources()
+        objs = [Path(tmp) / (src.stem + ".o") for src in srcs]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(srcs, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        log, failed = "", []
+        try:
+            for cmd, proc in zip(cmds, procs):
+                log += proc.communicate(timeout=900)[0]
+                if proc.returncode != 0:
+                    failed.append(f"nvcc failed ({proc.returncode}): "
+                                  f"{' '.join(cmd)}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
         tmp_out = Path(tmp) / out.name
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp_out),
-               *map(str, _sources())]
-        res = subprocess.run(cmd, capture_output=True, text=True,
-                             timeout=900)
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{log}")
+        if not failed:
+            cmd = [nvcc, "-shared", "-o", str(tmp_out), *map(str, objs)]
+            res = subprocess.run(cmd, capture_output=True, text=True,
+                                 timeout=300)
+            log += res.stdout + res.stderr
+            if res.returncode != 0:
+                failed.append(f"nvcc link failed ({res.returncode}): "
+                              f"{' '.join(cmd)}")
+        if failed:
+            raise RuntimeError("\n".join(failed) + "\n" + log)
         (Path(tmp) / "build.log").write_text(log)
         os.replace(Path(tmp) / "build.log", out.with_suffix(".log"))
         os.replace(tmp_out, out)
@@ -93,12 +115,16 @@ def load() -> ctypes.CDLL:
     ip = ctypes.POINTER(ctypes.c_int)
     lib.vrod_fused_topk_plan.restype = ci
     lib.vrod_fused_topk_plan.argtypes = [ci, ci, ci, ip]
-    lib.vrod_fused_topk_i8.restype = ci
-    lib.vrod_fused_topk_i8.argtypes = (
-        [vp] * 5 + [ci] * 8 + [vp] * 8)
+    # (elem, epi, x, aux, mask, q, qs2, theta0, n, row_bytes, b, k, offset,
+    #  nchunks, chunk_rows, cap, 7 scratch/output pointers, stream)
+    lib.vrod_fused_topk.restype = ci
+    lib.vrod_fused_topk.argtypes = [ci] * 2 + [vp] * 6 + [ci] * 8 + [vp] * 8
     lib.vrod_sampled_submax_plan.restype = ci
     lib.vrod_sampled_submax_plan.argtypes = [ci, ci, ci, ip]
-    lib.vrod_sampled_submax_i8.restype = ci
-    lib.vrod_sampled_submax_i8.argtypes = [vp] * 4 + [ci] * 5 + [vp] * 3
+    # (elem, epi, x, aux, mask, q, qs2, n, row_bytes, b, blk, spb, part,
+    #  out, stream)
+    lib.vrod_sampled_submax.restype = ci
+    lib.vrod_sampled_submax.argtypes = [ci] * 2 + [vp] * 5 + [ci] * 5 \
+        + [vp] * 3
     _lib = lib
     return lib

@@ -1,8 +1,9 @@
 """Exact kNN search ops in plain PyTorch: the port of ``vrod_tpu.ops.distances``.
 
 Every function keeps the name and signature of its JAX counterpart and works
-on torch tensors. This module is the CPU path of the port and the oracle its
-CUDA kernels (``cuda_topk``) are held against on the GPU.
+on torch tensors (``row_norms2`` ports ``vrod_tpu.engine._row_norms2``).
+This module is the CPU path of the port and the oracle its CUDA kernels
+(``cuda_topk``) are held against on the GPU.
 
 Score convention: higher is better for every metric.
   dot:    s = q . x
@@ -248,6 +249,15 @@ def rescore(x, aux, valid, q, cand_idx, *, k: int, metric: str,
     top_i = torch.gather(cand_idx, 1, pos)
     top_i = torch.where(torch.isneginf(top_v), -1, top_i)
     return top_v, top_i
+
+
+def row_norms2(rows, aux, packed: bool = False):
+    """|x_hat|^2 of stored int8/int4 rows: ``sum(row^2) * (aux * aux)``,
+    the port of ``vrod_tpu.engine._row_norms2``. sum(row^2) <= dim * 127^2
+    < 2^24 is exact in float32, and the multiply order is ``rescore``'s, so
+    the two agree bit for bit (int4 rows unpack first)."""
+    rows = unpack_int4_rows(rows) if packed else rows.float()
+    return (rows ** 2).sum(dim=1) * (aux * aux)
 
 
 def finalize_scores(vals, q, *, metric: str):

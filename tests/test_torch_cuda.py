@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from vrod_tpu.config import DTYPES, METRICS, CollectionConfig
+from vrod_tpu_torch.config import DTYPES, METRICS, CollectionConfig
 from vrod_tpu_torch.engine import DeviceEngine
 from vrod_tpu_torch.ops import cuda_topk
 from vrod_tpu_torch.ops import distances as TD

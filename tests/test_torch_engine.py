@@ -9,22 +9,27 @@ its plain scan (impl="scan"); the port runs the plain versions of its
 kernels, for every dtype and metric.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from vrod_tpu.config import DTYPES, METRICS, CollectionConfig, ConfigError
+from vrod_tpu.config import DTYPES, METRICS, CollectionConfig
 from vrod_tpu.engine import DeviceEngine as JaxEngine
 from vrod_tpu_torch import convert
+from vrod_tpu_torch.config import CollectionConfig as PortConfig
+from vrod_tpu_torch.errors import ConfigError
 from vrod_tpu_torch.engine import DeviceEngine, floor_gate
 from vrod_tpu_torch.ops import cuda_topk
 from vrod_tpu_torch.ops import distances as D
 
 
 def carried(jeng, cfg):
-    eng = DeviceEngine(cfg, device="cpu")
+    pcfg = PortConfig(**dataclasses.asdict(cfg))
+    eng = DeviceEngine(pcfg, device="cpu")
     eng.load_state(*convert.engine_state_from_numpy(
-        cfg, np.asarray(jeng.x), np.asarray(jeng.aux),
+        pcfg, np.asarray(jeng.x), np.asarray(jeng.aux),
         np.asarray(jeng.valid), "cpu"))
     return eng
 

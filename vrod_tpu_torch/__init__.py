@@ -4,18 +4,19 @@ The same exact-kNN vector store as ``vrod_tpu`` — collections, WAL-first
 mutations, snapshots, the command layer and CLI — with the device side
 rebuilt on PyTorch: rows live in torch tensors on one CUDA device, and the
 search runs hand-written CUDA kernels (``ops/cuda_topk.py``, built from
-``csrc/`` with nvcc for sm_90a). The host modules that do not touch JAX
-(config, errors, records, allocator, WAL, snapshot format, payload store,
-metrics, locks, the native runtime) are ``vrod_tpu``'s own, imported, so
-both packages read and write the same databases. This package imports
-PyTorch and never JAX.
+``csrc/`` with nvcc for sm_90a). The host modules (config, errors,
+records, allocator, WAL, snapshot format, payload store, image verifier,
+metrics, locks, embeddings, the native runtime in ``_native/``) are this
+package's own copies of ``vrod_tpu``'s, byte-compatible on disk, so both
+packages read and write the same databases. This package imports PyTorch
+and nothing of ``vrod_tpu``, JAX or ``ml_dtypes``.
 
 Exports resolve lazily (PEP 562), like ``vrod_tpu``'s.
 """
 
 import importlib
 
-from vrod_tpu.config import VROD_VERSION
+from .config import VROD_VERSION
 
 __version__ = VROD_VERSION
 

@@ -26,7 +26,7 @@ from pathlib import Path
 
 from .commands import CommandBuilder
 from .database import Database
-from vrod_tpu.errors import MissingInitDatabaseNameError, VrodError
+from .errors import MissingInitDatabaseNameError, VrodError
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -66,7 +66,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve", metavar="ADDR",
                    help="not yet ported to vrod_tpu_torch: serve with "
                         "python -m vrod_tpu.cli --serve")
-    from vrod_tpu.config import VROD_VERSION
+    from .config import VROD_VERSION
     p.add_argument("-V", "--version", action="version",
                    version=f"vrod-tpu {VROD_VERSION}")
     return p
@@ -181,7 +181,7 @@ def _main(argv=None) -> int:
     try:
         # Dev-only embedding generator runs first and exits (main.rs:46-49).
         if args.generate_embeddings is not None:
-            from vrod_tpu.utils.embeddings import process_embeddings
+            from .utils.embeddings import process_embeddings
             process_embeddings(args.generate_embeddings)
             return 0
 

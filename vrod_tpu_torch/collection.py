@@ -8,9 +8,9 @@ The port's fork of ``vrod_tpu.collection``, bound to the port's engine:
   device (capacity, dim) embedding tensor + aux + validity on one device
          (see ``vrod_tpu_torch/engine.py``)
 
-The host parts are ``vrod_tpu``'s own modules, so the WAL and snapshot
-formats are one and the same: a directory written by either package loads
-in the other. The JAX collection's multi-process paths (rank fingerprint
+The host parts are the port's copies of ``vrod_tpu``'s modules, so the WAL
+and snapshot formats are one and the same: a directory written by either
+package loads in the other. The JAX collection's multi-process paths (rank fingerprint
 allgather, coordination-KV agreement rounds, the replicated snapshot
 gather) are not in this fork: one process owns a collection, and a
 process-spanning collection is ROADMAP Queue 1 item 7.
@@ -32,18 +32,18 @@ from pathlib import Path
 
 import numpy as np
 
-from vrod_tpu import metrics
-from vrod_tpu.allocator import NO_ID, SlotAllocator
-from vrod_tpu.config import (
+from . import metrics
+from .allocator import NO_ID, SlotAllocator
+from .config import (
     CONFIG_FILE, SNAPSHOT_DIR, WAL_FILE, CollectionConfig,
     read_config, write_config,
 )
-from vrod_tpu.errors import (
+from .errors import (
     DimensionMismatchError, RecordNotFoundError,
 )
-from vrod_tpu.records import Record
-from vrod_tpu.utils.locks import RWLock
-from vrod_tpu.wal import GroupCommit, Wal, ops
+from .records import Record
+from .utils.locks import RWLock
+from .wal import GroupCommit, Wal, ops
 
 from .engine import DeviceEngine
 
@@ -135,7 +135,7 @@ class Collection:
         # Group commit: concurrent mutations share one fsync before ack
         # instead of paying ~10 ms each (SURVEY §5 checkpoint/resume row).
         self._commit = GroupCommit(self.wal)
-        from vrod_tpu.payload_store import make_payload_store
+        from .payload_store import make_payload_store
         self.payloads = make_payload_store(
             config.payload_store, self.path / "payloads.db")
         self.next_id = 1
@@ -701,7 +701,7 @@ class Collection:
         inserts landing after the cut are not included — every record that
         stays live throughout IS exported. Memory is bounded (chunked
         device gathers, streaming writes)."""
-        from vrod_tpu.records import format_records_block
+        from .records import format_records_block
 
         with self._rw.read():
             rids = self.alloc.ids_of(
@@ -805,7 +805,7 @@ class Collection:
         if not snap.is_dir():
             return None
         hold = Path(tempfile.mkdtemp(prefix=_HOLD_PREFIX, dir=self.path))
-        from vrod_tpu import snapshot as snapio
+        from . import snapshot as snapio
         for f in sorted(snap.iterdir()):
             snapio.link_or_copy(f, hold / f.name)
         return hold
@@ -848,7 +848,7 @@ class Collection:
         pass, after which the multi-GB snapshot byte-copy streams lock-free
         from pinned hardlinks. The capture point is the last mutation ACKED
         before the copy: later mutations may or may not be included."""
-        from vrod_tpu import snapshot as snapio
+        from . import snapshot as snapio
         dest = Path(dest)
         dest.mkdir(parents=True, exist_ok=False)
         shutil.copy2(self.path / CONFIG_FILE, dest / CONFIG_FILE)
@@ -1015,7 +1015,7 @@ class Collection:
         # aux), so restores are bit-exact (no re-quantization drift) and
         # snapshots are 2-4x smaller than an f32 dump.
         n = int(live_slots.size)
-        from vrod_tpu import snapshot as snapio
+        from . import snapshot as snapio
         vw = snapio.RawStreamWriter(tmp_dir / "vectors.bin")
         aw = snapio.RawStreamWriter(tmp_dir / "aux.bin")
         pw = snapio.PayloadStreamWriter(tmp_dir / "payloads.bin", n)
@@ -1095,7 +1095,7 @@ class Collection:
         """Newest CRC-valid snapshot directory: the committed one, else the
         previous (.old — swap crashed mid-way; WAL still covers it), else a
         completed-but-unrenamed .tmp."""
-        from vrod_tpu import snapshot as snapio
+        from . import snapshot as snapio
         main_present = False
         for name in (SNAPSHOT_DIR, SNAPSHOT_DIR + ".old",
                      SNAPSHOT_DIR + ".tmp"):
@@ -1125,7 +1125,7 @@ class Collection:
                         f" restoring from {name} + WAL replay")
                 return d, meta
         if main_present:
-            from vrod_tpu.errors import WalCorruptionError
+            from .errors import WalCorruptionError
             raise WalCorruptionError(
                 f"Snapshot at {self.path / SNAPSHOT_DIR} is corrupt (crc "
                 f"mismatch) and no fallback validates; restore from a backup")
@@ -1149,7 +1149,7 @@ class Collection:
     def _restore(self) -> None:
         snap_dir, meta = self._pick_snapshot()
         if snap_dir is not None:
-            from vrod_tpu import snapshot as snapio
+            from . import snapshot as snapio
             rids = np.load(snap_dir / "ids.npy")
             chunk = self.SNAPSHOT_CHUNK_ROWS
             # Streamed/memory-mapped reads: restore memory is bounded by
@@ -1206,7 +1206,7 @@ class Collection:
             if main.exists():
                 shutil.rmtree(main)
             snap_dir.rename(main)
-            from vrod_tpu import snapshot as snapio
+            from . import snapshot as snapio
             snapio.fsync_dir(self.path)
             snap_dir = main
         # Leftover swap intermediates are garbage once restore succeeded.

@@ -10,7 +10,7 @@ vocabulary is exactly the reference's dispatch table (builder.rs:30-76).
 from __future__ import annotations
 
 from ..database import Database
-from vrod_tpu.errors import UnrecognizedCommandError
+from ..errors import UnrecognizedCommandError
 from . import types as T
 
 VERBS = (

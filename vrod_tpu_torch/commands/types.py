@@ -31,8 +31,8 @@ import dataclasses
 import numpy as np
 
 from ..database import Database
-from vrod_tpu.errors import MissingCommandArgError, RecordFormatError
-from vrod_tpu.records import (
+from ..errors import MissingCommandArgError, RecordFormatError
+from ..records import (
     format_record, parse_query, parse_record, parse_record_matrix,
 )
 
@@ -297,8 +297,8 @@ class BackupCommand(Command):
             self.arg, "a destination directory path (-a)")
         path_part, sep, opt = arg.rpartition(";")
         if sep and opt.strip().lower() == "verify":
-            from vrod_tpu.errors import WalCorruptionError
-            from vrod_tpu.verify_image import format_report, verify_image
+            from ..errors import WalCorruptionError
+            from ..verify_image import format_report, verify_image
             report = verify_image(Path(path_part))
             line = format_report(report, path_part)
             if not report["ok"]:

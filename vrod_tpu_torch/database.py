@@ -18,15 +18,15 @@ from __future__ import annotations
 
 from pathlib import Path
 
-from vrod_tpu.config import (
+from .config import (
     BACKUP_MANIFEST_FILE, COLLECTIONS_DIR, CONFIG_FILE, WAL_FILE,
     CollectionConfig, DatabaseConfig, read_config, write_config,
 )
-from vrod_tpu.errors import (
+from .errors import (
     CollectionExistsError, CollectionNotFoundError, DatabaseExistsError,
     DatabaseLockedError, DatabaseNotFoundError,
 )
-from vrod_tpu.wal import Wal, ops
+from .wal import Wal, ops
 
 from .collection import Collection
 
@@ -65,7 +65,7 @@ class Database:
     def new(cls, path, name: str, **kw) -> "Database":
         """Create ``<path>/<name>/`` with vr_config + vr_wal
         (reference: create_database_directory, setup.rs:3-26)."""
-        from vrod_tpu.config import validate_name
+        from .config import validate_name
         root = Path(path) / validate_name(name, "database name")
         if root.exists():
             raise DatabaseExistsError(f"Database directory already exists: {root}")
@@ -281,7 +281,7 @@ class Database:
                         break
                     except Exception:
                         continue
-            from vrod_tpu.wal import Wal as _Wal
+            from .wal import Wal as _Wal
             wal = _Wal(cdir / WAL_FILE)
             frames = wal.frame_count
             live = count
@@ -308,7 +308,7 @@ class Database:
 
     def _host_only_count(self, cdir, wal, snap_dir_name="snapshot"):
         import numpy as np
-        from vrod_tpu.wal import ops as wal_ops
+        from .wal import ops as wal_ops
         # Event-stream formulation in numpy: a CPython int set at 10-20M
         # ids costs ~1.5-2 GB transiently; uint64 event arrays + one
         # stable argsort (last event per id wins) stay in the low
@@ -379,7 +379,7 @@ class Database:
                 raise CollectionNotFoundError(f"No collection named {name!r}")
             cdir = self._collection_dir(name)
             import json
-            from vrod_tpu.config import SNAPSHOT_DIR
+            from .config import SNAPSHOT_DIR
             floor = 0
             for snap in (SNAPSHOT_DIR, SNAPSHOT_DIR + ".old",
                          SNAPSHOT_DIR + ".tmp"):
@@ -391,7 +391,7 @@ class Database:
                         break
                     except Exception:
                         continue
-            from vrod_tpu.wal import Wal as _Wal
+            from .wal import Wal as _Wal
             wal = _Wal(cdir / WAL_FILE)
             try:
                 return max(floor, wal.last_lsn)
@@ -471,7 +471,7 @@ class Database:
         killed backup never leaves a half-image at ``dest``; rebuildable
         caches (payloads.db) are excluded."""
         import shutil
-        from vrod_tpu import snapshot as snapio
+        from . import snapshot as snapio
         dest = Path(dest)
         if dest.exists():
             raise DatabaseExistsError(
@@ -541,8 +541,8 @@ class Database:
         but an IMAGE must hold only valid frames, or ``verify_image``
         rightly calls it damaged."""
         import shutil
-        from vrod_tpu import snapshot as snapio
-        from vrod_tpu.wal.wal import valid_prefix_size
+        from . import snapshot as snapio
+        from .wal.wal import valid_prefix_size
         csrc = self._collection_dir(name)
         cdest.mkdir(parents=True)
         shutil.copy2(csrc / CONFIG_FILE, cdest / CONFIG_FILE)
@@ -551,7 +551,7 @@ class Database:
             csrc / WAL_FILE, cdest / WAL_FILE,
             valid_prefix_size(csrc / WAL_FILE))
         snap_files = 0
-        from vrod_tpu.config import SNAPSHOT_DIR
+        from .config import SNAPSHOT_DIR
         for snap in (SNAPSHOT_DIR, SNAPSHOT_DIR + ".old",
                      SNAPSHOT_DIR + ".tmp"):
             sdir = csrc / snap

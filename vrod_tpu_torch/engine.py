@@ -36,7 +36,7 @@ import warnings
 import numpy as np
 import torch
 
-from vrod_tpu.config import CollectionConfig
+from .config import CollectionConfig
 
 from .convert import to_numpy, to_tensor
 from .ops import cuda_topk
@@ -236,7 +236,8 @@ class DeviceEngine:
             return
         self._scatter(
             torch.from_numpy(slots[keep]).to(self.device),
-            to_tensor(np.asarray(rows)[keep], self.device).to(self.dtype),
+            to_tensor(np.asarray(rows)[keep], self.device,
+                      self.dtype).to(self.dtype),
             to_tensor(np.asarray(aux, dtype=np.float32)[keep], self.device))
 
     def _scatter(self, idx, rows, auxv) -> None:

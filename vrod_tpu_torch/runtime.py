@@ -12,7 +12,7 @@ import os
 
 import torch
 
-from vrod_tpu.errors import ConfigError
+from .errors import ConfigError
 
 
 def default_device() -> torch.device:

@@ -40,10 +40,21 @@ nothing falls back to the CPU or to a plain version):
      other result is unchanged;
    - (i) int8 l2, top-16, ``--rows`` rows, with the same reopen (the norms
      lane is rebuilt from the restored rows);
-   - (ii) int4 l2, top-16; (iii) bfloat16 cosine, top-100; (iv) float32
-     dot, top-100 (with the float control): ``--rows`` rows each;
+   - (ii) int4 l2, top-16; (iii) bfloat16 cosine, top-100, with the same
+     reopen (the bfloat16 snapshot path, which needs no ml_dtypes); (iv)
+     float32 dot, top-100 (with the float control): ``--rows`` rows each;
    - every leg (12 collections), 3 searches each: int8/int4 at top-16 on
      262,144 rows, bfloat16/float32 at top-100 on 131,072 rows.
+
+Per kernel and leg, at the shapes of its first (largest) phase, the script
+also computes the kernel's bound (the larger of the bytes its inputs and
+outputs must move at 3.35 TB/s and its tensor-core operations, 2 * B * N *
+D, at the dense peak of its type) and times a library yardstick that the
+port never calls: two PyTorch calls, since no one call computes either
+kernel's function: the leg's GEMM ``q @ x.T`` (``torch._int_mm`` for int8,
+the same on unpacked rows for int4, ``torch.matmul`` in bfloat16, and in
+float32 with TF32 on), then ``torch.topk(k_scan)`` (K1) or the max over
+the strided 128-row groups (K3).
 
 The last two lines of standard output are one JSON object per line: the
 kernels' account (one entry per kernel and leg), then ``{"ok": true,
@@ -74,6 +85,11 @@ LEG_SHAPES = {"quant": (262144, 16), "float": (131072, 100)}
 LEG_SEARCHES = 3
 DB_DTYPE = {"int8": "int8", "int4": "int4", "bf16": "bfloat16",
             "f32": "float32"}
+# The H100 SXM's datasheet rates (dense): HBM bytes/s, and tensor-core
+# operations/s by the type the kernels multiply in.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"int8": 1979e12, "int4": 1979e12, "bf16": 989e12,
+            "f32": 495e12}
 SOURCES = {"fused_topk": ("vrod_tpu_torch/csrc/fused_topk.cu",
                           "vrod_tpu/ops/pallas_topk.py:251"),
            "sampled_submax": ("vrod_tpu_torch/csrc/sampled_submax.cu",
@@ -150,6 +166,55 @@ def floor_theta(sub, k, args, leg):
     return floor_threshold(sub, k, args[3], args[1], args[2],
                            metric=metric, quant=dtype in ("int8", "int4"),
                            dim=args[0].shape[1])
+
+
+def bound_of(tensors, out_bytes, ops, dtype):
+    """(bound_ms, bound_by) of a call: each input read once and each output
+    written once at the HBM rate, against its operations at the dense
+    tensor-core peak of ``dtype``."""
+    import torch
+    nbytes = out_bytes + sum(t.numel() * t.element_size() for t in tensors
+                             if torch.is_tensor(t))
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS[dtype] * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops \
+        else "operations"
+
+
+def library_gemm(leg, x, q):
+    """The yardstick's GEMM of one leg: a function returning q @ x.T as the
+    library computes it (rows unpacked for int4 before timing; TF32 on for
+    float32 while it runs)."""
+    import torch
+    from vrod_tpu_torch.ops import distances as D
+    dtype = leg.split("-")[0]
+    if dtype in ("int8", "int4"):
+        rows = D.unpack_int4_rows(x, torch.int8) if dtype == "int4" else x
+        return lambda: torch._int_mm(q, rows.t())
+    rows, qq = x, q.to(x.dtype)
+
+    def gemm():
+        torch.backends.cuda.matmul.allow_tf32 = dtype == "f32"
+        try:
+            return torch.matmul(qq, rows.t())
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    return gemm
+
+
+def library_times(leg, a1, k_scan, a3, blk):
+    """ms of the two-call yardsticks at a phase's shapes: K1's GEMM + topk,
+    K3's GEMM + strided group max (the port never calls either)."""
+    gemm1 = library_gemm(leg, a1[0], a1[3])
+    gemm3 = library_gemm(leg, a3[0], a3[3])
+    nb = a3[0].shape[0] // blk
+
+    def k3():
+        s = gemm3()
+        return s.reshape(s.shape[0], nb, blk // 128, 128).amax(dim=2)
+    return {"fused_topk_library": cuda_time_ms(
+                lambda: gemm1().topk(k_scan, dim=1), iters=5),
+            "sampled_submax_library": cuda_time_ms(k3, iters=5)}
 
 
 class Compare:
@@ -527,6 +592,15 @@ def db_phase(dev, card, cmp, *, name, leg, top_k, rows, searches, reopen,
             "sampled_submax_plain": cuda_time_ms(
                 lambda: K.sampled_submax_plain(*a3, **kw3), iters=5),
         }
+        dim = eng.cfg.dim
+        extra_t = [v for v in extras.values() if hasattr(v, "numel")]
+        times["fused_topk_bound"] = bound_of(
+            a1 + [theta0] + extra_t, BATCH * k_scan * 8,
+            2 * BATCH * eng.capacity * dim, dtype)
+        times["sampled_submax_bound"] = bound_of(
+            a3 + [v for v in kw3.values() if hasattr(v, "numel")],
+            BATCH * 128 * (ns // blk) * 4, 2 * BATCH * ns * dim, dtype)
+        times.update(library_times(leg, a1, k_scan, a3, blk))
         log(f"{name}: engine.search p50 "
             f"{np.percentile(np.array(eng_lat) * 1e3, 50):.3f} ms; kernels "
             f"at its shapes ({eng.capacity} rows, sample {ns} in blocks of "
@@ -572,7 +646,8 @@ def main(argv=None) -> int:
     _build.load()
     log(f"kernels built in {time.perf_counter() - t0:.3f} s: {lib.name}")
     for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if any(w in line for w in ("registers", "spill", "Compiling",
+                                   "arning", "wgmma")):
             log("  ptxas:", line.strip())
 
     cmp = Compare()
@@ -588,7 +663,7 @@ def main(argv=None) -> int:
         ("main path", "int8-cosine", 16, args.rows, True),
         ("(i)", "int8-l2", 16, args.rows, True),
         ("(ii)", "int4-l2", 16, args.rows, False),
-        ("(iii)", "bf16-cosine", 100, args.rows, False),
+        ("(iii)", "bf16-cosine", 100, args.rows, True),
         ("(iv)", "f32-dot", 100, args.rows, False),
     ]
     for leg in K.LEGS:
@@ -613,16 +688,21 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{kname} launched no time on the "
                                      "search paths")
             phase, rows, t = times[leg]
+            bound_ms, bound_by = t[kern + "_bound"]
             log(f"{kname}: {launches[kname]} launches; at {phase}'s shapes "
                 f"({rows} rows) {t[kern]:.4f} ms vs plain "
-                f"{t[kern + '_plain']:.4f} ms; max abs err vs plain "
-                f"{cmp.max_err[kname]:.6g}, at most "
-                f"{cmp.max_share[kname]:.4g} of the bound [{card}]")
+                f"{t[kern + '_plain']:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}; {bound_ms / t[kern]:.1%} of it reached), "
+                f"library (two calls) {t[kern + '_library']:.4f} ms; max "
+                f"abs err vs plain {cmp.max_err[kname]:.6g}, at most "
+                f"{cmp.max_share[kname]:.4g} of the score bound [{card}]")
             kernels.append({
                 "name": kname, "route": "cuda", "source": SOURCES[kern][0],
                 "replaces": SOURCES[kern][1], "launches": launches[kname],
                 "max_abs_err": cmp.max_err[kname], "ms": t[kern],
-                "plain_ms": t[kern + "_plain"]})
+                "plain_ms": t[kern + "_plain"], "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "library_ms": t[kern + "_library"]})
     for leg, share in cmp.control_share.items():
         log(f"float control {leg}: truncated inputs reached at least "
             f"{share:.4g} x the bound (the kernels: K1 "

@@ -34,6 +34,8 @@ CASES = [
     ("ties", 1024, 128, 8, 28, 0, True, 0, True),
     ("dim80_b40", 4096, 80, 40, 28, 5, True, 3, False),
     ("k1280", 4096, 64, 16, 1280, 0, False, 0, False),
+    # b256 over 65,536 rows: 512 row tiles, several per persistent block.
+    ("b256_n65536", 65536, 128, 256, 28, 7, True, 5, False),
 ]
 _ROW_DTYPE = {"int8": torch.int8, "int4": "int4", "bf16": torch.bfloat16,
               "f32": torch.float32}

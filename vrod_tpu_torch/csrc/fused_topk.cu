@@ -11,21 +11,25 @@
 // four times that) and do 2*B*N*D = 412 G operations (0.21 ms at the
 // tensor cores' 1,979 int8 TOP/s; 0.42 ms at 989 bf16 TFLOP/s, 0.83 ms at
 // 495 TF32 TFLOP/s), so bytes bound it, with the operations close behind.
-// The design: the dots run on the tensor cores (mma.sync, score.cuh); the
-// query tiles of one row chunk run as neighbouring blocks, so L2 serves
-// most of their re-reads of the chunk; and the (B, N) score matrix never
-// reaches device memory: scores live in shared memory for one 512-row
-// sub-chunk at a time, and only candidates that beat the running k-th
-// score (or the sampled floor theta0) are written out.
+// The design (score.cuh): each row byte leaves device memory once and
+// passes through shared memory once per query group of 256, by TMA into a
+// ring that one producer warp keeps full; the dots run as wgmma m64n256
+// with the queries streaming beside the rows; and the (B, N) score matrix
+// never exists: each score is compared, in the register that holds it,
+// with max(theta0, its query's list k-th), and only the few that beat it
+// are appended to a list.
 //
 // The TPU kernel walks the row blocks in order on one core and carries its
-// top-k in VMEM. Blocks on a GPU run in parallel and in no order, so:
-//   1. fused_topk_local: block (c, t) scores row chunk c against query tile
-//      t and keeps, per query, the chunk's top-k as an unordered list in
-//      global scratch. After each sub-chunk the new candidates (score >
-//      max(theta0, list's k-th)) are appended and, once the list holds k or
-//      more, cut back to exactly k by a counting select.
-//   2. fused_topk_merge: one warp per query gathers the chunk lists, cuts
+// top-k in VMEM. Here a persistent grid has about one block per SM:
+//   1. fused_topk_local: block (part p, query group) walks row tiles p,
+//      p + parts, ... in ascending order and keeps, per query, an unordered
+//      candidate list in global scratch of capacity cap = k + 5 tiles.
+//      Every kCutTiles = 4 tiles, a list longer than cap - 4 tiles (the
+//      most the next four can add) is cut back to exactly k by a counting
+//      select, and its k-th value joins the query's gate. Rows come in
+//      ascending slot order, so a later score equal to the gate loses its
+//      tie anyway.
+//   2. fused_topk_merge: one warp per query gathers the part lists, cuts
 //      them to k, and ranks the survivors by (value desc, slot asc).
 // The select is exact and independent of scheduling: the k-th key is found
 // by radix lifting over order-isomorphic int32 keys (the method of
@@ -34,7 +38,6 @@
 // {slots with score > theta0} in (value desc, slot asc) order, with
 // (-inf, -1) on empty ranks: the Pallas kernel's contract.
 
-#include <algorithm>
 #include <climits>
 #include <cmath>
 
@@ -43,12 +46,13 @@
 namespace vrod {
 namespace {
 
-constexpr int kSub = 512;                // rows scored between selections
-// Score row stride: 520 = 8 (mod 32) keeps a warp's stores of one
-// accumulator (eight queries x eight rows) to two-way bank conflicts; a
-// stride of kSub would put all eight queries in one bank.
-constexpr int kScSt = kSub + 8;
-constexpr int kWarps = kThreads / 32;
+// Tiles between list cuts. A list holds cap = k + (kCutTiles + 1) tiles
+// of candidates (ops/cuda_topk.py: LIST_SLACK_TILES): at a cut, lists
+// longer than cap - kCutTiles * kTileRows are cut back to k, so the next
+// kCutTiles tiles (at most 128 candidates each) always fit.
+constexpr int kCutTiles = 4;
+constexpr int kMergeThreads = 256;
+constexpr int kMergeWarps = kMergeThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ unsigned lanemask_lt() {
@@ -123,97 +127,164 @@ __device__ int warp_select(float* v, int* ix, int n, int k) {
   return kth;
 }
 
-template <class Kind, int kEpi, bool kVec>
-__global__ void __launch_bounds__(kThreads) fused_topk_local(
-    const int8_t* __restrict__ x, const int8_t* __restrict__ q,
-    const float* __restrict__ aux, const float* __restrict__ mask,
-    const float* __restrict__ qs2, int row_bytes,
-    const float* __restrict__ theta0, int n, int b, int k, int offset,
-    int chunk_rows, int cap, float* __restrict__ cand_v,
-    int* __restrict__ cand_i, int* __restrict__ cand_n) {
-  const Operands op = make_operands<Kind>(x, q, aux, mask, qs2, row_bytes);
-  __shared__ __align__(16) int qs[kQT * kSt];
-  __shared__ __align__(16) int xs[kTR * kSt];
-  __shared__ float tau[kQT];  // k-th score of a full list, else -inf
-  __shared__ int len[kQT];
-  extern __shared__ float sc[];  // kQT x kScSt scores of one sub-chunk
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int chunk = blockIdx.y;
-  const int q0 = blockIdx.x * kQT;
-  const int row_begin = chunk * chunk_rows;
-  const int row_end = min(n, row_begin + chunk_rows);
-  if (tid < kQT) {
-    tau[tid] = -INFINITY;
-    len[tid] = 0;
-  }
-  for (int s0 = row_begin; s0 < row_end; s0 += kSub) {
-    const int sub_end = min(row_end, s0 + kSub);
-    scan_dots<Kind, kVec>(op, sub_end, b, s0, sub_end, q0, qs, xs,
-                    [&](int r0, const auto& acc) {
-#pragma unroll
-                      for (int i = 0; i < kAcc; ++i) {
-                        const int gr = r0 + acc_row(i);
-                        const int ql = acc_query(i);
-                        if (gr < sub_end) {
-                          sc[ql * kScSt + (gr - s0)] = score_epilogue<kEpi>(
-                              op, dot_value(acc[i]), gr,
-                              min(q0 + ql, b - 1));
-                        }
-                      }
-                    });
-    __syncthreads();
-    const int sub_n = sub_end - s0;
-    for (int ql = warp; ql < kQT; ql += kWarps) {
-      const int qq = q0 + ql;
-      if (qq >= b) break;  // warp-uniform
-      const float thr = fmaxf(theta0[qq], tau[ql]);
-      const size_t list = ((size_t)chunk * b + qq) * cap;
-      float* lv = cand_v + list;
-      int* li = cand_i + list;
-      const int len0 = len[ql];
-      int L = len0;
-      for (int base = 0; base < sub_n; base += 32) {
-        const int e = base + lane;
-        const float s = e < sub_n ? sc[ql * kScSt + e] : -INFINITY;
-        const bool take = s > thr;
-        const unsigned msk = __ballot_sync(kFull, take);
-        if (take) {
-          const int p = L + __popc(msk & lanemask_lt());
-          lv[p] = s;
-          li[p] = s0 + e + offset;
-        }
-        L += __popc(msk);
-      }
-      if (L > len0 && L >= k) {
-        const int kth = warp_select(lv, li, L, k);
-        L = k;
-        if (lane == 0) tau[ql] = key_float(kth);
-      }
-      if (lane == 0) len[ql] = L;
-      __syncwarp();
+// The consumer warps cut every list of the group longer than `limit` (>=
+// k) to its k best and raise its query's gate to the new k-th value.
+__device__ void cut_lists(float* cand_v, int* cand_i, int* len, float* gate,
+                          size_t list0, int q0, int b, int k, int cap,
+                          int limit) {
+  for (int ql = threadIdx.x >> 5; ql < kGroup && q0 + ql < b;
+       ql += kConsumers / 32) {
+    const int n = len[ql];
+    if (n <= limit) continue;  // warp-uniform
+    const size_t list = list0 + (size_t)ql * cap;
+    const int kth = warp_select(cand_v + list, cand_i + list, n, k);
+    if ((threadIdx.x & 31) == 0) {
+      len[ql] = k;
+      gate[ql] = fmaxf(gate[ql], key_float(kth));
     }
-    __syncthreads();  // sc, tau and len are read again below or next round
-  }
-  if (tid < kQT && q0 + tid < b) {
-    cand_n[(size_t)chunk * b + q0 + tid] = len[tid];
   }
 }
 
-__global__ void __launch_bounds__(kThreads) fused_topk_merge(
+// The gate of one tile's scores, in the registers that hold their dots:
+// per query pair of this thread (columns ql = 8j + 2t and ql + 1) and its
+// two rows, four scores against the pair's gates and one branch for the
+// four; only scores above their gate are appended to their query's list.
+// Nothing here writes a gate, so the __restrict__ views let their loads
+// run ahead of the appends.
+template <class Kind, int kEpi>
+__device__ __forceinline__ void gate_tile(
+    const typename Kind::Acc (&acc)[kAcc], const float (&aux_r)[2],
+    const float (&mask_r)[2], int row0, int offset, float* v_list0,
+    int* i_list0, int cap, const float* __restrict__ gate,
+    const float* __restrict__ qsv, int* len) {
+#pragma unroll
+  for (int j = 0; j < kAcc / 4; ++j) {
+    const int ql = query_col(4 * j);
+    const float2 g2 = *reinterpret_cast<const float2*>(gate + ql);
+    const float2 q2 = kEpi == kScaleQs
+                          ? *reinterpret_cast<const float2*>(qsv + ql)
+                          : make_float2(0.0f, 0.0f);
+    float s[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[e] = score_epilogue<kEpi>(dot_value(acc[4 * j + e]), aux_r[e >> 1],
+                                  mask_r[e >> 1], e & 1 ? q2.y : q2.x);
+    }
+    const bool p0 = s[0] > g2.x, p1 = s[1] > g2.y;
+    const bool p2 = s[2] > g2.x, p3 = s[3] > g2.y;
+    if (p0 | p1 | p2 | p3) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (e == 0 ? p0 : e == 1 ? p1 : e == 2 ? p2 : p3) {
+          const int qe = ql + (e & 1);
+          const size_t at = (size_t)qe * cap + atomicAdd(len + qe, 1);
+          v_list0[at] = s[e];
+          i_list0[at] = row0 + 8 * (e >> 1) + offset;
+        }
+      }
+    }
+  }
+}
+
+// The consumer warpgroups of K1: per row tile, the dots and the gate;
+// every kCutTiles tiles (and at the end) the list cuts, the only points
+// where the two warpgroups wait for each other.
+template <class Kind, int kEpi>
+__device__ __forceinline__ void consume_all(
+    const Geometry& geo, const Ring& ring, const float* __restrict__ aux,
+    const float* __restrict__ mask, int n, int b, int k, int offset,
+    int part, int parts, int tiles, int q0, int cap, float* gate,
+    const float* qsv, int* len, float* __restrict__ cand_v,
+    int* __restrict__ cand_i, int* __restrict__ cand_n) {
+  using Acc = typename Kind::Acc;
+  const size_t list0 = ((size_t)part * b + q0) * cap;
+  Acc acc[kAcc];
+  int stage = 0, phase = 0, since_cut = 0;
+  for (int t = part; t < tiles; t += parts) {
+    // The rows' aux and mask, loaded before the dots so they have arrived
+    // by the gate.
+    const int row0 = t * kTileRows + tile_row(0);
+    float aux_r[2], mask_r[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gr = row0 + 8 * h;
+      aux_r[h] = gr < n ? aux[gr] : 0.0f;
+      mask_r[h] = gr < n ? mask[gr] : -INFINITY;
+    }
+    consume_tile<Kind>(acc, geo, ring, stage, phase);
+    gate_tile<Kind, kEpi>(acc, aux_r, mask_r, row0, offset, cand_v + list0,
+                          cand_i + list0, cap, gate, qsv, len);
+    if (++since_cut == kCutTiles) {
+      since_cut = 0;
+      consumer_sync();  // the tiles' candidates and lengths are in
+      cut_lists(cand_v, cand_i, len, gate, list0, q0, b, k, cap,
+                cap - kCutTiles * kTileRows);
+      consumer_sync();  // gates and lengths are read again
+    }
+  }
+  consumer_sync();
+  cut_lists(cand_v, cand_i, len, gate, list0, q0, b, k, cap, k);
+  consumer_sync();
+  for (int i = threadIdx.x; i < kGroup && q0 + i < b; i += kConsumers) {
+    cand_n[(size_t)part * b + q0 + i] = len[i];
+  }
+}
+
+template <class Kind, int kEpi, bool kTma>
+__global__ void __launch_bounds__(kThreads, 1) fused_topk_local(
+    const __grid_constant__ Maps maps, const int8_t* __restrict__ x,
+    const int8_t* __restrict__ q, const float* __restrict__ aux,
+    const float* __restrict__ mask, const float* __restrict__ qs2,
+    int row_bytes, const float* __restrict__ theta0, int n, int b, int k,
+    int offset, int groups, int parts, int ring_n, int cap,
+    float* __restrict__ cand_v, int* __restrict__ cand_i,
+    int* __restrict__ cand_n) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full[kMaxRing], empty[kMaxRing];
+  // max(theta0, the list's k-th), and the group's qs2 (kScaleQs); read
+  // as float2 pairs.
+  __shared__ __align__(16) float gate[kGroup];
+  __shared__ __align__(16) float qsv[kGroup];
+  __shared__ int len[kGroup];
+  const Ring ring{align1024(smem_raw), full, empty, ring_n};
+  const Geometry geo = make_geometry<Kind>(row_bytes);
+  const int part = blockIdx.x / groups;
+  const int q0 = blockIdx.x % groups * kGroup;
+  const int tiles = (n + kTileRows - 1) / kTileRows;
+  ring_init(ring);
+  for (int i = threadIdx.x; i < kGroup; i += kThreads) {
+    const int qq = q0 + i;
+    gate[i] = qq < b ? theta0[qq] : INFINITY;
+    qsv[i] = kEpi == kScaleQs && qq < b ? qs2[qq] : 0.0f;
+    len[i] = 0;
+  }
+  __syncthreads();
+  if (threadIdx.x >= kConsumers) {
+    producer_regs();
+    if (threadIdx.x < kConsumers + 32) {
+      produce<Kind, kTma>(maps, Loads{x, q, n, b}, geo, ring, q0, part,
+                          tiles, parts);
+    }
+  } else {
+    consumer_regs();
+    consume_all<Kind, kEpi>(geo, ring, aux, mask, n, b, k, offset, part,
+                            parts, tiles, q0, cap, gate, qsv, len, cand_v,
+                            cand_i, cand_n);
+  }
+}
+
+__global__ void __launch_bounds__(kMergeThreads) fused_topk_merge(
     const float* __restrict__ cand_v, const int* __restrict__ cand_i,
-    const int* __restrict__ cand_n, int nchunks, int cap, int b, int k,
+    const int* __restrict__ cand_n, int nparts, int cap, int b, int k,
     float* __restrict__ merge_v, int* __restrict__ merge_i,
     float* __restrict__ out_v, int* __restrict__ out_i) {
   const int lane = threadIdx.x & 31;
-  const int qq = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int qq = blockIdx.x * kMergeWarps + (threadIdx.x >> 5);
   if (qq >= b) return;  // whole warp
-  float* gv = merge_v + (size_t)qq * nchunks * k;
-  int* gi = merge_i + (size_t)qq * nchunks * k;
+  float* gv = merge_v + (size_t)qq * nparts * k;
+  int* gi = merge_i + (size_t)qq * nparts * k;
   int n = 0;
-  for (int c = 0; c < nchunks; ++c) {
+  for (int c = 0; c < nparts; ++c) {
     const int L = cand_n[(size_t)c * b + qq];
     const size_t list = ((size_t)c * b + qq) * cap;
     for (int e = lane; e < L; e += 32) {
@@ -252,74 +323,57 @@ __global__ void __launch_bounds__(kThreads) fused_topk_merge(
 
 using namespace vrod;
 
-// Chunking for n rows, b queries, top-k: out = {nchunks, chunk_rows, cap}.
-// About four local blocks per SM (two fit at once), whole row tiles per
-// chunk, and a list capacity of k plus one sub-chunk of new candidates.
-extern "C" int vrod_fused_topk_plan(int n, int b, int k, int* out) {
-  int dev = 0;
-  int sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  const int qtiles = (b + kQT - 1) / kQT;
-  const int target = std::max(1, 4 * sms / qtiles);
-  int nchunks = std::min(target, std::max(1, (n + kSub - 1) / kSub));
-  int chunk_rows = (n + nchunks - 1) / nchunks;
-  chunk_rows = std::max(kTR, (chunk_rows + kTR - 1) / kTR * kTR);
-  nchunks = std::max(1, (n + chunk_rows - 1) / chunk_rows);
-  out[0] = nchunks;
-  out[1] = chunk_rows;
-  out[2] = k + kSub;
-  return 0;
-}
-
 struct LaunchTopk {
-  template <class Kind, int kEpi, bool kVec>
+  template <class Kind, int kEpi, bool kTma>
   static int run(const void* x, const void* aux, const void* mask,
                  const void* q, const void* qs2, int row_bytes,
-                 const void* theta0, int n, int b, int k,
-                 int offset, int nchunks, int chunk_rows, int cap,
-                 void* cand_v, void* cand_i, void* cand_n, void* merge_v,
-                 void* merge_i, void* out_v, void* out_i, cudaStream_t s) {
-    const int smem = (int)(sizeof(float) * kQT * kScSt);
+                 const void* theta0, int n, int b, int k, int offset,
+                 int groups, int parts, int ring_n, int cap, void* cand_v,
+                 void* cand_i, void* cand_n, void* merge_v, void* merge_i,
+                 void* out_v, void* out_i, cudaStream_t s) {
+    if (ring_n < 2 || ring_n > kMaxRing) return (int)cudaErrorInvalidValue;
+    Maps maps{};
+    if constexpr (kTma) {
+      const int e = make_maps(&maps, Kind::kPacked, x, q, n, b, row_bytes);
+      if (e != 0) return e;
+    }
+    const int smem = 1024 + ring_n * kStageBytes;
+    auto* kern = fused_topk_local<Kind, kEpi, kTma>;
     cudaError_t e = cudaFuncSetAttribute(
-        fused_topk_local<Kind, kEpi, kVec>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    // The query tiles of a chunk are neighbouring blocks (x varies
-    // fastest).
-    fused_topk_local<Kind, kEpi, kVec>
-        <<<dim3((b + kQT - 1) / kQT, nchunks), kThreads, smem, s>>>(
-            static_cast<const int8_t*>(x), static_cast<const int8_t*>(q),
-            static_cast<const float*>(aux), static_cast<const float*>(mask),
-            static_cast<const float*>(qs2), row_bytes,
-            static_cast<const float*>(theta0), n, b, k, offset,
-            chunk_rows, cap, static_cast<float*>(cand_v),
-            static_cast<int*>(cand_i), static_cast<int*>(cand_n));
+    kern<<<groups * parts, kThreads, smem, s>>>(
+        maps, static_cast<const int8_t*>(x), static_cast<const int8_t*>(q),
+        static_cast<const float*>(aux), static_cast<const float*>(mask),
+        static_cast<const float*>(qs2), row_bytes,
+        static_cast<const float*>(theta0), n, b, k, offset, groups, parts,
+        ring_n, cap, static_cast<float*>(cand_v), static_cast<int*>(cand_i),
+        static_cast<int*>(cand_n));
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    fused_topk_merge<<<(b + kWarps - 1) / kWarps, kThreads, 0, s>>>(
+    fused_topk_merge<<<(b + kMergeWarps - 1) / kMergeWarps, kMergeThreads, 0,
+                       s>>>(
         static_cast<const float*>(cand_v), static_cast<const int*>(cand_i),
-        static_cast<const int*>(cand_n), nchunks, cap, b, k,
+        static_cast<const int*>(cand_n), parts, cap, b, k,
         static_cast<float*>(merge_v), static_cast<int*>(merge_i),
         static_cast<float*>(out_v), static_cast<int*>(out_i));
     return (int)cudaGetLastError();
   }
 };
 
-// elem/epi: score.cuh's Elem and Epi codes. row_bytes: bytes per stored
-// row (int4: dim / 2). qs2 (b,) is read by kScaleQs only.
+// elem/epi: score.cuh's Elem and Epi codes; tma: rows and queries load by
+// TMA (row bytes a multiple of 16, 16-byte aligned bases), else the
+// producer warp copies them. row_bytes: bytes per stored row (int4: dim /
+// 2). qs2 (b,) is read by kScaleQs only. groups, parts, ring_n, cap: the
+// plan (ops/cuda_topk.py: topk_plan).
 extern "C" int vrod_fused_topk(
-    int elem, int epi, const void* x, const void* aux, const void* mask,
-    const void* q, const void* qs2, const void* theta0, int n,
-    int row_bytes, int b, int k, int offset, int nchunks, int chunk_rows,
-    int cap, void* cand_v, void* cand_i, void* cand_n, void* merge_v,
-    void* merge_i, void* out_v, void* out_i, void* stream) {
+    int elem, int epi, int tma, const void* x, const void* aux,
+    const void* mask, const void* q, const void* qs2, const void* theta0,
+    int n, int row_bytes, int b, int k, int offset, int groups, int parts,
+    int ring_n, int cap, void* cand_v, void* cand_i, void* cand_n,
+    void* merge_v, void* merge_i, void* out_v, void* out_i, void* stream) {
   return dispatch_leg<LaunchTopk>(
-      elem, epi, vector_units(x, q, row_bytes), x, aux, mask, q, qs2,
-      row_bytes,
-      theta0, n, b, k, offset, nchunks, chunk_rows, cap, cand_v, cand_i,
-      cand_n, merge_v, merge_i, out_v, out_i,
-      static_cast<cudaStream_t>(stream));
+      elem, epi, tma != 0, x, aux, mask, q, qs2, row_bytes, theta0, n, b, k,
+      offset, groups, parts, ring_n, cap, cand_v, cand_i, cand_n, merge_v,
+      merge_i, out_v, out_i, static_cast<cudaStream_t>(stream));
 }

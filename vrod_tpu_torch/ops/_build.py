@@ -90,7 +90,7 @@ def build() -> Path:
                     proc.wait()
         tmp_out = Path(tmp) / out.name
         if not failed:
-            cmd = [nvcc, "-shared", "-o", str(tmp_out), *map(str, objs)]
+            cmd = [nvcc, "-shared", "-o", str(tmp_out), *map(str, objs), "-ldl"]
             res = subprocess.run(cmd, capture_output=True, text=True,
                                  timeout=300)
             log += res.stdout + res.stderr
@@ -112,19 +112,14 @@ def load() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(str(build()))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    ip = ctypes.POINTER(ctypes.c_int)
-    lib.vrod_fused_topk_plan.restype = ci
-    lib.vrod_fused_topk_plan.argtypes = [ci, ci, ci, ip]
-    # (elem, epi, x, aux, mask, q, qs2, theta0, n, row_bytes, b, k, offset,
-    #  nchunks, chunk_rows, cap, 7 scratch/output pointers, stream)
+    # (elem, epi, tma, x, aux, mask, q, qs2, theta0, n, row_bytes, b, k,
+    #  offset, groups, parts, ring, cap, 7 scratch/output pointers, stream)
     lib.vrod_fused_topk.restype = ci
-    lib.vrod_fused_topk.argtypes = [ci] * 2 + [vp] * 6 + [ci] * 8 + [vp] * 8
-    lib.vrod_sampled_submax_plan.restype = ci
-    lib.vrod_sampled_submax_plan.argtypes = [ci, ci, ci, ip]
-    # (elem, epi, x, aux, mask, q, qs2, n, row_bytes, b, blk, spb, part,
-    #  out, stream)
+    lib.vrod_fused_topk.argtypes = [ci] * 3 + [vp] * 6 + [ci] * 9 + [vp] * 8
+    # (elem, epi, tma, x, aux, mask, q, qs2, n, row_bytes, b, blk, spb,
+    #  groups, part, out, stream)
     lib.vrod_sampled_submax.restype = ci
-    lib.vrod_sampled_submax.argtypes = [ci] * 2 + [vp] * 5 + [ci] * 5 \
+    lib.vrod_sampled_submax.argtypes = [ci] * 3 + [vp] * 5 + [ci] * 6 \
         + [vp] * 3
     _lib = lib
     return lib

@@ -13,17 +13,18 @@ wrapper falls back from the kernel to the plain version.
   auto-pipelined ``_fused_call``/``_kernel``, which the CUDA kernel covers:
   it takes any dim). Bound on the H100 by bytes: one search streams every
   stored row, 805 MB of int8 at 1M x 768, with the dots (on the tensor
-  cores) close behind. The design keeps the (B, N) score matrix out of
-  device memory and writes only candidates that beat the running k-th
-  score or the sampled floor; see the source for the parallel-chunk select
-  and merge that replace the TPU's sequential carry.
+  cores) close behind. A persistent grid (``topk_plan``) streams each row
+  tile once per group of 256 queries through a TMA ring into wgmma, gates
+  every score in its register against max(theta0, the query's running
+  k-th), and writes only the candidates that pass; see the source for the
+  exact select and merge that replace the TPU's sequential carry.
 - ``sampled_submax`` (K3, ``csrc/sampled_submax.cu``) replaces
   ``pallas_topk.sampled_submax`` -> ``_submax_kernel``. It scores a prefix
-  sample with K1's scoring code (bit-identical scores, which the floor's
+  sample with K1's scoring core (bit-identical scores, which the floor's
   soundness needs) and emits 128 strided group maxima per row block. The
   sample is small (25 MB at the int8 headline), so parallelism bounds it:
-  the kernel splits each row block into segments so the grid fills the
-  card.
+  ``submax_plan`` splits each row block into segments so the grid fills
+  the card.
 
 Scores, in both (``csrc/score.cuh``), with mask 0 on live slots and -inf on
 dead ones and every float op rounded once:
@@ -66,6 +67,16 @@ LEG_METRICS = ("cosine", "dot", "l2")
 LEGS = tuple(f"{d}-{m}" for d in LEG_DTYPES for m in LEG_METRICS)
 _ELEM = {"int8": 0, "int4": 1, "bf16": 2, "f32": 3}
 _EPI_SCALE, _EPI_SCALE_QS, _EPI_L2, _EPI_DOT = range(4)
+
+# The kernels' geometry (csrc/score.cuh): rows per tile, queries per block
+# (the wgmma N side); K1 cuts its candidate lists every CUT_TILES tiles
+# (csrc/fused_topk.cu: kCutTiles), so a list holds one tile more than that.
+TILE_ROWS = 128
+GROUP_QUERIES = 256
+CUT_TILES = 4
+LIST_SLACK_TILES = CUT_TILES + 1
+# Stages of K1's TMA ring (2-4; 4 measured fastest on the H100, PERF.md).
+K1_RING = 4
 
 launches = {f"{kern}[{leg}]": 0 for kern in ("fused_topk", "sampled_submax")
             for leg in LEGS}
@@ -150,8 +161,14 @@ class _Call:
         self.packed = packed
         self.x, self.aux = x, aux
         # The query as the kernel reads it: bfloat16 rows take it rounded
-        # to bfloat16 (the Pallas kernel's q.astype(x.dtype)).
-        self.q = q if self.quant else q.to(x.dtype).contiguous()
+        # to bfloat16 (the Pallas kernel's q.astype(x.dtype)), float32 rows
+        # rounded to TF32 (the tensor cores would truncate it).
+        if self.quant:
+            self.q = q
+        elif x.dtype == torch.float32:
+            self.q = tf32_round(q)
+        else:
+            self.q = q.to(x.dtype).contiguous()
         # The additive mask stream: -inf on dead slots, else row_bias (0
         # everywhere but int8/int4 + l2's -|x_hat|^2).
         mask = torch.zeros_like(aux) if row_bias is None \
@@ -191,7 +208,9 @@ class _Call:
 
     def launch_args(self):
         qs2 = self.qs2.data_ptr() if self.qs2 is not None else None
-        return (self.elem, self.epi, self.x.data_ptr(),
+        return (self.elem, self.epi,
+                int(use_tma(self.x, self.q, self.row_bytes)),
+                self.x.data_ptr(),
                 self.aux.data_ptr(), self.mask.data_ptr(), self.q.data_ptr(),
                 qs2)
 
@@ -285,6 +304,55 @@ def _stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def topk_plan(n: int, b: int, k: int, sms: int) -> tuple[int, int, int]:
+    """K1's persistent grid for n rows, b queries, top-k on ``sms`` SMs:
+    (groups, parts, cap). Block (part p, group g) scores query group g
+    (queries [256 g, 256 g + 256)) against row tiles p, p + parts, ... (128
+    rows each; ``part_tiles``), about one block per SM; cap is the capacity
+    of a (part, query) candidate list: k plus the slack of the tiles between
+    two cuts and one more."""
+    groups = _cdiv(b, GROUP_QUERIES)
+    parts = max(1, min(_cdiv(n, TILE_ROWS), sms // groups))
+    return groups, parts, k + LIST_SLACK_TILES * TILE_ROWS
+
+
+def part_tiles(part: int, parts: int, n: int) -> range:
+    """The row tiles that K1's blocks of one part walk, in order."""
+    return range(part, _cdiv(n, TILE_ROWS), parts)
+
+
+def submax_plan(n: int, b: int, block_rows: int, sms: int
+                ) -> tuple[int, int]:
+    """K3's grid for an n-row sample in blocks of ``block_rows`` (a
+    multiple of 128) on ``sms`` SMs: (groups, spb). Each row block splits
+    into spb segments of whole 128-row tiles, spb a power of two dividing
+    block_rows / 128, the largest that keeps the grid (blocks x spb x
+    groups) within about one block per SM."""
+    groups = _cdiv(b, GROUP_QUERIES)
+    target = max(1, sms // ((n // block_rows) * groups))
+    spb = 1
+    while spb * 2 <= target and (block_rows // TILE_ROWS) % (spb * 2) == 0:
+        spb *= 2
+    return groups, spb
+
+
+def use_tma(x: torch.Tensor, q: torch.Tensor, row_bytes: int) -> bool:
+    """Whether the kernels load rows and queries by TMA: whole 16-byte
+    units per row and 16-byte aligned bases. Other shapes (int8 dim 30,
+    packed int4 dim 30) take the same kernels with the producer warp
+    copying each stage."""
+    return row_bytes % 16 == 0 and x.data_ptr() % 16 == 0 \
+        and q.data_ptr() % 16 == 0
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 # -- K1 ------------------------------------------------------------------
 
 
@@ -339,25 +407,20 @@ def fused_topk(x, aux, valid, q, *, k, metric, index_offset=0,
         return out_v, out_i
     t0 = _theta(theta0, b, dev)
     lib = _build.load()
+    groups, parts, cap = topk_plan(n, b, k, _sms(dev))
     with torch.cuda.device(dev):
-        plan = (ctypes.c_int * 3)()
-        _ok(lib.vrod_fused_topk_plan(n, b, k, plan), "fused_topk plan")
-        nchunks, chunk_rows, cap = plan
-        cand_v = torch.empty(nchunks * b * cap, dtype=torch.float32,
+        cand_v = torch.empty(parts * b * cap, dtype=torch.float32,
                              device=dev)
-        cand_i = torch.empty(nchunks * b * cap, dtype=torch.int32,
-                             device=dev)
-        cand_n = torch.empty(nchunks * b, dtype=torch.int32, device=dev)
-        merge_v = torch.empty(b * nchunks * k, dtype=torch.float32,
-                              device=dev)
-        merge_i = torch.empty(b * nchunks * k, dtype=torch.int32,
-                              device=dev)
+        cand_i = torch.empty(parts * b * cap, dtype=torch.int32, device=dev)
+        cand_n = torch.empty(parts * b, dtype=torch.int32, device=dev)
+        merge_v = torch.empty(b * parts * k, dtype=torch.float32, device=dev)
+        merge_i = torch.empty(b * parts * k, dtype=torch.int32, device=dev)
         rc = lib.vrod_fused_topk(
             *call.launch_args(), t0.data_ptr(), n, call.row_bytes, b, k,
-            int(index_offset), nchunks, chunk_rows, cap, cand_v.data_ptr(),
-            cand_i.data_ptr(), cand_n.data_ptr(), merge_v.data_ptr(),
-            merge_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-            _stream(dev))
+            int(index_offset), groups, parts, K1_RING, cap,
+            cand_v.data_ptr(), cand_i.data_ptr(), cand_n.data_ptr(),
+            merge_v.data_ptr(), merge_i.data_ptr(), out_v.data_ptr(),
+            out_i.data_ptr(), _stream(dev))
     _ok(rc, "fused_topk launch")
     launches[f"fused_topk[{call.leg}]"] += 1
     return out_v, out_i
@@ -403,16 +466,13 @@ def sampled_submax(x, aux, valid, q, *, metric, block_rows, row_bias=None,
     width = 128 * (n // block_rows)
     out = torch.empty((b, width), dtype=torch.float32, device=dev)
     lib = _build.load()
+    groups, spb = submax_plan(n, b, block_rows, _sms(dev))
     with torch.cuda.device(dev):
-        spb = ctypes.c_int(0)
-        _ok(lib.vrod_sampled_submax_plan(n, b, block_rows,
-                                         ctypes.byref(spb)),
-            "sampled_submax plan")
-        part = torch.empty(spb.value * b * width if spb.value > 1 else 1,
+        part = torch.empty(spb * b * width if spb > 1 else 1,
                            dtype=torch.float32, device=dev)
         rc = lib.vrod_sampled_submax(
-            *call.launch_args(), n, call.row_bytes, b, block_rows, spb.value,
-            part.data_ptr(), out.data_ptr(), _stream(dev))
+            *call.launch_args(), n, call.row_bytes, b, block_rows, spb,
+            groups, part.data_ptr(), out.data_ptr(), _stream(dev))
     _ok(rc, "sampled_submax launch")
     launches[f"sampled_submax[{call.leg}]"] += 1
     return out

@@ -32,9 +32,9 @@
 //   2. fused_topk_merge: one warp per query gathers the part lists, cuts
 //      them to k, and ranks the survivors by (value desc, slot asc).
 // The select is exact and independent of scheduling: the k-th key is found
-// by radix lifting over order-isomorphic int32 keys (the method of
-// distances.kth_largest_count), and ties at the k-th value are broken by
-// the m-th smallest slot, found the same way. The result is the top-k of
+// by a radix select over order-isomorphic 32-bit keys, a byte at a time
+// (the method of distances.kth_largest_count), and ties at the k-th value
+// are broken by the m-th smallest slot, found the same way. The result is the top-k of
 // {slots with score > theta0} in (value desc, slot asc) order, with
 // (-inf, -1) on empty ranks: the Pallas kernel's contract.
 
@@ -63,45 +63,101 @@ __device__ __forceinline__ float key_float(int key) {
   return __int_as_float(key ^ ((key >> 31) & 0x7fffffff));
 }
 
-__device__ int warp_count_ge(const float* v, int n, int key) {
-  int c = 0;
-  for (int e = threadIdx.x & 31; e < n; e += 32) c += float_key(v[e]) >= key;
-  return __reduce_add_sync(kFull, c);
+// The unsigned order key of a float: unsigned order is value order.
+__device__ __forceinline__ unsigned ukey(float f) {
+  return (unsigned)float_key(f) ^ 0x80000000u;
 }
 
-__device__ int warp_count_gt(const float* v, int n, int key) {
-  int c = 0;
-  for (int e = threadIdx.x & 31; e < n; e += 32) c += float_key(v[e]) > key;
-  return __reduce_add_sync(kFull, c);
-}
-
-__device__ int warp_count_tie_le(const float* v, const int* ix, int n,
-                                 int key, int bound) {
-  int c = 0;
-  for (int e = threadIdx.x & 31; e < n; e += 32) {
-    c += float_key(v[e]) == key && ix[e] <= bound;
+// From a warp's histogram of one 8-bit digit, the digit at which a count
+// taken in scan order (from digit 255 down when desc, else from 0 up)
+// first reaches `need`, and in `before` the count of the digits scanned
+// ahead of it. Lane l holds the scan positions 8l..8l+7.
+__device__ int hist_pick(const unsigned* hist, int need, bool desc,
+                         int& before) {
+  const int lane = threadIdx.x & 31;
+  int c[8], sum = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int pos = 8 * lane + i;
+    c[i] = (int)hist[desc ? 255 - pos : pos];
+    sum += c[i];
   }
-  return __reduce_add_sync(kFull, c);
+  int incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += t;
+  }
+  const int excl = incl - sum;
+  const int src = __ffs(__ballot_sync(kFull, excl < need && need <= incl))
+                  - 1;
+  int pos = -1, run = 0, upto = excl;  // valid in lane src
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if (pos < 0 && upto + c[i] >= need) {
+      pos = i;
+      run = upto;
+    }
+    upto += c[i];
+  }
+  pos = __shfl_sync(kFull, 8 * lane + pos, src);
+  before = __shfl_sync(kFull, run, src);
+  return desc ? 255 - pos : pos;
+}
+
+// The key of the need-th (1-based) of the elements e in [0, n) that in(e)
+// admits, ordered by their 32-bit keys key(e), largest first when desc,
+// else smallest first: a radix select in four passes of one 8-bit digit.
+// `need` ends as that element's rank among the elements whose key equals
+// the result, and `equal` as their count.
+template <class Key, class In>
+__device__ unsigned radix_select(unsigned* hist, int n, int& need, bool desc,
+                                 int& equal, Key key, In in) {
+  const int lane = threadIdx.x & 31;
+  unsigned prefix = 0, pmask = 0;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    for (int i = lane; i < 256; i += 32) hist[i] = 0;
+    __syncwarp();
+    for (int e = lane; e < n; e += 32) {
+      const unsigned u = key(e);
+      if ((u & pmask) == prefix && in(e)) {
+        atomicAdd(&hist[(u >> shift) & 255], 1u);
+      }
+    }
+    __syncwarp();
+    int before;
+    const int d = hist_pick(hist, need, desc, before);
+    need -= before;
+    prefix |= (unsigned)d << shift;
+    pmask |= 255u << shift;
+    equal = (int)hist[d];
+    __syncwarp();
+  }
+  return prefix;
 }
 
 // Keep the k best of (v, ix)[0, n), n >= k, by (value desc, index asc),
 // compacted in place into [0, k) in no particular order. Indices must be
 // distinct and non-negative. Returns the key of the k-th best value. Called
-// by a whole warp with warp-uniform arguments.
-__device__ int warp_select(float* v, int* ix, int n, int k) {
+// by a whole warp with warp-uniform arguments; hist is the warp's 256
+// counters in shared memory. The k-th value is found by an 8-bit radix
+// select over order-isomorphic keys (the method of
+// distances.kth_largest_count, a byte at a time), and the ties to keep at
+// it, m of them, by a radix select of the m-th smallest index among them.
+__device__ int warp_select(float* v, int* ix, int n, int k, unsigned* hist) {
   __syncwarp();
-  int kth = warp_count_ge(v, n, 0) >= k ? 0 : INT_MIN;
-  for (int i = 30; i >= 0; --i) {
-    const int cand = kth + (1 << i);
-    if (warp_count_ge(v, n, cand) >= k) kth = cand;
+  int m = k, ties = 0;
+  const unsigned kth = radix_select(
+      hist, n, m, true, ties, [&](int e) { return ukey(v[e]); },
+      [](int) { return true; });
+  // m ties at kth to keep, the lowest indices first: all when they fit.
+  unsigned lim = 0x7fffffffu;
+  if (m < ties) {
+    int unused;
+    lim = radix_select(
+        hist, n, m, false, unused, [&](int e) { return (unsigned)ix[e]; },
+        [&](int e) { return ukey(v[e]) == kth; });
   }
-  const int m = k - warp_count_gt(v, n, kth);  // ties to keep, >= 1
-  int lim = -1;  // largest bound with fewer than m ties at or below it
-  for (int i = 30; i >= 0; --i) {
-    const int cand = lim + (1 << i);
-    if (warp_count_tie_le(v, ix, n, kth, cand) < m) lim = cand;
-  }
-  lim += 1;  // the m-th smallest index among the ties
   int w = 0;
   for (int base = 0; base < n; base += 32) {
     const int e = base + (threadIdx.x & 31);
@@ -111,8 +167,8 @@ __device__ int warp_select(float* v, int* ix, int n, int k) {
     if (e < n) {
       val = v[e];
       id = ix[e];
-      const int kk = float_key(val);
-      keep = kk > kth || (kk == kth && id <= lim);
+      const unsigned u = ukey(val);
+      keep = u > kth || (u == kth && (unsigned)id <= lim);
     }
     const unsigned msk = __ballot_sync(kFull, keep);
     __syncwarp();  // every lane has read its element before any write
@@ -124,20 +180,21 @@ __device__ int warp_select(float* v, int* ix, int n, int k) {
     w += __popc(msk);
     __syncwarp();
   }
-  return kth;
+  return (int)(kth ^ 0x80000000u);
 }
 
 // The consumer warps cut every list of the group longer than `limit` (>=
 // k) to its k best and raise its query's gate to the new k-th value.
 __device__ void cut_lists(float* cand_v, int* cand_i, int* len, float* gate,
-                          size_t list0, int q0, int b, int k, int cap,
-                          int limit) {
+                          unsigned* hist, size_t list0, int q0, int b, int k,
+                          int cap, int limit) {
   for (int ql = threadIdx.x >> 5; ql < kGroup && q0 + ql < b;
        ql += kConsumers / 32) {
     const int n = len[ql];
     if (n <= limit) continue;  // warp-uniform
     const size_t list = list0 + (size_t)ql * cap;
-    const int kth = warp_select(cand_v + list, cand_i + list, n, k);
+    const int kth = warp_select(cand_v + list, cand_i + list, n, k,
+                                hist + (threadIdx.x >> 5) * 256);
     if ((threadIdx.x & 31) == 0) {
       len[ql] = k;
       gate[ql] = fmaxf(gate[ql], key_float(kth));
@@ -194,7 +251,7 @@ __device__ __forceinline__ void consume_all(
     const Geometry& geo, const Ring& ring, const float* __restrict__ aux,
     const float* __restrict__ mask, int n, int b, int k, int offset,
     int part, int parts, int tiles, int q0, int cap, float* gate,
-    const float* qsv, int* len, float* __restrict__ cand_v,
+    const float* qsv, int* len, unsigned* hist, float* __restrict__ cand_v,
     int* __restrict__ cand_i, int* __restrict__ cand_n) {
   using Acc = typename Kind::Acc;
   const size_t list0 = ((size_t)part * b + q0) * cap;
@@ -217,13 +274,13 @@ __device__ __forceinline__ void consume_all(
     if (++since_cut == kCutTiles) {
       since_cut = 0;
       consumer_sync();  // the tiles' candidates and lengths are in
-      cut_lists(cand_v, cand_i, len, gate, list0, q0, b, k, cap,
+      cut_lists(cand_v, cand_i, len, gate, hist, list0, q0, b, k, cap,
                 cap - kCutTiles * kTileRows);
       consumer_sync();  // gates and lengths are read again
     }
   }
   consumer_sync();
-  cut_lists(cand_v, cand_i, len, gate, list0, q0, b, k, cap, k);
+  cut_lists(cand_v, cand_i, len, gate, hist, list0, q0, b, k, cap, k);
   consumer_sync();
   for (int i = threadIdx.x; i < kGroup && q0 + i < b; i += kConsumers) {
     cand_n[(size_t)part * b + q0 + i] = len[i];
@@ -246,6 +303,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_topk_local(
   __shared__ __align__(16) float gate[kGroup];
   __shared__ __align__(16) float qsv[kGroup];
   __shared__ int len[kGroup];
+  __shared__ unsigned hist[kConsumers / 32 * 256];  // a select's, per warp
   const Ring ring{align1024(smem_raw), full, empty, ring_n};
   const Geometry geo = make_geometry<Kind>(row_bytes);
   const int part = blockIdx.x / groups;
@@ -268,8 +326,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_topk_local(
   } else {
     consumer_regs();
     consume_all<Kind, kEpi>(geo, ring, aux, mask, n, b, k, offset, part,
-                            parts, tiles, q0, cap, gate, qsv, len, cand_v,
-                            cand_i, cand_n);
+                            parts, tiles, q0, cap, gate, qsv, len, hist,
+                            cand_v, cand_i, cand_n);
   }
 }
 
@@ -278,6 +336,7 @@ __global__ void __launch_bounds__(kMergeThreads) fused_topk_merge(
     const int* __restrict__ cand_n, int nparts, int cap, int b, int k,
     float* __restrict__ merge_v, int* __restrict__ merge_i,
     float* __restrict__ out_v, int* __restrict__ out_i) {
+  __shared__ unsigned hist[kMergeWarps * 256];
   const int lane = threadIdx.x & 31;
   const int qq = blockIdx.x * kMergeWarps + (threadIdx.x >> 5);
   if (qq >= b) return;  // whole warp
@@ -294,7 +353,7 @@ __global__ void __launch_bounds__(kMergeThreads) fused_topk_merge(
     n += L;
   }
   if (n > k) {
-    warp_select(gv, gi, n, k);
+    warp_select(gv, gi, n, k, hist + (threadIdx.x >> 5) * 256);
     n = k;
   }
   __syncwarp();

@@ -15,6 +15,8 @@ events after a warm-up, K1 (``fused_topk``) and K3 (``sampled_submax``) on
 exactly the inputs a search gives them (mean of 20 launches), and
 ``engine.search`` (host clock, median of 20 batches of 256 queries).
 
+At the main path's shapes it also times K1 without the floor (theta0
+None), as a search whose floor gate is closed runs it.
 ``--ring 2,3,4``: trees whose ``cuda_topk`` has ``K1_RING`` also time the
 main path's K1 at each ring depth, in turns (2, 3, 4, 4, 3, 2).
 ``--profile``: a torch.profiler trace of 10 main-path ``engine.search``
@@ -130,6 +132,7 @@ def profile_search(eng, queries, top_k, p50_ms):
     the idle share is taken against the unprofiled search p50 (tracing
     slows the host)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for qb in queries[:3]:
         eng.search(qb, top_k)
@@ -142,6 +145,9 @@ def profile_search(eng, queries, top_k, p50_ms):
         torch.cuda.synchronize()
     rows = []
     for ev in prof.key_averages():
+        # Kernels only: an aten op's entry repeats its kernels' time.
+        if ev.device_type != DeviceType.CUDA:
+            continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0)
@@ -193,6 +199,10 @@ def run_tree(tree: str, rings, profile: bool, library: bool) -> list[dict]:
                "block_rows": blk,
                "k1_ms": events_ms(lambda: K.fused_topk(*a1, **kw1)),
                "k3_ms": events_ms(lambda: K.sampled_submax(*a3, **kw3))}
+        if name == "main path":  # K1 as a search with the floor closed
+            kw0 = dict(kw1, theta0=None)
+            rec["k1_nofloor_ms"] = events_ms(
+                lambda: K.fused_topk(*a1, **kw0), iters=5)
         if rings and name == "main path" and hasattr(K, "K1_RING"):
             keep = K.K1_RING
             for r in list(rings) + list(reversed(rings)):

@@ -31,9 +31,11 @@ def test_topk_plan_covers_every_slot_once(n, b, sms):
     groups, parts, cap = K.topk_plan(n, b, 28, sms)
     assert groups * K.GROUP_QUERIES >= b > (groups - 1) * K.GROUP_QUERIES
     assert 1 <= parts and groups * parts <= max(sms, groups)
-    # A list cut to k still takes every candidate of the tiles until the
-    # next cut.
-    assert cap - K.CUT_TILES * K.TILE_ROWS > 28
+    # The kernel cuts every (cap - k) / 128 - 1 tiles, and a list cut to k
+    # still takes every candidate of the tiles until the next cut.
+    cut_every = (cap - 28) // K.TILE_ROWS - 1
+    assert cut_every == K.CUT_TILES
+    assert cap - cut_every * K.TILE_ROWS > 28
     hits = torch.zeros(n, dtype=torch.int32)
     for p in range(parts):
         tiles = list(K.part_tiles(p, parts, n))

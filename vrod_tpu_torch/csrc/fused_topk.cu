@@ -24,9 +24,9 @@
 //   1. fused_topk_local: block (part p, query group) walks row tiles p,
 //      p + parts, ... in ascending order and keeps, per query, an unordered
 //      candidate list in global scratch of capacity cap = k + 5 tiles.
-//      Every kCutTiles = 4 tiles, a list longer than cap - 4 tiles (the
-//      most the next four can add) is cut back to exactly k by a counting
-//      select, and its k-th value joins the query's gate. Rows come in
+//      Every 4 tiles, a list longer than cap - 4 tiles (the most the next
+//      four can add) is cut back to exactly k by an exact select, and its
+//      k-th value joins the query's gate. Rows come in
 //      ascending slot order, so a later score equal to the gate loses its
 //      tie anyway.
 //   2. fused_topk_merge: one warp per query gathers the part lists, cuts
@@ -46,12 +46,7 @@
 namespace vrod {
 namespace {
 
-// Tiles between list cuts. A list holds cap = k + (kCutTiles + 1) tiles
-// of candidates (ops/cuda_topk.py: LIST_SLACK_TILES): at a cut, lists
-// longer than cap - kCutTiles * kTileRows are cut back to k, so the next
-// kCutTiles tiles (at most 128 candidates each) always fit.
-constexpr int kCutTiles = 4;
-constexpr int kMergeThreads = 256;
+constexpr int kMergeThreads = 64;  // two queries a block: b / 2 blocks
 constexpr int kMergeWarps = kMergeThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -244,8 +239,11 @@ __device__ __forceinline__ void gate_tile(
 }
 
 // The consumer warpgroups of K1: per row tile, the dots and the gate;
-// every kCutTiles tiles (and at the end) the list cuts, the only points
-// where the two warpgroups wait for each other.
+// every cut_every tiles (and at the end) the list cuts, the only points
+// where the two warpgroups wait for each other. A list holds cap = k +
+// (cut_every + 1) tiles of candidates (ops/cuda_topk.py: topk_plan): at a
+// cut, lists longer than cap - cut_every tiles are cut back to k, so the
+// next cut_every tiles (at most 128 candidates each) always fit.
 template <class Kind, int kEpi>
 __device__ __forceinline__ void consume_all(
     const Geometry& geo, const Ring& ring, const float* __restrict__ aux,
@@ -256,6 +254,7 @@ __device__ __forceinline__ void consume_all(
   using Acc = typename Kind::Acc;
   const size_t list0 = ((size_t)part * b + q0) * cap;
   Acc acc[kAcc];
+  const int cut_every = (cap - k) / kTileRows - 1;
   int stage = 0, phase = 0, since_cut = 0;
   for (int t = part; t < tiles; t += parts) {
     // The rows' aux and mask, loaded before the dots so they have arrived
@@ -271,11 +270,11 @@ __device__ __forceinline__ void consume_all(
     consume_tile<Kind>(acc, geo, ring, stage, phase);
     gate_tile<Kind, kEpi>(acc, aux_r, mask_r, row0, offset, cand_v + list0,
                           cand_i + list0, cap, gate, qsv, len);
-    if (++since_cut == kCutTiles) {
+    if (++since_cut == cut_every) {
       since_cut = 0;
       consumer_sync();  // the tiles' candidates and lengths are in
       cut_lists(cand_v, cand_i, len, gate, hist, list0, q0, b, k, cap,
-                cap - kCutTiles * kTileRows);
+                cap - cut_every * kTileRows);
       consumer_sync();  // gates and lengths are read again
     }
   }
@@ -342,16 +341,26 @@ __global__ void __launch_bounds__(kMergeThreads) fused_topk_merge(
   if (qq >= b) return;  // whole warp
   float* gv = merge_v + (size_t)qq * nparts * k;
   int* gi = merge_i + (size_t)qq * nparts * k;
+  // Gather the part lists: each lane takes every 32nd part, and a warp
+  // scan of their lengths places them, so the parts' latencies overlap.
   int n = 0;
-  for (int c = 0; c < nparts; ++c) {
-    const int L = cand_n[(size_t)c * b + qq];
-    const size_t list = ((size_t)c * b + qq) * cap;
-    for (int e = lane; e < L; e += 32) {
-      gv[n + e] = cand_v[list + e];
-      gi[n + e] = cand_i[list + e];
+  for (int c0 = 0; c0 < nparts; c0 += 32) {
+    const int c = c0 + lane;
+    const int L = c < nparts ? cand_n[(size_t)c * b + qq] : 0;
+    int incl = L;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += t;
     }
-    n += L;
+    const size_t list = ((size_t)c * b + qq) * cap;
+    for (int e = 0; e < L; ++e) {
+      gv[n + incl - L + e] = cand_v[list + e];
+      gi[n + incl - L + e] = cand_i[list + e];
+    }
+    n += __shfl_sync(kFull, incl, 31);
   }
+  __syncwarp();
   if (n > k) {
     warp_select(gv, gi, n, k, hist + (threadIdx.x >> 5) * 256);
     n = k;

@@ -90,7 +90,8 @@ def build() -> Path:
                     proc.wait()
         tmp_out = Path(tmp) / out.name
         if not failed:
-            cmd = [nvcc, "-shared", "-o", str(tmp_out), *map(str, objs), "-ldl"]
+            cmd = [nvcc, "-shared", "-o", str(tmp_out), *map(str, objs),
+                   "-ldl"]
             res = subprocess.run(cmd, capture_output=True, text=True,
                                  timeout=300)
             log += res.stdout + res.stderr

@@ -69,13 +69,13 @@ _ELEM = {"int8": 0, "int4": 1, "bf16": 2, "f32": 3}
 _EPI_SCALE, _EPI_SCALE_QS, _EPI_L2, _EPI_DOT = range(4)
 
 # The kernels' geometry (csrc/score.cuh): rows per tile, queries per block
-# (the wgmma N side); K1 cuts its candidate lists every CUT_TILES tiles
-# (csrc/fused_topk.cu: kCutTiles), so a list holds one tile more than that.
+# (the wgmma N side). K1 cuts its candidate lists every CUT_TILES tiles,
+# so a list holds one tile more than that (the kernel derives the interval
+# from the capacity).
 TILE_ROWS = 128
 GROUP_QUERIES = 256
 CUT_TILES = 4
-LIST_SLACK_TILES = CUT_TILES + 1
-# Stages of K1's TMA ring (2-4; 4 measured fastest on the H100, PERF.md).
+# Stages of K1's TMA ring (2-4; 4 and 3 measured level, 2 slower: PERF.md).
 K1_RING = 4
 
 launches = {f"{kern}[{leg}]": 0 for kern in ("fused_topk", "sampled_submax")
@@ -317,7 +317,7 @@ def topk_plan(n: int, b: int, k: int, sms: int) -> tuple[int, int, int]:
     two cuts and one more."""
     groups = _cdiv(b, GROUP_QUERIES)
     parts = max(1, min(_cdiv(n, TILE_ROWS), sms // groups))
-    return groups, parts, k + LIST_SLACK_TILES * TILE_ROWS
+    return groups, parts, k + (CUT_TILES + 1) * TILE_ROWS
 
 
 def part_tiles(part: int, parts: int, n: int) -> range:
@@ -382,7 +382,8 @@ def fused_topk_plain(x, aux, valid, q, *, k, metric, index_offset=0,
 
 
 def fused_topk(x, aux, valid, q, *, k, metric, index_offset=0,
-               theta0=None, row_bias=None, q_scale=None, packed=False):
+               theta0=None, row_bias=None, q_scale=None, packed=False,
+               ring=K1_RING):
     """Exact top-k of query q (B, D) against rows x (N, D), or (N, D/2)
     packed int4 bytes with ``packed``: the contract of
     ``pallas_topk.fused_topk``.
@@ -391,13 +392,16 @@ def fused_topk(x, aux, valid, q, *, k, metric, index_offset=0,
     candidates at or below it are skipped, which keeps results exact.
     ``index_offset`` shifts the returned slots. int8/int4 + l2 needs
     ``row_bias`` (N,) = -|x_hat|^2 and ``q_scale``, the query's int8
-    quantization scale."""
+    quantization scale. ``ring``: stages of the kernel's TMA ring (2-4),
+    for the ring-depth A/B (``tools/kernel_ab.py --ring``)."""
     call = _Call(x, aux, valid, q, metric, row_bias, q_scale, packed)
     n, b = call.n, call.b
     if k < 1:
         raise ValueError("k must be >= 1")
     if index_offset < 0 or index_offset + n >= 2 ** 31:
         raise ValueError(f"index_offset {index_offset} out of range")
+    if ring not in (2, 3, 4):
+        raise ValueError(f"ring {ring}: the TMA ring takes 2-4 stages")
     if call.device.type == "cpu":
         return _topk_plain(call, k, index_offset, theta0)
     dev = call.device
@@ -417,7 +421,7 @@ def fused_topk(x, aux, valid, q, *, k, metric, index_offset=0,
         merge_i = torch.empty(b * parts * k, dtype=torch.int32, device=dev)
         rc = lib.vrod_fused_topk(
             *call.launch_args(), t0.data_ptr(), n, call.row_bytes, b, k,
-            int(index_offset), groups, parts, K1_RING, cap,
+            int(index_offset), groups, parts, ring, cap,
             cand_v.data_ptr(), cand_i.data_ptr(), cand_n.data_ptr(),
             merge_v.data_ptr(), merge_i.data_ptr(), out_v.data_ptr(),
             out_i.data_ptr(), _stream(dev))

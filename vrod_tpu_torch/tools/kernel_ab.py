@@ -17,8 +17,9 @@ exactly the inputs a search gives them (mean of 20 launches), and
 
 At the main path's shapes it also times K1 without the floor (theta0
 None), as a search whose floor gate is closed runs it.
-``--ring 2,3,4``: trees whose ``cuda_topk`` has ``K1_RING`` also time the
-main path's K1 at each ring depth, in turns (2, 3, 4, 4, 3, 2).
+``--ring 2,3,4``: trees whose ``cuda_topk.fused_topk`` takes ``ring``
+also time the main path's K1 at each ring depth, in turns (2, 3, 4, 4, 3,
+2).
 ``--profile``: a torch.profiler trace of 10 main-path ``engine.search``
 calls, summed by kernel (device time per search, and the device's idle
 share of the unprofiled search p50).
@@ -204,12 +205,10 @@ def run_tree(tree: str, rings, profile: bool, library: bool) -> list[dict]:
             rec["k1_nofloor_ms"] = events_ms(
                 lambda: K.fused_topk(*a1, **kw0), iters=5)
         if rings and name == "main path" and hasattr(K, "K1_RING"):
-            keep = K.K1_RING
             for r in list(rings) + list(reversed(rings)):
-                K.K1_RING = r
+                kwr = dict(kw1, ring=r)
                 rec.setdefault("k1_ring_ms", {}).setdefault(str(r), []) \
-                    .append(events_ms(lambda: K.fused_topk(*a1, **kw1)))
-            K.K1_RING = keep
+                    .append(events_ms(lambda: K.fused_topk(*a1, **kwr)))
         if smoke is not None:
             dtype = leg.split("-")[0]
             extra1 = [v for v in kw1.values() if hasattr(v, "numel")]

@@ -268,8 +268,10 @@ __device__ __forceinline__ void consume_all(
       mask_r[h] = gr < n ? mask[gr] : -INFINITY;
     }
     consume_tile<Kind>(acc, geo, ring, stage, phase);
+#ifndef VROD_PROBE_NO_GATE  // tools/kernel_probe.py: where the time goes
     gate_tile<Kind, kEpi>(acc, aux_r, mask_r, row0, offset, cand_v + list0,
                           cand_i + list0, cap, gate, qsv, len);
+#endif
     if (++since_cut == cut_every) {
       since_cut = 0;
       consumer_sync();  // the tiles' candidates and lengths are in

@@ -476,7 +476,9 @@ __device__ __forceinline__ void consume_tile(typename Kind::Acc (&acc)[kAcc],
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
     for (int s = 0; s < kKSteps; ++s) {
+#ifndef VROD_PROBE_NO_MMA  // tools/kernel_probe.py: the ring alone
       Kind::mma(acc, a[s], sw128_desc(qs_a + s * 32), v > 0 || s > 0);
+#endif
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");

@@ -12,7 +12,9 @@ runs in a process of its own, in the order given, so an A/B reads
 seeded random normal rows (no WAL; the capacity is padded with dead slots
 to whole 65,536-row segments, as a collection's is), then times, with CUDA
 events after a warm-up, K1 (``fused_topk``) and K3 (``sampled_submax``) on
-exactly the inputs a search gives them (mean of 20 launches), and
+exactly the inputs a search gives them (mean of 20 launches), their
+device time per call (torch.profiler's CUDA kernel time over 5 calls:
+what the card spends, without the wrapper's host work), and
 ``engine.search`` (host clock, median of 20 batches of 256 queries).
 
 At the main path's shapes it also times K1 without the floor (theta0
@@ -128,6 +130,25 @@ def kernel_inputs(eng, q, k_scan):
     return a1, kw1, a3, kw3, (ns, blk)
 
 
+def device_ms(fn, calls=5) -> float:
+    """CUDA kernel time per call of ``fn`` by torch.profiler (warm)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            total += getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0))
+    return total / 1e3 / calls
+
+
 def profile_search(eng, queries, top_k, p50_ms):
     """Device time per main-path search by kernel, from torch.profiler;
     the idle share is taken against the unprofiled search p50 (tracing
@@ -199,7 +220,10 @@ def run_tree(tree: str, rings, profile: bool, library: bool) -> list[dict]:
                "capacity": eng.capacity, "k_scan": k_scan, "sample": ns,
                "block_rows": blk,
                "k1_ms": events_ms(lambda: K.fused_topk(*a1, **kw1)),
-               "k3_ms": events_ms(lambda: K.sampled_submax(*a3, **kw3))}
+               "k3_ms": events_ms(lambda: K.sampled_submax(*a3, **kw3)),
+               "k1_device_ms": device_ms(lambda: K.fused_topk(*a1, **kw1)),
+               "k3_device_ms": device_ms(
+                   lambda: K.sampled_submax(*a3, **kw3))}
         if name == "main path":  # K1 as a search with the floor closed
             kw0 = dict(kw1, theta0=None)
             rec["k1_nofloor_ms"] = events_ms(

@@ -12,8 +12,10 @@ nothing falls back to the CPU or to a plain version):
    with metric cosine, dot and l2): K1 (``fused_topk``) and K3
    (``sampled_submax``) against their plain PyTorch versions on the same
    CUDA tensors at 65,536 x 768, b256, with the floor on and off, dead
-   rows, k 28, 112 and 1280, dims 96 and 30, tied rows, all rows dead and
-   fewer live rows than k. int8/int4 scores are exact integer dots
+   rows, k 28, 112 and 1280, dims 96 and 30, tied rows (also spread over
+   the row tiles of one persistent block, so that later copies meet a gate
+   that a list cut raised to their score), all rows dead and fewer live
+   rows than k. int8/int4 scores are exact integer dots
    followed by the same rounded float32 ops, so values and slots must be
    EXACTLY equal. bfloat16/float32 sums run in another order on the tensor
    cores: values must agree within ``cuda_topk.score_error_bound``
@@ -339,8 +341,8 @@ def truncated(t, drop):
     return (bits & -(1 << drop)).view(torch.float32)
 
 
-def tie_inputs(leg, dev, rng, n):
-    """Rows with copies of row 7 at 1000..1099 and of row 9000 at
+def tie_inputs(leg, dev, rng, n, copies):
+    """Rows with copies of row 7 at the slots ``copies`` and of row 9000 at
     5000..5039, query 0 = row 7: exact ties inside query 0's top-k and
     inside other queries' lists. For the float legs every value is small
     and exact (rows of -1/0/1, row 7 four 2s, queries four +-2s), so every
@@ -360,7 +362,7 @@ def tie_inputs(leg, dev, rng, n):
         for row in q:
             row[torch.from_numpy(rng.choice(DIM, 4, replace=False))] = \
                 torch.from_numpy(rng.choice([-2.0, 2.0], 4)).float()
-    x[1000:1100] = x[7]
+    x[torch.tensor(copies)] = x[7].clone()
     x[5000:5040] = x[9000]
     q[0] = x[7]
     return kernel_inputs(x, q, leg, dev)
@@ -396,12 +398,28 @@ def kernel_cases(cmp, rng, dev, leg):
         ad, kd = kernel_inputs(xd, qd, leg, dev, dead_every=5)
         cmp.submax(leg, ad, kd, 4096, f"{leg} (d) K3 dim {d}")
         cmp.topk(leg, ad, kd, 28, f"{leg} (d) dim {d}", 77)
-    at, kt = tie_inputs(leg, dev, rng, 16384)
     exact = torch.zeros((BATCH, 1), device=dev)
+    copies = list(range(1000, 1100))
+    at, kt = tie_inputs(leg, dev, rng, 16384, copies)
     v, i = cmp.topk(leg, at, kt, 112, f"{leg} (e) ties", bound=exact)
-    if i[0, :101].tolist() != [7] + list(range(1000, 1100)):
+    if i[0, :101].tolist() != [7] + copies:
         raise AssertionError(f"{leg} (e) ties: copies of row 7 not lowest "
                              "slot first")
+    # Ties across K1's list cuts: 40 copies of row 7 in each of the first
+    # seven row tiles of part 0 (tiles 0, parts, 2 parts, ...). The first
+    # four tiles fill query 0's list past k, so the first cut raises its
+    # gate to the copies' score, and the copies in the later tiles meet a
+    # gate equal to their score (and lose the tie by slot).
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _, parts, _ = K.topk_plan(8 * K.TILE_ROWS * sms, BATCH, 112, sms)
+    copies = [t * parts * K.TILE_ROWS + r for t in range(7)
+              for r in range(8, 48)]
+    at, kt = tie_inputs(leg, dev, rng, 8 * parts * K.TILE_ROWS, copies)
+    v, i = cmp.topk(leg, at, kt, 112, f"{leg} (e) ties across list cuts",
+                    bound=exact)
+    if i[0, :112].tolist() != [7] + copies[:111]:
+        raise AssertionError(f"{leg} (e) ties across list cuts: copies of "
+                             "row 7 not lowest slot first")
     dead = torch.zeros_like(args[2])
     v, i = cmp.topk(leg, args[:2] + [dead, args[3]], kw, 28,
                     f"{leg} (f) all dead")

@@ -181,3 +181,53 @@ def test_cuda_engine_launches_k1_for_every_leg(rng, cuda_device, dtype,
     np.testing.assert_allclose(v, vc, rtol=1e-5, atol=1e-5)
     leg = cuda_topk.leg_name(gpu.x, metric, gpu.packed)
     assert cuda_topk.launches[f"fused_topk[{leg}]"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leg", cuda_topk.LEGS)
+def test_cuda_k1_ties_across_list_cuts(leg, cuda_device):
+    """Copies of row 7, 40 in each of the first seven row tiles of K1's
+    part 0 (tiles 0, parts, 2 parts, ...), query 0 = row 7, no floor: the
+    first four tiles fill query 0's list past k, so the first cut raises
+    its gate to the copies' score, and the copies in the later tiles meet
+    a gate equal to their score (and lose the tie by slot). Rows of -1/0/1
+    and queries of four +-2 make every score exact in any summation order,
+    so K1 must EQUAL the plain version on every leg, ties throughout."""
+    rng = np.random.default_rng(77)
+    b, d, k = 8, 128, 112
+    dtype, metric = leg.split("-")
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    _, parts, _ = cuda_topk.topk_plan(8 * cuda_topk.TILE_ROWS * sms, b, k,
+                                      sms)
+    n = 8 * parts * cuda_topk.TILE_ROWS
+    copies = [t * parts * cuda_topk.TILE_ROWS + r for t in range(7)
+              for r in range(8, 48)]
+    x = rng.integers(-1, 2, (n, d)).astype(np.float32)
+    x[7] = 0.0
+    x[7, :4] = 2.0
+    x[copies] = x[7]
+    q = np.zeros((b, d), np.float32)
+    for row in q:
+        row[rng.choice(d, 4, replace=False)] = rng.choice([-2.0, 2.0], 4)
+    q[0] = x[7]
+    rows, aux = TD.prepare_rows(torch.from_numpy(x), metric=metric,
+                                dtype=_ROW_DTYPE[dtype])
+    valid = torch.ones(n, dtype=torch.bool)
+    qt = torch.from_numpy(q)
+    kw = dict(packed=dtype == "int4")
+    if dtype in ("int8", "int4") and metric == "l2":
+        qt, qs = TD.prepare_queries(qt, metric=metric, quantize=True,
+                                    return_scale=True)
+        kw.update(row_bias=-TD.row_norms2(rows, aux, kw["packed"]),
+                  q_scale=qs)
+    else:
+        qt = TD.prepare_queries(qt, metric=metric,
+                                quantize=dtype in ("int8", "int4"))
+    args = [t.to(cuda_device) for t in (rows, aux, valid, qt)]
+    kw = {key: v.to(cuda_device) if torch.is_tensor(v) else v
+          for key, v in kw.items()}
+    v, i = cuda_topk.fused_topk(*args, k=k, metric=metric, **kw)
+    vp, ip = cuda_topk.fused_topk_plain(*args, k=k, metric=metric, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(v, vp) and torch.equal(i, ip)
+    assert i[0].tolist() == [7] + copies[:k - 1]

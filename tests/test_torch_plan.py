@@ -2,11 +2,13 @@
 K1's persistent plan and K3's segments must cover every slot exactly once,
 as the chunked plan they replace did, and the TMA dispatch must send the
 shapes TMA cannot load (rows not a multiple of 16 bytes, unaligned bases)
-to the copying producer."""
+to the copying producer. A build with extra defines (the measurement
+scripts' variants) lives beside the default library, never in its place."""
 
 import pytest
 import torch
 
+from vrod_tpu_torch.ops import _build
 from vrod_tpu_torch.ops import cuda_topk as K
 
 SHAPES = [(1, 8), (30, 40), (127, 8), (128, 256), (129, 256), (1000, 40),
@@ -86,3 +88,15 @@ def test_tma_dispatch_by_shape(dtype, dim, packed, tma):
     if tma:   # an unaligned base goes to the copying producer too
         flat = torch.zeros(64 * dim + 1, dtype=dtype)
         assert not K.use_tma(flat[1:].view(64, dim), q, row_bytes)
+
+
+@pytest.mark.parametrize("defines", [("VROD_K1_RING=3",),
+                                     ("VROD_PROBE_NO_GATE",),
+                                     ("VROD_PROBE_NO_GATE",
+                                      "VROD_PROBE_NO_MMA")])
+def test_build_variants_beside_the_default(defines):
+    default = _build.library_path()
+    variant = _build.library_path(defines)
+    assert variant != default and variant.parent == default.parent
+    assert variant == _build.library_path(tuple(defines))
+    assert _build.library_path(()) == default

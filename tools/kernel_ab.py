@@ -2,8 +2,8 @@
 """Time K1, K3 and ``engine.search`` of one or more trees of the port on one
 GPU, in turns, at the shapes of every ``chip_smoke.py`` phase.
 
-    python vrod_tpu_torch/tools/kernel_ab.py TREE [TREE ...] [--ring 2,3,4]
-        [--profile] [--out FILE]
+    python tools/kernel_ab.py TREE [TREE ...] [--ring 2,3,4] [--profile]
+        [--library] [--out FILE]
 
 Each TREE is the root of a checkout that holds ``vrod_tpu_torch/`` (for
 instance an unpacked ``git archive`` of the parent commit, and ``.``). Each
@@ -19,9 +19,10 @@ what the card spends, without the wrapper's host work), and
 
 At the main path's shapes it also times K1 without the floor (theta0
 None), as a search whose floor gate is closed runs it.
-``--ring 2,3,4``: trees whose ``cuda_topk.fused_topk`` takes ``ring``
-also time the main path's K1 at each ring depth, in turns (2, 3, 4, 4, 3,
-2).
+``--ring 2,3,4``: the main path's K1 built at each ring depth
+(``-DVROD_K1_RING=N``, a library beside the default one) and timed in
+turns (2, 3, 4, 4, 3, 2), in trees whose ``cuda_topk`` has
+``_topk_cuda`` (the launch from a given library).
 ``--profile``: a torch.profiler trace of 10 main-path ``engine.search``
 calls, summed by kernel (device time per search, and the device's idle
 share of the unprofiled search p50).
@@ -186,7 +187,7 @@ def profile_search(eng, queries, top_k, p50_ms):
 def smoke_module():
     """``chip_smoke.py`` of the checkout that holds this file."""
     import importlib.util
-    path = Path(__file__).resolve().parents[2] / "chip_smoke.py"
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke_ab", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -228,11 +229,15 @@ def run_tree(tree: str, rings, profile: bool, library: bool) -> list[dict]:
             kw0 = dict(kw1, theta0=None)
             rec["k1_nofloor_ms"] = events_ms(
                 lambda: K.fused_topk(*a1, **kw0), iters=5)
-        if rings and name == "main path" and hasattr(K, "K1_RING"):
+        if rings and name == "main path" and hasattr(K, "_topk_cuda"):
+            kw = dict(kw1)
+            call = K._Call(*a1, kw.pop("metric"), kw.pop("row_bias", None),
+                           kw.pop("q_scale", None), kw.pop("packed"))
             for r in list(rings) + list(reversed(rings)):
-                kwr = dict(kw1, ring=r)
+                lib = _build.load((f"VROD_K1_RING={r}",))
                 rec.setdefault("k1_ring_ms", {}).setdefault(str(r), []) \
-                    .append(events_ms(lambda: K.fused_topk(*a1, **kwr)))
+                    .append(events_ms(lambda: K._topk_cuda(
+                        lib, call, kw["k"], 0, kw["theta0"])))
         if smoke is not None:
             dtype = leg.split("-")[0]
             extra1 = [v for v in kw1.values() if hasattr(v, "numel")]

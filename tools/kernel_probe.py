@@ -2,12 +2,13 @@
 """Where K1's time goes: K1 at the 1M-row phases' shapes built whole, without
 its gate, and with the ring alone, on one GPU.
 
-    python vrod_tpu_torch/tools/kernel_probe.py [--out FILE]
+    python tools/kernel_probe.py [--out FILE]
 
 Builds the kernels three times (compile-time switches of csrc/; the builds
-live beside the normal one under csrc/build/): whole; ``VROD_PROBE_NO_GATE``
-(the dots but no gate, appends or list traffic); and ``VROD_PROBE_NO_GATE``
-with ``VROD_PROBE_NO_MMA`` (the TMA ring and ldmatrix only). Then times
+live beside the normal one under csrc/build/, and the port never loads
+them): whole; ``VROD_PROBE_NO_GATE`` (the dots but no gate, appends or list
+traffic); and ``VROD_PROBE_NO_GATE`` with ``VROD_PROBE_NO_MMA`` (the TMA
+ring and ldmatrix only). Then times
 ``fused_topk`` with CUDA events (mean of 20 after a warm-up) on the main
 path's inputs (int8 cosine), (iii)'s (bf16 cosine) and (iv)'s (f32 dot) at
 1M x 768, b256, with the floor from K3 as a search gives it, in turns:
@@ -24,9 +25,9 @@ import json
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[2]
-VARIANTS = {"whole": (), "no_gate": ("-DVROD_PROBE_NO_GATE",),
-            "ring_alone": ("-DVROD_PROBE_NO_GATE", "-DVROD_PROBE_NO_MMA")}
+ROOT = Path(__file__).resolve().parents[1]
+VARIANTS = {"whole": (), "no_gate": ("VROD_PROBE_NO_GATE",),
+            "ring_alone": ("VROD_PROBE_NO_GATE", "VROD_PROBE_NO_MMA")}
 CASES = (("main path", "int8-cosine", 16), ("(iii)", "bf16-cosine", 100),
          ("(iv)", "f32-dot", 100))
 
@@ -55,20 +56,20 @@ def main(argv=None) -> int:
         q = torch.randn(kab.BATCH, kab.DIM, device=dev,
                         generator=torch.Generator(device=dev).manual_seed(i))
         a1, kw1, _, _, _ = kab.kernel_inputs(eng, q, eng.scan_widths(top_k)[1])
-        inputs[name] = (eng, a1, kw1)
-    base = _build.NVCC_FLAGS
+        kw = dict(kw1)
+        call = K._Call(*a1, kw.pop("metric"), kw.pop("row_bias", None),
+                       kw.pop("q_scale", None), kw.pop("packed"))
+        inputs[name] = (eng, call, kw["k"], kw["theta0"])
     order = list(VARIANTS) + list(reversed(VARIANTS))
     lines = []
     for variant in order:
-        _build.NVCC_FLAGS = base + VARIANTS[variant]
-        _build._lib = None
-        _build.load()
+        lib = _build.load(VARIANTS[variant])
         rec = {"variant": variant, "card": card}
-        for name, (_, a1, kw1) in inputs.items():
-            rec[name] = kab.events_ms(lambda: K.fused_topk(*a1, **kw1))
+        for name, (_, call, k, theta0) in inputs.items():
+            rec[name] = kab.events_ms(
+                lambda: K._topk_cuda(lib, call, k, 0, theta0))
         lines.append(json.dumps(rec))
         print(lines[-1], flush=True)
-    _build.NVCC_FLAGS = base
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text("\n".join(lines) + "\n")
     return 0

@@ -46,6 +46,16 @@
 namespace vrod {
 namespace {
 
+// Stages of the TMA ring. 4 measured fastest on the main path's shapes: 3
+// was ~1.5% slower and 2 ~11% (PERF.md, PR 3, the ring-depth A/B of
+// tools/kernel_ab.py --ring, which builds the library with -DVROD_K1_RING=N).
+#ifndef VROD_K1_RING
+#define VROD_K1_RING 4
+#endif
+constexpr int kRing = VROD_K1_RING;
+static_assert(kRing >= 2 && 1024 + kRing * kStageBytes <= 227 * 1024,
+              "K1's ring: 2 stages or more, within a block's shared memory");
+
 constexpr int kMergeThreads = 64;  // two queries a block: b / 2 blocks
 constexpr int kMergeWarps = kMergeThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
@@ -268,7 +278,9 @@ __device__ __forceinline__ void consume_all(
       mask_r[h] = gr < n ? mask[gr] : -INFINITY;
     }
     consume_tile<Kind>(acc, geo, ring, stage, phase);
-#ifndef VROD_PROBE_NO_GATE  // tools/kernel_probe.py: where the time goes
+    // tools/kernel_probe.py builds K1 without the gate to see where the time
+    // goes; such a build returns wrong results by design.
+#ifndef VROD_PROBE_NO_GATE
     gate_tile<Kind, kEpi>(acc, aux_r, mask_r, row0, offset, cand_v + list0,
                           cand_i + list0, cap, gate, qsv, len);
 #endif
@@ -294,18 +306,18 @@ __global__ void __launch_bounds__(kThreads, 1) fused_topk_local(
     const int8_t* __restrict__ q, const float* __restrict__ aux,
     const float* __restrict__ mask, const float* __restrict__ qs2,
     int row_bytes, const float* __restrict__ theta0, int n, int b, int k,
-    int offset, int groups, int parts, int ring_n, int cap,
+    int offset, int groups, int parts, int cap,
     float* __restrict__ cand_v, int* __restrict__ cand_i,
     int* __restrict__ cand_n) {
   extern __shared__ uint8_t smem_raw[];
-  __shared__ uint64_t full[kMaxRing], empty[kMaxRing];
+  __shared__ uint64_t full[kRing], empty[kRing];
   // max(theta0, the list's k-th), and the group's qs2 (kScaleQs); read
   // as float2 pairs.
   __shared__ __align__(16) float gate[kGroup];
   __shared__ __align__(16) float qsv[kGroup];
   __shared__ int len[kGroup];
   __shared__ unsigned hist[kConsumers / 32 * 256];  // a select's, per warp
-  const Ring ring{align1024(smem_raw), full, empty, ring_n};
+  const Ring ring{align1024(smem_raw), full, empty, kRing};
   const Geometry geo = make_geometry<Kind>(row_bytes);
   const int part = blockIdx.x / groups;
   const int q0 = blockIdx.x % groups * kGroup;
@@ -398,16 +410,15 @@ struct LaunchTopk {
   static int run(const void* x, const void* aux, const void* mask,
                  const void* q, const void* qs2, int row_bytes,
                  const void* theta0, int n, int b, int k, int offset,
-                 int groups, int parts, int ring_n, int cap, void* cand_v,
-                 void* cand_i, void* cand_n, void* merge_v, void* merge_i,
-                 void* out_v, void* out_i, cudaStream_t s) {
-    if (ring_n < 2 || ring_n > kMaxRing) return (int)cudaErrorInvalidValue;
+                 int groups, int parts, int cap, void* cand_v, void* cand_i,
+                 void* cand_n, void* merge_v, void* merge_i, void* out_v,
+                 void* out_i, cudaStream_t s) {
     Maps maps{};
     if constexpr (kTma) {
       const int e = make_maps(&maps, Kind::kPacked, x, q, n, b, row_bytes);
       if (e != 0) return e;
     }
-    const int smem = 1024 + ring_n * kStageBytes;
+    const int smem = 1024 + kRing * kStageBytes;
     auto* kern = fused_topk_local<Kind, kEpi, kTma>;
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -417,7 +428,7 @@ struct LaunchTopk {
         static_cast<const float*>(aux), static_cast<const float*>(mask),
         static_cast<const float*>(qs2), row_bytes,
         static_cast<const float*>(theta0), n, b, k, offset, groups, parts,
-        ring_n, cap, static_cast<float*>(cand_v), static_cast<int*>(cand_i),
+        cap, static_cast<float*>(cand_v), static_cast<int*>(cand_i),
         static_cast<int*>(cand_n));
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
@@ -434,16 +445,16 @@ struct LaunchTopk {
 // elem/epi: score.cuh's Elem and Epi codes; tma: rows and queries load by
 // TMA (row bytes a multiple of 16, 16-byte aligned bases), else the
 // producer warp copies them. row_bytes: bytes per stored row (int4: dim /
-// 2). qs2 (b,) is read by kScaleQs only. groups, parts, ring_n, cap: the
-// plan (ops/cuda_topk.py: topk_plan).
+// 2). qs2 (b,) is read by kScaleQs only. groups, parts, cap: the plan
+// (ops/cuda_topk.py: topk_plan).
 extern "C" int vrod_fused_topk(
     int elem, int epi, int tma, const void* x, const void* aux,
     const void* mask, const void* q, const void* qs2, const void* theta0,
     int n, int row_bytes, int b, int k, int offset, int groups, int parts,
-    int ring_n, int cap, void* cand_v, void* cand_i, void* cand_n,
+    int cap, void* cand_v, void* cand_i, void* cand_n,
     void* merge_v, void* merge_i, void* out_v, void* out_i, void* stream) {
   return dispatch_leg<LaunchTopk>(
       elem, epi, tma != 0, x, aux, mask, q, qs2, row_bytes, theta0, n, b, k,
-      offset, groups, parts, ring_n, cap, cand_v, cand_i, cand_n, merge_v,
+      offset, groups, parts, cap, cand_v, cand_i, cand_n, merge_v,
       merge_i, out_v, out_i, static_cast<cudaStream_t>(stream));
 }

@@ -85,7 +85,6 @@ constexpr int kAcc = kGroup / 2;               // accumulators per thread
 constexpr int kRowBox = kTileRows * kKBlock;   // 16 KB
 constexpr int kQueryBox = kGroup * kKBlock;    // 32 KB
 constexpr int kStageBytes = kRowBox + kQueryBox;
-constexpr int kMaxRing = 4;
 
 // Host codes of the element kinds and epilogues (ops/cuda_topk.py).
 enum Elem : int { kI8 = 0, kI4 = 1, kBF16 = 2, kF32 = 3 };
@@ -476,7 +475,9 @@ __device__ __forceinline__ void consume_tile(typename Kind::Acc (&acc)[kAcc],
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
     for (int s = 0; s < kKSteps; ++s) {
-#ifndef VROD_PROBE_NO_MMA  // tools/kernel_probe.py: the ring alone
+      // tools/kernel_probe.py builds the ring alone without the MMAs; such
+      // a build returns wrong results by design.
+#ifndef VROD_PROBE_NO_MMA
       Kind::mma(acc, a[s], sw128_desc(qs_a + s * 32), v > 0 || s > 0);
 #endif
     }

@@ -6,7 +6,10 @@ with a plain C interface, named by a hash of the sources, headers and flags,
 under ``csrc/build/`` (ignored by git). The build publishes atomically
 (compile into a temp dir, then ``os.replace``), so concurrent builders never
 load a half-written file. There is no fallback: a missing ``nvcc`` or a
-failed compile raises, with the compiler's output.
+failed compile raises, with the compiler's output. ``defines`` (extra
+``-D`` flags) build a variant beside the default library, for the
+measurement scripts under ``tools/``; the port itself always loads the
+default.
 
 The library is bound with ``ctypes``: pointers and the stream go as
 ``c_void_p`` (a bare Python int would be cut to 32 bits), and every entry
@@ -31,7 +34,7 @@ BUILD_DIR = _CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
 
-_lib = None
+_libs: dict[tuple[str, ...], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -50,20 +53,25 @@ def _sources() -> list[Path]:
     return sorted(_CSRC.glob("*.cu"))
 
 
-def library_path() -> Path:
+def _flags(defines: tuple[str, ...]) -> tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(defines: tuple[str, ...] = ()) -> Path:
     h = hashlib.sha256()
     for p in sorted(_CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(defines)).encode())
     return BUILD_DIR / f"libvrodkernels-{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless this exact build exists; return its path.
-    The compiler's output (``-Xptxas -v``: registers, shared memory, spills
-    per kernel) is kept beside the library as ``<name>.log``."""
-    out = library_path()
+def build(defines: tuple[str, ...] = ()) -> Path:
+    """Compile the kernels, with ``-D`` for each of ``defines``, unless this
+    exact build exists; return its path. The compiler's output (``-Xptxas
+    -v``: registers, shared memory, spills per kernel) is kept beside the
+    library as ``<name>.log``."""
+    out = library_path(defines)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -71,7 +79,7 @@ def build() -> Path:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         srcs = _sources()
         objs = [Path(tmp) / (src.stem + ".o") for src in srcs]
-        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        cmds = [[nvcc, *_flags(defines), "-c", "-o", str(obj), str(src)]
                 for src, obj in zip(srcs, objs)]
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
@@ -106,21 +114,22 @@ def build() -> Path:
     return out
 
 
-def load() -> ctypes.CDLL:
-    """The bound kernel library, built on first use."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(str(build()))
+def load(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The bound kernel library built with ``defines``, built on first
+    use."""
+    defines = tuple(defines)
+    if defines in _libs:
+        return _libs[defines]
+    lib = ctypes.CDLL(str(build(defines)))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     # (elem, epi, tma, x, aux, mask, q, qs2, theta0, n, row_bytes, b, k,
-    #  offset, groups, parts, ring, cap, 7 scratch/output pointers, stream)
+    #  offset, groups, parts, cap, 7 scratch/output pointers, stream)
     lib.vrod_fused_topk.restype = ci
-    lib.vrod_fused_topk.argtypes = [ci] * 3 + [vp] * 6 + [ci] * 9 + [vp] * 8
+    lib.vrod_fused_topk.argtypes = [ci] * 3 + [vp] * 6 + [ci] * 8 + [vp] * 8
     # (elem, epi, tma, x, aux, mask, q, qs2, n, row_bytes, b, blk, spb,
     #  groups, part, out, stream)
     lib.vrod_sampled_submax.restype = ci
     lib.vrod_sampled_submax.argtypes = [ci] * 3 + [vp] * 5 + [ci] * 6 \
         + [vp] * 3
-    _lib = lib
+    _libs[defines] = lib
     return lib

@@ -75,8 +75,6 @@ _EPI_SCALE, _EPI_SCALE_QS, _EPI_L2, _EPI_DOT = range(4)
 TILE_ROWS = 128
 GROUP_QUERIES = 256
 CUT_TILES = 4
-# Stages of K1's TMA ring (2-4; 4 and 3 measured level, 2 slower: PERF.md).
-K1_RING = 4
 
 launches = {f"{kern}[{leg}]": 0 for kern in ("fused_topk", "sampled_submax")
             for leg in LEGS}
@@ -382,8 +380,7 @@ def fused_topk_plain(x, aux, valid, q, *, k, metric, index_offset=0,
 
 
 def fused_topk(x, aux, valid, q, *, k, metric, index_offset=0,
-               theta0=None, row_bias=None, q_scale=None, packed=False,
-               ring=K1_RING):
+               theta0=None, row_bias=None, q_scale=None, packed=False):
     """Exact top-k of query q (B, D) against rows x (N, D), or (N, D/2)
     packed int4 bytes with ``packed``: the contract of
     ``pallas_topk.fused_topk``.
@@ -392,25 +389,26 @@ def fused_topk(x, aux, valid, q, *, k, metric, index_offset=0,
     candidates at or below it are skipped, which keeps results exact.
     ``index_offset`` shifts the returned slots. int8/int4 + l2 needs
     ``row_bias`` (N,) = -|x_hat|^2 and ``q_scale``, the query's int8
-    quantization scale. ``ring``: stages of the kernel's TMA ring (2-4),
-    for the ring-depth A/B (``tools/kernel_ab.py --ring``)."""
+    quantization scale."""
     call = _Call(x, aux, valid, q, metric, row_bias, q_scale, packed)
-    n, b = call.n, call.b
     if k < 1:
         raise ValueError("k must be >= 1")
-    if index_offset < 0 or index_offset + n >= 2 ** 31:
+    if index_offset < 0 or index_offset + call.n >= 2 ** 31:
         raise ValueError(f"index_offset {index_offset} out of range")
-    if ring not in (2, 3, 4):
-        raise ValueError(f"ring {ring}: the TMA ring takes 2-4 stages")
     if call.device.type == "cpu":
         return _topk_plain(call, k, index_offset, theta0)
-    dev = call.device
+    return _topk_cuda(_build.load(), call, k, index_offset, theta0)
+
+
+def _topk_cuda(lib, call, k, index_offset, theta0):
+    """K1's launch on the card from kernel library ``lib`` (the default
+    build; ``tools/`` passes variants built with other defines)."""
+    n, b, dev = call.n, call.b, call.device
     out_v = torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev)
     out_i = torch.full((b, k), -1, dtype=torch.int32, device=dev)
     if n == 0:
         return out_v, out_i
     t0 = _theta(theta0, b, dev)
-    lib = _build.load()
     groups, parts, cap = topk_plan(n, b, k, _sms(dev))
     with torch.cuda.device(dev):
         cand_v = torch.empty(parts * b * cap, dtype=torch.float32,
@@ -421,7 +419,7 @@ def fused_topk(x, aux, valid, q, *, k, metric, index_offset=0,
         merge_i = torch.empty(b * parts * k, dtype=torch.int32, device=dev)
         rc = lib.vrod_fused_topk(
             *call.launch_args(), t0.data_ptr(), n, call.row_bytes, b, k,
-            int(index_offset), groups, parts, ring, cap,
+            int(index_offset), groups, parts, cap,
             cand_v.data_ptr(), cand_i.data_ptr(), cand_n.data_ptr(),
             merge_v.data_ptr(), merge_i.data_ptr(), out_v.data_ptr(),
             out_i.data_ptr(), _stream(dev))

@@ -47,6 +47,18 @@ nothing falls back to the CPU or to a plain version):
      float32 dot, top-100 (with the float control): ``--rows`` rows each;
    - every leg (12 collections), 3 searches each: int8/int4 at top-16 on
      262,144 rows, bfloat16/float32 at top-100 on 131,072 rows.
+4. Floor experiments, on the main path's reopened state (k_scan 28 and
+   112) and on phase (iii)'s (k_scan 108), before those collections close:
+   the A/B pairs of ``tools/kexp_floor.py`` (the port's kexp17/18/20/22)
+   with the launch counters set to 0 before and read after: X8 and X6
+   (``cuda_floor.fused_theta``, margin 0 and the engine's margin, sample
+   dots skipped or not), X7 (K1 with and without the floor) and X9
+   (``cuda_floor.fused_intgate``, int8), each EQUAL to the stock
+   composition (K3 -> count threshold -> K1); ``fused_theta`` and
+   ``fused_intgate`` must have launched. Then, not counted, each against
+   its plain version: int8 EXACT, theta0 too; bfloat16 within the bound;
+   on every leg theta0 bit-equal to ``bisect_floor`` of K3's sub-maxima
+   less the margin.
 
 Per kernel and leg, at the shapes of its first (largest) phase, the script
 also computes the kernel's bound (the larger of the bytes its inputs and
@@ -57,6 +69,10 @@ kernel's function: the leg's GEMM ``q @ x.T`` (``torch._int_mm`` for int8,
 the same on unpacked rows for int4, ``torch.matmul`` in bfloat16, and in
 float32 with TF32 on), then ``torch.topk(k_scan)`` (K1) or the max over
 the strided 128-row groups (K3).
+
+The floor kernels' bound is K1's (the rows and inputs once, the scan's
+operations); their yardstick is the stock composition's time, since no
+one PyTorch call computes their function (``library_ms`` null).
 
 The last two lines of standard output are one JSON object per line: the
 kernels' account (one entry per kernel and leg), then ``{"ok": true,
@@ -95,7 +111,13 @@ PEAK_OPS = {"int8": 1979e12, "int4": 1979e12, "bf16": 989e12,
 SOURCES = {"fused_topk": ("vrod_tpu_torch/csrc/fused_topk.cu",
                           "vrod_tpu/ops/pallas_topk.py:251"),
            "sampled_submax": ("vrod_tpu_torch/csrc/sampled_submax.cu",
-                              "vrod_tpu/ops/pallas_topk.py:468")}
+                              "vrod_tpu/ops/pallas_topk.py:468"),
+           "fused_theta": ("vrod_tpu_torch/csrc/fused_theta.cu",
+                           "experiments/kexp20.py:178"),
+           "fused_intgate": ("vrod_tpu_torch/csrc/fused_topk.cu",
+                             "experiments/kexp22.py:127")}
+# The floor experiments' phases and k_scans (phase 4).
+FLOOR_KSCANS = {"main path": (28, 112), "(iii)": (108,)}
 
 
 def log(*a):
@@ -223,11 +245,13 @@ class Compare:
     """Kernel-vs-plain comparisons on the card, per kernel and leg."""
 
     def __init__(self):
+        from vrod_tpu_torch.ops import cuda_floor as F
         from vrod_tpu_torch.ops import cuda_topk as K
-        self.max_err = {name: 0.0 for name in K.launches}
+        names = list(K.launches) + list(F.launches)
+        self.max_err = {name: 0.0 for name in names}
         # Largest |kernel - plain| / bound (float legs), and per float leg
         # the smallest such share that a truncating control reached.
-        self.max_share = {name: 0.0 for name in K.launches}
+        self.max_share = {name: 0.0 for name in names}
         self.control_share = {}
 
     @staticmethod
@@ -324,6 +348,53 @@ class Compare:
             share = self._share(got[0], want[0], bound)
             self.control_share[leg] = min(
                 self.control_share.get(leg, share), share)
+
+    def theta(self, leg, args, k, blk, s_blocks, margin, skip, what):
+        """fused_theta (X6/X8) against its plain version: int8/int4
+        EXACT, theta0 too; float legs within the bound. On every leg theta0
+        is bisect_floor of K3's sub-maxima (K1's scores) less the margin,
+        bit for bit."""
+        import torch
+        from vrod_tpu_torch.ops import cuda_floor as F
+        from vrod_tpu_torch.ops import cuda_topk as K
+        from vrod_tpu_torch.ops import distances as D
+        metric = leg.split("-")[1]
+        kw = dict(k=k, metric=metric, block_rows=blk, s_blocks=s_blocks,
+                  margin=margin, skip_sample_dots=skip, return_theta=True)
+        got = F.fused_theta(*args, **kw)
+        want = F.fused_theta_plain(*args, **kw)
+        ns = blk * s_blocks
+        sub = K.sampled_submax(*[a[:ns] for a in args[:3]], args[3],
+                               metric=metric, block_rows=blk)
+        bound = K.score_error_bound(*args, metric=metric)
+        torch.cuda.synchronize()
+        self._same_form(got, want, f"{what}: fused_theta")
+        msg = K.topk_disagreement(*got[:2], *want[:2], bound)
+        if msg:
+            raise AssertionError(f"{what}: fused_theta vs plain: {msg}")
+        if leg.startswith(("int8", "int4")) and not torch.equal(got[2],
+                                                                want[2]):
+            raise AssertionError(f"{what}: theta0 differs from the plain "
+                                 "version's")
+        if not torch.equal(got[2], D.bisect_floor(sub, k) - (margin or 0.0)):
+            raise AssertionError(f"{what}: theta0 is not bisect_floor of "
+                                 "K3's sub-maxima less the margin")
+        self._err(f"fused_theta[{leg}]", got[0], want[0], bound)
+
+    def intgate(self, leg, args, k, theta0, what):
+        """fused_intgate (X9) EXACTLY equal to its plain version."""
+        import torch
+        from vrod_tpu_torch.ops import cuda_floor as F
+        metric = leg.split("-")[1]
+        got = F.fused_intgate(*args, k=k, metric=metric, theta0=theta0)
+        want = F.fused_intgate_plain(*args, k=k, metric=metric,
+                                     theta0=theta0)
+        torch.cuda.synchronize()
+        self._same_form(got, want, f"{what}: fused_intgate")
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{what}: fused_intgate differs from plain")
+        self._err(f"fused_intgate[{leg}]", got[0], want[0],
+                  torch.zeros((args[3].shape[0], 1), device=got[0].device))
 
     def floor_sound(self, leg, args, kw, k, theta0, what):
         """theta0 at or below K1's own k-th value for every query."""
@@ -444,6 +515,86 @@ def kernel_cases(cmp, rng, dev, leg):
     }
 
 
+def kexp_floor_module():
+    """``tools/kexp_floor.py`` of this checkout."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "tools" / "kexp_floor.py"
+    spec = importlib.util.spec_from_file_location("kexp_floor", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def floor_phase(cmp, card, name, leg, args, k_scans):
+    """Phase 4 on one Database phase's kernel inputs ``args`` (x, aux,
+    valid, q_scan): the floor experiments' A/B pairs with the floor
+    kernels' counters set to 0 before and read after (each must have
+    launched), then, not counted, the kernels against their plain
+    versions. Returns (launches, records, times at the first k_scan)."""
+    import torch
+    from vrod_tpu_torch import engine
+    from vrod_tpu_torch.ops import cuda_floor as F
+    kf = kexp_floor_module()
+    dtype = leg.split("-")[0]
+    F.reset_launches()
+    recs = kf.run_pairs(args, dtype, k_scans, kf.LEGS, iters=10, card=card)
+    torch.cuda.synchronize()
+    launches = dict(F.launches)
+    need = [f"fused_theta[{leg}]"] + (
+        [f"fused_intgate[{leg}]"] if leg in F.INTGATE_LEGS else [])
+    for kname in need:
+        if launches[kname] == 0:
+            raise AssertionError(f"{name} floor experiments: launched no "
+                                 f"{kname}")
+    log(f"{name} floor experiments: {len(recs)} pairs equal to the stock "
+        f"composition; launches {json.dumps({n: c for n, c in launches.items() if c})}")
+    for r in recs:
+        log(f"  {leg} k_scan {r['k_scan']} {r['leg']} {r['variant']}: stock "
+            f"{r['stock_ms']:.4f} ms (device {r['stock_device_ms']:.4f}, "
+            f"{r['stock_kernels_per_call']:g} kernels), variant "
+            f"{r['variant_ms']:.4f} ms (device {r['variant_device_ms']:.4f}, "
+            f"{r['variant_kernels_per_call']:g} kernels), sample "
+            f"{r['sample_rows']} in blocks of {r['block_rows']} [{card}]")
+    times = {}
+    for k in k_scans:
+        theta0, (ns, blk) = kf.stock_floor(args, k)
+        for margin in (None, engine.THETA0_MARGIN):
+            for skip in (False, True):
+                cmp.theta(leg, args, k, blk, ns // blk, margin, skip,
+                          f"{name} fused_theta k {k} margin {margin} "
+                          f"skip {skip}")
+        if leg in F.INTGATE_LEGS:
+            cmp.intgate(leg, args, k, theta0, f"{name} fused_intgate k {k}")
+        if times:
+            continue
+        first = {(r["leg"], r["variant"]): r for r in recs
+                 if r["k_scan"] == k}
+        kw = dict(k=k, metric=leg.split("-")[1], block_rows=blk,
+                  s_blocks=ns // blk)
+        x8 = first[("x8", "plain")]
+        n, d = args[0].shape
+        bound = bound_of(args, BATCH * k * 8, 2 * BATCH * n * d, dtype)
+        times["fused_theta"] = dict(
+            ms=x8["variant_ms"], device_ms=x8["variant_device_ms"],
+            kernels=x8["variant_kernels_per_call"],
+            stock_ms=x8["stock_ms"], stock_device_ms=x8["stock_device_ms"],
+            plain_ms=cuda_time_ms(
+                lambda: F.fused_theta_plain(*args, **kw), iters=3),
+            bound=bound, k_scan=k, rows=n)
+        if leg in F.INTGATE_LEGS:
+            x9 = first[("x9", "intgate")]
+            times["fused_intgate"] = dict(
+                ms=x9["variant_ms"], device_ms=x9["variant_device_ms"],
+                kernels=x9["variant_kernels_per_call"],
+                stock_ms=x9["stock_ms"],
+                stock_device_ms=x9["stock_device_ms"],
+                plain_ms=cuda_time_ms(lambda: F.fused_intgate_plain(
+                    *args, k=k, metric=leg.split("-")[1], theta0=theta0),
+                    iters=3),
+                bound=bound, k_scan=k, rows=n)
+    return launches, recs, times
+
+
 def oracle_kth(eng, q, top_k):
     """Exact float32 full scan of the stored rows on the card: the k-th
     best user-facing score per query (the plain blockwise scan with the
@@ -503,10 +654,11 @@ def search_round(col, queries, leg, top_k, what, lat=None):
 
 
 def db_phase(dev, card, cmp, *, name, leg, top_k, rows, searches, reopen,
-             seed):
+             seed, floor_kscans=()):
     """One Database phase through the entry points (module docstring,
-    phase 3). Returns (launch counts of the phase, kernel times at its
-    shapes)."""
+    phase 3), then with ``floor_kscans`` the floor experiments on its state
+    (phase 4). Returns (launch counts of the phase, kernel times at its
+    shapes, the floor experiments' (launches, records, times) or None)."""
     import torch
     from vrod_tpu_torch import Database
     from vrod_tpu_torch.engine import floor_gate
@@ -624,8 +776,10 @@ def db_phase(dev, card, cmp, *, name, leg, top_k, rows, searches, reopen,
             f"at its shapes ({eng.capacity} rows, sample {ns} in blocks of "
             f"{blk}, b{BATCH}, k_scan {k_scan}), ms: {json.dumps(times)} "
             f"[{card}]")
+        floor = floor_phase(cmp, card, name, leg, a1, floor_kscans) \
+            if floor_kscans else None
         db.close()
-        return launches, times
+        return launches, times, floor
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
@@ -689,15 +843,18 @@ def main(argv=None) -> int:
             "quant" if leg.startswith(("int8", "int4")) else "float"]
         phases.append((f"leg {leg}", leg, top_k, rows, False))
     launches = dict.fromkeys(K.launches, 0)
-    times = {}
+    times, floors = {}, []
     for i, (name, leg, top_k, rows, reopen) in enumerate(phases):
-        n, t = db_phase(dev, card, cmp, name=name, leg=leg,
-                        top_k=top_k, rows=rows,
-                        searches=LEG_SEARCHES if name.startswith("leg")
-                        else SEARCHES, reopen=reopen, seed=args.seed + 10 + i)
+        n, t, floor = db_phase(
+            dev, card, cmp, name=name, leg=leg, top_k=top_k, rows=rows,
+            searches=LEG_SEARCHES if name.startswith("leg") else SEARCHES,
+            reopen=reopen, seed=args.seed + 10 + i,
+            floor_kscans=FLOOR_KSCANS.get(name, ()))
         for kname, c in n.items():
             launches[kname] += c
         times.setdefault(leg, (name, rows, t))  # the first, largest phase
+        if floor:
+            floors.append((name, leg, floor))
     kernels = []
     for kern in ("fused_topk", "sampled_submax"):
         for leg in K.LEGS:
@@ -721,6 +878,27 @@ def main(argv=None) -> int:
                 "plain_ms": t[kern + "_plain"], "bound_ms": bound_ms,
                 "bound_by": bound_by,
                 "library_ms": t[kern + "_library"]})
+    for name, leg, (fl, _, ftimes) in floors:
+        for kern, t in ftimes.items():
+            kname = f"{kern}[{leg}]"
+            bound_ms, bound_by = t["bound"]
+            log(f"{kname}: {fl[kname]} launches in {name}'s floor "
+                f"experiments; at its shapes ({t['rows']} rows, k_scan "
+                f"{t['k_scan']}) {t['ms']:.4f} ms (device "
+                f"{t['device_ms']:.4f} ms, {t['kernels']:g} kernels a call) "
+                f"vs plain {t['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}; {bound_ms / t['device_ms']:.1%} of it reached "
+                f"by device time); stock composition {t['stock_ms']:.4f} ms "
+                f"(device {t['stock_device_ms']:.4f}); max abs err vs plain "
+                f"{cmp.max_err[kname]:.6g}, at most "
+                f"{cmp.max_share[kname]:.4g} of the score bound [{card}]")
+            kernels.append({
+                "name": kname, "route": "cuda", "source": SOURCES[kern][0],
+                "replaces": SOURCES[kern][1], "launches": fl[kname],
+                "max_abs_err": cmp.max_err[kname], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None,
+                "stock_ms": t["stock_ms"]})
     for leg, share in cmp.control_share.items():
         log(f"float control {leg}: truncated inputs reached at least "
             f"{share:.4g} x the bound (the kernels: K1 "

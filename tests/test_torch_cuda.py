@@ -231,3 +231,143 @@ def test_cuda_k1_ties_across_list_cuts(leg, cuda_device):
     torch.cuda.synchronize()
     assert torch.equal(v, vp) and torch.equal(i, ip)
     assert i[0].tolist() == [7] + copies[:k - 1]
+
+
+# -- The floor and gate kernels (ops/cuda_floor.py) -------------------------
+
+FLOOR_SAMPLES = [(16384, 2), (2048, 8)]  # (block_rows, s_blocks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leg", cuda_topk.LEGS)
+@pytest.mark.parametrize("k", [28, 112])
+@pytest.mark.parametrize("skip,margin", [(False, None), (True, None),
+                                         (False, 0.01), (True, 0.01)],
+                         ids=["x8", "x8-skip", "x6", "x6-skip"])
+def test_cuda_fused_theta_matches_plain(rng, cuda_device, leg, k, skip,
+                                        margin):
+    """X6/X8 at 65,536 x 768, b256, with dead rows, against the plain
+    version (int8/int4 EQUAL, theta0 too; float legs within the bound);
+    theta0 bit-equal to bisect_floor of K3's sub-maxima less the margin on
+    every leg; and the result EQUAL to K1 without a floor (the floor is
+    sound, margin 0 included, because sample and scan score alike)."""
+    from vrod_tpu_torch.ops import cuda_floor
+    metric = leg.split("-")[1]
+    args, kw = make_state(rng, 65536, 768, 256, cuda_device, leg, 7)
+    blk, s_blocks = FLOOR_SAMPLES[k == 112]
+    th = dict(k=k, metric=metric, block_rows=blk, s_blocks=s_blocks,
+              margin=margin, skip_sample_dots=skip, **kw)
+    v, i, t0 = cuda_floor.fused_theta(*args, return_theta=True, **th)
+    vp, ip, t0p = cuda_floor.fused_theta_plain(*args, return_theta=True,
+                                               **th)
+    sample, skw = sample_of(args, kw, blk * s_blocks)
+    sub = cuda_topk.sampled_submax(*sample, metric=metric, block_rows=blk,
+                                   **skw)
+    v0, i0 = cuda_topk.fused_topk(*args, k=k, metric=metric, **kw)
+    torch.cuda.synchronize()
+    bound = cuda_topk.score_error_bound(*args, metric=metric)
+    msg = cuda_topk.topk_disagreement(v, i, vp, ip, bound)
+    assert msg is None, msg
+    if leg.split("-")[0] in ("int8", "int4"):
+        assert torch.equal(t0, t0p)
+    assert torch.equal(t0, TD.bisect_floor(sub, k) - (margin or 0.0))
+    assert torch.isfinite(t0).all()
+    assert torch.equal(v, v0) and torch.equal(i, i0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leg", ["int8-cosine", "int8-dot"])
+@pytest.mark.parametrize("k", [28, 112])
+@pytest.mark.parametrize("floor", [False, True])
+def test_cuda_fused_intgate_matches_plain(rng, cuda_device, leg, k, floor):
+    """X9 at 65,536 x 768, b256, with dead rows: EQUAL to its plain version
+    and to K1 from the same floor."""
+    from vrod_tpu_torch.ops import cuda_floor
+    metric = leg.split("-")[1]
+    args, _ = make_state(rng, 65536, 768, 256, cuda_device, leg, 7)
+    theta0 = None
+    if floor:
+        sub = cuda_topk.sampled_submax(*[a[:32768] for a in args[:3]],
+                                       args[3], metric=metric,
+                                       block_rows=16384)
+        theta0 = TD.threshold_from_submax(sub, k, method="count")
+    v, i = cuda_floor.fused_intgate(*args, k=k, metric=metric, theta0=theta0)
+    vp, ip = cuda_floor.fused_intgate_plain(*args, k=k, metric=metric,
+                                            theta0=theta0)
+    v1, i1 = cuda_topk.fused_topk(*args, k=k, metric=metric, theta0=theta0)
+    torch.cuda.synchronize()
+    assert torch.equal(v, vp) and torch.equal(i, ip)
+    assert torch.equal(v, v1) and torch.equal(i, i1)
+
+
+def tie_state(leg, dev, b=8, d=128, k=112):
+    """The K1 tie case across list cuts (test_cuda_k1_ties_across_list_cuts)
+    as kernel inputs: (args, kw, copies)."""
+    rng = np.random.default_rng(77)
+    dtype, metric = leg.split("-")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _, parts, _ = cuda_topk.topk_plan(8 * cuda_topk.TILE_ROWS * sms, b, k,
+                                      sms)
+    n = 8 * parts * cuda_topk.TILE_ROWS
+    copies = [t * parts * cuda_topk.TILE_ROWS + r for t in range(7)
+              for r in range(8, 48)]
+    x = rng.integers(-1, 2, (n, d)).astype(np.float32)
+    x[7] = 0.0
+    x[7, :4] = 2.0
+    x[copies] = x[7]
+    q = np.zeros((b, d), np.float32)
+    for row in q:
+        row[rng.choice(d, 4, replace=False)] = rng.choice([-2.0, 2.0], 4)
+    q[0] = x[7]
+    rows, aux = TD.prepare_rows(torch.from_numpy(x), metric=metric,
+                                dtype=_ROW_DTYPE[dtype])
+    qt = TD.prepare_queries(torch.from_numpy(q), metric=metric,
+                            quantize=dtype in ("int8", "int4"))
+    kw = dict(packed=dtype == "int4")
+    if dtype in ("int8", "int4") and metric == "l2":
+        qt, qs = TD.prepare_queries(torch.from_numpy(q), metric=metric,
+                                    quantize=True, return_scale=True)
+        kw.update(row_bias=-TD.row_norms2(rows, aux, kw["packed"]).to(dev),
+                  q_scale=qs.to(dev))
+    args = [t.to(dev) for t in (rows, aux, torch.ones(n, dtype=torch.bool),
+                                qt)]
+    return args, kw, copies
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leg", cuda_topk.LEGS)
+def test_cuda_fused_theta_ties_across_list_cuts(leg, cuda_device):
+    """K1's tie case across list cuts through fused_theta (skip on, the
+    sample's tiles revisited) and, on the int8 legs, fused_intgate: every
+    score is exact, so both EQUAL the plain version, copies of row 7
+    lowest slot first."""
+    from vrod_tpu_torch.ops import cuda_floor
+    k = 112
+    args, kw, copies = tie_state(leg, cuda_device)
+    metric = leg.split("-")[1]
+    th = dict(k=k, metric=metric, block_rows=1024, s_blocks=2,
+              skip_sample_dots=True, **kw)
+    got = cuda_floor.fused_theta(*args, **th)
+    want = cuda_floor.fused_theta_plain(*args, **th)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert got[1][0].tolist() == [7] + copies[:k - 1]
+    if leg in cuda_floor.INTGATE_LEGS:
+        v, i = cuda_floor.fused_intgate(*args, k=k, metric=metric)
+        vp, ip = cuda_topk.fused_topk_plain(*args, k=k, metric=metric)
+        torch.cuda.synchronize()
+        assert torch.equal(v, vp) and torch.equal(i, ip)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_theta_refuses_a_grid_that_is_not_co_resident(
+        rng, cuda_device):
+    """More query groups than SMs: the cooperative grid cannot be resident
+    at once, and the launch raises instead of hanging."""
+    from vrod_tpu_torch.ops import cuda_floor
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    args, kw = make_state(rng, 4096, 64, 256 * (sms + 1), cuda_device,
+                          "int8-cosine")
+    with pytest.raises(RuntimeError, match="co-resident"):
+        cuda_floor.fused_theta(*args, k=8, metric="cosine", block_rows=512,
+                               s_blocks=1, **kw)

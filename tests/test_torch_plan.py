@@ -100,3 +100,38 @@ def test_build_variants_beside_the_default(defines):
     assert variant != default and variant.parent == default.parent
     assert variant == _build.library_path(tuple(defines))
     assert _build.library_path(()) == default
+
+
+@pytest.mark.parametrize("n,b,k,blk,s_blocks", [
+    (1_000_000, 256, 28, 16384, 2), (1_000_000, 256, 112, 2048, 64),
+    (1_048_576, 256, 108, 8192, 16), (4096, 8, 112, 512, 2),
+    (65536, 256, 28, 16384, 1), (262144, 40, 24, 256, 1)])
+@pytest.mark.parametrize("sms", [132, 7])
+def test_theta_plan_is_k1_grid_and_whole_sample_blocks(n, b, k, blk,
+                                                       s_blocks, sms):
+    """fused_theta runs K1's persistent grid (co-resident: about one block
+    per SM) and scores the sample's whole tiles, blk / 128 per block."""
+    from vrod_tpu_torch.ops import cuda_floor as F
+    if s_blocks * 128 < 2 * k:
+        with pytest.raises(ValueError, match="2k sub-maxima"):
+            F.theta_plan(n, b, k, blk, s_blocks, sms)
+        return
+    groups, parts, cap, sample_tiles, blk_tiles = F.theta_plan(
+        n, b, k, blk, s_blocks, sms)
+    assert (groups, parts, cap) == K.topk_plan(n, b, k, sms)
+    assert groups * parts <= max(sms, groups)
+    assert sample_tiles * K.TILE_ROWS == s_blocks * blk <= n
+    assert blk_tiles * K.TILE_ROWS == blk
+    # Every sample tile lies in one part's walk and one sample block.
+    seen = sorted(t for p in range(parts)
+                  for t in K.part_tiles(p, parts, n) if t < sample_tiles)
+    assert seen == list(range(sample_tiles))
+    assert {t // blk_tiles for t in seen} == set(range(s_blocks))
+
+
+@pytest.mark.parametrize("blk,s_blocks,n", [(100, 2, 4096), (0, 2, 4096),
+                                            (512, 0, 4096), (512, 9, 4096)])
+def test_theta_plan_refuses_bad_samples(blk, s_blocks, n):
+    from vrod_tpu_torch.ops import cuda_floor as F
+    with pytest.raises(ValueError):
+        F.theta_plan(n, 8, 8, blk, s_blocks, 132)

@@ -3,7 +3,7 @@
 GPU, in turns, at the shapes of every ``chip_smoke.py`` phase.
 
     python tools/kernel_ab.py TREE [TREE ...] [--ring 2,3,4] [--profile]
-        [--library] [--out FILE]
+        [--library] [--phases "main path,(iii)"] [--out FILE]
 
 Each TREE is the root of a checkout that holds ``vrod_tpu_torch/`` (for
 instance an unpacked ``git archive`` of the parent commit, and ``.``). Each
@@ -26,6 +26,8 @@ turns (2, 3, 4, 4, 3, 2), in trees whose ``cuda_topk`` has
 ``--profile``: a torch.profiler trace of 10 main-path ``engine.search``
 calls, summed by kernel (device time per search, and the device's idle
 share of the unprofiled search p50).
+``--phases``: only the phases named (comma-separated), e.g. ``main
+path,(iii)``.
 ``--library``: per phase also the kernels' bounds and the two-call library
 yardsticks, computed and timed by ``chip_smoke.py``'s own functions
 (``bound_of``, ``library_times``) from this file's checkout.
@@ -131,8 +133,9 @@ def kernel_inputs(eng, q, k_scan):
     return a1, kw1, a3, kw3, (ns, blk)
 
 
-def device_ms(fn, calls=5) -> float:
-    """CUDA kernel time per call of ``fn`` by torch.profiler (warm)."""
+def device_ms(fn, calls=5) -> tuple[float, float]:
+    """(CUDA kernel time per call, kernels per call) of ``fn`` by
+    torch.profiler, warm."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -142,12 +145,13 @@ def device_ms(fn, calls=5) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
+    total, count = 0.0, 0
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA:
             total += getattr(ev, "self_device_time_total",
                              getattr(ev, "self_cuda_time_total", 0))
-    return total / 1e3 / calls
+            count += ev.count
+    return total / 1e3 / calls, count / calls
 
 
 def profile_search(eng, queries, top_k, p50_ms):
@@ -194,7 +198,8 @@ def smoke_module():
     return mod
 
 
-def run_tree(tree: str, rings, profile: bool, library: bool) -> list[dict]:
+def run_tree(tree: str, rings, profile: bool, library: bool,
+             phases=()) -> list[dict]:
     smoke = smoke_module() if library else None
     sys.path.insert(0, str(Path(tree).resolve()))
     import numpy as np
@@ -210,6 +215,8 @@ def run_tree(tree: str, rings, profile: bool, library: bool) -> list[dict]:
             "card": card}]
     print(json.dumps(out[-1]), flush=True)
     for i, (name, leg, top_k, rows) in enumerate(PHASES):
+        if phases and name not in phases:
+            continue
         eng = make_engine(leg, rows, 100 + i, dev)
         rng = np.random.default_rng(200 + i)
         queries = [rng.standard_normal((BATCH, DIM), dtype=np.float32)
@@ -222,9 +229,10 @@ def run_tree(tree: str, rings, profile: bool, library: bool) -> list[dict]:
                "block_rows": blk,
                "k1_ms": events_ms(lambda: K.fused_topk(*a1, **kw1)),
                "k3_ms": events_ms(lambda: K.sampled_submax(*a3, **kw3)),
-               "k1_device_ms": device_ms(lambda: K.fused_topk(*a1, **kw1)),
+               "k1_device_ms": device_ms(
+                   lambda: K.fused_topk(*a1, **kw1))[0],
                "k3_device_ms": device_ms(
-                   lambda: K.sampled_submax(*a3, **kw3))}
+                   lambda: K.sampled_submax(*a3, **kw3))[0]}
         if name == "main path":  # K1 as a search with the floor closed
             kw0 = dict(kw1, theta0=None)
             rec["k1_nofloor_ms"] = events_ms(
@@ -274,11 +282,13 @@ def main(argv=None) -> int:
     p.add_argument("--ring", default="")
     p.add_argument("--profile", action="store_true")
     p.add_argument("--library", action="store_true")
+    p.add_argument("--phases", default="")
     p.add_argument("--out", default="chiprun_out/kernel_ab.jsonl")
     args = p.parse_args(argv)
     rings = [int(r) for r in args.ring.split(",") if r]
+    phases = [ph for ph in args.phases.split(",") if ph]
     if args.one:
-        run_tree(args.one, rings, args.profile, args.library)
+        run_tree(args.one, rings, args.profile, args.library, phases)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -286,7 +296,8 @@ def main(argv=None) -> int:
         return 2
     lines = []
     for tree in args.trees:
-        cmd = [sys.executable, __file__, "--one", tree, "--ring", args.ring]
+        cmd = [sys.executable, __file__, "--one", tree, "--ring", args.ring,
+               "--phases", args.phases]
         cmd += [f for f, on in (("--profile", args.profile),
                                 ("--library", args.library)) if on]
         res = subprocess.run(cmd, capture_output=True, text=True,

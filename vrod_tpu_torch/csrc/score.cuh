@@ -1,11 +1,13 @@
-// The scoring core shared by the fused top-k scan (K1, fused_topk.cu) and
-// the sampled sub-max pre-pass (K3, sampled_submax.cu), for Hopper (sm_90a).
+// The scoring core shared by the fused top-k scan (K1, fused_topk.cu), the
+// sampled sub-max pre-pass (K3, sampled_submax.cu) and the one-launch
+// sampled floor (X6/X8, fused_theta.cu), for Hopper (sm_90a).
 //
-// Both kernels score rows against queries with the SAME device code: the
+// The kernels score rows against queries with the SAME device code: the
 // same producer, the same ring, the same wgmma instructions in the same
 // order, so their scores agree bit for bit. The engine's sampled floor is
 // sound only if K3's sub-maxima are true elements of K1's score space
-// (vrod_tpu/engine.py:191-202).
+// (vrod_tpu/engine.py:191-202), and fused_theta's margin 0 only if its
+// sample's scores are its scan's.
 //
 // The product. Rows are the wgmma M side, in 64-row warpgroup tiles; the
 // queries are the N side, 256 of them per block (kGroup), so at batch 256
@@ -411,13 +413,14 @@ __device__ __forceinline__ void consumer_regs() {
 }
 
 // The producer warp: fills the ring with the stages of row tiles t0, t0 +
-// step, ... < t1, in the order the consumers take them.
+// step, ... < t1, in the order the consumers take them, from ring position
+// (stage, phase), which it advances (a kernel with two passes over the
+// rows continues the ring where the first pass left it).
 template <class Kind, bool kTma>
-__device__ void produce(const Maps& maps, const Loads& ld,
-                        const Geometry& geo, const Ring& ring, int q0,
-                        int t0, int t1, int step) {
+__device__ __forceinline__ void produce_tiles(
+    const Maps& maps, const Loads& ld, const Geometry& geo, const Ring& ring,
+    int q0, int t0, int t1, int step, int& stage, int& phase) {
   const int lane = threadIdx.x & 31;
-  int stage = 0, phase = 0;
   for (int t = t0; t < t1; t += step) {
     for (int v = 0; v < geo.nv; ++v) {
       const bool hi = Kind::kPacked && v >= geo.kbs;
@@ -442,6 +445,31 @@ __device__ void produce(const Maps& maps, const Loads& ld,
         stage = 0;
         phase ^= 1;
       }
+    }
+  }
+}
+
+template <class Kind, bool kTma>
+__device__ void produce(const Maps& maps, const Loads& ld,
+                        const Geometry& geo, const Ring& ring, int q0,
+                        int t0, int t1, int step) {
+  int stage = 0, phase = 0;
+  produce_tiles<Kind, kTma>(maps, ld, geo, ring, q0, t0, t1, step, stage,
+                            phase);
+}
+
+// A consumer warp's pass over one row tile's stages without the dots (a
+// tile no score of which can count): the producer's stream keeps its shape.
+__device__ __forceinline__ void pass_tile(const Geometry& geo,
+                                          const Ring& ring, int& stage,
+                                          int& phase) {
+  for (int v = 0; v < geo.nv; ++v) {
+    mbar_wait(&ring.full[stage], phase);
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&ring.empty[stage]);
+    if (++stage == ring.n) {
+      stage = 0;
+      phase ^= 1;
     }
   }
 }

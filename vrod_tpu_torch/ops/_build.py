@@ -131,5 +131,15 @@ def load(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.vrod_sampled_submax.restype = ci
     lib.vrod_sampled_submax.argtypes = [ci] * 3 + [vp] * 5 + [ci] * 6 \
         + [vp] * 3
+    # (elem, epi, tma, x, aux, mask, q, qs2, margin, n, row_bytes, b, k,
+    #  offset, groups, parts, cap, sample_tiles, blk_tiles, iters, skip,
+    #  10 scratch/output pointers, stream)
+    lib.vrod_fused_theta.restype = ci
+    lib.vrod_fused_theta.argtypes = [ci] * 3 + [vp] * 6 + [ci] * 12 \
+        + [vp] * 11
+    # (tma, x, aux, mask, q, theta0, n, row_bytes, b, k, offset, groups,
+    #  parts, cap, 7 scratch/output pointers, stream)
+    lib.vrod_fused_intgate.restype = ci
+    lib.vrod_fused_intgate.argtypes = [ci] + [vp] * 5 + [ci] * 8 + [vp] * 8
     _libs[defines] = lib
     return lib

@@ -194,6 +194,25 @@ def kth_largest_count(sub, k: int):
     return kth.view(torch.float32)
 
 
+def bisect_floor(sub, k: int, iters: int = 14):
+    """A SOUND floor below the k-th largest of ``sub`` (B, nsub) f32 by
+    bisection, the in-kernel search of the JAX experiments (kexp17/kexp20):
+    ``hi = max``, ``lo = min - 1``, then ``iters`` steps of ``mid = 0.5 *
+    (lo + hi)``, keeping ``count(sub > lo) >= k``. Returns lo (B, 1) f32.
+    Every op is one float32 rounding, in the order the CUDA kernel
+    (``csrc/fused_theta.cu``) takes them, so the two agree bit for bit. A
+    -inf sub-maximum (a dead 128-group) makes lo -inf for good, which
+    closes the floor: sound, and reproduced as is."""
+    sub = sub.float()
+    hi = sub.amax(dim=1, keepdim=True)
+    lo = sub.amin(dim=1, keepdim=True) - 1.0
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        ge = (sub > mid).sum(dim=1, keepdim=True, dtype=torch.int32) >= k
+        lo, hi = torch.where(ge, mid, lo), torch.where(ge, hi, mid)
+    return lo
+
+
 def threshold_from_submax(sub, k: int, *, margin_abs: float = 1e-3,
                           extra=None, method: str = "topk"):
     """Turn (B, nsub) sub-block score maxima into a sound k-th-best floor:

@@ -26,7 +26,10 @@ nothing falls back to the CPU or to a plain version):
    fed inputs truncated to TF32 (as cvt.rz would) or to bfloat16 must
    fail the same comparison. For every leg theta0, the engine's floor from
    K3, must be at or below K1's own k-th value, and K3's maximum must
-   equal K1's top-1 on the sample bit for bit.
+   equal K1's top-1 on the sample bit for bit. K1 at case (d)'s dim 96
+   (8,192 rows, the shapes of the TPU's K2, its auto-pipelined kernel for
+   dims that are not a multiple of 128) is timed beside its plain version,
+   its bound and its library yardstick.
 3. Database phases through the entry points: ``Database.new`` ->
    ``create_collection`` (dim 768) -> ``bulk_insert`` of seeded rows in
    65,536-row chunks (WAL first, fsync) -> 20 x ``search_similar`` at batch
@@ -59,6 +62,20 @@ nothing falls back to the CPU or to a plain version):
    its plain version: int8 EXACT, theta0 too; bfloat16 within the bound;
    on every leg theta0 bit-equal to ``bisect_floor`` of K3's sub-maxima
    less the margin.
+5. Extraction experiments, on the same states (main path: k_scan 28 and
+   112; (iii): 108): the A/B pairs of ``tools/kexp_extract.py`` (the port's
+   kexp/kexp2/kexp3/kexp5, X1-X4: ``cuda_extract``'s seven kernels, floor,
+   store, gate, unroll2, unroll4, pingpong and carry) against K1 with no
+   floor over the whole 2048-row blocks, each agreeing with it (int8
+   EQUAL, bfloat16 within the bound; the floor variant against its plain
+   version), with the extraction counters set to 0 before and read after:
+   every kernel must have launched. Variant names that share a build are
+   checked for agreement and timed once. Then, not counted, each kernel
+   against its plain twin on the state (dead slots: deleted and never
+   written) and on case (e)'s ties across list cuts at the phase's first
+   k_scan and at 112 (X2's carry in shared, then in global memory): int8
+   EXACT, bfloat16 within the bound, the ties EXACT and lowest slot first;
+   and X2's count (one part per query group) EQUAL to its closed form.
 
 Per kernel and leg, at the shapes of its first (largest) phase, the script
 also computes the kernel's bound (the larger of the bytes its inputs and
@@ -72,7 +89,9 @@ the strided 128-row groups (K3).
 
 The floor kernels' bound is K1's (the rows and inputs once, the scan's
 operations); their yardstick is the stock composition's time, since no
-one PyTorch call computes their function (``library_ms`` null).
+one PyTorch call computes their function (``library_ms`` null). The
+extraction kernels' bound is K1's too; their yardstick is K1 with no
+floor on the same tensors (``k1_ms``; ``library_ms`` null).
 
 The last two lines of standard output are one JSON object per line: the
 kernels' account (one entry per kernel and leg), then ``{"ok": true,
@@ -118,7 +137,12 @@ SOURCES = {"fused_topk": ("vrod_tpu_torch/csrc/fused_topk.cu",
                              "experiments/kexp22.py:127")}
 # The floor experiments' phases and k_scans (phase 4).
 FLOOR_KSCANS = {"main path": (28, 112), "(iii)": (108,)}
-
+# The extraction experiments' phases and k_scans (phase 5), their block, and
+# the line of each experiment's pallas_call (a kernel's experiment:
+# cuda_extract.KERNEL_CALLS).
+EXTRACT_KSCANS = {"main path": (28, 112), "(iii)": (108,)}
+EXTRACT_BLOCK = 2048
+EXTRACT_PALLAS_LINE = {"kexp": 248, "kexp2": 170, "kexp3": 158, "kexp5": 156}
 
 def log(*a):
     print(*a, flush=True)
@@ -192,6 +216,15 @@ def floor_theta(sub, k, args, leg):
                            dim=args[0].shape[1])
 
 
+def reached(bound_ms, t) -> str:
+    """The share of its bound a timed kernel reached: by device time, or by
+    CUDA events where the profiler kept none of its kernels."""
+    if t["device_ms"] > 0:
+        return f"{bound_ms / t['device_ms']:.1%} of it reached by device time"
+    return (f"{bound_ms / t['ms']:.1%} of it reached by events; the profiler "
+            "kept none of its kernels")
+
+
 def bound_of(tensors, out_bytes, ops, dtype):
     """(bound_ms, bound_by) of a call: each input read once and each output
     written once at the HBM rate, against its operations at the dense
@@ -245,9 +278,10 @@ class Compare:
     """Kernel-vs-plain comparisons on the card, per kernel and leg."""
 
     def __init__(self):
+        from vrod_tpu_torch.ops import cuda_extract as X
         from vrod_tpu_torch.ops import cuda_floor as F
         from vrod_tpu_torch.ops import cuda_topk as K
-        names = list(K.launches) + list(F.launches)
+        names = list(K.launches) + list(F.launches) + list(X.launches)
         self.max_err = {name: 0.0 for name in names}
         # Largest |kernel - plain| / bound (float legs), and per float leg
         # the smallest such share that a truncating control reached.
@@ -396,6 +430,33 @@ class Compare:
         self._err(f"fused_intgate[{leg}]", got[0], want[0],
                   torch.zeros((args[3].shape[0], 1), device=got[0].device))
 
+    def extract(self, kern, leg, xargs, k, what, block_rows=EXTRACT_BLOCK,
+                exact=False):
+        """An extraction kernel against its plain twin on the experiments'
+        inputs ``xargs``: int8 (and with ``exact``, every leg) EXACT, float
+        legs within the bound."""
+        import torch
+        from vrod_tpu_torch.ops import cuda_extract as X
+        from vrod_tpu_torch.ops import cuda_topk as K
+        metric = leg.split("-")[1]
+        kw = dict(k=k, metric=metric, block_rows=block_rows)
+        got = X.run_kernel(kern, *xargs, **kw)
+        want = X.run_kernel(kern, *xargs, plain=True, **kw)
+        n = xargs[0].shape[0]
+        if exact or xargs[0].dtype == torch.int8:
+            bound = torch.zeros((xargs[3].shape[0], 1), device=got[0].device)
+        else:
+            bound = K.score_error_bound(
+                xargs[0], xargs[1].reshape(n),
+                torch.isfinite(xargs[2].reshape(n)), xargs[3], metric=metric)
+        torch.cuda.synchronize()
+        self._same_form(got, want, f"{what}: extract_{kern}")
+        msg = K.topk_disagreement(*got, *want, bound)
+        if msg:
+            raise AssertionError(f"{what}: extract_{kern} vs plain: {msg}")
+        self._err(f"extract_{kern}[{leg}]", got[0], want[0], bound)
+        return got
+
     def floor_sound(self, leg, args, kw, k, theta0, what):
         """theta0 at or below K1's own k-th value for every query."""
         from vrod_tpu_torch.ops import cuda_topk as K
@@ -440,7 +501,8 @@ def tie_inputs(leg, dev, rng, n, copies):
 
 
 def kernel_cases(cmp, rng, dev, leg):
-    """Cases (a)-(f) for one leg; returns the times at shape (a)."""
+    """Cases (a)-(f) for one leg; returns the times at shape (a) and K1's
+    at case (d)'s dim 96."""
     import torch
     from vrod_tpu_torch.ops import cuda_topk as K
     metric = leg.split("-")[1]
@@ -461,6 +523,7 @@ def kernel_cases(cmp, rng, dev, leg):
     cmp.topk(leg, args, kw, 112, f"{leg} (c) k 112, floor", 0, theta_c)
     cmp.floor_sound(leg, args, kw, 112, theta_c, f"{leg} (c)")
     cmp.topk(leg, args, kw, 1280, f"{leg} (c) k 1280")
+    k2 = {}
     for d in (96, 30):
         xd = torch.from_numpy(rng.standard_normal((8192, d),
                                                   dtype=np.float32))
@@ -469,6 +532,22 @@ def kernel_cases(cmp, rng, dev, leg):
         ad, kd = kernel_inputs(xd, qd, leg, dev, dead_every=5)
         cmp.submax(leg, ad, kd, 4096, f"{leg} (d) K3 dim {d}")
         cmp.topk(leg, ad, kd, 28, f"{leg} (d) dim {d}", 77)
+        if d == 96:
+            # K2's shapes (the TPU's auto-pipelined kernel for dims that
+            # are not a multiple of 128): K1 at dim 96, its library
+            # yardstick and its bound.
+            kk = dict(k=28, metric=metric, index_offset=77, **kd)
+            gemm = library_gemm(leg, ad[0], ad[3])
+            extra = [v for v in kd.values() if torch.is_tensor(v)]
+            k2 = {"fused_topk_dim96": cuda_time_ms(
+                      lambda: K.fused_topk(*ad, **kk)),
+                  "fused_topk_dim96_plain": cuda_time_ms(
+                      lambda: K.fused_topk_plain(*ad, **kk), iters=5),
+                  "fused_topk_dim96_library": cuda_time_ms(
+                      lambda: gemm().topk(28, dim=1), iters=5),
+                  "fused_topk_dim96_bound": bound_of(
+                      ad + extra, BATCH * 28 * 8, 2 * BATCH * 8192 * d,
+                      leg.split("-")[0])}
     exact = torch.zeros((BATCH, 1), device=dev)
     copies = list(range(1000, 1100))
     at, kt = tie_inputs(leg, dev, rng, 16384, copies)
@@ -512,14 +591,15 @@ def kernel_cases(cmp, rng, dev, leg):
             lambda: K.sampled_submax(*sample, **k3)),
         "sampled_submax_plain": cuda_time_ms(
             lambda: K.sampled_submax_plain(*sample, **k3), iters=5),
+        **k2,
     }
 
 
-def kexp_floor_module():
-    """``tools/kexp_floor.py`` of this checkout."""
+def tool_module(name):
+    """``tools/<name>.py`` of this checkout."""
     import importlib.util
-    path = Path(__file__).resolve().parent / "tools" / "kexp_floor.py"
-    spec = importlib.util.spec_from_file_location("kexp_floor", path)
+    path = Path(__file__).resolve().parent / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -534,7 +614,7 @@ def floor_phase(cmp, card, name, leg, args, k_scans):
     import torch
     from vrod_tpu_torch import engine
     from vrod_tpu_torch.ops import cuda_floor as F
-    kf = kexp_floor_module()
+    kf = tool_module("kexp_floor")
     dtype = leg.split("-")[0]
     F.reset_launches()
     recs = kf.run_pairs(args, dtype, k_scans, kf.LEGS, iters=10, card=card)
@@ -592,6 +672,110 @@ def floor_phase(cmp, card, name, leg, args, k_scans):
                     *args, k=k, metric=leg.split("-")[1], theta0=theta0),
                     iters=3),
                 bound=bound, k_scan=k, rows=n)
+    return launches, recs, times
+
+
+def tie_extract_inputs(leg, dev, rng):
+    """Case (e)'s ties across list cuts as the experiments take them: 40
+    copies of row 7 in each of the first seven row tiles of part 0, query 0
+    = row 7, rows of -1/0/1 and queries of four +-2, aux 1, no dead slot,
+    so every score is exact; (x, aux2d, mask2d, q, offset) and the
+    copies."""
+    import torch
+    from vrod_tpu_torch.ops import cuda_topk as K
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _, parts, _ = K.topk_plan(8 * K.TILE_ROWS * sms, BATCH, 112, sms)
+    n = 8 * parts * K.TILE_ROWS
+    copies = [t * parts * K.TILE_ROWS + r for t in range(7)
+              for r in range(8, 48)]
+    x = rng.integers(-1, 2, (n, DIM)).astype(np.float32)
+    x[7] = 0.0
+    x[7, :4] = 2.0
+    x[copies] = x[7]
+    q = np.zeros((BATCH, DIM), np.float32)
+    for row in q:
+        row[rng.choice(DIM, 4, replace=False)] = rng.choice([-2.0, 2.0], 4)
+    q[0] = x[7]
+    quant = leg.startswith("int8")
+    kind = torch.int8 if quant else row_dtype(leg.split("-")[0])
+    return [torch.from_numpy(x).to(kind).to(dev),
+            torch.ones((1, n), device=dev), torch.zeros((1, n), device=dev),
+            torch.from_numpy(q).to(torch.int8 if quant else torch.float32)
+            .to(dev), torch.zeros(1, dtype=torch.int32, device=dev)], copies
+
+
+def extract_phase(cmp, card, name, leg, args, k_scans):
+    """Phase 5 on one Database phase's kernel inputs ``args`` (x, aux,
+    valid, q_scan): the extraction experiments' A/B pairs with the
+    extraction counters set to 0 before and read after (every kernel must
+    have launched), then, not counted, each kernel against its plain twin
+    on this state and on the ties across list cuts, and X2's count against
+    its closed form. Returns (launches, records, times at the first
+    k_scan)."""
+    import torch
+    from vrod_tpu_torch.ops import cuda_extract as X
+    ke = tool_module("kexp_extract")
+    dtype, metric = leg.split("-")
+    wall0 = time.perf_counter()
+    X.reset_launches()
+    recs = ke.run_pairs(args, dtype, k_scans, ke.EXPERIMENTS,
+                        block_rows=EXTRACT_BLOCK, iters=10, card=card)
+    torch.cuda.synchronize()
+    launches = dict(X.launches)
+    for kern in X.KERNELS:
+        if launches[f"extract_{kern}[{leg}]"] == 0:
+            raise AssertionError(f"{name} extraction experiments: launched "
+                                 f"no extract_{kern}[{leg}]")
+    log(f"{name} extraction experiments: {len(recs)} pairs agree with K1 "
+        f"(no floor) or the plain floor; launches "
+        f"{json.dumps({n: c for n, c in launches.items() if c})}")
+    for r in recs:
+        what = f"  {leg} k_scan {r['k_scan']} {r['experiment']} " \
+            f"{r['variant']} ({r['kernel']}):"
+        if "timed_as" in r:
+            log(f"{what} agrees; same build as {r['timed_as']}")
+            continue
+        log(f"{what} {r['reference']} {r['reference_ms']:.4f} ms "
+            f"(device {r['reference_device_ms']:.4f}, "
+            f"{r['reference_kernels_per_call']:g} kernels), variant "
+            f"{r['variant_ms']:.4f} ms (device {r['variant_device_ms']:.4f}, "
+            f"{r['variant_kernels_per_call']:g} kernels) [{card}]")
+    xargs = ke.experiment_args(args)
+    k = k_scans[0]
+    for kern in X.KERNELS:
+        cmp.extract(kern, leg, xargs, k, f"{name} k {k} dead slots")
+    cnt = ke.count_of(args, k, EXTRACT_BLOCK, tiles=2)[2]
+    log(f"{name} X2 count (tiles 2, k_scan {k}): {int(cnt[0])}, equal to "
+        "the closed form")
+    targs, copies = tie_extract_inputs(leg, args[0].device,
+                                       np.random.default_rng(7))
+    # At the phase's first k_scan (X2's carry in shared memory at k 28) and
+    # at 112 (in global memory).
+    for kt in dict.fromkeys((k, 112)):
+        for kern in X.KERNELS:
+            _, i = cmp.extract(kern, leg, targs, kt,
+                               f"{name} (e) ties across list cuts, k {kt}",
+                               block_rows=2 * 128, exact=True)
+            if kern != "floor" and i[0].tolist() != [7] + copies[:kt - 1]:
+                raise AssertionError(
+                    f"{name} (e) ties across list cuts, k {kt}: "
+                    f"extract_{kern} not lowest slot first")
+    first = {r["kernel"]: r for r in recs
+             if r["k_scan"] == k and "variant_ms" in r}
+    k1 = first["gate"]
+    n, d = args[0].shape
+    bound = bound_of(xargs, BATCH * k * 8, 2 * BATCH * n * d, dtype)
+    kw = dict(k=k, metric=metric, block_rows=EXTRACT_BLOCK)
+    times = {}
+    for kern, r in first.items():
+        times[kern] = dict(
+            ms=r["variant_ms"], device_ms=r["variant_device_ms"],
+            kernels=r["variant_kernels_per_call"], k1_ms=k1["reference_ms"],
+            k1_device_ms=k1["reference_device_ms"],
+            plain_ms=cuda_time_ms(lambda kern=kern: X.run_kernel(
+                kern, *xargs, plain=True, **kw), iters=2, warmup=1),
+            bound=bound, k_scan=k, rows=n)
+    log(f"{name} extraction experiments: {time.perf_counter() - wall0:.1f} s")
     return launches, recs, times
 
 
@@ -654,11 +838,13 @@ def search_round(col, queries, leg, top_k, what, lat=None):
 
 
 def db_phase(dev, card, cmp, *, name, leg, top_k, rows, searches, reopen,
-             seed, floor_kscans=()):
+             seed, floor_kscans=(), extract_kscans=()):
     """One Database phase through the entry points (module docstring,
     phase 3), then with ``floor_kscans`` the floor experiments on its state
-    (phase 4). Returns (launch counts of the phase, kernel times at its
-    shapes, the floor experiments' (launches, records, times) or None)."""
+    (phase 4) and with ``extract_kscans`` the extraction experiments (phase
+    5). Returns (launch counts of the phase, kernel times at its shapes,
+    the floor experiments' (launches, records, times) or None, the
+    extraction experiments' likewise)."""
     import torch
     from vrod_tpu_torch import Database
     from vrod_tpu_torch.engine import floor_gate
@@ -778,8 +964,10 @@ def db_phase(dev, card, cmp, *, name, leg, top_k, rows, searches, reopen,
             f"[{card}]")
         floor = floor_phase(cmp, card, name, leg, a1, floor_kscans) \
             if floor_kscans else None
+        extract = extract_phase(cmp, card, name, leg, a1, extract_kscans) \
+            if extract_kscans else None
         db.close()
-        return launches, times, floor
+        return launches, times, floor, extract
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
@@ -819,7 +1007,7 @@ def main(argv=None) -> int:
     log(f"kernels built in {time.perf_counter() - t0:.3f} s: {lib.name}")
     for line in lib.with_suffix(".log").read_text().splitlines():
         if any(w in line for w in ("registers", "spill", "Compiling",
-                                   "arning", "wgmma")):
+                                   "arning", "wgmma", "nvcc ")):
             log("  ptxas:", line.strip())
 
     cmp = Compare()
@@ -843,18 +1031,21 @@ def main(argv=None) -> int:
             "quant" if leg.startswith(("int8", "int4")) else "float"]
         phases.append((f"leg {leg}", leg, top_k, rows, False))
     launches = dict.fromkeys(K.launches, 0)
-    times, floors = {}, []
+    times, floors, extracts = {}, [], []
     for i, (name, leg, top_k, rows, reopen) in enumerate(phases):
-        n, t, floor = db_phase(
+        n, t, floor, extract = db_phase(
             dev, card, cmp, name=name, leg=leg, top_k=top_k, rows=rows,
             searches=LEG_SEARCHES if name.startswith("leg") else SEARCHES,
             reopen=reopen, seed=args.seed + 10 + i,
-            floor_kscans=FLOOR_KSCANS.get(name, ()))
+            floor_kscans=FLOOR_KSCANS.get(name, ()),
+            extract_kscans=EXTRACT_KSCANS.get(name, ()))
         for kname, c in n.items():
             launches[kname] += c
         times.setdefault(leg, (name, rows, t))  # the first, largest phase
         if floor:
             floors.append((name, leg, floor))
+        if extract:
+            extracts.append((name, leg, extract))
     kernels = []
     for kern in ("fused_topk", "sampled_submax"):
         for leg in K.LEGS:
@@ -887,8 +1078,8 @@ def main(argv=None) -> int:
                 f"{t['k_scan']}) {t['ms']:.4f} ms (device "
                 f"{t['device_ms']:.4f} ms, {t['kernels']:g} kernels a call) "
                 f"vs plain {t['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({bound_by}; {bound_ms / t['device_ms']:.1%} of it reached "
-                f"by device time); stock composition {t['stock_ms']:.4f} ms "
+                f"({bound_by}; {reached(bound_ms, t)}); stock composition "
+                f"{t['stock_ms']:.4f} ms "
                 f"(device {t['stock_device_ms']:.4f}); max abs err vs plain "
                 f"{cmp.max_err[kname]:.6g}, at most "
                 f"{cmp.max_share[kname]:.4g} of the score bound [{card}]")
@@ -899,6 +1090,32 @@ def main(argv=None) -> int:
                 "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": None,
                 "stock_ms": t["stock_ms"]})
+    from vrod_tpu_torch.ops import cuda_extract as X
+    for name, leg, (xl, _, xtimes) in extracts:
+        for kern, t in xtimes.items():
+            kname = f"extract_{kern}[{leg}]"
+            fn = X.KERNEL_CALLS[kern][0]
+            bound_ms, bound_by = t["bound"]
+            log(f"{kname}: {xl[kname]} launches in {name}'s extraction "
+                f"experiments; at its shapes ({t['rows']} rows, k_scan "
+                f"{t['k_scan']}, blocks of {EXTRACT_BLOCK}) {t['ms']:.4f} ms "
+                f"(device {t['device_ms']:.4f} ms, {t['kernels']:g} kernels "
+                f"a call) vs plain {t['plain_ms']:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}; {reached(bound_ms, t)}); "
+                f"K1 with no floor {t['k1_ms']:.4f} ms (device "
+                f"{t['k1_device_ms']:.4f}); max abs err vs plain "
+                f"{cmp.max_err[kname]:.6g}, at most "
+                f"{cmp.max_share[kname]:.4g} of the score bound [{card}]")
+            kernels.append({
+                "name": kname, "route": "cuda",
+                "source": f"vrod_tpu_torch/csrc/extract_"
+                          f"{X.KERNELS[kern][0]}.cu",
+                "replaces": f"experiments/{fn}.py:{EXTRACT_PALLAS_LINE[fn]}",
+                "launches": xl[kname],
+                "max_abs_err": cmp.max_err[kname], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None,
+                "k1_ms": t["k1_ms"]})
     for leg, share in cmp.control_share.items():
         log(f"float control {leg}: truncated inputs reached at least "
             f"{share:.4g} x the bound (the kernels: K1 "

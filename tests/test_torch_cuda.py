@@ -14,6 +14,11 @@ and float32 rows with a float query; metrics cosine, dot and l2):
 - bfloat16/float32 sums run in another order on the tensor cores, so
   values agree within ``cuda_topk.score_error_bound`` and slots are equal
   outside near-ties (``cuda_topk.topk_disagreement``).
+
+The floor and gate kernels (``cuda_floor``) and the extraction kernels
+(``cuda_extract``: X1-X4, on int8, bfloat16 and float32 rows with the
+experiments' epilogues) are held to their plain versions by the same
+rules, ties across list cuts EXACTLY.
 """
 
 import numpy as np
@@ -22,6 +27,7 @@ import torch
 
 from vrod_tpu_torch.config import DTYPES, METRICS, CollectionConfig
 from vrod_tpu_torch.engine import DeviceEngine
+from vrod_tpu_torch.ops import cuda_extract
 from vrod_tpu_torch.ops import cuda_topk
 from vrod_tpu_torch.ops import distances as TD
 
@@ -371,3 +377,157 @@ def test_cuda_fused_theta_refuses_a_grid_that_is_not_co_resident(
     with pytest.raises(RuntimeError, match="co-resident"):
         cuda_floor.fused_theta(*args, k=8, metric="cosine", block_rows=512,
                                s_blocks=1, **kw)
+
+
+# -- The extraction experiments (ops/cuda_extract.py) -----------------------
+
+X_KERNELS = list(cuda_extract.KERNELS)
+# name, n (not a multiple of the block), dim, batch, k, block_rows, offset
+X_CASES = [("small", 8492, 128, 40, 28, 1024, 1000),
+           ("b264_k112", 65636, 96, 264, 112, 2048, 7)]
+_X_ROW = {"int8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def x_args(rng, n, d, b, dev, dtype, offset, dead_every=5, x=None, q=None):
+    """The experiments' inputs (x, aux2d, mask2d, q, offset) on ``dev``:
+    rows of one dtype (int8 quantized, with an int8 query), positive aux,
+    -inf on every ``dead_every``-th slot."""
+    if x is None:
+        x = rng.standard_normal((n, d)).astype(np.float32)
+        q = rng.standard_normal((b, d)).astype(np.float32)
+    xt = torch.from_numpy(x)
+    qt = torch.from_numpy(q)
+    if dtype == "int8":
+        xt, _ = TD.prepare_rows(xt, metric="cosine", dtype=torch.int8)
+        qt = TD.prepare_queries(qt, metric="cosine", quantize=True)
+    else:
+        xt = xt.to(_X_ROW[dtype])
+    aux = torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32))
+    mask = torch.zeros(n)
+    if dead_every:
+        mask[::dead_every] = float("-inf")
+    off = torch.tensor([offset], dtype=torch.int32)
+    return [t.to(dev) for t in (xt, aux.reshape(1, n), mask.reshape(1, n),
+                                qt, off)]
+
+
+def x_agree(dtype, metric, args, got, want):
+    if dtype == "int8":
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        return
+    n = args[0].shape[0]
+    bound = cuda_topk.score_error_bound(
+        args[0], args[1].reshape(n), torch.isfinite(args[2].reshape(n)),
+        args[3], metric=metric)
+    msg = cuda_topk.topk_disagreement(*got, *want, bound)
+    assert msg is None, msg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", X_CASES, ids=[c[0] for c in X_CASES])
+@pytest.mark.parametrize("mode,leg", [
+    (kern, leg) for kern in X_KERNELS
+    for leg in cuda_extract.kernel_legs(kern)])
+def test_cuda_extract_matches_plain(rng, cuda_device, case, mode, leg):
+    """Every kernel on every leg it takes, against its plain twin: int8
+    EQUAL, bfloat16/float32 within the score bound; the floor's ids -1."""
+    _, n, d, b, k, blk, offset = case
+    dtype, metric = leg.split("-")
+    args = x_args(rng, n, d, b, cuda_device, dtype, offset)
+    kw = dict(k=k, metric=metric, block_rows=blk, precision_name="fast")
+    cuda_extract.reset_launches()
+    got = cuda_extract.run_kernel(mode, *args, **kw)
+    want = cuda_extract.run_kernel(mode, *args, plain=True, **kw)
+    torch.cuda.synchronize()
+    assert cuda_extract.launches[f"extract_{mode}[{leg}]"] == 1
+    assert got[0].shape == (b, k) and got[1].dtype == torch.int32
+    x_agree(dtype, metric, args, got, want)
+    if mode == "floor":
+        assert (got[1] == -1).all()
+    else:
+        assert int(got[1].max()) < n // blk * blk + offset
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [28, 112])
+@pytest.mark.parametrize("mode", [k for k in X_KERNELS if k != "floor"])
+@pytest.mark.parametrize("dtype", ["int8", "bf16", "f32"])
+def test_cuda_extract_ties_across_list_cuts(cuda_device, mode, dtype, k):
+    """Copies of row 7, 40 in each of the first seven row tiles of part 0,
+    query 0 = row 7 (K1's tie case, test_cuda_k1_ties_across_list_cuts):
+    the copies meet gates and carries that earlier copies raised to their
+    score. Rows of -1/0/1 and queries of four +-2 under dot make every
+    score exact, so each mode EQUALS its plain twin, lowest slot first. At
+    k 28 X2's carry lies in shared memory, at k 112 in global memory."""
+    rng = np.random.default_rng(78)
+    b, d = 8, 128
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    _, parts, _, _, _ = cuda_extract.extract_plan(
+        mode, 8 * cuda_topk.TILE_ROWS * sms, b, k, sms)
+    n = 8 * parts * cuda_topk.TILE_ROWS
+    copies = [t * parts * cuda_topk.TILE_ROWS + r for t in range(7)
+              for r in range(8, 48)]
+    x = rng.integers(-1, 2, (n, d)).astype(np.float32)
+    x[7] = 0.0
+    x[7, :4] = 2.0
+    x[copies] = x[7]
+    q = np.zeros((b, d), np.float32)
+    for row in q:
+        row[rng.choice(d, 4, replace=False)] = rng.choice([-2.0, 2.0], 4)
+    q[0] = x[7]
+    args = x_args(rng, n, d, b, cuda_device, "f32", 0, dead_every=0, x=x,
+                  q=q)
+    if dtype == "int8":
+        args[0] = args[0].to(torch.int8)
+        args[3] = args[3].to(torch.int8)
+    else:
+        args[0] = args[0].to(_X_ROW[dtype])
+    metric = "cosine" if mode.startswith("unroll") else "dot"
+    if metric == "cosine":
+        args[1] = torch.ones_like(args[1])
+    kw = dict(k=k, metric=metric, block_rows=2 * cuda_topk.TILE_ROWS,
+              precision_name="fast")
+    got = cuda_extract.run_kernel(mode, *args, **kw)
+    want = cuda_extract.run_kernel(mode, *args, plain=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[1][0].tolist() == [7] + copies[:k - 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blk", [512, 2048])
+@pytest.mark.parametrize("k", [28, 112])
+def test_cuda_kexp2_count_matches_closed_form(rng, cuda_device, blk, k):
+    """X2's count (one part per query group, the carry read after every
+    block) EQUALS the plain version's closed form at tiles 1, 2 and 4, on
+    int8 rows (exact scores) with dead slots; its top-k equals the timed
+    (count off) run's."""
+    args = x_args(rng, 65536 + 300, 128, 40, cuda_device, "int8", 11)
+    kw = dict(k=k, metric="cosine", block_rows=blk, precision_name="fast")
+    v0, i0, c0 = cuda_extract.kexp2_call(*args, **kw)
+    assert int(c0[0]) == 0
+    for tiles in (1, 2, 4):
+        v, i, c = cuda_extract.kexp2_call(*args, tiles=tiles, count=True,
+                                          **kw)
+        vp, ip, cp = cuda_extract.kexp2_plain(*args, tiles=tiles,
+                                              count=True, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(v, vp) and torch.equal(i, ip)
+        assert torch.equal(v, v0) and torch.equal(i, i0)
+        assert int(c[0]) == int(cp[0]) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_extract_refuses_what_it_cannot_score(rng, cuda_device):
+    """float32 rows at precision high/exact raise on the card (no exact
+    scorer; TF32 never stands in), and so do rows TMA cannot load."""
+    args = x_args(rng, 2048, 128, 8, cuda_device, "f32", 0)
+    for prec in ("high", "exact"):
+        with pytest.raises(ValueError, match="no exact scorer"):
+            cuda_extract.kexp3_call(*args, k=8, metric="dot", block_rows=1024,
+                                    precision_name=prec)
+    args = x_args(rng, 2048, 30, 8, cuda_device, "int8", 0)
+    with pytest.raises(ValueError, match="TMA"):
+        cuda_extract.kexp_call("gate", *args, k=8, metric="dot",
+                               block_rows=1024, precision_name="fast")
+

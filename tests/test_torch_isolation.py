@@ -4,8 +4,8 @@ JAX package's.
 
 - In a subprocess whose import system refuses ``vrod_tpu`` (exactly that
   package, not ``vrod_tpu_torch``), ``jax``, ``jaxlib`` and ``ml_dtypes``,
-  every module of ``vrod_tpu_torch``, ``chip_smoke`` and
-  ``tools/kexp_floor.py`` imports, and a
+  every module of ``vrod_tpu_torch``, ``chip_smoke``,
+  ``tools/kexp_floor.py`` and ``tools/kexp_extract.py`` imports, and a
   collection (int8, bfloat16) goes create -> bulk_insert -> search ->
   snapshot -> delete -> load -> verify on the CPU.
 - A database written by either package loads in the other and answers the
@@ -54,10 +54,12 @@ for m in mods:
     importlib.import_module(m)
 assert {"vrod_tpu_torch.wal.wal", "vrod_tpu_torch._native.build",
         "vrod_tpu_torch.snapshot", "vrod_tpu_torch.ops.cuda_topk",
+        "vrod_tpu_torch.ops.cuda_extract",
         "vrod_tpu_torch.utils.embeddings"} <= set(mods), mods
 import chip_smoke  # noqa: F401
 import runpy
 runpy.run_path("tools/kexp_floor.py", run_name="kexp_floor")
+runpy.run_path("tools/kexp_extract.py", run_name="kexp_extract")
 
 from vrod_tpu_torch import Database
 from vrod_tpu_torch.verify_image import verify_image

@@ -3,12 +3,16 @@ K1's persistent plan and K3's segments must cover every slot exactly once,
 as the chunked plan they replace did, and the TMA dispatch must send the
 shapes TMA cannot load (rows not a multiple of 16 bytes, unaligned bases)
 to the copying producer. A build with extra defines (the measurement
-scripts' variants) lives beside the default library, never in its place."""
+scripts' variants) lives beside the default library, never in its place.
+The extraction kernels' plans (``cuda_extract.extract_plan``) are K1's
+grid with each kernel's list capacity, and X2's carry goes to shared
+memory only where it fits beside the ring."""
 
 import pytest
 import torch
 
 from vrod_tpu_torch.ops import _build
+from vrod_tpu_torch.ops import cuda_extract
 from vrod_tpu_torch.ops import cuda_topk as K
 
 SHAPES = [(1, 8), (30, 40), (127, 8), (128, 256), (129, 256), (1000, 40),
@@ -135,3 +139,44 @@ def test_theta_plan_refuses_bad_samples(blk, s_blocks, n):
     from vrod_tpu_torch.ops import cuda_floor as F
     with pytest.raises(ValueError):
         F.theta_plan(n, 8, 8, blk, s_blocks, 132)
+
+
+@pytest.mark.parametrize("k,ring,smem", [(8, 4, True), (9, 4, True),
+                                         (10, 3, True), (28, 3, True),
+                                         (33, 3, True), (34, 4, False),
+                                         (108, 4, False), (112, 4, False)])
+def test_carry_plan_keeps_the_carry_in_shared_memory_when_it_fits(k, ring,
+                                                                  smem):
+    """X2's carry (256 queries x k x 8 bytes) sits beside the deepest ring
+    of 4 or 3 stages that leaves it room in a block's 227 KB, else in
+    global memory beside 4 stages: 4 stages to k 9, 3 to k 33."""
+    assert cuda_extract.carry_plan(k) == (ring, smem)
+    need = 1024 + ring * cuda_extract.STAGE_BYTES + 256 * k * 8 \
+        + cuda_extract.CARRY_STATIC_BYTES
+    assert (need <= cuda_extract.SMEM_BYTES) == smem
+
+
+@pytest.mark.parametrize("kernel", list(cuda_extract.KERNELS))
+@pytest.mark.parametrize("n,b,k", [(1 << 20, 256, 28), (1 << 20, 264, 112),
+                                   (4096, 8, 16)])
+@pytest.mark.parametrize("count", [False, True])
+def test_extract_plan_is_k1_grid_with_each_kernels_lists(kernel, n, b, k,
+                                                         count):
+    """Every extraction kernel runs K1's persistent grid; its list capacity
+    is K1's for the gated kernels (cut every 4 tiles), k + 1 tile for the
+    store kernel (cut every tile), k for X2's carry and none for the floor;
+    X2 with ``count`` runs one part per query group (rows in global
+    order)."""
+    groups, parts, cap, ring, smem = cuda_extract.extract_plan(
+        kernel, n, b, k, 132, count=count and kernel == "carry")
+    g1, p1, cap1 = K.topk_plan(n, b, k, 132)
+    assert groups == g1
+    want_cap = {"floor": 0, "store": k + 128, "carry": k}.get(kernel, cap1)
+    assert cap == want_cap
+    assert parts == (1 if count and kernel == "carry" else p1)
+    if kernel == "carry":
+        assert (ring, smem) == cuda_extract.carry_plan(k)
+    else:
+        assert (ring, smem) == (4, False)
+    with pytest.raises(ValueError, match="kernel"):
+        cuda_extract.extract_plan("unroll8", n, b, k, 132)

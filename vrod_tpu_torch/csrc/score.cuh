@@ -474,21 +474,23 @@ __device__ __forceinline__ void pass_tile(const Geometry& geo,
   }
 }
 
-// A consumer warpgroup's dots of one row tile: acc[i] ends as the dot of
-// tile row tile_row(i) with query group column query_col(i). Walks the
-// tile's stages in the producer's order, advancing (stage, phase).
+// A consumer warpgroup's dots of stages [v0, v1) of one row tile (its
+// k-blocks, packed int4: low then high nibbles): acc[i] accumulates the dot
+// of tile row tile_row(i) with query group column query_col(i), from zero
+// at stage 0. Walks the stages in the producer's order, advancing (stage,
+// phase). The ping-pong of extract.cuh signals the other warpgroup between
+// two such calls.
 template <class Kind>
-__device__ __forceinline__ void consume_tile(typename Kind::Acc (&acc)[kAcc],
-                                             const Geometry& geo,
-                                             const Ring& ring, int& stage,
-                                             int& phase) {
+__device__ __forceinline__ void consume_stages(
+    typename Kind::Acc (&acc)[kAcc], const Geometry& geo, const Ring& ring,
+    int& stage, int& phase, int v0, int v1) {
   const int lane = threadIdx.x & 31;
   // ldmatrix.x4: lanes 8j..8j+7 address matrix j, the rows 0-7 (j even)
   // or 8-15 (j odd) of this warp's 16 and the k-step's low (j < 2) or high
   // 16 bytes. Register j then holds the A fragment's word j.
   const int r = (threadIdx.x >> 5) * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
   const int chunk_hi = lane >> 4;
-  for (int v = 0; v < geo.nv; ++v) {
+  for (int v = v0; v < v1; ++v) {
     const bool hi = Kind::kPacked && v >= geo.kbs;
     mbar_wait(&ring.full[stage], phase);
     const uint8_t* rows = ring.base + stage * kStageBytes;
@@ -518,6 +520,15 @@ __device__ __forceinline__ void consume_tile(typename Kind::Acc (&acc)[kAcc],
       phase ^= 1;
     }
   }
+}
+
+// A consumer warpgroup's dots of one whole row tile.
+template <class Kind>
+__device__ __forceinline__ void consume_tile(typename Kind::Acc (&acc)[kAcc],
+                                             const Geometry& geo,
+                                             const Ring& ring, int& stage,
+                                             int& phase) {
+  consume_stages<Kind>(acc, geo, ring, stage, phase, 0, geo.nv);
 }
 
 // Where acc[i] of this consumer thread lies: the wgmma accumulator layout

@@ -227,48 +227,66 @@ __device__ void cut_lists(float* cand_v, int* cand_i, int* len, float* gate,
 
 // The gate of one tile's scores, in the registers that hold their dots:
 // per query pair of this thread (columns ql = 8j + 2t and ql + 1) and its
-// two rows, four scores against the pair's gates and one branch for the
-// four; only scores above their gate are appended to their query's list.
-// With the int gate (X9) the four int32 dots are first held against the
-// pair's G: when none is above, no score can pass and the epilogue is not
-// computed. Nothing here writes a gate, so the __restrict__ views let their
-// loads run ahead of the appends.
-template <class Kind, int kEpi, bool kIntGate>
+// two rows, four scores against the pair's gates; one branch for kE such
+// pairs (4 kE scores, the appends inside predicated per score: K1 takes kE
+// = 1, X4 of extract.cuh 2 and 4); only scores above their gate are
+// appended to their query's list. With the int gate (X9) the int32 dots
+// are first held against their pairs' G: when none is above, no score can
+// pass and the epilogues are not computed. Nothing here writes a gate, so
+// the __restrict__ views let their loads run ahead of the appends.
+template <class Kind, int kEpi, bool kIntGate, int kE = 1>
 __device__ __forceinline__ void gate_tile(
     const typename Kind::Acc (&acc)[kAcc], const float (&aux_r)[2],
     const float (&mask_r)[2], int row0, int offset, float* v_list0,
     int* i_list0, int cap, const float* __restrict__ gate,
     const int* __restrict__ gint, const float* __restrict__ qsv, int* len) {
+  static_assert((kAcc / 4) % kE == 0, "kE divides the query pairs");
 #pragma unroll
-  for (int j = 0; j < kAcc / 4; ++j) {
-    const int ql = query_col(4 * j);
+  for (int j0 = 0; j0 < kAcc / 4; j0 += kE) {
     if constexpr (kIntGate) {
-      const int2 gi = *reinterpret_cast<const int2*>(gint + ql);
-      if (!((acc[4 * j] > gi.x) | (acc[4 * j + 1] > gi.y) |
-            (acc[4 * j + 2] > gi.x) | (acc[4 * j + 3] > gi.y))) {
-        continue;
-      }
-    }
-    const float2 g2 = *reinterpret_cast<const float2*>(gate + ql);
-    const float2 q2 = kEpi == kScaleQs
-                          ? *reinterpret_cast<const float2*>(qsv + ql)
-                          : make_float2(0.0f, 0.0f);
-    float s[4];
+      bool over = false;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s[e] = score_epilogue<kEpi>(dot_value(acc[4 * j + e]), aux_r[e >> 1],
-                                  mask_r[e >> 1], e & 1 ? q2.y : q2.x);
+      for (int u = 0; u < kE; ++u) {
+        const int j = j0 + u;
+        const int2 gi =
+            *reinterpret_cast<const int2*>(gint + query_col(4 * j));
+        over |= (acc[4 * j] > gi.x) | (acc[4 * j + 1] > gi.y) |
+                (acc[4 * j + 2] > gi.x) | (acc[4 * j + 3] > gi.y);
+      }
+      if (!over) continue;
     }
-    const bool p0 = s[0] > g2.x, p1 = s[1] > g2.y;
-    const bool p2 = s[2] > g2.x, p3 = s[3] > g2.y;
-    if (p0 | p1 | p2 | p3) {
+    float s[kE][4];
+    bool p[kE][4];
+    bool any = false;
+#pragma unroll
+    for (int u = 0; u < kE; ++u) {
+      const int j = j0 + u;
+      const int ql = query_col(4 * j);
+      const float2 g2 = *reinterpret_cast<const float2*>(gate + ql);
+      const float2 q2 = kEpi == kScaleQs
+                            ? *reinterpret_cast<const float2*>(qsv + ql)
+                            : make_float2(0.0f, 0.0f);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        if (e == 0 ? p0 : e == 1 ? p1 : e == 2 ? p2 : p3) {
-          const int qe = ql + (e & 1);
-          const size_t at = (size_t)qe * cap + atomicAdd(len + qe, 1);
-          v_list0[at] = s[e];
-          i_list0[at] = row0 + 8 * (e >> 1) + offset;
+        s[u][e] = score_epilogue<kEpi>(dot_value(acc[4 * j + e]),
+                                       aux_r[e >> 1], mask_r[e >> 1],
+                                       e & 1 ? q2.y : q2.x);
+        p[u][e] = s[u][e] > (e & 1 ? g2.y : g2.x);
+        any |= p[u][e];
+      }
+    }
+    if (any) {
+#pragma unroll
+      for (int u = 0; u < kE; ++u) {
+        const int ql = query_col(4 * (j0 + u));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (p[u][e]) {
+            const int qe = ql + (e & 1);
+            const size_t at = (size_t)qe * cap + atomicAdd(len + qe, 1);
+            v_list0[at] = s[u][e];
+            i_list0[at] = row0 + 8 * (e >> 1) + offset;
+          }
         }
       }
     }
@@ -281,21 +299,36 @@ struct NoSkip {
   __device__ bool operator()(int, const float*) const { return false; }
 };
 
+// K1 takes each tile's dots in one call. (extract.cuh's X3 passes dots
+// that signal the other warpgroup between two ranges of the tile's
+// stages.) `first`: the part's first tile; done(): after its last.
+struct WholeTile {
+  template <class Kind>
+  __device__ __forceinline__ void tile(typename Kind::Acc (&acc)[kAcc],
+                                       const Geometry& geo, const Ring& ring,
+                                       int& stage, int& phase, bool) const {
+    consume_tile<Kind>(acc, geo, ring, stage, phase);
+  }
+  __device__ __forceinline__ void done(bool) const {}
+};
+
 // The consumer warpgroups of K1: per row tile, the dots and the gate;
 // every cut_every tiles (and at the end) the list cuts, the only points
 // where the two warpgroups wait for each other. A list holds cap = k +
 // (cut_every + 1) tiles of candidates (ops/cuda_topk.py: topk_plan): at a
 // cut, lists longer than cap - cut_every tiles are cut back to k, so the
 // next cut_every tiles (at most 128 candidates each) always fit. The ring
-// position (stage, phase) continues from the caller's.
-template <class Kind, int kEpi, bool kIntGate, class Skip>
+// position (stage, phase) continues from the caller's. kE: gate_tile's
+// query pairs per branch; `dots` takes a tile's dots (WholeTile: K1's).
+template <class Kind, int kEpi, bool kIntGate, int kE = 1, class Skip,
+          class Dots = WholeTile>
 __device__ __forceinline__ void consume_all(
     const Geometry& geo, const Ring& ring, int& stage, int& phase,
     const float* __restrict__ aux, const float* __restrict__ mask, int n,
     int b, int k, int offset, int part, int parts, int tiles, int q0,
     int cap, float* gate, const IntGate& ig, const float* qsv, int* len,
     unsigned* hist, float* __restrict__ cand_v, int* __restrict__ cand_i,
-    int* __restrict__ cand_n, const Skip& skip) {
+    int* __restrict__ cand_n, const Skip& skip, const Dots& dots = Dots{}) {
   using Acc = typename Kind::Acc;
   const size_t list0 = ((size_t)part * b + q0) * cap;
   Acc acc[kAcc];
@@ -315,13 +348,13 @@ __device__ __forceinline__ void consume_all(
     if (skip(t, gate)) {
       pass_tile(geo, ring, stage, phase);
     } else {
-      consume_tile<Kind>(acc, geo, ring, stage, phase);
+      dots.template tile<Kind>(acc, geo, ring, stage, phase, t == part);
       // tools/kernel_probe.py builds K1 without the gate to see where the
       // time goes; such a build returns wrong results by design.
 #ifndef VROD_PROBE_NO_GATE
-      gate_tile<Kind, kEpi, kIntGate>(acc, aux_r, mask_r, row0, offset,
-                                      cand_v + list0, cand_i + list0, cap,
-                                      gate, ig.g, qsv, len);
+      gate_tile<Kind, kEpi, kIntGate, kE>(acc, aux_r, mask_r, row0, offset,
+                                          cand_v + list0, cand_i + list0,
+                                          cap, gate, ig.g, qsv, len);
 #endif
     }
     if (++since_cut == cut_every) {
@@ -332,6 +365,7 @@ __device__ __forceinline__ void consume_all(
       consumer_sync();  // gates and lengths are read again
     }
   }
+  dots.done(part < tiles);
   consumer_sync();
   cut_lists<kIntGate>(cand_v, cand_i, len, gate, ig, hist, list0, q0, b, k,
                       cap, k);

@@ -24,6 +24,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -35,6 +36,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
 
 _libs: dict[tuple[str, ...], ctypes.CDLL] = {}
+
+# The extraction modes, one csrc/extract_<mode>.cu each.
+EXTRACT_MODES = ("floor", "store", "gate", "unroll", "pingpong", "carry")
 
 
 def _nvcc() -> str:
@@ -69,8 +73,9 @@ def library_path(defines: tuple[str, ...] = ()) -> Path:
 def build(defines: tuple[str, ...] = ()) -> Path:
     """Compile the kernels, with ``-D`` for each of ``defines``, unless this
     exact build exists; return its path. The compiler's output (``-Xptxas
-    -v``: registers, shared memory, spills per kernel) is kept beside the
-    library as ``<name>.log``."""
+    -v``: registers, shared memory, spills per kernel) and each source's
+    compile time (``nvcc <source>: <s> s``) are kept beside the library as
+    ``<name>.log``."""
     out = library_path(defines)
     if out.exists():
         return out
@@ -81,13 +86,27 @@ def build(defines: tuple[str, ...] = ()) -> Path:
         objs = [Path(tmp) / (src.stem + ".o") for src in srcs]
         cmds = [[nvcc, *_flags(defines), "-c", "-o", str(obj), str(src)]
                 for src, obj in zip(srcs, objs)]
-        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for cmd in cmds]
-        log, failed = "", []
+        outs = [Path(tmp) / (src.stem + ".out") for src in srcs]
+        t0 = time.monotonic()
+        procs = []
+        for cmd, out_path in zip(cmds, outs):
+            with open(out_path, "w") as fh:
+                procs.append(subprocess.Popen(cmd, stdout=fh,
+                                              stderr=subprocess.STDOUT))
+        log, failed, secs = "", [], {}
         try:
-            for cmd, proc in zip(cmds, procs):
-                log += proc.communicate(timeout=900)[0]
+            # Poll (the outputs go to files, so no pipe can fill): each
+            # source's compile time goes to the log.
+            while len(secs) < len(procs):
+                if time.monotonic() - t0 > 900:
+                    raise RuntimeError("nvcc took over 900 s")
+                for i, proc in enumerate(procs):
+                    if i not in secs and proc.poll() is not None:
+                        secs[i] = time.monotonic() - t0
+                time.sleep(0.05)
+            for i, (cmd, proc) in enumerate(zip(cmds, procs)):
+                log += outs[i].read_text()
+                log += f"nvcc {srcs[i].name}: {secs[i]:.1f} s\n"
                 if proc.returncode != 0:
                     failed.append(f"nvcc failed ({proc.returncode}): "
                                   f"{' '.join(cmd)}")
@@ -141,5 +160,13 @@ def load(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     #  parts, cap, 7 scratch/output pointers, stream)
     lib.vrod_fused_intgate.restype = ci
     lib.vrod_fused_intgate.argtypes = [ci] + [vp] * 5 + [ci] * 8 + [vp] * 8
+    # The extraction experiments X1-X4, one entry point per mode file
+    # (csrc/extract.cuh: VROD_EXTRACT_PARAMS): (elem, epi, variant, x, aux,
+    # mask, q, offset, n, row_bytes, b, k, groups, parts, cap, block_rows,
+    # ring, count, carry_smem, 8 scratch/output pointers, stream)
+    for mode in EXTRACT_MODES:
+        fn = getattr(lib, f"vrod_extract_{mode}")
+        fn.restype = ci
+        fn.argtypes = [ci] * 3 + [vp] * 5 + [ci] * 11 + [vp] * 9
     _libs[defines] = lib
     return lib

@@ -8,8 +8,9 @@ nothing falls back to the CPU or to a plain version):
 1. Setup: a CUDA device must exist; print the card's name and power limit
    (nvidia-smi) and build the kernels from ``vrod_tpu_torch/csrc``.
 2. Kernels vs plain on the card, for every leg (int8 and packed int4 rows
-   with an int8 query, bfloat16 and float32 rows with a float query; each
-   with metric cosine, dot and l2): K1 (``fused_topk``) and K3
+   with an int8 query, bfloat16 and float32 rows with a float query,
+   float32 in TF32 and, as leg f32x3 at precision "exact", in three TF32
+   products; each with metric cosine, dot and l2): K1 (``fused_topk``) and K3
    (``sampled_submax``) against their plain PyTorch versions on the same
    CUDA tensors at 65,536 x 768, b256, with the floor on and off, dead
    rows, k 28, 112 and 1280, dims 96 and 30, tied rows (also spread over
@@ -24,7 +25,8 @@ nothing falls back to the CPU or to a plain version):
    seen, and its largest share of the bound, are printed. A control shows
    the bound would catch a scorer of lower precision: the plain version
    fed inputs truncated to TF32 (as cvt.rz would) or to bfloat16 must
-   fail the same comparison. For every leg theta0, the engine's floor from
+   fail the same comparison, and on the f32x3 leg so must the TF32 leg's
+   plain version. For every leg theta0, the engine's floor from
    K3, must be at or below K1's own k-th value, and K3's maximum must
    equal K1's top-1 on the sample bit for bit. K1 at case (d)'s dim 96
    (8,192 rows, the shapes of the TPU's K2, its auto-pipelined kernel for
@@ -48,8 +50,9 @@ nothing falls back to the CPU or to a plain version):
    - (ii) int4 l2, top-16; (iii) bfloat16 cosine, top-100, with the same
      reopen (the bfloat16 snapshot path, which needs no ml_dtypes); (iv)
      float32 dot, top-100 (with the float control): ``--rows`` rows each;
-   - every leg (12 collections), 3 searches each: int8/int4 at top-16 on
-     262,144 rows, bfloat16/float32 at top-100 on 131,072 rows.
+   - every leg (15 collections), 3 searches each: int8/int4 at top-16 on
+     262,144 rows, bfloat16/float32 at top-100 on 131,072 rows (f32x3: a
+     float32 collection searched at precision "exact").
 4. Floor experiments, on the main path's reopened state (k_scan 28 and
    112) and on phase (iii)'s (k_scan 108), before those collections close:
    the A/B pairs of ``tools/kexp_floor.py`` (the port's kexp17/18/20/22)
@@ -76,16 +79,41 @@ nothing falls back to the CPU or to a plain version):
    k_scan and at 112 (X2's carry in shared, then in global memory): int8
    EXACT, bfloat16 within the bound, the ties EXACT and lowest slot first;
    and X2's count (one part per query group) EQUAL to its closed form.
+6. Serving, on the main path. During its ingest every chunk is also
+   quantized on the port's CPU path: the share of stored bytes that differ
+   (a cosine norm whose last ulp differs flips a byte at a rounding edge)
+   is printed and must stay within the rate measured between the JAX
+   engine and the port's CPU engine (``FLIP_RATE_BOUND``), by at most 1.
+   Then, on the reopened state before the collection closes, with the
+   launch counters set to 0 before and read after: a ``VrodServer`` on
+   127.0.0.1 (port 0) over the loaded Database; 4 client processes
+   (spawned: no interpreter lock shared with the server) of 64
+   connections each, 256 requests in flight, send 2,048 single-query
+   SEARCHSIMILAR requests at top-16, which the server's ``QueryBatcher``
+   packs into batches of up to 256, and one batch request of 256 queries
+   runs through ``search_packed``. Every answer over the wire must have
+   recall 1.0 against the exact float32 scan (tie-aware, unique ids) and
+   no deleted id; K1 and K3 of int8-cosine must have launched. It prints
+   request p50/p99, queries/s and the batcher's batch sizes; the launch
+   counts of these requests join the main path's. Then, counted apart: a
+   replica, a 65,536-row int8 cosine collection (plus 1,000 rows and
+   deletes in its WAL tail) in the same database, pulled by a
+   ``Replicator`` into a second Database on the card behind a read-only
+   ``VrodServer``, answers 288 queries through a ``VrodPool`` (and 256
+   straight) with the primary's ids and scores; K1 must launch. The
+   replica's 65,536 rows are this script's one cut in depth, for its time
+   limit.
 
 Per kernel and leg, at the shapes of its first (largest) phase, the script
 also computes the kernel's bound (the larger of the bytes its inputs and
 outputs must move at 3.35 TB/s and its tensor-core operations, 2 * B * N *
-D, at the dense peak of its type) and times a library yardstick that the
-port never calls: two PyTorch calls, since no one call computes either
-kernel's function: the leg's GEMM ``q @ x.T`` (``torch._int_mm`` for int8,
-the same on unpacked rows for int4, ``torch.matmul`` in bfloat16, and in
-float32 with TF32 on), then ``torch.topk(k_scan)`` (K1) or the max over
-the strided 128-row groups (K3).
+D, at the dense peak of its type; f32x3 does three TF32 products for each)
+and times a library yardstick that the port never calls: two PyTorch
+calls, since no one call computes either kernel's function: the leg's
+GEMM ``q @ x.T`` (``torch._int_mm`` for int8, the same on unpacked rows
+for int4, ``torch.matmul`` in bfloat16, in float32 with TF32 on, and for
+f32x3 in float32 with TF32 off), then ``torch.topk(k_scan)`` (K1) or the
+max over the strided 128-row groups (K3).
 
 The floor kernels' bound is K1's (the rows and inputs once, the scan's
 operations); their yardstick is the stock composition's time, since no
@@ -121,12 +149,13 @@ RECALL_EPS = 1e-5  # tie tolerance of the recall check (bench.py's)
 LEG_SHAPES = {"quant": (262144, 16), "float": (131072, 100)}
 LEG_SEARCHES = 3
 DB_DTYPE = {"int8": "int8", "int4": "int4", "bf16": "bfloat16",
-            "f32": "float32"}
+            "f32": "float32", "f32x3": "float32"}
 # The H100 SXM's datasheet rates (dense): HBM bytes/s, and tensor-core
-# operations/s by the type the kernels multiply in.
+# operations/s by the type the kernels multiply in (f32x3: three TF32
+# products for each float32 product).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"int8": 1979e12, "int4": 1979e12, "bf16": 989e12,
-            "f32": 495e12}
+            "f32": 495e12, "f32x3": 495e12 / 3}
 SOURCES = {"fused_topk": ("vrod_tpu_torch/csrc/fused_topk.cu",
                           "vrod_tpu/ops/pallas_topk.py:251"),
            "sampled_submax": ("vrod_tpu_torch/csrc/sampled_submax.cu",
@@ -142,6 +171,16 @@ FLOOR_KSCANS = {"main path": (28, 112), "(iii)": (108,)}
 # cuda_extract.KERNEL_CALLS).
 EXTRACT_KSCANS = {"main path": (28, 112), "(iii)": (108,)}
 EXTRACT_BLOCK = 2048
+# The serve phase (6): client processes and connections in each (256 in
+# flight: one full batch of the server's QueryBatcher), their single
+# queries (batches of the main path's queries), and the replica's rows.
+SERVE_PROCS, SERVE_CONNS, SERVE_MAX_BATCH = 4, 64, 256
+SERVE_SINGLE_BATCHES, REPLICA_ROWS = 8, 65536
+# Stored int8 bytes that may differ between two quantizers of the same
+# rows whose cosine norms differ in the last ulp: the rate measured between
+# the JAX engine and the port's CPU engine at 65,536 x 768
+# (tests/test_torch_search_options.py, 27 of 50,331,648 elements).
+FLIP_RATE_BOUND = 27 / 50331648
 EXTRACT_PALLAS_LINE = {"kexp": 248, "kexp2": 170, "kexp3": 158, "kexp5": 156}
 
 def log(*a):
@@ -173,7 +212,20 @@ def cuda_time_ms(fn, iters=20, warmup=3) -> float:
 def row_dtype(dtype):
     import torch
     return {"int8": torch.int8, "int4": "int4", "bf16": torch.bfloat16,
-            "f32": torch.float32}[dtype]
+            "f32": torch.float32, "f32x3": torch.float32}[dtype]
+
+
+def leg_precision(leg) -> str:
+    """The search precision of a leg: "exact" for f32x3 (float32 rows in
+    three TF32 products), else "fast"."""
+    return "exact" if leg.startswith("f32x3") else "fast"
+
+
+def error_bound(args, leg):
+    """``cuda_topk.score_error_bound`` of kernel inputs ``args`` of a leg."""
+    from vrod_tpu_torch.ops import cuda_topk as K
+    return K.score_error_bound(*args, metric=leg.split("-")[1],
+                               precision=leg_precision(leg))
 
 
 def kernel_inputs(x, q, leg, dev, dead_every=0):
@@ -188,6 +240,8 @@ def kernel_inputs(x, q, leg, dev, dead_every=0):
     if dead_every:
         valid[::dead_every] = False
     kw = dict(packed=dtype == "int4")
+    if dtype == "f32x3":
+        kw["precision"] = "exact"
     quant = dtype in ("int8", "int4")
     if quant and metric == "l2":
         qk, qs = D.prepare_queries(q.to(dev), metric=metric, quantize=True,
@@ -209,11 +263,12 @@ def sample_of(args, kw, ns):
 def floor_theta(sub, k, args, leg):
     """The engine's floor (``engine.floor_threshold``) from K3's
     sub-maxima, for kernel inputs ``args`` of one leg."""
-    from vrod_tpu_torch.engine import floor_threshold
+    from vrod_tpu_torch.engine import FloorSettings, floor_threshold
     dtype, metric = leg.split("-")
     return floor_threshold(sub, k, args[3], args[1], args[2],
                            metric=metric, quant=dtype in ("int8", "int4"),
-                           dim=args[0].shape[1])
+                           dim=args[0].shape[1],
+                           fs=FloorSettings.from_env())
 
 
 def reached(bound_ms, t) -> str:
@@ -241,7 +296,7 @@ def bound_of(tensors, out_bytes, ops, dtype):
 def library_gemm(leg, x, q):
     """The yardstick's GEMM of one leg: a function returning q @ x.T as the
     library computes it (rows unpacked for int4 before timing; TF32 on for
-    float32 while it runs)."""
+    float32 while it runs, off for f32x3: a float32 GEMM)."""
     import torch
     from vrod_tpu_torch.ops import distances as D
     dtype = leg.split("-")[0]
@@ -322,7 +377,7 @@ class Compare:
         got = K.sampled_submax(*args, metric=metric, block_rows=blk, **kw)
         want = K.sampled_submax_plain(*args, metric=metric, block_rows=blk,
                                       **kw)
-        bound = K.score_error_bound(*args, metric=metric)
+        bound = error_bound(args, leg)
         torch.cuda.synchronize()
         self._same_form((got,), (want,), f"{what}: K3")
         if not torch.equal(torch.isneginf(got), torch.isneginf(want)):
@@ -348,7 +403,7 @@ class Compare:
         got = K.fused_topk(*args, **kk)
         want = K.fused_topk_plain(*args, **kk)
         if bound is None:
-            bound = K.score_error_bound(*args, metric=metric)
+            bound = error_bound(args, leg)
         torch.cuda.synchronize()
         self._same_form(got, want, f"{what}: K1")
         msg = K.topk_disagreement(*got, *want, bound)
@@ -362,20 +417,27 @@ class Compare:
         plain version fed inputs rounded toward zero (float32 rows and
         query truncated to TF32, as cvt.rz would, and to bfloat16; the
         bfloat16 leg's query truncated to bfloat16) must fail the K1
-        comparison that the kernel passes."""
+        comparison that the kernel passes; and on the f32x3 leg so must
+        the TF32 leg's plain version ("tf32": one TF32 product)."""
         from vrod_tpu_torch.ops import cuda_topk as K
         dtype, metric = leg.split("-")
         if dtype in ("int8", "int4"):
             return
-        bound = K.score_error_bound(*args, metric=metric)
+        bound = error_bound(args, leg)
         want = K.fused_topk_plain(*args, k=k, metric=metric, **kw)
-        for name, drop in ((("tf32-rz", 13), ("bf16-rz", 16))
-                           if dtype == "f32" else (("bf16-rz", 16),)):
-            cut = list(args)
-            if dtype == "f32":
-                cut[0] = truncated(args[0], drop)
-            cut[3] = truncated(args[3], drop)
-            got = K.fused_topk_plain(*cut, k=k, metric=metric, **kw)
+        controls = {"f32": (("tf32-rz", 13), ("bf16-rz", 16)),
+                    "f32x3": (("tf32-rz", 13), ("bf16-rz", 16),
+                              ("tf32", 0)),
+                    "bf16": (("bf16-rz", 16),)}[dtype]
+        for name, drop in controls:
+            cut, ckw = list(args), dict(kw)
+            if name == "tf32":
+                ckw.pop("precision")
+            else:
+                if dtype != "bf16":
+                    cut[0] = truncated(args[0], drop)
+                cut[3] = truncated(args[3], drop)
+            got = K.fused_topk_plain(*cut, k=k, metric=metric, **ckw)
             if K.topk_disagreement(*got, *want, bound) is None:
                 raise AssertionError(f"{what}: the float bound passes a "
                                      f"{name} control scorer")
@@ -824,7 +886,7 @@ def search_round(col, queries, leg, top_k, what, lat=None):
     for b, q in enumerate(queries):
         n0 = [K.launches[n] for n in names]
         t0 = time.perf_counter()
-        hits = col.search_similar(q, top_k)
+        hits = col.search_similar(q, top_k, precision=leg_precision(leg))
         if lat is not None:
             lat.append(time.perf_counter() - t0)
         for name, before in zip(names, n0):
@@ -837,19 +899,234 @@ def search_round(col, queries, leg, top_k, what, lat=None):
     return results
 
 
+def quant_flips(col, chunk, ids, flips):
+    """Quantize ``chunk`` on the port's CPU path and add to ``flips`` (count,
+    largest difference) how its stored bytes differ from those the card
+    stored for ``ids``."""
+    import torch
+    from vrod_tpu_torch.ops import distances as D
+    want, _ = D.prepare_rows(torch.from_numpy(chunk), metric="cosine",
+                             dtype="int8")
+    slots = col.alloc.slots_of(np.asarray(ids, np.uint64)).astype(np.int64)
+    got = col.engine.x[torch.from_numpy(slots).to(col.engine.device)].cpu()
+    diff = (got.int() - want.int()).abs()
+    flips[0] += int((diff != 0).sum())
+    flips[1] = max(flips[1], int(diff.max()))
+
+
+def serve_client_process(index, addr, vecs, top_k, conns, barrier, out):
+    """One client process of the serve phase: ``conns`` threads, each with
+    its own connection, send the single queries ``vecs[t::conns]`` one at a
+    time once every process is connected (``barrier``), and put (index,
+    [(id, score), ...] per query, latencies in s) on ``out``."""
+    import threading
+    from vrod_tpu_torch import VrodClient
+    clients = [VrodClient(addr) for _ in range(conns)]
+    hits, lat = [None] * len(vecs), [[] for _ in range(conns)]
+
+    def run(t):
+        for i in range(t, len(vecs), conns):
+            t0 = time.perf_counter()
+            got = clients[t].search_similar("docs", vecs[i], k=top_k)
+            lat[t].append(time.perf_counter() - t0)
+            hits[i] = [(h.record_id, h.score) for h in got]
+
+    threads = [threading.Thread(target=run, args=(t,)) for t in range(conns)]
+    barrier.wait()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for c in clients:
+        c.close()
+    out.put((index, hits, [x for ts in lat for x in ts]))
+
+
+def serve_load(addr, single, top_k):
+    """Send the single queries from SERVE_PROCS client processes of
+    SERVE_CONNS connections each (spawned, so they share no interpreter
+    lock with the server). Returns (hits per query as (id, score) lists,
+    request latencies in ms, wall s from the start signal to the last
+    answer)."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    barrier, out = ctx.Barrier(SERVE_PROCS + 1), ctx.Queue()
+    procs = [ctx.Process(target=serve_client_process,
+                         args=(p, addr, single[p::SERVE_PROCS], top_k,
+                               SERVE_CONNS, barrier, out))
+             for p in range(SERVE_PROCS)]
+    for p in procs:
+        p.start()
+    try:
+        barrier.wait(timeout=300)
+        wall0 = time.perf_counter()
+        hits, lat = [None] * len(single), []
+        for _ in procs:
+            index, got, ts = out.get(timeout=600)
+            hits[index::SERVE_PROCS] = got
+            lat += ts
+        wall = time.perf_counter() - wall0
+        for p in procs:
+            p.join(timeout=60)
+            if p.exitcode != 0:
+                raise AssertionError(f"serve client process exited "
+                                     f"{p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return hits, np.array(lat) * 1e3, wall
+
+
+def serve_phase(card, db, col, queries, top_k, gone, seed):
+    """The serving slice on the main path's reopened collection (module
+    docstring, phase 6). Returns the launch counts of the served main-path
+    requests (the replica check's are counted apart)."""
+    import torch
+    from vrod_tpu_torch import VrodClient, VrodServer, metrics
+    from vrod_tpu_torch.collection import SearchHit
+    from vrod_tpu_torch.ops import cuda_topk as K
+    dev = col.engine.device
+    single = np.concatenate(queries[:SERVE_SINGLE_BATCHES])
+    kth = np.concatenate([oracle_kth(col.engine, q, top_k)
+                          for q in queries[:SERVE_SINGLE_BATCHES]])
+    batch_q = queries[SERVE_SINGLE_BATCHES]
+    batch_kth = oracle_kth(col.engine, batch_q, top_k)
+    batches = []
+
+    def sink(rec):
+        if rec["event"] == "frontend.batch":
+            batches.append(rec["batch"])
+
+    metrics.query_log.configure(sink)
+    server = VrodServer(db, ("127.0.0.1", 0)).start()
+    try:
+        with VrodClient(server.address) as c:  # warm-up, not timed
+            c.search_similar("docs", single[0], k=top_k)
+        batches.clear()
+        K.reset_launches()
+        got, lat_ms, wall = serve_load(server.address, single, top_k)
+        out = [[SearchHit(r, sc, "") for r, sc in hs] for hs in got]
+        check_hits(out, kth, col.config.metric, top_k, "serve single")
+        single_batches = list(batches)
+        with VrodClient(server.address) as c:
+            t0 = time.perf_counter()
+            packed = c.search_similar_batch("docs", batch_q, k=top_k)
+            batch_ms = (time.perf_counter() - t0) * 1e3
+        check_hits(packed, batch_kth, col.config.metric, top_k,
+                   "serve batch")
+        for hs in out + packed:
+            if any(h.record_id in gone for h in hs):
+                raise AssertionError("serve: a deleted id came back")
+        torch.cuda.synchronize(dev)
+        launches = dict(K.launches)
+        for kname in ("fused_topk[int8-cosine]",
+                      "sampled_submax[int8-cosine]"):
+            if not launches[kname]:
+                raise AssertionError(f"serve: launched no {kname}")
+        ran = {k: v for k, v in launches.items() if v}
+        sizes = np.array(single_batches)
+        log(f"serve: {len(single)} single SEARCHSIMILAR requests from "
+            f"{SERVE_PROCS} client processes x {SERVE_CONNS} connections "
+            f"over TCP, top-{top_k} on {col.count} rows: request p50 "
+            f"{np.percentile(lat_ms, 50):.3f} ms, p99 "
+            f"{np.percentile(lat_ms, 99):.3f} ms, "
+            f"{len(single) / wall:.1f} queries/s; the batcher ran "
+            f"{len(sizes)} batches, mean {sizes.mean():.2f} queries, "
+            f"median {np.median(sizes):.0f}, largest {sizes.max()}, "
+            f"{int((sizes == SERVE_MAX_BATCH).sum())} of "
+            f"{SERVE_MAX_BATCH}; one batch request of {BATCH} queries "
+            f"(packed hits) {batch_ms:.3f} ms; recall 1.0, unique ids, no "
+            f"deleted id; launches {json.dumps(ran)} [{card}]")
+        K.reset_launches()
+        replica_check(card, db, server, seed)
+        if not K.launches["fused_topk[int8-cosine]"]:
+            raise AssertionError("serve replica: launched no K1")
+        log("serve replica: launches (not counted in the kernels line) "
+            f"{json.dumps({k: v for k, v in K.launches.items() if v})}")
+    finally:
+        metrics.query_log.configure(None)
+        server.close()
+    return launches
+
+
+def replica_check(card, db, server, seed):
+    """A replica of a REPLICA_ROWS-row int8 collection of the primary's
+    database (a Replicator behind a read-only VrodServer, on the same card)
+    answers the primary's queries, read through a VrodPool, with the
+    primary's ids and scores."""
+    from vrod_tpu_torch import (Database, Replicator, VrodClient, VrodPool,
+                                VrodServer)
+    rng = np.random.default_rng(seed)
+    col = db.create_collection("replicated", dim=DIM, metric="cosine",
+                               dtype="int8")
+    col.bulk_insert(rng.standard_normal((REPLICA_ROWS, DIM),
+                                        dtype=np.float32))
+    col.snapshot()
+    col.delete_many(np.arange(1, REPLICA_ROWS, 97))
+    col.bulk_insert(rng.standard_normal((1000, DIM), dtype=np.float32))
+    q = rng.standard_normal((BATCH, DIM), dtype=np.float32)
+    tmp = Path(tempfile.mkdtemp(prefix="vrod_replica_"))
+    try:
+        rdb = Database.new(tmp, "replica", device=col.engine.device)
+        try:
+            t0 = time.perf_counter()
+            rep = Replicator(rdb, server.address,
+                             collections=["replicated"]).start()
+            rserver = VrodServer(rdb, ("127.0.0.1", 0),
+                                 read_only=True).start()
+            rserver.attach_replicator(rep)
+            try:
+                rep.wait_caught_up(timeout=600)
+                sync_s = time.perf_counter() - t0
+                with VrodClient(server.address) as pc, \
+                        VrodClient(rserver.address) as rc, \
+                        VrodPool(server.address, [rserver.address]) as pool:
+                    want = pc.search_similar_batch("replicated", q, k=16)
+                    got = pool.search_similar_batch("replicated", q, k=16)
+                    direct = rc.search_similar_batch("replicated", q, k=16)
+                    want1 = [pc.search_similar("replicated", v, k=16)
+                             for v in q[:32]]
+                    got1 = [pool.search_similar("replicated", v, k=16)
+                            for v in q[:32]]
+                for w, g in zip(want + want + want1, got + direct + got1):
+                    if [(h.record_id, h.score) for h in w] != \
+                            [(h.record_id, h.score) for h in g]:
+                        raise AssertionError(
+                            f"replica answered {g[:3]}..., primary "
+                            f"{w[:3]}...")
+                log(f"serve replica: {REPLICA_ROWS} + 1000 rows int8 "
+                    f"cosine (snapshot + WAL tail), caught up in "
+                    f"{sync_s:.3f} s; {len(want) + len(want1)} queries "
+                    f"through a VrodPool and {len(direct)} straight to the "
+                    f"replica: ids and scores equal to the primary's "
+                    f"[{card}]")
+            finally:
+                rserver.close()
+        finally:
+            rdb.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        db.drop_collection("replicated")
+
+
 def db_phase(dev, card, cmp, *, name, leg, top_k, rows, searches, reopen,
-             seed, floor_kscans=(), extract_kscans=()):
+             seed, floor_kscans=(), extract_kscans=(), serve=False):
     """One Database phase through the entry points (module docstring,
     phase 3), then with ``floor_kscans`` the floor experiments on its state
-    (phase 4) and with ``extract_kscans`` the extraction experiments (phase
-    5). Returns (launch counts of the phase, kernel times at its shapes,
-    the floor experiments' (launches, records, times) or None, the
-    extraction experiments' likewise)."""
+    (phase 4), with ``extract_kscans`` the extraction experiments (phase
+    5), and with ``serve`` the quantizer check during ingest and the
+    serving slice on the reopened state (phase 6). Returns (launch counts
+    of the phase, kernel times at its shapes, the floor experiments'
+    (launches, records, times) or None, the extraction experiments'
+    likewise, the serve phase's launch counts or None)."""
     import torch
     from vrod_tpu_torch import Database
-    from vrod_tpu_torch.engine import floor_gate
+    from vrod_tpu_torch.engine import FloorSettings, floor_gate
     from vrod_tpu_torch.ops import cuda_topk as K
     dtype, metric = leg.split("-")
+    precision = leg_precision(leg)
     rng = np.random.default_rng(seed)
     queries = [rng.standard_normal((BATCH, DIM), dtype=np.float32)
                for _ in range(searches)]
@@ -860,7 +1137,7 @@ def db_phase(dev, card, cmp, *, name, leg, top_k, rows, searches, reopen,
         db = Database.new(tmp, "smoke", device=dev)
         col = db.create_collection("docs", dim=DIM, metric=metric,
                                    dtype=DB_DTYPE[dtype])
-        ingest_s, ids = 0.0, []
+        ingest_s, ids, flips = 0.0, [], [0, 0]
         for start in range(0, rows, INGEST_CHUNK):
             chunk = rng.standard_normal(
                 (min(INGEST_CHUNK, rows - start), DIM), dtype=np.float32)
@@ -868,8 +1145,19 @@ def db_phase(dev, card, cmp, *, name, leg, top_k, rows, searches, reopen,
             ids.append(col.bulk_insert(chunk))
             torch.cuda.synchronize(dev)
             ingest_s += time.perf_counter() - t0
+            if serve:
+                quant_flips(col, chunk, ids[-1], flips)
         ids = np.concatenate(ids)
-        col.search_similar(queries[0], top_k)  # warm-up, not timed
+        if serve:
+            rate = flips[0] / (rows * DIM)
+            log(f"{name}: quantized on the card and on the port's CPU path, "
+                f"{flips[0]} of {rows * DIM} stored bytes differ ({rate:.4g}"
+                f"; bound {FLIP_RATE_BOUND:.4g}), by at most {flips[1]}")
+            if rate > FLIP_RATE_BOUND or flips[1] > 1:
+                raise AssertionError(f"{name}: the card's quantizer flips "
+                                     f"{rate:.4g} of stored bytes")
+        # warm-up, not timed
+        col.search_similar(queries[0], top_k, precision=precision)
         lat = []
         before = search_round(col, queries, leg, top_k, f"{name} search",
                               lat)
@@ -919,9 +1207,10 @@ def db_phase(dev, card, cmp, *, name, leg, top_k, rows, searches, reopen,
         q = torch.from_numpy(queries[0]).to(dev)
         from vrod_tpu_torch.ops import distances as D
         q_scan, extras = eng.scan_inputs(q, D.prepare_queries(
-            q, metric=metric))
+            q, metric=metric), precision)
         ok, ns, blk = floor_gate(eng.capacity, k_scan, eng.storage_dim,
-                                 eng.x.element_size(), eng.quant)
+                                 eng.x.element_size(), eng.quant,
+                                 FloorSettings.from_env())
         if not ok:
             raise AssertionError(f"{name}: floor gate closed")
         a1 = [eng.x, eng.aux, eng.valid, q_scan]
@@ -935,7 +1224,7 @@ def db_phase(dev, card, cmp, *, name, leg, top_k, rows, searches, reopen,
         eng_lat = []
         for qb in queries:
             t0 = time.perf_counter()
-            eng.search(qb, top_k)
+            eng.search(qb, top_k, precision=precision)
             eng_lat.append(time.perf_counter() - t0)
         kw1 = dict(k=k_scan, metric=metric, theta0=theta0, **extras)
         kw3 = dict(metric=metric, block_rows=blk, **kw3)
@@ -966,8 +1255,10 @@ def db_phase(dev, card, cmp, *, name, leg, top_k, rows, searches, reopen,
             if floor_kscans else None
         extract = extract_phase(cmp, card, name, leg, a1, extract_kscans) \
             if extract_kscans else None
+        served = serve_phase(card, db, col, queries, top_k, set(gone),
+                             seed + 1) if serve else None
         db.close()
-        return launches, times, floor, extract
+        return launches, times, floor, extract, served
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
@@ -1033,13 +1324,14 @@ def main(argv=None) -> int:
     launches = dict.fromkeys(K.launches, 0)
     times, floors, extracts = {}, [], []
     for i, (name, leg, top_k, rows, reopen) in enumerate(phases):
-        n, t, floor, extract = db_phase(
+        n, t, floor, extract, served = db_phase(
             dev, card, cmp, name=name, leg=leg, top_k=top_k, rows=rows,
             searches=LEG_SEARCHES if name.startswith("leg") else SEARCHES,
             reopen=reopen, seed=args.seed + 10 + i,
             floor_kscans=FLOOR_KSCANS.get(name, ()),
-            extract_kscans=EXTRACT_KSCANS.get(name, ()))
-        for kname, c in n.items():
+            extract_kscans=EXTRACT_KSCANS.get(name, ()),
+            serve=name == "main path")
+        for kname, c in list(n.items()) + list((served or {}).items()):
             launches[kname] += c
         times.setdefault(leg, (name, rows, t))  # the first, largest phase
         if floor:

@@ -7,7 +7,9 @@ it runs them with:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Every leg of K1/K3 (int8 and packed int4 rows with an int8 query, bfloat16
-and float32 rows with a float query; metrics cosine, dot and l2):
+and float32 rows with a float query, float32 in TF32 and, as leg f32x3 at
+the precision "exact", in three TF32 products; metrics cosine, dot and
+l2):
 - int8/int4 scores are exact integer dots followed by the same rounded
   float32 ops, so kernel and plain version must be EQUAL: values and
   slots, ties and empty ranks included;
@@ -28,6 +30,7 @@ import torch
 from vrod_tpu_torch.config import DTYPES, METRICS, CollectionConfig
 from vrod_tpu_torch.engine import DeviceEngine
 from vrod_tpu_torch.ops import cuda_extract
+from vrod_tpu_torch.ops import cuda_floor
 from vrod_tpu_torch.ops import cuda_topk
 from vrod_tpu_torch.ops import distances as TD
 
@@ -44,7 +47,21 @@ CASES = [
     ("b256_n65536", 65536, 128, 256, 28, 7, True, 5, False),
 ]
 _ROW_DTYPE = {"int8": torch.int8, "int4": "int4", "bf16": torch.bfloat16,
-              "f32": torch.float32}
+              "f32": torch.float32, "f32x3": torch.float32}
+
+
+def leg_keywords(dtype):
+    """The wrappers' keywords of a leg's row dtype: packed int4 rows, and
+    float32 at "exact" for the f32x3 leg."""
+    kw = dict(packed=dtype == "int4")
+    if dtype == "f32x3":
+        kw["precision"] = "exact"
+    return kw
+
+
+def bound_of(args, kw, metric):
+    return cuda_topk.score_error_bound(
+        *args, metric=metric, precision=kw.get("precision", "fast"))
 
 
 @pytest.fixture
@@ -77,7 +94,7 @@ def make_state(rng, n, d, b, dev, leg, dead_every=0, ties=False):
     if ties:
         q[0] = x[3]
     q = torch.from_numpy(q)
-    kw = dict(packed=dtype == "int4")
+    kw = leg_keywords(dtype)
     if dtype in ("int8", "int4") and metric == "l2":
         q, qs = TD.prepare_queries(q, metric=metric, quantize=True,
                                    return_scale=True)
@@ -106,7 +123,7 @@ def test_cuda_kernels_match_plain(rng, case, leg, cuda_device):
     _, n, d, b, k, dead_every, floor, offset, ties = case
     metric = leg.split("-")[1]
     args, kw = make_state(rng, n, d, b, cuda_device, leg, dead_every, ties)
-    bound = cuda_topk.score_error_bound(*args, metric=metric)
+    bound = bound_of(args, kw, metric)
     sample, skw = sample_of(args, kw, n // 2)
     sub = cuda_topk.sampled_submax(*sample, metric=metric, block_rows=256,
                                    **skw)
@@ -190,6 +207,34 @@ def test_cuda_engine_launches_k1_for_every_leg(rng, cuda_device, dtype,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("precision", ["high", "exact"])
+def test_cuda_engine_float32_high_precision_runs_the_f32x3_leg(
+        rng, cuda_device, metric, precision):
+    """float32 rows at "high"/"exact" search on the card through K1's and
+    K3's three-product leg (never the plain scan), with and without the
+    rescore, to the CPU engine's slots; the floor opens at k 100."""
+    cfg = CollectionConfig(name="x3", dim=64, metric=metric, dtype="float32",
+                           segment_rows=131072, shards=1)
+    cpu = DeviceEngine(cfg, device="cpu")
+    cpu.write(np.arange(131072),
+              rng.standard_normal((131072, 64)).astype(np.float32))
+    cpu.erase(np.arange(0, 131072, 11))
+    gpu = DeviceEngine(cfg, device=cuda_device)
+    gpu.load_state(cpu.x, cpu.aux, cpu.valid)
+    q = rng.standard_normal((20, 64)).astype(np.float32)
+    cuda_topk.reset_launches()
+    for rescore in (True, False):
+        v, i = gpu.search(q, 100, precision=precision, rescore=rescore)
+        vc, ic = cpu.search(q, 100, precision=precision, rescore=rescore)
+        np.testing.assert_array_equal(i, ic)
+        np.testing.assert_allclose(v, vc, rtol=1e-5, atol=1e-5)
+    assert {n: c for n, c in cuda_topk.launches.items() if c} == {
+        f"fused_topk[f32x3-{metric}]": 2,
+        f"sampled_submax[f32x3-{metric}]": 2}
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("leg", cuda_topk.LEGS)
 def test_cuda_k1_ties_across_list_cuts(leg, cuda_device):
     """Copies of row 7, 40 in each of the first seven row tiles of K1's
@@ -220,7 +265,7 @@ def test_cuda_k1_ties_across_list_cuts(leg, cuda_device):
                                 dtype=_ROW_DTYPE[dtype])
     valid = torch.ones(n, dtype=torch.bool)
     qt = torch.from_numpy(q)
-    kw = dict(packed=dtype == "int4")
+    kw = leg_keywords(dtype)
     if dtype in ("int8", "int4") and metric == "l2":
         qt, qs = TD.prepare_queries(qt, metric=metric, quantize=True,
                                     return_scale=True)
@@ -245,7 +290,7 @@ FLOOR_SAMPLES = [(16384, 2), (2048, 8)]  # (block_rows, s_blocks)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("leg", cuda_topk.LEGS)
+@pytest.mark.parametrize("leg", cuda_floor.LEGS)
 @pytest.mark.parametrize("k", [28, 112])
 @pytest.mark.parametrize("skip,margin", [(False, None), (True, None),
                                          (False, 0.01), (True, 0.01)],
@@ -257,7 +302,6 @@ def test_cuda_fused_theta_matches_plain(rng, cuda_device, leg, k, skip,
     theta0 bit-equal to bisect_floor of K3's sub-maxima less the margin on
     every leg; and the result EQUAL to K1 without a floor (the floor is
     sound, margin 0 included, because sample and scan score alike)."""
-    from vrod_tpu_torch.ops import cuda_floor
     metric = leg.split("-")[1]
     args, kw = make_state(rng, 65536, 768, 256, cuda_device, leg, 7)
     blk, s_blocks = FLOOR_SAMPLES[k == 112]
@@ -288,7 +332,6 @@ def test_cuda_fused_theta_matches_plain(rng, cuda_device, leg, k, skip,
 def test_cuda_fused_intgate_matches_plain(rng, cuda_device, leg, k, floor):
     """X9 at 65,536 x 768, b256, with dead rows: EQUAL to its plain version
     and to K1 from the same floor."""
-    from vrod_tpu_torch.ops import cuda_floor
     metric = leg.split("-")[1]
     args, _ = make_state(rng, 65536, 768, 256, cuda_device, leg, 7)
     theta0 = None
@@ -341,13 +384,12 @@ def tie_state(leg, dev, b=8, d=128, k=112):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("leg", cuda_topk.LEGS)
+@pytest.mark.parametrize("leg", cuda_floor.LEGS)
 def test_cuda_fused_theta_ties_across_list_cuts(leg, cuda_device):
     """K1's tie case across list cuts through fused_theta (skip on, the
     sample's tiles revisited) and, on the int8 legs, fused_intgate: every
     score is exact, so both EQUAL the plain version, copies of row 7
     lowest slot first."""
-    from vrod_tpu_torch.ops import cuda_floor
     k = 112
     args, kw, copies = tie_state(leg, cuda_device)
     metric = leg.split("-")[1]
@@ -370,7 +412,6 @@ def test_cuda_fused_theta_refuses_a_grid_that_is_not_co_resident(
         rng, cuda_device):
     """More query groups than SMs: the cooperative grid cannot be resident
     at once, and the launch raises instead of hanging."""
-    from vrod_tpu_torch.ops import cuda_floor
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     args, kw = make_state(rng, 4096, 64, 256 * (sms + 1), cuda_device,
                           "int8-cosine")
@@ -531,3 +572,29 @@ def test_cuda_extract_refuses_what_it_cannot_score(rng, cuda_device):
         cuda_extract.kexp_call("gate", *args, k=8, metric="dot",
                                block_rows=1024, precision_name="fast")
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,metric", [("int8", "cosine"),
+                                          ("int8", "l2"),
+                                          ("bfloat16", "cosine")])
+def test_cuda_tensor_query_stays_on_the_card(rng, cuda_device, dtype,
+                                             metric):
+    """A CUDA tensor as the query with ``as_numpy=False``: CUDA tensors
+    out, equal to the numpy path's answer on the same engine, for the
+    kernels and for the plain scan."""
+    cfg = CollectionConfig(name="t", dim=64, metric=metric, dtype=dtype,
+                           segment_rows=4096)
+    eng = DeviceEngine(cfg, device=cuda_device)
+    eng.write(np.arange(4096),
+              rng.standard_normal((4096, 64)).astype(np.float32))
+    eng.erase(np.arange(0, 4096, 7))
+    q = rng.standard_normal((12, 64)).astype(np.float32)
+    for kw in ({}, {"impl": "scan", "precision": "exact"},
+               {"rescore": False}, {"margin": 40}):
+        want_v, want_i = eng.search(q, 16, **kw)
+        v, i = eng.search(torch.from_numpy(q).to(cuda_device), 16,
+                          as_numpy=False, **kw)
+        assert v.is_cuda and i.is_cuda, kw
+        np.testing.assert_array_equal(i.cpu().numpy(), want_i, err_msg=str(kw))
+        np.testing.assert_array_equal(v.cpu().numpy(), want_v, err_msg=str(kw))

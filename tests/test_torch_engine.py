@@ -20,9 +20,12 @@ from vrod_tpu.engine import DeviceEngine as JaxEngine
 from vrod_tpu_torch import convert
 from vrod_tpu_torch.config import CollectionConfig as PortConfig
 from vrod_tpu_torch.errors import ConfigError
-from vrod_tpu_torch.engine import DeviceEngine, floor_gate
+from vrod_tpu_torch.engine import DeviceEngine, FloorSettings, floor_gate
 from vrod_tpu_torch.ops import cuda_topk
 from vrod_tpu_torch.ops import distances as D
+
+# The sampled floor's default settings (no VROD_THETA0* variables).
+FS = FloorSettings()
 
 
 def carried(jeng, cfg):
@@ -135,7 +138,7 @@ def test_floor_gate_open_path_matches_jax_scan(rng, monkeypatch):
     """With the gate open (131072 rows, k 100 -> k_scan 112: sample 24576
     rows in 8192-row blocks) the port runs K3 + the count threshold + K1
     and still returns the JAX scan's exact results."""
-    assert floor_gate(131072, 112, 32, 1, True) == (True, 24576, 8192)
+    assert floor_gate(131072, 112, 32, 1, True, FS) == (True, 24576, 8192)
     cfg = CollectionConfig(name="g", dim=32, metric="cosine", dtype="int8",
                            segment_rows=131072, shards=1)
     jeng = JaxEngine(cfg)
@@ -159,11 +162,11 @@ def test_floor_gate_open_path_matches_jax_scan(rng, monkeypatch):
 def test_floor_gate_headline():
     # 1M x 768 int8, top-16 (k_scan 16 + 12): open, 32,768-row sample in
     # two 16,384-row blocks, 256 sub-maxima >= 2 * 28.
-    assert floor_gate(1 << 20, 28, 768, 1, True) == (True, 32768, 16384)
-    assert floor_gate(1 << 20, 24, 768, 1, True)[0] is True
-    assert floor_gate(1 << 20, 23, 768, 1, True)[0] is False
+    assert floor_gate(1 << 20, 28, 768, 1, True, FS) == (True, 32768, 16384)
+    assert floor_gate(1 << 20, 24, 768, 1, True, FS)[0] is True
+    assert floor_gate(1 << 20, 23, 768, 1, True, FS)[0] is False
     # Wide rows shrink the pre-pass block to its tile budget.
-    assert floor_gate(1 << 20, 28, 4096, 1, True) == (True, 32768, 4096)
+    assert floor_gate(1 << 20, 28, 4096, 1, True, FS) == (True, 32768, 4096)
 
 
 @pytest.mark.parametrize("rows,k_scan,dim,itemsize,quant,want", [
@@ -187,7 +190,7 @@ def test_floor_gate_headline():
 ])
 def test_floor_gate_at_the_smoke_phases(rows, k_scan, dim, itemsize, quant,
                                         want):
-    assert floor_gate(rows, k_scan, dim, itemsize, quant) == want
+    assert floor_gate(rows, k_scan, dim, itemsize, quant, FS) == want
 
 
 def test_cuda_request_raises_without_a_gpu(monkeypatch):
@@ -227,17 +230,6 @@ def assert_norms_track(jeng, eng):
     np.testing.assert_array_equal(eng.norms.numpy(), np.asarray(jeng.norms))
 
 
-def exact_scale_vecs(rng, n, d, dtype):
-    """Rows whose largest |element| is qmax / 16 (qmax 7 for int4, else
-    127), so the quantization scale is exactly 2^-4 in both packages. (XLA
-    divides by the constant qmax as a multiply by its rounded reciprocal,
-    which moves the scale by an ulp in some rows; the port divides.)"""
-    top = (7.0 if dtype == "int4" else 127.0) / 16
-    v = rng.uniform(-0.99, 0.99, (n, d)) * top
-    v[:, 0] = rng.choice([-top, top], n)
-    return v.astype(np.float32)
-
-
 @pytest.mark.parametrize("dtype,metric", LEGS,
                          ids=[f"{d}-{m}" for d, m in LEGS])
 def test_engine_matches_jax_every_leg(rng, dtype, metric):
@@ -250,7 +242,7 @@ def test_engine_matches_jax_every_leg(rng, dtype, metric):
                            segment_rows=128, shards=1)
     jeng, eng = JaxEngine(cfg), DeviceEngine(cfg, device="cpu")
     assert eng.has_norms == jeng.has_norms
-    vecs = exact_scale_vecs(rng, 300, 32, dtype)
+    vecs = rng.standard_normal((300, 32)).astype(np.float32)
     q = rng.standard_normal((6, 32)).astype(np.float32)
     steps = [
         lambda e: (e.ensure_capacity(300), e.write(np.arange(300), vecs)),
@@ -353,7 +345,7 @@ def test_float_floor_open_path_matches_jax_scan(rng, monkeypatch, dtype,
     threshold subtracts the accumulation margin, and the results are the
     JAX scan's."""
     itemsize = 4 if dtype == "float32" else 2
-    assert floor_gate(131072, 108, 32, itemsize, False) == \
+    assert floor_gate(131072, 108, 32, itemsize, False, FS) == \
         (True, 24576, 8192)
     cfg = CollectionConfig(name="f", dim=32, metric=metric, dtype=dtype,
                            segment_rows=131072, shards=1)

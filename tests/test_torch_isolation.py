@@ -4,10 +4,10 @@ JAX package's.
 
 - In a subprocess whose import system refuses ``vrod_tpu`` (exactly that
   package, not ``vrod_tpu_torch``), ``jax``, ``jaxlib`` and ``ml_dtypes``,
-  every module of ``vrod_tpu_torch``, ``chip_smoke``,
-  ``tools/kexp_floor.py`` and ``tools/kexp_extract.py`` imports, and a
-  collection (int8, bfloat16) goes create -> bulk_insert -> search ->
-  snapshot -> delete -> load -> verify on the CPU.
+  every module of ``vrod_tpu_torch`` (the serving modules among them),
+  ``chip_smoke``, ``tools/kexp_floor.py`` and ``tools/kexp_extract.py``
+  imports, and a collection (int8, bfloat16) goes create -> bulk_insert ->
+  search -> snapshot -> delete -> load -> serve -> verify on the CPU.
 - A database written by either package loads in the other and answers the
   same queries; for the same operations both packages write the same WAL
   bytes.
@@ -24,6 +24,7 @@ import pytest
 import vrod_tpu
 import vrod_tpu_torch
 from vrod_tpu_torch import convert
+from test_torch_distances import norms_agree
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -55,13 +56,17 @@ for m in mods:
 assert {"vrod_tpu_torch.wal.wal", "vrod_tpu_torch._native.build",
         "vrod_tpu_torch.snapshot", "vrod_tpu_torch.ops.cuda_topk",
         "vrod_tpu_torch.ops.cuda_extract",
-        "vrod_tpu_torch.utils.embeddings"} <= set(mods), mods
+        "vrod_tpu_torch.utils.embeddings", "vrod_tpu_torch.netaddr",
+        "vrod_tpu_torch.client", "vrod_tpu_torch.pool",
+        "vrod_tpu_torch.frontend", "vrod_tpu_torch.server",
+        "vrod_tpu_torch.replication", "vrod_tpu_torch.utils.verify"
+        } <= set(mods), mods
 import chip_smoke  # noqa: F401
 import runpy
 runpy.run_path("tools/kexp_floor.py", run_name="kexp_floor")
 runpy.run_path("tools/kexp_extract.py", run_name="kexp_extract")
 
-from vrod_tpu_torch import Database
+from vrod_tpu_torch import Database, VrodClient, VrodServer
 from vrod_tpu_torch.verify_image import verify_image
 
 dtype, root = sys.argv[1], sys.argv[2]
@@ -85,6 +90,11 @@ after = col.search_similar(queries, 5)
 for was, got in zip(before, after):
     kept = [(h.record_id, h.score) for h in was if h.record_id not in gone]
     assert [(h.record_id, h.score) for h in got][:len(kept)] == kept
+with VrodServer(db, ("127.0.0.1", 0)).start() as srv:
+    with VrodClient(srv.address) as c:
+        wire = c.search_similar("docs", queries[0], k=5)
+assert [(h.record_id, h.score) for h in wire] == \
+    [(h.record_id, h.score) for h in after[0]]
 db.close()
 report = verify_image(f"{root}/db")
 assert report["ok"], report
@@ -141,7 +151,7 @@ def test_database_loads_in_the_other_package(tmp_path, rng, writer, reader,
     ids = col.bulk_insert(vecs, [f"v{i}" for i in range(700)])
     col.snapshot()
     col.delete_many(ids[::7])
-    col.bulk_insert(extra)
+    extra_ids = col.bulk_insert(extra)
     db.close()
     rows, results = [], []
     for pkg in (writer, reader):
@@ -149,12 +159,24 @@ def test_database_loads_in_the_other_package(tmp_path, rng, writer, reader,
         col = db.collection("docs")
         live = np.sort(col.alloc.live_slots().astype(np.int64))
         rows.append((_stored(col.engine.x)[live].tobytes(),
-                     _stored(col.engine.aux)[live]))
+                     _stored(col.engine.aux)[live],
+                     col.alloc.ids_of(live.astype(np.uint64))))
         results.append(col.search_similar(queries, 8))
         db.close()
     assert rows[0][0] == rows[1][0]
-    # Replayed rows requantize: XLA divides by the quantizer's constant as a
-    # multiply by its reciprocal, so an int8/int4 scale may differ by an ulp.
+    np.testing.assert_array_equal(rows[0][2], rows[1][2])
+    # Replayed rows requantize in the reader's package. The port quantizes
+    # as XLA does under jit, so every scale is the same bits wherever the
+    # two packages' norms of the row agree; where the last ulp of a cosine
+    # norm differs (tests/test_torch_search_options.py measures how
+    # often), the scale, x_max / |x| / 127 or 1 / |x|, moves within rtol
+    # 2^-22.
+    by_id = dict(zip(ids.tolist(), vecs)) | dict(zip(extra_ids.tolist(),
+                                                    extra))
+    live_vecs = np.stack([by_id[int(r)] for r in rows[0][2]])
+    agree = norms_agree(live_vecs)
+    assert agree.mean() > 0.25
+    np.testing.assert_array_equal(rows[0][1][agree], rows[1][1][agree])
     np.testing.assert_allclose(rows[0][1], rows[1][1], rtol=2.0 ** -22,
                                atol=0)
     ia, sa = _hits(results[0])

@@ -1,8 +1,10 @@
 """The plain versions of the port's kernels (cuda_topk.fused_topk_plain and
 sampled_submax_plain) against the JAX Pallas kernels in interpret mode, on
 identical state, for every leg: int8 and packed int4 rows (int8-quantized
-query) and bfloat16 and float32 rows (float query), each with metric
-cosine, dot and l2.
+query) and bfloat16 and float32 rows (float query), float32 at the
+precision "fast" (TF32) and at "exact" (the f32x3 leg: three TF32
+products, against the Pallas kernel at HIGHEST), each with metric cosine,
+dot and l2.
 
 Tolerances:
 - int8/int4 cosine/dot: scores are exact integer dots followed by the same
@@ -21,8 +23,11 @@ Tolerances:
   given them rounded already, the plain version rounds them itself) in
   another order, so values agree within ``score_error_bound`` (2^-22 *
   (sqrt(d) + 1) * |q| * max|x|), and slots are equal except inside groups
-  of values that lie within that bound (near-ties). A control holds the
-  bound tight: inputs truncated to TF32 or bfloat16 break it.
+  of values that lie within that bound (near-ties). The f32x3 leg drops
+  the small parts' product and rounds the small parts, below 2^-21 of
+  each |x_i q_i|, inside the same bound against the Pallas kernel's exact
+  float32 products. A control holds the bound tight: inputs truncated to
+  TF32 or bfloat16 break it, and so does the TF32 leg against f32x3.
 
 Shapes are the chip_smoke kernel cases shrunk to what interpret mode runs
 quickly (N <= 2048). The CUDA kernels themselves are compared with these
@@ -43,7 +48,7 @@ from vrod_tpu_torch.ops import distances as TD
 
 LEGS = [tuple(leg.split("-")) for leg in cuda_topk.LEGS]
 _JAX_DTYPE = {"int8": jnp.int8, "int4": "int4", "bf16": jnp.bfloat16,
-              "f32": jnp.float32}
+              "f32": jnp.float32, "f32x3": jnp.float32}
 
 # name, n, dim, batch, k_scan, dead_every, theta0 from K3, offset, ties
 CASES = [
@@ -76,6 +81,7 @@ class State:
                  ties=False, x=None, q=None):
         dtype, self.metric = leg
         self.packed = dtype == "int4"
+        self.precision = "exact" if dtype == "f32x3" else "fast"
         self.quant = dtype in ("int8", "int4")
         if x is None:
             x = rng.standard_normal((n, d)).astype(np.float32)
@@ -115,20 +121,25 @@ class State:
         return s
 
     def torch_args(self):
+        kw = {k: torch.from_numpy(v.copy()) for k, v in self.extras.items()}
+        if self.precision != "fast":
+            kw["precision"] = self.precision
         return ([to_tensor(a, "cpu") for a in (self.rows, self.aux,
                                                 self.valid, self.q)],
-                dict({k: torch.from_numpy(v.copy())
-                      for k, v in self.extras.items()}, packed=self.packed))
+                dict(kw, packed=self.packed))
 
     def jax_args(self):
         rows, q = self.rows, self.q
-        if rows.dtype == np.float32:
+        kw = {k: jnp.asarray(v) for k, v in self.extras.items()}
+        if self.precision != "fast":
+            # f32x3 against the Pallas kernel's HIGHEST on float32 inputs.
+            kw["precision_name"] = self.precision
+        elif rows.dtype == np.float32:
             # The Pallas kernel scores in float32: give it the TF32-rounded
             # operands that the port's float32 leg scores.
             rows, q = tf32_np(rows), tf32_np(q)
         return ([jnp.asarray(a) for a in (rows, self.aux, self.valid, q)],
-                dict({k: jnp.asarray(v) for k, v in self.extras.items()},
-                     packed=self.packed))
+                dict(kw, packed=self.packed))
 
     def epilogue_parts(self):
         """int8/int4 l2: float32 g * aux (B, N), qs = 2 * q_scale (B, 1)
@@ -150,8 +161,8 @@ class State:
             return (2.0 ** -22 * live.max(axis=1, keepdims=True)) \
                 .astype(np.float32)
         args, kw = self.torch_args()
-        return cuda_topk.score_error_bound(*args, metric=self.metric) \
-            .numpy()
+        return cuda_topk.score_error_bound(
+            *args, metric=self.metric, precision=self.precision).numpy()
 
 
 def assert_close(t, j, bound):
@@ -230,12 +241,13 @@ def test_sampled_submax_plain_matches_pallas(rng, leg):
     assert_close(ts, js, st.bound())
 
 
-@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("dtype", ["bf16", "f32", "f32x3"])
 @pytest.mark.parametrize("metric", ["cosine", "dot", "l2"])
 def test_float_legs_ties_lowest_slot_first(rng, dtype, metric):
     """Rows of -1/0/1 and queries of four +-2s (norm 4, so the cosine
     query normalizes to +-0.5): every product and sum is exact in bfloat16,
-    TF32 and float32, so both packages give EQUAL values, and the copies of
+    TF32 and float32 (the f32x3 leg's small parts are 0), so both packages
+    give EQUAL values, and the copies of
     row 7, query 0's best match under every metric, tie exactly and come
     out lowest slot first."""
     x = rng.integers(-1, 2, (512, 16)).astype(np.float32)
@@ -259,7 +271,8 @@ def test_float_legs_ties_lowest_slot_first(rng, dtype, metric):
 
 CONTROLS = [(d, m, c) for m in ("cosine", "dot", "l2")
             for d, c in (("f32", "tf32-rz"), ("f32", "bf16-rz"),
-                         ("bf16", "bf16-rz"))]
+                         ("bf16", "bf16-rz"), ("f32x3", "tf32-rz"),
+                         ("f32x3", "tf32"))]
 
 
 @pytest.mark.parametrize("dtype,metric,control", CONTROLS,
@@ -270,17 +283,23 @@ def test_float_bound_rejects_a_truncating_scorer(rng, dtype, metric,
     precision: the plain version fed inputs rounded toward zero (what a
     kernel converting with cvt.rz.tf32, or truncating to bfloat16, would
     score: float32 rows and query, or the bfloat16 leg's query) disagrees
-    with the plain version beyond ``score_error_bound``. The Pallas kernel
-    agrees within it (``test_fused_topk_plain_matches_pallas``)."""
+    with the plain version beyond ``score_error_bound``; and against the
+    f32x3 leg, so does the TF32 leg (control "tf32"), so that leg scores
+    at a higher precision than TF32. The Pallas kernel agrees within it
+    (``test_fused_topk_plain_matches_pallas``)."""
     st = State(rng, 1024, 768, 16, (dtype, metric))
-    args, _ = st.torch_args()
-    bound = cuda_topk.score_error_bound(*args, metric=metric)
-    want = cuda_topk.fused_topk_plain(*args, k=28, metric=metric)
-    drop = 13 if control == "tf32-rz" else 16
-    if dtype == "f32":
-        args[0] = torch.from_numpy(cut_np(st.rows, drop))
-    args[3] = torch.from_numpy(cut_np(st.q, drop))
-    got = cuda_topk.fused_topk_plain(*args, k=28, metric=metric)
+    args, kw = st.torch_args()
+    kw.pop("packed")
+    bound = cuda_topk.score_error_bound(*args, metric=metric, **kw)
+    want = cuda_topk.fused_topk_plain(*args, k=28, metric=metric, **kw)
+    if control == "tf32":
+        kw = {}
+    else:
+        drop = 13 if control == "tf32-rz" else 16
+        if dtype != "bf16":
+            args[0] = torch.from_numpy(cut_np(st.rows, drop))
+        args[3] = torch.from_numpy(cut_np(st.q, drop))
+    got = cuda_topk.fused_topk_plain(*args, k=28, metric=metric, **kw)
     assert cuda_topk.topk_disagreement(*got, *want, bound) is not None
 
 
@@ -340,7 +359,7 @@ def test_plain_float32_leg_rounds_to_tf32(rng):
 def test_cpu_tensors_take_the_plain_version(rng):
     cuda_topk.reset_launches()
     for leg in (("int8", "dot"), ("int4", "l2"), ("bf16", "cosine"),
-                ("f32", "l2")):
+                ("f32", "l2"), ("f32x3", "cosine")):
         st = State(rng, 256, 32, 8, leg)
         args, kw = st.torch_args()
         cuda_topk.fused_topk(*args, k=8, metric=st.metric, **kw)

@@ -20,6 +20,7 @@ import pytest
 
 import vrod_tpu
 import vrod_tpu_torch
+from vrod_tpu_torch.client import VrodClient
 from conftest import numpy_topk_oracle
 
 REPO = Path(__file__).resolve().parent.parent
@@ -154,11 +155,27 @@ def test_cli_init_create_insert_searchsimilar(tmp_path):
               "0.1,-0.2,0.3,0.4;k=2")
     first = out.splitlines()[0].split("\t")
     assert first[0] == "1" and float(first[1]) > 0.99 and first[2] == "a"
-    res = subprocess.run(
+    # --serve: the same collection over the wire, then SHUTDOWN.
+    sock = tmp_path / "serve.sock"
+    errlog = open(tmp_path / "serve.err", "w+")  # a file: never blocks
+    proc = subprocess.Popen(
         [sys.executable, "-m", "vrod_tpu_torch.cli", "-d", "mydb",
-         "--serve", "127.0.0.1:0"], cwd=tmp_path, env=_env(),
-        capture_output=True, text=True, timeout=120)
-    assert res.returncode == 1 and "not yet ported" in res.stderr
+         "--serve", f"unix:{sock}"], cwd=tmp_path, env=_env(),
+        stdout=subprocess.PIPE, stderr=errlog, text=True)
+    try:
+        assert proc.stdout.readline().startswith("Serving ")
+        with VrodClient(f"unix:{sock}") as c:
+            hits = c.search_similar("c", [0.1, -0.2, 0.3, 0.4], k=2)
+            assert [h.record_id for h in hits] == [1, 2]
+            assert hits[0].payload == "a" and hits[0].score > 0.99
+            c.shutdown_server()
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+        errlog.close()
 
 
 def test_port_imports_no_jax():

@@ -111,13 +111,17 @@ def make_engine(leg, rows, seed, dev):
 def kernel_inputs(eng, q, k_scan):
     """(K1 args, K1 keywords, K3 args, K3 keywords) of one search, as
     ``DeviceEngine._scan`` builds them (the floor gate must be open)."""
+    from vrod_tpu_torch import engine as E
     from vrod_tpu_torch.engine import floor_gate, floor_threshold
     from vrod_tpu_torch.ops import cuda_topk as K
     from vrod_tpu_torch.ops import distances as D
     metric = eng.cfg.metric
+    # Trees older than the floor's environment settings take no ``fs``.
+    fs = dict(fs=E.FloorSettings.from_env()) \
+        if hasattr(E, "FloorSettings") else {}
     q_scan, extras = eng.scan_inputs(q, D.prepare_queries(q, metric=metric))
     ok, ns, blk = floor_gate(eng.capacity, k_scan, eng.storage_dim,
-                             eng.x.element_size(), eng.quant)
+                             eng.x.element_size(), eng.quant, **fs)
     assert ok, "floor gate closed"
     kw3 = dict(extras)
     if "row_bias" in kw3:
@@ -127,7 +131,7 @@ def kernel_inputs(eng, q, k_scan):
     sub = K.sampled_submax(*a3, **kw3)
     theta0 = floor_threshold(sub, k_scan, q_scan, eng.aux, eng.valid,
                              metric=metric, quant=eng.quant,
-                             dim=eng.storage_dim)
+                             dim=eng.storage_dim, **fs)
     a1 = [eng.x, eng.aux, eng.valid, q_scan]
     kw1 = dict(k=k_scan, metric=metric, theta0=theta0, **extras)
     return a1, kw1, a3, kw3, (ns, blk)

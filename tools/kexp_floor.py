@@ -69,10 +69,10 @@ def make_state(dtype, rows, dim, batch, seed, dev):
 
 def gate_open(args, k_scan) -> bool:
     import torch
-    from vrod_tpu_torch.engine import floor_gate
+    from vrod_tpu_torch.engine import FloorSettings, floor_gate
     x = args[0]
     return floor_gate(x.shape[0], k_scan, x.shape[1], x.element_size(),
-                      x.dtype == torch.int8)[0]
+                      x.dtype == torch.int8, FloorSettings.from_env())[0]
 
 
 def stock_floor(args, k_scan, metric="cosine"):
@@ -80,19 +80,21 @@ def stock_floor(args, k_scan, metric="cosine"):
     (theta0 (B, 1), (n_sample, block_rows)), as ``DeviceEngine._scan``
     computes it (K3, then the count threshold)."""
     import torch
-    from vrod_tpu_torch.engine import floor_gate, floor_threshold
+    from vrod_tpu_torch.engine import FloorSettings, floor_gate, \
+        floor_threshold
     from vrod_tpu_torch.ops import cuda_topk as K
     x, aux, valid, q = args
     quant = x.dtype == torch.int8
+    fs = FloorSettings.from_env()
     ok, ns, blk = floor_gate(x.shape[0], k_scan, x.shape[1],
-                             x.element_size(), quant)
+                             x.element_size(), quant, fs)
     if not ok:
         raise ValueError(f"the engine's floor gate is closed at k_scan "
                          f"{k_scan} on {x.shape[0]} rows")
     sub = K.sampled_submax(x[:ns], aux[:ns], valid[:ns], q, metric=metric,
                            block_rows=blk)
     return floor_threshold(sub, k_scan, q, aux, valid, metric=metric,
-                           quant=quant, dim=x.shape[1]), (ns, blk)
+                           quant=quant, dim=x.shape[1], fs=fs), (ns, blk)
 
 
 def variant_sample(n, k_scan, gate_sample, frac, block_rows):

@@ -2,9 +2,8 @@
 
 Run as ``python -m vrod_tpu_torch.cli``: the same flags, verbs and on-disk
 databases as ``python -m vrod_tpu.cli``, served by the port's engine on the
-device ``VROD_PLATFORM`` names (default ``cuda:0``). ``--serve`` raises: the
-server (and the replication flags that go with it) is ROADMAP Queue 1
-item 5.
+device ``VROD_PLATFORM`` names (default ``cuda:0``), ``--serve`` and the
+replication flags included.
 
 Flags mirror ``src/main.rs:10-34``:
   --init-database PATH, --init-database-name/-n NAME, --database/-d DIR,
@@ -64,8 +63,27 @@ def build_parser() -> argparse.ArgumentParser:
                         "(amortizes startup and kernel builds across "
                         "commands)")
     p.add_argument("--serve", metavar="ADDR",
-                   help="not yet ported to vrod_tpu_torch: serve with "
-                        "python -m vrod_tpu.cli --serve")
+                   help="serve the database to concurrent network clients "
+                        "(HOST:PORT, port 0 = ephemeral, or unix:PATH); "
+                        "newline-delimited JSON protocol — see "
+                        "vrod_tpu_torch.client.VrodClient. No auth: bind "
+                        "loopback or a unix socket only")
+    p.add_argument("--replica-of", metavar="PRIMARY_ADDR",
+                   help="with --serve: run as a read-only replica pulling "
+                        "from the primary server at PRIMARY_ADDR "
+                        "(snapshot-ship bootstrap + WAL tail; send PROMOTE "
+                        "to cut over)")
+    p.add_argument("--replicate", metavar="COLLECTIONS", default=None,
+                   help="with --replica-of: comma-separated collection "
+                        "names to replicate (default: all)")
+    p.add_argument("--auth-token", metavar="TOKEN",
+                   default=os.environ.get("VROD_AUTH_TOKEN"),
+                   help="with --serve: require this shared secret in every "
+                        "request's 'auth' field (PING exempt). Also sent "
+                        "upstream by --replica-of. Prefer the "
+                        "VROD_AUTH_TOKEN env var (keeps it off the process "
+                        "list). Plaintext transport: this guards against "
+                        "accidental access, not active attackers")
     from .config import VROD_VERSION
     p.add_argument("-V", "--version", action="version",
                    version=f"vrod-tpu {VROD_VERSION}")
@@ -202,9 +220,45 @@ def _main(argv=None) -> int:
                 return _shell(db, default_collection=args.collection)
 
         if args.serve:
-            raise VrodError(
-                "--serve is not yet ported to vrod_tpu_torch (ROADMAP "
-                "Queue 1 item 5); serve with python -m vrod_tpu.cli")
+            import signal
+            from .server import VrodServer
+            # Supervisors (systemd, k8s) stop services with SIGTERM.
+            # Abrupt death is SAFE (WAL-first: every acked mutation is
+            # durable) but graceful is better: route SIGTERM through the
+            # same KeyboardInterrupt path as Ctrl-C, so serve_forever
+            # drains in-flight requests and closes the socket/Database.
+            # (Calling server.close() from the handler directly would
+            # deadlock: close() waits for the serve loop, which is THIS
+            # thread.) Main-thread only — library embedders own signals.
+            import threading
+
+            def _sigterm(_sig, _frm):
+                raise KeyboardInterrupt
+
+            if threading.current_thread() is threading.main_thread():
+                signal.signal(signal.SIGTERM, _sigterm)
+            db_dir = Path(args.database) if args.database else Path.cwd()
+            with Database.load(db_dir) as db:
+                with VrodServer(db, args.serve,
+                                read_only=bool(args.replica_of),
+                                auth_token=args.auth_token) as server:
+                    if args.replica_of:
+                        from .replication import Replicator
+                        cols = ([c.strip() for c in args.replicate.split(",")
+                                 if c.strip()]
+                                if args.replicate else None)
+                        rep = Replicator(db, args.replica_of,
+                                         collections=cols,
+                                         auth_token=args.auth_token).start()
+                        server.attach_replicator(rep)
+                        print(f"Replica of {args.replica_of} "
+                              f"serving {db.path} on {server.address}",
+                              flush=True)
+                    else:
+                        print(f"Serving {db.path} on {server.address}",
+                              flush=True)
+                    server.serve_forever()
+            return 0
 
         # Execute path — the reference's intended (dormant) wiring
         # (main.rs:64-74 + builder.rs).

@@ -31,6 +31,7 @@ import threading
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from . import metrics
 from .allocator import NO_ID, SlotAllocator
@@ -45,6 +46,7 @@ from .records import Record
 from .utils.locks import RWLock
 from .wal import GroupCommit, Wal, ops
 
+from .convert import to_numpy
 from .engine import DeviceEngine
 
 
@@ -620,11 +622,18 @@ class Collection:
         ~6.7 ms/batch at 256 x 16, more than the device scan itself)."""
         if within_ids is not None and exclude_ids is not None:
             raise ValueError("Pass within_ids or exclude_ids, not both")
-        q = np.atleast_2d(np.asarray(queries, dtype=np.float32))
-        single = np.asarray(queries).ndim == 1
-        if q.shape[1] != self.config.dim:
+        if isinstance(queries, torch.Tensor):
+            # A tensor (on the card or not) goes to the engine as is: no
+            # host round trip, as the JAX package takes a jax.Array.
+            single = queries.ndim == 1
+            q = queries[None, :] if single else queries
+        else:
+            q = np.atleast_2d(np.asarray(queries, dtype=np.float32))
+            single = np.asarray(queries).ndim == 1
+        if q.ndim != 2 or q.shape[1] != self.config.dim:
             raise DimensionMismatchError(
-                f"Query dim {q.shape[1]} != collection dim {self.config.dim}")
+                f"Query dim {q.shape[-1]} != collection dim "
+                f"{self.config.dim}")
         with metrics.timed("collection.search", collection=self.config.name,
                            batch=int(q.shape[0]), k=k,
                            metric=self.config.metric,
@@ -636,6 +645,8 @@ class Collection:
                     mode = "within" if within_ids is not None else "exclude"
                     search_kw["filter_mask"] = self._filter_mask(mode, ids)
                 vals, slots = self.engine.search(q, k, **search_kw)
+                if isinstance(slots, torch.Tensor):  # as_numpy=False
+                    vals, slots = to_numpy(vals), to_numpy(slots)
                 # Slot->id binding and payload lookup must happen under the
                 # same read lock as the search: a concurrent delete+insert
                 # reusing a freed slot (or a compaction) would otherwise

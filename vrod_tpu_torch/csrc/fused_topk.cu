@@ -1,6 +1,8 @@
 // K1: fused distance scan + exact top-k, every leg of the TPU kernel:
 // int8 and packed int4 rows (metrics cosine, dot, l2), bfloat16 and
-// float32 rows (cosine, dot, l2). The scoring of each leg is score.cuh's.
+// float32 rows (cosine, dot, l2); float32 in TF32 at the precision "fast"
+// and in three TF32 products (score.cuh's F32X3) at "high" and "exact",
+// the TPU kernel's HIGHEST. The scoring of each leg is score.cuh's.
 //
 // Replaces the Pallas kernel vrod_tpu/ops/pallas_topk.py: fused_topk ->
 // _fused_call_db -> _kernel_db (and _fused_call -> _kernel, the same math
@@ -10,7 +12,9 @@
 // 805 MB of int8 rows (0.24 ms at 3.35 TB/s; int4 half, bf16 twice, f32
 // four times that) and do 2*B*N*D = 412 G operations (0.21 ms at the
 // tensor cores' 1,979 int8 TOP/s; 0.42 ms at 989 bf16 TFLOP/s, 0.83 ms at
-// 495 TF32 TFLOP/s), so bytes bound it, with the operations close behind.
+// 495 TF32 TFLOP/s), so bytes bound it, with the operations close behind
+// (float32 at "high"/"exact" does three TF32 products, 2.5 ms: operations
+// bound it).
 // The design (score.cuh): each row byte leaves device memory once and
 // passes through shared memory once per query group of 256, by TMA into a
 // ring that one producer warp keeps full; the dots run as wgmma m64n256
@@ -206,7 +210,7 @@ extern "C" int vrod_fused_topk(
     int n, int row_bytes, int b, int k, int offset, int groups, int parts,
     int cap, void* cand_v, void* cand_i, void* cand_n,
     void* merge_v, void* merge_i, void* out_v, void* out_i, void* stream) {
-  return dispatch_leg<LaunchTopk<false>>(
+  return dispatch_leg<LaunchTopk<false>, true>(
       elem, epi, tma != 0, x, aux, mask, q, qs2, row_bytes, theta0, n, b, k,
       offset, groups, parts, cap, cand_v, cand_i, cand_n, merge_v,
       merge_i, out_v, out_i, static_cast<cudaStream_t>(stream));

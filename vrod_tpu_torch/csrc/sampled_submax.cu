@@ -176,7 +176,7 @@ extern "C" int vrod_sampled_submax(int elem, int epi, int tma, const void* x,
                                    int row_bytes, int b, int blk, int spb,
                                    int groups, void* part, void* out,
                                    void* stream) {
-  return dispatch_leg<LaunchSubmax>(
+  return dispatch_leg<LaunchSubmax, true>(
       elem, epi, tma != 0, x, aux, mask, q, qs2, row_bytes, n, b, blk, spb,
       groups, part, out, static_cast<cudaStream_t>(stream));
 }

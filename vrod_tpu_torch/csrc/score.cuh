@@ -34,9 +34,20 @@
 //   BF16  bfloat16      bfloat16       none                    m64n256k16 bf16
 //   TF32  float32       float32, TF32  cvt.rna to TF32         m64n256k8 tf32
 //                       (the wrapper)
+//   F32X3 float32       its TF32 big   split into TF32 big     m64n256k8 tf32,
+//                       and small      and small parts         three products
+//                       parts (the
+//                       wrapper)
 // The tensor cores read the low 13 mantissa bits of a TF32 operand as zero
 // (truncation); rounding both operands to nearest first keeps the scorer
-// the plain version's (cuda_topk.tf32_round). Each wgmma k-step is 32 bytes
+// the plain version's (cuda_topk.tf32_round). F32X3 is float32 at the
+// precisions "high" and "exact" (the TPU kernel's HIGHEST): each operand v
+// splits into big = tf32(v) and small = tf32(v - big), and the dot sums
+// the exact products big.big + small.big + big.small in float32 (the
+// dropped small.small and small's rounding are below 2^-21 of |x_i q_i|).
+// It walks its row k-blocks twice, as packed int4 does: against the
+// query's big part with the row's big and small parts, then against the
+// query's small part with the row's big part. Each wgmma k-step is 32 bytes
 // of dim for every kind, so a k-block is four k-steps. Packed int4 walks
 // its row k-blocks twice: low nibbles against query bytes [0, D/2) and high
 // nibbles against [D/2, D) (distances.pack_int4), each from its own query
@@ -89,7 +100,7 @@ constexpr int kQueryBox = kGroup * kKBlock;    // 32 KB
 constexpr int kStageBytes = kRowBox + kQueryBox;
 
 // Host codes of the element kinds and epilogues (ops/cuda_topk.py).
-enum Elem : int { kI8 = 0, kI4 = 1, kBF16 = 2, kF32 = 3 };
+enum Elem : int { kI8 = 0, kI4 = 1, kBF16 = 2, kF32 = 3, kF32X3 = 4 };
 enum Epi : int { kScale = 0, kScaleQs = 1, kL2 = 2, kDot = 3 };
 
 // One launch's geometry: the stored row's bytes, and the k-blocks a tile
@@ -251,6 +262,7 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[kAcc],
 struct I8 {
   using Acc = int;
   static constexpr bool kPacked = false;
+  static constexpr bool kSplit = false;
   __device__ static void a_in(uint32_t (&)[4], bool) {}
   __device__ static void mma(Acc (&d)[kAcc], const uint32_t (&a)[4],
                              uint64_t desc, int scale) {
@@ -277,6 +289,7 @@ struct I4 : I8 {
 struct BF16 {
   using Acc = float;
   static constexpr bool kPacked = false;
+  static constexpr bool kSplit = false;
   __device__ static void a_in(uint32_t (&)[4], bool) {}
   __device__ static void mma(Acc (&d)[kAcc], const uint32_t (&a)[4],
                              uint64_t desc, int scale) {
@@ -297,6 +310,7 @@ __device__ __forceinline__ uint32_t tf32(uint32_t w) {
 struct TF32 {
   using Acc = float;
   static constexpr bool kPacked = false;
+  static constexpr bool kSplit = false;
   __device__ static void a_in(uint32_t (&a)[4], bool) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) a[i] = tf32(a[i]);
@@ -310,11 +324,40 @@ struct TF32 {
   }
 };
 
+// float32 in three TF32 products: the wrapper gives the query as (b, 2 *
+// dim), its big parts then its small parts (kPacked: two query maps, the
+// row k-blocks walked twice); consume_stages splits the rows' registers.
+struct F32X3 : TF32 {
+  static constexpr bool kPacked = true;
+  static constexpr bool kSplit = true;
+  __device__ static void a_in(uint32_t (&)[4], bool) {}
+  // a -> its big part, small -> its small part (v - big is exact).
+  __device__ static void split(uint32_t (&a)[4], uint32_t (&small)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t big = tf32(a[i]);
+      small[i] = tf32(__float_as_uint(
+          __fsub_rn(__uint_as_float(a[i]), __uint_as_float(big))));
+      a[i] = big;
+    }
+  }
+};
+
 // Calls L::run<Kind, kEpi, kTma>(a...) for the leg of host codes (elem,
 // epi): the integer kinds take kScale (cosine, dot) and kScaleQs (l2), the
-// float kinds kScale (cosine), kL2 and kDot.
-template <class L, bool kTma, class... A>
+// float kinds kScale (cosine), kL2 and kDot. F32X3 is built only where
+// kSplitF32 (K1 and K3).
+template <class L, bool kTma, bool kSplitF32, class... A>
 int dispatch_kind(int elem, int epi, A... a) {
+  if constexpr (kSplitF32) {
+    switch (elem * 4 + epi) {
+      case kF32X3 * 4 + kScale:
+        return L::template run<F32X3, kScale, kTma>(a...);
+      case kF32X3 * 4 + kL2: return L::template run<F32X3, kL2, kTma>(a...);
+      case kF32X3 * 4 + kDot: return L::template run<F32X3, kDot, kTma>(a...);
+      default: break;
+    }
+  }
   switch (elem * 4 + epi) {
     case kI8 * 4 + kScale: return L::template run<I8, kScale, kTma>(a...);
     case kI8 * 4 + kScaleQs: return L::template run<I8, kScaleQs, kTma>(a...);
@@ -330,10 +373,10 @@ int dispatch_kind(int elem, int epi, A... a) {
   }
 }
 
-template <class L, class... A>
+template <class L, bool kSplitF32 = false, class... A>
 int dispatch_leg(int elem, int epi, bool tma, A... a) {
-  return tma ? dispatch_kind<L, true>(elem, epi, a...)
-             : dispatch_kind<L, false>(elem, epi, a...);
+  return tma ? dispatch_kind<L, true, kSplitF32>(elem, epi, a...)
+             : dispatch_kind<L, false, kSplitF32>(elem, epi, a...);
 }
 
 // -- The ring -------------------------------------------------------------
@@ -497,10 +540,17 @@ __device__ __forceinline__ void consume_stages(
     const uint32_t rows_a = smem_u32(rows) + r * kKBlock;
     const uint32_t qs_a = smem_u32(rows + kRowBox);
     uint32_t a[kKSteps][4];
+    // F32X3: the rows' small parts, multiplied with the query's big part
+    // (the first walk of the k-blocks) after their big parts.
+    uint32_t small[Kind::kSplit ? kKSteps : 1][4];
 #pragma unroll
     for (int s = 0; s < kKSteps; ++s) {
       ldmatrix_x4(a[s], rows_a + ((((2 * s + chunk_hi) ^ lane) & 7) << 4));
-      Kind::a_in(a[s], hi);
+      if constexpr (Kind::kSplit) {
+        Kind::split(a[s], small[s]);
+      } else {
+        Kind::a_in(a[s], hi);
+      }
     }
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
@@ -510,6 +560,16 @@ __device__ __forceinline__ void consume_stages(
 #ifndef VROD_PROBE_NO_MMA
       Kind::mma(acc, a[s], sw128_desc(qs_a + s * 32), v > 0 || s > 0);
 #endif
+    }
+    if constexpr (Kind::kSplit) {
+      if (!hi) {
+#pragma unroll
+        for (int s = 0; s < kKSteps; ++s) {
+#ifndef VROD_PROBE_NO_MMA
+          Kind::mma(acc, small[s], sw128_desc(qs_a + s * 32), 1);
+#endif
+        }
+      }
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");

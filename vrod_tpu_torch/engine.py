@@ -25,12 +25,16 @@ Search, for every dtype and metric, runs the program of
 sub-max by counting (less the accumulation margin for float dot/l2), the
 fused scan (``cuda_topk.fused_topk``), then the exact float32 rescore and
 ``finalize_scores``. On a CUDA device the wrappers launch the CUDA kernels;
-on the CPU they run their plain versions.
+on the CPU they run their plain versions. ``search`` takes the JAX
+engine's options (``precision``, ``impl``, ``rescore``, ``as_numpy``,
+``margin``, ``filter_mask``) and its ``VROD_THETA0*`` variables.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+import os
 import warnings
 
 import numpy as np
@@ -49,17 +53,53 @@ BATCH_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 K_BUCKETS = (8, 16, 32, 64, 96, 100, 112, 128, 256, 512, 1024)
 MAX_K = 1024
 
-# Sampled-floor constants, the JAX engine's defaults (engine.py:106-158 and
-# the VROD_THETA0_* defaults at :829-844); their H100 values are not
-# measured yet (ROADMAP Queue 1 item 4). The tile budget is the TPU
-# pre-pass's (pallas_topk.SUBMAX_VMEM_BYTES): it only shapes which block
-# size the gate picks. The floor opens from k_scan THETA0_MINK on int8/int4
-# rows and from THETA0_MINK_FLOAT on float rows (engine.py:124).
+# Sampled-floor defaults, the JAX engine's (engine.py:106-158 and the
+# VROD_THETA0_* defaults at :829-844); their H100 values are not measured
+# yet (ROADMAP). The tile budget is the TPU pre-pass's
+# (pallas_topk.SUBMAX_VMEM_BYTES): it only shapes which block size the gate
+# picks. The floor opens from k_scan THETA0_MINK on int8/int4 rows and from
+# THETA0_MINK_FLOAT on float rows (engine.py:124).
 SUBMAX_TILE_BYTES = 24 * 1024 * 1024
 THETA0_FRAC = 8
 THETA0_MINK = 24
 THETA0_MINK_FLOAT = 64
 THETA0_MARGIN = 1e-3
+THETA0_METHODS = ("approx", "count", "minmax", "topk")
+
+
+@dataclasses.dataclass(frozen=True)
+class FloorSettings:
+    """The sampled floor's knobs, as the JAX engine reads them from the
+    environment at every search (engine.py:811-860): ``VROD_THETA0=0``
+    turns the floor off; ``VROD_THETA0_MARGIN``, ``_FRAC``, ``_BLK`` (0:
+    the largest block that keeps the gate open) and ``_MINK`` override the
+    defaults; ``VROD_THETA0_METHOD`` names the k-th sub-max method. Every
+    method gives a sound floor, so results are exact whichever runs:
+    "count" and "topk" take the exact k-th sub-max (by counting, by a
+    sort), "minmax" the looser min over k group maxima, and "approx" takes
+    the exact one too (``lax.approx_max_k`` is exact off the TPU)."""
+
+    on: bool = True
+    margin: float = THETA0_MARGIN
+    frac: int = THETA0_FRAC
+    method: str = "count"
+    blk: int = 0
+    mink: int = THETA0_MINK
+
+    @classmethod
+    def from_env(cls) -> "FloorSettings":
+        env = os.environ.get
+        method = env("VROD_THETA0_METHOD", "count")
+        if method not in THETA0_METHODS:
+            raise ValueError(
+                f"VROD_THETA0_METHOD={method!r}: expected "
+                f"approx|count|minmax|topk")
+        return cls(on=env("VROD_THETA0", "1") != "0",
+                   margin=float(env("VROD_THETA0_MARGIN", "1e-3")),
+                   frac=int(env("VROD_THETA0_FRAC", "8")),
+                   method=method,
+                   blk=int(env("VROD_THETA0_BLK", "0")),
+                   mink=int(env("VROD_THETA0_MINK", "24")))
 
 
 def _bucket(n: int, buckets) -> int:
@@ -69,15 +109,43 @@ def _bucket(n: int, buckets) -> int:
     return int(math.ceil(n / buckets[-1])) * buckets[-1]
 
 
+def _pick_block_rows(rows: int, segment_rows: int) -> int:
+    """Row block of the plain scan (``impl="scan"``): the JAX engine's
+    ``_pick_block_rows``. Any block gives the same top-k."""
+    block = min(segment_rows, rows)
+    while block > 8192 and block % 2 == 0:
+        block //= 2
+    while rows % block:
+        block //= 2
+    return max(block, 8)
+
+
 def floor_gate(rows: int, k_scan: int, dim: int, itemsize: int,
-               quant: bool) -> tuple[bool, int, int]:
+               quant: bool, fs: FloorSettings) -> tuple[bool, int, int]:
     """(open, n_sample, block rows) of the sampled floor for a scan of
     ``rows`` rows of ``dim`` stored elements of ``itemsize`` bytes at
     ``k_scan``: the arithmetic of the JAX engine's ``_gate_for``/
-    ``floor_gate``. The pre-pass block is the largest of 16384/8192 rows
-    whose tile stays within SUBMAX_TILE_BYTES; the sample is a prefix of
-    whole blocks; the floor is sound only with at least 2 * k_scan
-    sub-maxima, and opens from k_scan 24 (int8/int4) or 64 (float)."""
+    ``floor_gate``, with the knobs of ``fs`` (the search's one reading of
+    the environment, ``FloorSettings.from_env()``).
+    The pre-pass block is ``fs.blk`` if set, else the largest of 16384/8192
+    rows whose tile stays within SUBMAX_TILE_BYTES; the sample is a prefix
+    of whole blocks; the floor is sound only with at least 2 * k_scan
+    sub-maxima, and opens from k_scan ``fs.mink`` (int8/int4) or 64
+    (float)."""
+    frac = fs.frac if k_scan >= 64 else max(fs.frac, 32)
+    min_k = fs.mink if quant else THETA0_MINK_FLOAT
+
+    def gate_for(blk):
+        n_sample = min(rows, max(128 * k_scan * 2, rows // frac))
+        n_sample = (n_sample // blk) * blk
+        nsub = (n_sample // blk) * 128
+        ok = (fs.on and k_scan >= min_k and nsub >= 2 * k_scan
+              and rows >= min(frac, 4) * n_sample)
+        return ok, n_sample
+
+    if fs.blk:
+        ok, n_sample = gate_for(fs.blk)
+        return ok, n_sample if ok else 0, fs.blk
     cands, fallback = [], 8192
     for blk in (16384, 8192):
         while blk * dim * itemsize > SUBMAX_TILE_BYTES and blk > 128:
@@ -85,30 +153,26 @@ def floor_gate(rows: int, k_scan: int, dim: int, itemsize: int,
         fallback = blk
         if blk not in cands:
             cands.append(blk)
-    frac = THETA0_FRAC if k_scan >= 64 else max(THETA0_FRAC, 32)
-    min_k = THETA0_MINK if quant else THETA0_MINK_FLOAT
     for blk in cands:
-        n_sample = min(rows, max(128 * k_scan * 2, rows // frac))
-        n_sample = (n_sample // blk) * blk
-        nsub = (n_sample // blk) * 128
-        if (k_scan >= min_k and nsub >= 2 * k_scan
-                and rows >= min(frac, 4) * n_sample):
+        ok, n_sample = gate_for(blk)
+        if ok:
             return True, n_sample, blk
     return False, 0, fallback
 
 
 def floor_threshold(sub, k_scan, q_scan, aux, valid, *, metric, quant,
-                    dim):
+                    dim, fs: FloorSettings):
     """The sampled floor theta0 (B, 1) from K3's sub-maxima ``sub``: the
-    exact k-th sub-max by counting, less its margins. K3 scores with K1's
+    k-th sub-max by ``fs.method``, less its margins. K3 scores with K1's
     own code, so its sub-maxima are K1 scores; float dot/l2 still subtract
     the JAX engine's accumulation margin (:203-206)."""
     extra = None
     if metric != "cosine" and not quant:
         extra = D.accumulation_margin(q_scan, aux, valid, metric=metric,
                                       dim=dim)
-    return D.threshold_from_submax(sub, k_scan, margin_abs=THETA0_MARGIN,
-                                   extra=extra, method="count")
+    method = "topk" if fs.method == "approx" else fs.method
+    return D.threshold_from_submax(sub, k_scan, margin_abs=fs.margin,
+                                   extra=extra, method=method)
 
 
 class DeviceEngine:
@@ -317,24 +381,33 @@ class DeviceEngine:
             return to_numpy(rows * self.aux[idx][:, None])
         return to_numpy(rows.float())
 
-    def scan_widths(self, k: int) -> tuple[int, int]:
+    def scan_widths(self, k: int, margin: int | None = None,
+                    rescore: bool = True) -> tuple[int, int]:
         """(k_out, k_scan) of a search for top-k (k <= MAX_K): k bucketed,
         and that plus the candidate margin, slack for the scan's rank
         jitter that the exact rescore recovers from (JAX engine
-        :787-804)."""
+        :787-804). An explicit ``margin`` overrides the policy; without
+        the rescore the margin is 0."""
         k_out = min(_bucket(k, K_BUCKETS), self.capacity)
-        margin = max(self.cfg.rescore_margin,
-                     k_out // 8 if k_out > 100 else 0)
-        if self.quant:
-            margin = max(margin, 12, k_out // 4 if k_out > 100 else 0)
+        if not rescore:
+            margin = 0
+        elif margin is None:
+            margin = max(self.cfg.rescore_margin,
+                         k_out // 8 if k_out > 100 else 0)
+            if self.quant:
+                margin = max(margin, 12, k_out // 4 if k_out > 100 else 0)
         return k_out, min(k_out + margin, self.capacity)
 
-    def scan_inputs(self, q, qp):
+    def scan_inputs(self, q, qp, precision="fast"):
         """(query for K1/K3, their extra keywords) for a padded batch: the
         int8-quantized query for int8/int4 rows (with its scale and the
-        -|x_hat|^2 row bias for l2), the prepared float query otherwise."""
+        -|x_hat|^2 row bias for l2), the prepared float query otherwise;
+        float32 rows at "high"/"exact" take the kernels' three-product leg
+        (``precision``), the JAX Pallas kernel's HIGHEST."""
         metric = self.cfg.metric
         extras = dict(packed=self.packed)
+        if self.dtype == torch.float32 and precision != "fast":
+            extras["precision"] = precision
         if self.has_norms:
             q_scan, qs = D.prepare_queries(q, metric=metric, quantize=True,
                                            return_scale=True)
@@ -344,15 +417,15 @@ class DeviceEngine:
             return D.prepare_queries(q, metric=metric, quantize=True), extras
         return qp, extras
 
-    def _scan(self, q, qp, valid, k_scan):
+    def _scan(self, q, qp, valid, k_scan, fs: FloorSettings, precision):
         """Candidate top-k_scan of the padded query batch: K3 and the floor
         when the gate opens, then K1 (``_search_fn``'s ``local_topk``)."""
         metric = self.cfg.metric
-        q_scan, extras = self.scan_inputs(q, qp)
+        q_scan, extras = self.scan_inputs(q, qp, precision)
         theta0 = None
         ok, n_sample, blk = floor_gate(self.capacity, k_scan,
                                        self.storage_dim,
-                                       self.x.element_size(), self.quant)
+                                       self.x.element_size(), self.quant, fs)
         if ok:
             sub_extras = dict(extras)
             if self.has_norms:
@@ -362,33 +435,95 @@ class DeviceEngine:
                 q_scan, metric=metric, block_rows=blk, **sub_extras)
             theta0 = floor_threshold(sub, k_scan, q_scan, self.aux, valid,
                                      metric=metric, quant=self.quant,
-                                     dim=self.storage_dim)
+                                     dim=self.storage_dim, fs=fs)
         return cuda_topk.fused_topk(self.x, self.aux, valid, q_scan,
                                     k=k_scan, metric=metric, theta0=theta0,
                                     **extras)
 
-    def search(self, queries, k: int, *, filter_mask=None):
-        """Exact top-k. Returns numpy (values (B, k) f32, slots (B, k) i32).
-        ``filter_mask`` (bool (capacity,), from ``filter_mask_from_slots``)
-        restricts the scan to ``valid & filter``."""
-        q = to_tensor(np.atleast_2d(np.asarray(queries, np.float32)),
-                      self.device)
+    def _plain_scan(self, q, qp, valid, k_scan, precision):
+        """Candidate top-k_scan by the plain blockwise scan, the JAX
+        engine's ``impl="scan"``: int8/int4 cosine/dot rows score an
+        int8-quantized query unless ``precision`` is "exact"; l2 and
+        float rows score the float32 query (bf16 rows from the query cast
+        to bf16 unless "exact"), with no TF32."""
+        metric = self.cfg.metric
+        q_scan = qp
+        if self.quant and metric != "l2" and precision != "exact":
+            q_scan = D.prepare_queries(q, metric=metric, quantize=True)
+        block = _pick_block_rows(self.capacity, self.cfg.segment_rows)
+        return D.blockwise_topk(
+            self.x, self.aux, valid, q_scan, k=k_scan, metric=metric,
+            precision=D.PRECISIONS[precision], block_rows=block,
+            nblocks=self.capacity // block, packed=self.packed)
+
+    def search(self, queries, k: int, *, precision=None, impl=None,
+               rescore=None, as_numpy=True, margin=None, filter_mask=None):
+        """Exact top-k: (values (B, k) f32, slots (B, k) i32), numpy, or
+        tensors on the engine's device with ``as_numpy=False``. The
+        options are the JAX engine's (engine.py:738-860):
+
+        - ``queries``: numpy, or a torch tensor (taken on the device with
+          no host round trip), (B, dim) or (dim,);
+        - ``impl``: "pallas" (the default, the JAX name kept) runs the
+          hand-written kernels, K3 then K1; any other name runs the plain
+          blockwise scan (``D.blockwise_topk``). The JAX engine's own
+          small-batch route to its scan is not taken (ROADMAP);
+        - ``precision``: "fast" (the default), "high" or "exact". The
+          kernels score int8/int4 rows exactly at each, and bfloat16 rows
+          from the query cast to bfloat16 at each, as the JAX Pallas
+          kernels do; float32 rows in TF32 at "fast" and in three TF32
+          products at "high" and "exact" (the Pallas kernels' HIGHEST,
+          ``cuda_topk``'s f32x3 leg). The scan runs in float32 with TF32
+          off;
+        - ``rescore=False`` returns the scan's own top-k, finalized;
+        - ``margin`` overrides the candidate margin (0 without the
+          rescore);
+        - ``filter_mask`` (bool (capacity,), from
+          ``filter_mask_from_slots``) restricts the scan to ``valid &
+          filter``.
+
+        The sampled floor follows ``FloorSettings.from_env()``, read at
+        every call."""
+        precision = precision or "fast"
+        impl = impl or "pallas"
+        rescore = True if rescore is None else bool(rescore)
+        if precision not in D.PRECISIONS:
+            raise ValueError(f"Unknown precision {precision!r}: expected "
+                             f"{'|'.join(D.PRECISIONS)}")
+        if isinstance(queries, torch.Tensor):
+            q = queries.to(self.device, torch.float32)
+            if q.ndim == 1:
+                q = q[None, :]
+        else:
+            q = to_tensor(np.atleast_2d(np.asarray(queries, np.float32)),
+                          self.device)
         B, dim = q.shape
         if dim != self.cfg.dim:
             raise ValueError(
                 f"Query dim {dim} != collection dim {self.cfg.dim}")
         if k < 1:
             raise ValueError("k must be >= 1")
+        fs = FloorSettings.from_env()
         k = min(k, MAX_K, self.capacity)
         Bp = _bucket(B, BATCH_BUCKETS)
-        k_out, k_scan = self.scan_widths(k)
+        k_out, k_scan = self.scan_widths(k, margin, rescore)
         if Bp != B:
             q = torch.cat([q, q.new_zeros((Bp - B, dim))])
         valid = self.valid if filter_mask is None \
             else self.valid & filter_mask
         qp = D.prepare_queries(q, metric=self.cfg.metric)
-        _, idx = self._scan(q, qp, valid, k_scan)
-        vals, idx = D.rescore(self.x, self.aux, valid, qp, idx, k=k_out,
-                              metric=self.cfg.metric, packed=self.packed)
+        if impl == "pallas":
+            vals, idx = self._scan(q, qp, valid, k_scan, fs, precision)
+        else:
+            vals, idx = self._plain_scan(q, qp, valid, k_scan, precision)
+        if rescore:
+            vals, idx = D.rescore(self.x, self.aux, valid, qp, idx,
+                                  k=k_out, metric=self.cfg.metric,
+                                  packed=self.packed)
+        else:
+            vals, idx = vals[:, :k_out], idx[:, :k_out]
         vals = D.finalize_scores(vals, q, metric=self.cfg.metric)
-        return to_numpy(vals[:B, :k]), to_numpy(idx[:B, :k])
+        vals, idx = vals[:B, :k], idx[:B, :k]
+        if not as_numpy:
+            return vals, idx
+        return to_numpy(vals), to_numpy(idx)

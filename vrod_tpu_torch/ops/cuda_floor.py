@@ -50,7 +50,9 @@ INTGATE_MAX_DIM = 65536
 INT32_MIN, INT32_MAX = -(2 ** 31), 2 ** 31 - 1
 _COOP_TOO_LARGE = 720  # cudaErrorCooperativeLaunchTooLarge
 
-launches = {f"fused_theta[{leg}]": 0 for leg in K.LEGS}
+# fused_theta's legs: K1's, float32 in TF32 only (no f32x3 leg).
+LEGS = tuple(leg for leg in K.LEGS if not leg.startswith("f32x3"))
+launches = {f"fused_theta[{leg}]": 0 for leg in LEGS}
 launches.update({f"fused_intgate[{leg}]": 0 for leg in INTGATE_LEGS})
 
 

@@ -33,9 +33,13 @@ dead ones and every float op rounded once:
   ``float(g) * aux + mask``; l2 ``(float(g) * aux) * (2 * q_scale) +
   mask`` with ``-|x_hat|^2`` (``row_bias``) as the live mask value.
 - bfloat16 rows: the query rounds to bfloat16; g sums the exact products in
-  float32. float32 rows: both operands round to TF32 (10 mantissa bits, to
-  nearest, ties away from zero: ``cvt.rna.tf32.f32``) and g sums their
-  exact products in float32. Then cosine ``g * aux + mask``, l2 ``(2g -
+  float32. float32 rows at ``precision="fast"``: both operands round to
+  TF32 (10 mantissa bits, to nearest, ties away from zero:
+  ``cvt.rna.tf32.f32``) and g sums their exact products in float32. At
+  "high" and "exact" (the TPU kernel's HIGHEST; leg ``f32x3``) each
+  operand v splits into big = tf32(v) and small = tf32(v - big), and g sums
+  the exact products big.big + small.big + big.small in float32 (three
+  TF32 products: ``split_tf32``). Then cosine ``g * aux + mask``, l2 ``(2g -
   aux) + mask``, dot ``g + mask``. Float sums run in another order on the
   tensor cores than in the plain version, so these legs agree with it to
   a bound (``score_error_bound``), not bit for bit; the engine's exact
@@ -60,12 +64,13 @@ NEG_INF = float("-inf")
 # matrix at 256 MB.
 _PLAIN_SCORE_ELEMS = 1 << 26
 
-# Row dtypes of the legs (int4 rows are packed int8 bytes) and score.cuh's
-# Elem / Epi codes.
-LEG_DTYPES = ("int8", "int4", "bf16", "f32")
+# Row dtypes of the legs (int4 rows are packed int8 bytes; f32x3 is float32
+# rows at the precisions "high" and "exact") and score.cuh's Elem / Epi
+# codes.
+LEG_DTYPES = ("int8", "int4", "bf16", "f32", "f32x3")
 LEG_METRICS = ("cosine", "dot", "l2")
 LEGS = tuple(f"{d}-{m}" for d in LEG_DTYPES for m in LEG_METRICS)
-_ELEM = {"int8": 0, "int4": 1, "bf16": 2, "f32": 3}
+_ELEM = {"int8": 0, "int4": 1, "bf16": 2, "f32": 3, "f32x3": 4}
 _EPI_SCALE, _EPI_SCALE_QS, _EPI_L2, _EPI_DOT = range(4)
 
 # The kernels' geometry (csrc/score.cuh): rows per tile, queries per block
@@ -85,14 +90,18 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def _row_kind(x: torch.Tensor, packed: bool) -> str:
+def _row_kind(x: torch.Tensor, packed: bool, precision: str) -> str:
+    if x.dtype == torch.float32 and precision != "fast":
+        return "f32x3"
     return "int4" if packed else {torch.int8: "int8", torch.bfloat16: "bf16",
                                   torch.float32: "f32"}[x.dtype]
 
 
-def leg_name(x: torch.Tensor, metric: str, packed: bool = False) -> str:
-    """The leg of rows x under ``metric``, e.g. ``int4-l2``."""
-    return f"{_row_kind(x, packed)}-{metric}"
+def leg_name(x: torch.Tensor, metric: str, packed: bool = False,
+             precision: str = "fast") -> str:
+    """The leg of rows x under ``metric`` at ``precision``, e.g.
+    ``int4-l2`` or ``f32x3-dot``."""
+    return f"{_row_kind(x, packed, precision)}-{metric}"
 
 
 def tf32_round(t: torch.Tensor) -> torch.Tensor:
@@ -102,11 +111,20 @@ def tf32_round(t: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
+def split_tf32(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) TF32 parts of float32 ``t``, as the f32x3 leg splits
+    its operands: big = tf32(t), small = tf32(t - big) (t - big is exact).
+    """
+    big = tf32_round(t)
+    return big, tf32_round(t.float() - big)
+
+
 class _Call:
     """A validated kernel call: the leg, and the inputs as both the kernel
     and the plain version take them."""
 
-    def __init__(self, x, aux, valid, q, metric, row_bias, q_scale, packed):
+    def __init__(self, x, aux, valid, q, metric, row_bias, q_scale, packed,
+                 precision="fast"):
         if metric not in LEG_METRICS:
             raise ValueError(f"metric {metric!r}: expected one of "
                              f"{LEG_METRICS}")
@@ -116,6 +134,9 @@ class _Call:
                             f"got {tuple(x.shape)} {x.dtype}")
         if packed and x.dtype != torch.int8:
             raise TypeError("packed int4 rows are int8 bytes")
+        if precision not in D.PRECISIONS:
+            raise ValueError(f"precision {precision!r}: expected one of "
+                             f"{tuple(D.PRECISIONS)}")
         self.quant = x.dtype == torch.int8
         if q.dim() != 2:
             raise ValueError(f"q must be (B, D), got {tuple(q.shape)}")
@@ -154,15 +175,19 @@ class _Call:
         self.device = x.device
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {self.device}")
-        self.leg = leg_name(x, metric, packed)
-        self.elem = _ELEM[_row_kind(x, packed)]
+        self.leg = leg_name(x, metric, packed, precision)
+        self.elem = _ELEM[_row_kind(x, packed, precision)]
         self.packed = packed
+        self.split = self.leg.startswith("f32x3")
         self.x, self.aux = x, aux
         # The query as the kernel reads it: bfloat16 rows take it rounded
         # to bfloat16 (the Pallas kernel's q.astype(x.dtype)), float32 rows
-        # rounded to TF32 (the tensor cores would truncate it).
+        # rounded to TF32 (the tensor cores would truncate it), or at
+        # "high"/"exact" its TF32 big parts then its small parts, (B, 2D).
         if self.quant:
             self.q = q
+        elif self.split:
+            self.q = torch.cat(split_tf32(q), dim=1).contiguous()
         elif x.dtype == torch.float32:
             self.q = tf32_round(q)
         else:
@@ -186,6 +211,12 @@ class _Call:
         x, aux = self.x[lo:hi], self.aux[lo:hi][None, :]
         if self.packed:
             g = D._matmul_f32(self.q, D.unpack_int4_rows(x))
+        elif self.split:
+            d = x.shape[1]
+            xb, xs = split_tf32(x)
+            qb, qs = self.q[:, :d], self.q[:, d:]
+            g = (D._matmul_f32(qb, xb) + D._matmul_f32(qb, xs)) \
+                + D._matmul_f32(qs, xb)
         elif x.dtype == torch.float32:
             g = D._matmul_f32(tf32_round(self.q), tf32_round(x))
         else:
@@ -217,12 +248,15 @@ class _Call:
         return self.x.shape[1] * self.x.element_size()
 
 
-def score_error_bound(x, aux, valid, q, *, metric):
+def score_error_bound(x, aux, valid, q, *, metric, precision="fast"):
     """Per-query (B, 1) bound on |kernel score - plain score| for one leg.
 
     0 for int8/int4 rows: exact dots, then the same rounded epilogue ops.
     bfloat16/float32 rows: the kernel and the plain version round their
-    inputs alike and sum the same exact products in another order. Each
+    inputs alike and sum the same exact products in another order (f32x3:
+    three per element, two of them below 2^-10 of the first: the partial
+    sums keep their size, and a walk of 3d roundings is sqrt(3) times
+    longer, inside the 4x allowance below). Each
     float32 addition errs by at most 2^-24 of a partial sum no larger than
     |q| |x|, and on rows of mixed signs those errors add like a random
     walk, to about sqrt(d) * 2^-24 * |q| |x|. The bound allows 4x that plus
@@ -236,9 +270,10 @@ def score_error_bound(x, aux, valid, q, *, metric):
     b = q.shape[0]
     if x.dtype == torch.int8:
         return torch.zeros((b, 1), dtype=torch.float32, device=x.device)
-    call = _Call(x, aux, valid, q, metric, None, None, False)
+    call = _Call(x, aux, valid, q, metric, None, None, False, precision)
     round_ = tf32_round if x.dtype == torch.float32 else torch.Tensor.float
-    qn = torch.linalg.norm(round_(call.q), dim=1, keepdim=True)
+    qn = torch.linalg.norm(round_(call.q[:, :q.shape[1]]), dim=1,
+                           keepdim=True)
     worst = torch.zeros((), device=x.device)
     aux_max = torch.zeros((), device=x.device)
     step = max(1, _PLAIN_SCORE_ELEMS // x.shape[1])
@@ -371,16 +406,19 @@ def _topk_plain(call, k, index_offset, theta0):
 
 
 def fused_topk_plain(x, aux, valid, q, *, k, metric, index_offset=0,
-                     theta0=None, row_bias=None, q_scale=None, packed=False):
+                     theta0=None, row_bias=None, q_scale=None, packed=False,
+                     precision="fast"):
     """Plain PyTorch K1: the top-k of the slots whose score beats theta0,
     ordered by (value desc, slot asc), as (values (B, k) f32, slots (B, k)
     i32) with (-inf, -1) on empty ranks."""
-    call = _Call(x, aux, valid, q, metric, row_bias, q_scale, packed)
+    call = _Call(x, aux, valid, q, metric, row_bias, q_scale, packed,
+                 precision)
     return _topk_plain(call, k, index_offset, theta0)
 
 
 def fused_topk(x, aux, valid, q, *, k, metric, index_offset=0,
-               theta0=None, row_bias=None, q_scale=None, packed=False):
+               theta0=None, row_bias=None, q_scale=None, packed=False,
+               precision="fast"):
     """Exact top-k of query q (B, D) against rows x (N, D), or (N, D/2)
     packed int4 bytes with ``packed``: the contract of
     ``pallas_topk.fused_topk``.
@@ -389,8 +427,11 @@ def fused_topk(x, aux, valid, q, *, k, metric, index_offset=0,
     candidates at or below it are skipped, which keeps results exact.
     ``index_offset`` shifts the returned slots. int8/int4 + l2 needs
     ``row_bias`` (N,) = -|x_hat|^2 and ``q_scale``, the query's int8
-    quantization scale."""
-    call = _Call(x, aux, valid, q, metric, row_bias, q_scale, packed)
+    quantization scale. ``precision`` matters for float32 rows only:
+    "fast" scores in TF32, "high" and "exact" in three TF32 products (the
+    Pallas kernel's HIGHEST)."""
+    call = _Call(x, aux, valid, q, metric, row_bias, q_scale, packed,
+                 precision)
     if k < 1:
         raise ValueError("k must be >= 1")
     if index_offset < 0 or index_offset + call.n >= 2 ** 31:
@@ -446,20 +487,23 @@ def _submax_plain(call, block_rows):
 
 
 def sampled_submax_plain(x, aux, valid, q, *, metric, block_rows,
-                         row_bias=None, q_scale=None, packed=False):
+                         row_bias=None, q_scale=None, packed=False,
+                         precision="fast"):
     """Plain PyTorch K3: (B, 128 * N / block_rows) f32, lane t of block j
     the max score over rows j*block_rows + t + 128*i."""
-    call = _Call(x, aux, valid, q, metric, row_bias, q_scale, packed)
+    call = _Call(x, aux, valid, q, metric, row_bias, q_scale, packed,
+                 precision)
     _check_blocks(call.n, block_rows)
     return _submax_plain(call, block_rows)
 
 
 def sampled_submax(x, aux, valid, q, *, metric, block_rows, row_bias=None,
-                   q_scale=None, packed=False):
+                   q_scale=None, packed=False, precision="fast"):
     """Group-maxima score pre-pass behind the engine's sampled floor; the
     contract of ``pallas_topk.sampled_submax`` (``row_bias``/``q_scale``/
-    ``packed`` as for ``fused_topk``), scored as K1 scores."""
-    call = _Call(x, aux, valid, q, metric, row_bias, q_scale, packed)
+    ``packed``/``precision`` as for ``fused_topk``), scored as K1 scores."""
+    call = _Call(x, aux, valid, q, metric, row_bias, q_scale, packed,
+                 precision)
     n, b = call.n, call.b
     _check_blocks(n, block_rows)
     if call.device.type == "cpu":

@@ -17,13 +17,15 @@ Differences from the JAX module that matter for parity:
 - Float32 products never run as TF32: ``_matmul_f32`` refuses to run on a
   CUDA device where TF32 matmuls are switched on, and ``rescore`` is an
   elementwise multiply-and-sum in float32.
-- ``threshold_from_submax`` keeps the "topk" method (the default) and the
-  "count" method (the engine's); the TPU-only approx/minmax methods are not
-  ported.
+- ``threshold_from_submax`` has the "topk" (the default), "count" (the
+  engine's default) and "minmax" methods; the JAX "approx" method
+  (``lax.approx_max_k``) is exact off the TPU, and the engine runs "topk"
+  for it.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 NEG_INF = float("-inf")
@@ -36,6 +38,23 @@ PRECISIONS = {"exact": "highest", "high": "high", "fast": "default"}
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "int8": torch.int8}
+
+
+def _reciprocal(c: float) -> float:
+    """1 / c rounded to float32. XLA compiles a division by a constant
+    under ``jit`` as a multiply by this value, which differs from a true
+    division in the last ulp of some quotients (4.5% of random values at
+    c = 127, 54.5% at 7); the JAX package quantizes inside ``jit``, so the
+    port multiplies too."""
+    return float(np.float32(1.0 / c))
+
+
+def _div_scale(x, norms, scale):
+    """``x / norms / scale`` as XLA computes it under ``jit``: it folds
+    ``(a / b) / c`` into ``a / (b * c)``, so a normalized row or query is
+    quantized by one division by the product (``norms`` None: ``x /
+    scale``)."""
+    return x / scale if norms is None else x / (norms * scale)
 
 
 def _as_dtype(dtype):
@@ -217,7 +236,8 @@ def threshold_from_submax(sub, k: int, *, margin_abs: float = 1e-3,
                           extra=None, method: str = "topk"):
     """Turn (B, nsub) sub-block score maxima into a sound k-th-best floor:
     the k-th largest sub-max ("topk": by a sort; "count": by counting, the
-    engine's method) minus ``|kth| * 1e-3 +
+    engine's default; "minmax": the min over k group maxima, a looser sound
+    floor) minus ``|kth| * 1e-3 +
     margin_abs`` (and ``extra`` for unnormalized float metrics). -inf where
     nsub < k or the result is not finite."""
     b = sub.shape[0]
@@ -226,11 +246,16 @@ def threshold_from_submax(sub, k: int, *, margin_abs: float = 1e-3,
                           device=sub.device)
     if method == "count":
         kth = kth_largest_count(sub, k)
+    elif method == "minmax":
+        g = sub.shape[1] // k
+        kth = sub[:, :g * k].float().reshape(b, k, g).amax(dim=2).amin(
+            dim=1, keepdim=True)
     elif method == "topk":
         kth = torch.sort(sub.float(), dim=1, descending=True).values[
             :, k - 1:k]
     else:
-        raise ValueError(f"threshold method {method!r}: expected count|topk")
+        raise ValueError(
+            f"threshold method {method!r}: expected count|minmax|topk")
     t0 = kth - (kth.abs() * 1e-3 + margin_abs)
     if extra is not None:
         t0 = t0 - extra
@@ -298,16 +323,17 @@ def prepare_rows(vecs, *, metric: str, dtype):
     vecs32 = vecs.float()
     packed4 = isinstance(dtype, str) and dtype == "int4"
     if packed4 or _as_dtype(dtype) == torch.int8:
+        norms = None
         if metric == "cosine":
-            norms = torch.linalg.norm(vecs32, dim=1, keepdim=True)
-            base = vecs32 / torch.clamp(norms, min=1e-30)
+            norms = torch.clamp(torch.linalg.norm(vecs32, dim=1, keepdim=True),
+                                min=1e-30)
+            base = vecs32 / norms
         else:
             base = vecs32
         qmax = 7.0 if packed4 else 127.0
-        scale = base.abs().amax(dim=1) / qmax
-        q8 = torch.clamp(
-            torch.round(base / torch.clamp(scale[:, None], min=1e-30)),
-            -qmax, qmax).to(torch.int8)
+        scale = base.abs().amax(dim=1) * _reciprocal(qmax)
+        q8 = torch.clamp(torch.round(_div_scale(vecs32, norms, torch.clamp(
+            scale[:, None], min=1e-30))), -qmax, qmax).to(torch.int8)
         if packed4:
             q8 = pack_int4(q8)
         return q8, scale.float()
@@ -324,14 +350,17 @@ def prepare_queries(q, *, metric: str, quantize: bool = False,
     """Normalize queries for cosine; ``quantize=True`` rounds each query to
     int8 by its own symmetric scale (``return_scale=True`` also returns the
     (B, 1) f32 scale, which l2 needs)."""
-    q = q.float()
+    q0 = q = q.float()
+    norms = None
     if metric == "cosine":
-        norms = torch.linalg.norm(q, dim=1, keepdim=True)
-        q = q / torch.clamp(norms, min=1e-30)
-    if quantize:
-        scale = torch.clamp(q.abs().amax(dim=1, keepdim=True) / 127.0,
+        norms = torch.clamp(torch.linalg.norm(q, dim=1, keepdim=True),
                             min=1e-30)
-        q = torch.clamp(torch.round(q / scale), -127, 127).to(torch.int8)
+        q = q / norms
+    if quantize:
+        scale = torch.clamp(
+            q.abs().amax(dim=1, keepdim=True) * _reciprocal(127.0), min=1e-30)
+        q = torch.clamp(torch.round(_div_scale(q0, norms, scale)),
+                        -127, 127).to(torch.int8)
         if return_scale:
             return q, scale
     return q

@@ -101,8 +101,33 @@ nothing falls back to the CPU or to a plain version):
    ``Replicator`` into a second Database on the card behind a read-only
    ``VrodServer``, answers 288 queries through a ``VrodPool`` (and 256
    straight) with the primary's ids and scores; K1 must launch. The
-   replica's 65,536 rows are this script's one cut in depth, for its time
-   limit.
+   replica's 65,536 rows are a cut in depth, for the time limit.
+7. Sharded, one process: the main path's rows and queries (same seed) in
+   an int8 cosine collection of ``shards=4`` over devices that cycle the
+   visible cards (on one card ``[cuda:0] * 4``): ``Database.new`` ->
+   ``create_collection`` -> ``bulk_insert`` -> 20 x ``search_similar`` at
+   b256, top-16. Capacity 1,048,576, so 262,144 rows a shard, the least at
+   which int8 top-16's floor opens; its gate must open at that size. With
+   the launch counters set to 0 before and read after: K1 and K3 launch
+   exactly 4 times (once a shard) for every search. Every answer has
+   recall 1.0 against the exact float32 scan and EQUALS the one-shard main
+   path's (ids and scores); then snapshot, delete the main path's 1,000
+   ids, reopen on the same 4 shards, and the answers equal the main path's
+   after its reopen. ``engine.search`` p50 and device time per search
+   (torch.profiler) are printed beside the main path's.
+8. Two processes: this script starts itself twice (``--mh-rank``), each a
+   rank of a process group (``VROD_COORDINATOR`` on 127.0.0.1) holding 2
+   shards of one 4-shard mesh on its card (both on one card when there is
+   one; the backend follows ``parallel.distributed``'s rule: gloo when
+   ranks share a card, NCCL when each has its own). SPMD on each rank:
+   ``bulk_insert`` of 262,144 x 768 int8 cosine rows (the depth cut for
+   the time limit; the floor's gate stays closed at 65,536 rows a shard,
+   so K3 does not run here), 5 searches at b256 top-16 with recall 1.0
+   against the exact scan of a one-shard copy of the rows, 1,000 deletes,
+   a collective snapshot and a collective reload, the searches again. The
+   ranks' answers must be equal (a digest of every id and score), and each
+   rank's K1 must launch (its counters set to 0 before and read after, in
+   its own process). A failed rank fails the run.
 
 Per kernel and leg, at the shapes of its first (largest) phase, the script
 also computes the kernel's bound (the larger of the bytes its inputs and
@@ -182,6 +207,16 @@ SERVE_SINGLE_BATCHES, REPLICA_ROWS = 8, 65536
 # (tests/test_torch_search_options.py, 27 of 50,331,648 elements).
 FLIP_RATE_BOUND = 27 / 50331648
 EXTRACT_PALLAS_LINE = {"kexp": 248, "kexp2": 170, "kexp3": 158, "kexp5": 156}
+# Phase 7: the main path's collection on this many shards. Phase 8: ranks,
+# shards a rank, rows (the depth cut for the time limit), searches and the
+# ranks' time limit.
+SHARDS = 4
+# The least --rows at which each of phase 7's shards holds 262,144 rows
+# (capacity grows by 65,536 rows a shard), the least at which int8
+# top-16's floor opens.
+SHARDED_MIN_ROWS = SHARDS * (262144 - 65536) + 1
+MH_RANKS, MH_SHARDS_PER_RANK, MH_ROWS, MH_SEARCHES = 2, 2, 262144, 5
+MH_TIMEOUT_S = 300
 
 def log(*a):
     print(*a, flush=True)
@@ -841,17 +876,20 @@ def extract_phase(cmp, card, name, leg, args, k_scans):
     return launches, recs, times
 
 
-def oracle_kth(eng, q, top_k):
+def oracle_kth(eng, q, top_k, state=None):
     """Exact float32 full scan of the stored rows on the card: the k-th
     best user-facing score per query (the plain blockwise scan with the
-    float32 query; l2: the k-th smallest squared distance)."""
+    float32 query; l2: the k-th smallest squared distance). ``state`` is
+    a sharded engine's ``gather_state()``; a one-shard engine's own
+    tensors by default."""
     import torch
     from vrod_tpu_torch.ops import distances as D
     metric = eng.cfg.metric
+    x, aux, valid = state[:3] if state else (eng.x, eng.aux, eng.valid)
     q = torch.from_numpy(q).to(eng.device)
     qp = D.prepare_queries(q, metric=metric)
     blk = 65536 if eng.capacity % 65536 == 0 else eng.capacity
-    vals, _ = D.blockwise_topk(eng.x, eng.aux, eng.valid, qp, k=top_k,
+    vals, _ = D.blockwise_topk(x, aux, valid, qp, k=top_k,
                                metric=metric, precision="exact",
                                block_rows=blk, nblocks=eng.capacity // blk,
                                packed=eng.packed)
@@ -1112,7 +1150,8 @@ def replica_check(card, db, server, seed):
 
 
 def db_phase(dev, card, cmp, *, name, leg, top_k, rows, searches, reopen,
-             seed, floor_kscans=(), extract_kscans=(), serve=False):
+             seed, floor_kscans=(), extract_kscans=(), serve=False,
+             keep=None):
     """One Database phase through the entry points (module docstring,
     phase 3), then with ``floor_kscans`` the floor experiments on its state
     (phase 4), with ``extract_kscans`` the extraction experiments (phase
@@ -1120,7 +1159,10 @@ def db_phase(dev, card, cmp, *, name, leg, top_k, rows, searches, reopen,
     serving slice on the reopened state (phase 6). Returns (launch counts
     of the phase, kernel times at its shapes, the floor experiments'
     (launches, records, times) or None, the extraction experiments'
-    likewise, the serve phase's launch counts or None)."""
+    likewise, the serve phase's launch counts or None). With ``keep`` (a
+    dict), it also keeps the phase's answers before and after the reopen,
+    the deleted ids, its ``engine.search`` p50 and its device time per
+    search, for phase 7 to hold the sharded collection against."""
     import torch
     from vrod_tpu_torch import Database
     from vrod_tpu_torch.engine import FloorSettings, floor_gate
@@ -1246,6 +1288,12 @@ def db_phase(dev, card, cmp, *, name, leg, top_k, rows, searches, reopen,
             a3 + [v for v in kw3.values() if hasattr(v, "numel")],
             BATCH * 128 * (ns // blk) * 4, 2 * BATCH * ns * dim, dtype)
         times.update(library_times(leg, a1, k_scan, a3, blk))
+        if keep is not None:
+            keep.update(before=before, after=after, gone=gone,
+                        p50_ms=float(np.percentile(np.array(eng_lat) * 1e3,
+                                                   50)),
+                        device=search_device_ms(eng, queries, top_k,
+                                                precision))
         log(f"{name}: engine.search p50 "
             f"{np.percentile(np.array(eng_lat) * 1e3, 50):.3f} ms; kernels "
             f"at its shapes ({eng.capacity} rows, sample {ns} in blocks of "
@@ -1264,16 +1312,296 @@ def db_phase(dev, card, cmp, *, name, leg, top_k, rows, searches, reopen,
         torch.cuda.empty_cache()
 
 
+def search_device_ms(eng, queries, top_k, precision, calls=5):
+    """(CUDA kernel time per ``engine.search``, kernels per search) by
+    torch.profiler over ``calls`` warm searches; (None, 0) where the
+    profiler saw no device time (then it is not measured)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    eng.search(queries[0], top_k, precision=precision)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for qb in queries[:calls]:
+            eng.search(qb, top_k, precision=precision)
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            total += getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0))
+            count += ev.count
+    return (total / 1e3 / calls if total else None), count / calls
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.3f} ms"
+
+
+def sharded_round(col, queries, top_k, what, want, per_search):
+    """Search every query batch on a sharded collection: K1 and K3 of
+    int8-cosine must launch ``per_search`` times each for every search
+    (once a shard); recall 1.0 against the exact scan; the answers equal
+    ``want`` (the one-shard main path's) exactly, ids and scores."""
+    from vrod_tpu_torch.ops import cuda_topk as K
+    names = ["fused_topk[int8-cosine]", "sampled_submax[int8-cosine]"]
+    state = col.engine.gather_state()  # the oracle's copy, once a round
+    for b, q in enumerate(queries):
+        n0 = [K.launches[n] for n in names]
+        hits = col.search_similar(q, top_k)
+        for name, before in zip(names, n0):
+            if K.launches[name] - before != per_search:
+                raise AssertionError(
+                    f"{what} {b}: {name} launched "
+                    f"{K.launches[name] - before} times, not {per_search}")
+        check_hits(hits, oracle_kth(col.engine, q, top_k, state), "cosine",
+                   top_k, f"{what} {b}")
+        got = [[(h.record_id, h.score) for h in hs] for hs in hits]
+        if got != want[b]:
+            bad = next(j for j, (g, w) in enumerate(zip(got, want[b]))
+                       if g != w)
+            raise AssertionError(
+                f"{what} {b}/{bad}: {got[bad]} vs the one-shard main "
+                f"path's {want[b][bad]}")
+
+
+def shard_phase(card, main, *, rows, seed):
+    """Phase 7 (module docstring): the main path's rows and queries on an
+    int8 cosine collection of SHARDS shards over devices that cycle the
+    visible cards. Returns its launch counts."""
+    import torch
+    from vrod_tpu_torch import Database
+    from vrod_tpu_torch.engine import FloorSettings, floor_gate
+    from vrod_tpu_torch.ops import cuda_topk as K
+    top_k, cards = 16, torch.cuda.device_count()
+    devices = [torch.device("cuda", i % cards) for i in range(SHARDS)]
+    rng = np.random.default_rng(seed)  # the main path's seed
+    queries = [rng.standard_normal((BATCH, DIM), dtype=np.float32)
+               for _ in range(SEARCHES)]
+    tmp = Path(tempfile.mkdtemp(prefix="vrod_smoke_"))
+    wall0 = time.perf_counter()
+    try:
+        K.reset_launches()
+        db = Database.new(tmp, "smoke", devices=devices)
+        col = db.create_collection("docs", dim=DIM, metric="cosine",
+                                   dtype="int8", shards=SHARDS)
+        ingest_s = 0.0
+        for start in range(0, rows, INGEST_CHUNK):
+            chunk = rng.standard_normal(
+                (min(INGEST_CHUNK, rows - start), DIM), dtype=np.float32)
+            t0 = time.perf_counter()
+            col.bulk_insert(chunk)
+            torch.cuda.synchronize()
+            ingest_s += time.perf_counter() - t0
+        eng = col.engine
+        k_scan = eng.scan_widths(top_k)[1]
+        ok, ns, blk = floor_gate(eng.rows_local, k_scan, eng.storage_dim,
+                                 eng.dtype.itemsize, eng.quant,
+                                 FloorSettings.from_env())
+        if eng.shards != SHARDS or not ok:
+            raise AssertionError(f"sharded: {eng.shards} shards, floor "
+                                 f"{'open' if ok else 'closed'}")
+        log(f"sharded: {SHARDS} shards on {[str(d) for d in devices]}, "
+            f"capacity {eng.capacity}, {eng.rows_local} rows a shard; "
+            f"floor open on every shard (k_scan {k_scan}, sample {ns} rows "
+            f"in blocks of {blk}); ingest {rows / ingest_s:.1f} rows/s")
+        col.search_similar(queries[0], top_k)  # warm-up
+        sharded_round(col, queries, top_k, "sharded search", main["before"],
+                      SHARDS)
+        lat = []
+        for qb in queries:
+            t0 = time.perf_counter()
+            eng.search(qb, top_k)
+            lat.append(time.perf_counter() - t0)
+        p50 = float(np.percentile(np.array(lat) * 1e3, 50))
+        dev_ms, kernels = search_device_ms(eng, queries, top_k, "fast")
+        main_dev, main_kernels = main["device"]
+        log(f"sharded: {SEARCHES} x search_similar b{BATCH} top-{top_k} "
+            f"equal to the one-shard main path's answers (ids and scores), "
+            f"recall 1.0, K1 and K3 {SHARDS} launches each a search; "
+            f"engine.search p50 {p50:.3f} ms (main path {main['p50_ms']:.3f}"
+            f" ms, x{p50 / main['p50_ms']:.2f}), device time per search "
+            f"{fmt_ms(dev_ms)} in {kernels:g} kernels (main path "
+            f"{fmt_ms(main_dev)} in {main_kernels:g}) [{card}]")
+        col.snapshot()
+        gone = main["gone"]
+        if col.delete_many(gone) != len(gone):
+            raise AssertionError("sharded: delete_many deleted fewer ids")
+        db.close()
+        db = Database.load(tmp / "smoke", devices=devices)
+        col = db.collection("docs")
+        if col.engine.shards != SHARDS or col.count != rows - len(gone):
+            raise AssertionError(f"sharded reopen: {col.engine.shards} "
+                                 f"shards, count {col.count}")
+        sharded_round(col, queries, top_k, "sharded reopened", main["after"],
+                      SHARDS)
+        db.close()
+        torch.cuda.synchronize()
+        launches = dict(K.launches)
+        log(f"sharded: snapshot, delete {len(gone)}, reopen on {SHARDS} "
+            f"shards: answers equal the main path's after its reopen; "
+            f"launches {json.dumps({n: c for n, c in launches.items() if c})}"
+            f"; {time.perf_counter() - wall0:.1f} s [{card}]")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def mh_phase(card, seed):
+    """Phase 8 (module docstring): MH_RANKS processes of this script
+    (``--mh-rank``), each holding MH_SHARDS_PER_RANK shards of one row
+    mesh. Returns each rank's launch counts; a failed rank fails the run."""
+    tmp = Path(tempfile.mkdtemp(prefix="vrod_smoke_mh_"))
+    port = free_port()
+    wall0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mh-rank",
+         str(r), "--mh-port", str(port), "--mh-dir", str(tmp), "--seed",
+         str(seed)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(MH_RANKS)]
+    try:
+        outs = [p.communicate(timeout=MH_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    results = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            if line.startswith(("vrod_tpu_torch.parallel:", "rank ")):
+                log(f"  [rank {r}] {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} exited {p.returncode}:\n"
+                                 f"{out[-4000:]}")
+        res = [line for line in out.splitlines()
+               if line.startswith("MH_RESULT ")]
+        results.append(json.loads(res[-1][len("MH_RESULT "):]))
+    for key in ("digest", "digest_reopened"):
+        if len({res[key] for res in results}) != 1:
+            raise AssertionError(f"ranks answered differently ({key}: "
+                                 f"{[res[key] for res in results]})")
+    for r, res in enumerate(results):
+        if not res["launches"].get("fused_topk[int8-cosine]"):
+            raise AssertionError(f"rank {r} launched no K1")
+    log(f"two processes: {MH_RANKS} ranks x {MH_SHARDS_PER_RANK} shards, "
+        f"backend {results[0]['backend']}, {MH_ROWS} rows: equal answers "
+        f"on every rank before and after the collective snapshot and "
+        f"reload, recall 1.0; search p50 by rank "
+        f"{[round(res['p50_ms'], 3) for res in results]} ms; "
+        f"{time.perf_counter() - wall0:.1f} s [{card}]")
+    return [res["launches"] for res in results]
+
+
+def mh_worker(rank, port, workdir, seed) -> int:
+    """One rank of phase 8: joins the group, then runs the same program
+    as every other rank (SPMD) on its own database directory."""
+    import hashlib
+    import os
+    import torch
+    os.environ.update(VROD_COORDINATOR=f"127.0.0.1:{port}",
+                      VROD_NUM_PROCESSES=str(MH_RANKS),
+                      VROD_PROCESS_ID=str(rank))
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from vrod_tpu_torch import Database
+    from vrod_tpu_torch.config import CollectionConfig
+    from vrod_tpu_torch.engine import DeviceEngine
+    from vrod_tpu_torch.ops import cuda_topk as K
+    from vrod_tpu_torch.parallel import distributed
+    distributed.initialize()
+    own = distributed.local_device()
+    devices = distributed.global_devices([own] * MH_SHARDS_PER_RANK)
+    top_k = 16
+    rng = np.random.default_rng(seed)
+    queries = [rng.standard_normal((BATCH, DIM), dtype=np.float32)
+               for _ in range(MH_SEARCHES)]
+    K.reset_launches()
+    db = Database.new(Path(workdir) / f"rank{rank}", "mh", devices=devices)
+    col = db.create_collection("docs", dim=DIM, metric="cosine",
+                               dtype="int8", shards=len(devices))
+    if not col.engine.multiprocess or col.engine.shards != len(devices):
+        raise AssertionError("the collection does not span the ranks")
+    # The oracle's state: the same rows in a one-shard engine of this rank.
+    ref = DeviceEngine(CollectionConfig(name="ref", dim=DIM,
+                                        metric="cosine", dtype="int8"),
+                       device=own)
+    ref.ensure_capacity(MH_ROWS)
+    ids = []
+    for start in range(0, MH_ROWS, INGEST_CHUNK):
+        chunk = rng.standard_normal((min(INGEST_CHUNK, MH_ROWS - start),
+                                     DIM), dtype=np.float32)
+        ids.append(col.bulk_insert(chunk))
+        ref.write(ids[-1].astype(np.int64) - 1, chunk)
+    ids = np.concatenate(ids)
+
+    def run(what, gone=()):
+        out, lat = [], []
+        for b, q in enumerate(queries):
+            t0 = time.perf_counter()
+            hits = col.search_similar(q, top_k)
+            lat.append(time.perf_counter() - t0)
+            check_hits(hits, oracle_kth(ref, q, top_k), "cosine", top_k,
+                       f"rank {rank} {what} {b}")
+            got = [[(h.record_id, h.score) for h in hs] for hs in hits]
+            if any(r in gone for hs in got for r, _ in hs):
+                raise AssertionError(f"rank {rank}: a deleted id came back")
+            out.append(got)
+        digest = hashlib.sha256(json.dumps(out).encode()).hexdigest()
+        return digest, float(np.percentile(np.array(lat) * 1e3, 50))
+
+    digest, p50 = run("search")
+    gone = rng.choice(ids, N_DELETE, replace=False)
+    if col.delete_many(gone.tolist()) != N_DELETE:
+        raise AssertionError(f"rank {rank}: delete_many deleted fewer ids")
+    ref.erase(gone.astype(np.int64) - 1)
+    col.snapshot()
+    db.close()
+    db = Database.load(Path(workdir) / f"rank{rank}" / "mh", devices=devices)
+    col = db.collection("docs")
+    if not col.engine.multiprocess or col.count != MH_ROWS - N_DELETE:
+        raise AssertionError(f"rank {rank}: reload count {col.count}")
+    digest2, _ = run("reloaded", set(gone.tolist()))
+    db.close()
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in K.launches.items() if c}
+    print(f"rank {rank}: {len(devices)} shards, launches "
+          f"{json.dumps(launches)}", flush=True)
+    print("MH_RESULT " + json.dumps({
+        "digest": digest, "digest_reopened": digest2, "p50_ms": p50,
+        "backend": distributed.backend(), "launches": launches}),
+        flush=True)
+    distributed.shutdown()
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--rows", type=int, default=1_000_000,
-                   help="rows of the main path and phases (i)-(iv) "
+                   help="rows of the main path, phases (i)-(iv) and phase 7 "
                    "(default 1M)")
     p.add_argument("--seed", type=int, default=0)
+    # Phase 8 starts this script once a rank with these.
+    p.add_argument("--mh-rank", type=int, help=argparse.SUPPRESS)
+    p.add_argument("--mh-port", type=int, help=argparse.SUPPRESS)
+    p.add_argument("--mh-dir", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
-    if args.rows < 262144:
-        p.error("below 262,144 rows the sampled floor's gate closes, so K3 "
-                "would not run on the path")
+    if args.mh_rank is not None:
+        return mh_worker(args.mh_rank, args.mh_port, args.mh_dir, args.seed)
+    if args.rows < SHARDED_MIN_ROWS:
+        p.error(f"below {SHARDED_MIN_ROWS:,} rows phase 7's shards hold "
+                "fewer than 262,144 rows each, where the sampled floor's "
+                "gate closes, so K3 would not run on that path")
 
     import torch
     if not torch.cuda.is_available():
@@ -1322,7 +1650,7 @@ def main(argv=None) -> int:
             "quant" if leg.startswith(("int8", "int4")) else "float"]
         phases.append((f"leg {leg}", leg, top_k, rows, False))
     launches = dict.fromkeys(K.launches, 0)
-    times, floors, extracts = {}, [], []
+    times, floors, extracts, main_path = {}, [], [], {}
     for i, (name, leg, top_k, rows, reopen) in enumerate(phases):
         n, t, floor, extract, served = db_phase(
             dev, card, cmp, name=name, leg=leg, top_k=top_k, rows=rows,
@@ -1330,7 +1658,8 @@ def main(argv=None) -> int:
             reopen=reopen, seed=args.seed + 10 + i,
             floor_kscans=FLOOR_KSCANS.get(name, ()),
             extract_kscans=EXTRACT_KSCANS.get(name, ()),
-            serve=name == "main path")
+            serve=name == "main path",
+            keep=main_path if name == "main path" else None)
         for kname, c in list(n.items()) + list((served or {}).items()):
             launches[kname] += c
         times.setdefault(leg, (name, rows, t))  # the first, largest phase
@@ -1338,6 +1667,14 @@ def main(argv=None) -> int:
             floors.append((name, leg, floor))
         if extract:
             extracts.append((name, leg, extract))
+    # Phases 7 and 8: their launches join the totals, each path's read in
+    # its own run (phase 8's in each rank's process).
+    sharded = shard_phase(card, main_path, rows=args.rows,
+                          seed=args.seed + 10)
+    ranks = mh_phase(card, args.seed + 30)
+    for n in [sharded] + ranks:
+        for kname, c in n.items():
+            launches[kname] += c
     kernels = []
     for kern in ("fused_topk", "sampled_submax"):
         for leg in K.LEGS:

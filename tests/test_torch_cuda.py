@@ -598,3 +598,125 @@ def test_cuda_tensor_query_stays_on_the_card(rng, cuda_device, dtype,
         assert v.is_cuda and i.is_cuda, kw
         np.testing.assert_array_equal(i.cpu().numpy(), want_i, err_msg=str(kw))
         np.testing.assert_array_equal(v.cpu().numpy(), want_v, err_msg=str(kw))
+
+
+# -- row sharding on the card ------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+def test_cuda_four_shards_answer_as_one(rng, cuda_device, dtype):
+    """A 4-shard engine on cuda:0 (262,144 x 768 rows a shard) answers as
+    the one-shard engine on the same rows: int8 ids and values EQUAL;
+    bfloat16 values within ``score_error_bound`` and ids equal outside
+    near-ties (``topk_disagreement``). K1 launches once a shard a search,
+    and K3 once a shard where the floor's gate opens at 262,144 rows."""
+    import dataclasses
+    from vrod_tpu_torch.engine import FloorSettings, floor_gate
+    n, d, chunk = 4 * 262144, 768, 131072
+    cfg = CollectionConfig(name="s4", dim=d, metric="cosine", dtype=dtype,
+                           shards=4)
+    four = DeviceEngine(cfg, devices=[cuda_device] * 4)
+    one = DeviceEngine(dataclasses.replace(cfg, shards=1),
+                       device=cuda_device)
+    for e in (four, one):
+        e.ensure_capacity(n)
+    assert four.shards == 4 and four.rows_local == 262144
+    assert four.capacity == one.capacity == n
+    for lo in range(0, n, chunk):
+        v = rng.standard_normal((chunk, d), dtype=np.float32)
+        for e in (four, one):
+            e.write(np.arange(lo, lo + chunk), v)
+    for e in (four, one):
+        e.erase(np.arange(0, n, 11))
+    q = rng.standard_normal((256, d)).astype(np.float32)
+    leg = cuda_topk.leg_name(one.x, "cosine")
+    qp = TD.prepare_queries(torch.from_numpy(q).to(cuda_device),
+                            metric="cosine")
+    bound = cuda_topk.score_error_bound(one.x, one.aux, one.valid, qp,
+                                        metric="cosine")
+    for k in (16, 100):
+        k_scan = four.scan_widths(k)[1]
+        opens = floor_gate(four.rows_local, k_scan, d, four.dtype.itemsize,
+                           four.quant, FloorSettings.from_env())[0]
+        cuda_topk.reset_launches()
+        v4, i4 = four.search(q, k)
+        assert cuda_topk.launches[f"fused_topk[{leg}]"] == 4
+        assert cuda_topk.launches[f"sampled_submax[{leg}]"] == 4 * opens
+        v1, i1 = one.search(q, k)
+        if dtype == "int8":
+            np.testing.assert_array_equal(i4, i1)
+            np.testing.assert_array_equal(v4, v1)
+        else:
+            assert cuda_topk.topk_disagreement(v4, i4, v1, i1, bound) \
+                is None
+
+
+_TWO_RANKS = r'''
+import os, sys
+rank, port = int(sys.argv[1]), sys.argv[2]
+os.environ.update(VROD_COORDINATOR=f"127.0.0.1:{port}",
+                  VROD_NUM_PROCESSES="2", VROD_PROCESS_ID=str(rank))
+import numpy as np
+import torch
+from vrod_tpu_torch.config import CollectionConfig
+from vrod_tpu_torch.engine import DeviceEngine
+from vrod_tpu_torch.ops import cuda_topk
+from vrod_tpu_torch.parallel import distributed
+distributed.initialize(device="cuda:0")
+assert distributed.backend() == "gloo"   # two ranks share one card
+devices = distributed.global_devices(["cuda:0"] * 2)
+cfg = CollectionConfig(name="r", dim=128, metric="cosine", dtype="int8",
+                       segment_rows=16384, shards=4)
+eng = DeviceEngine(cfg, devices=devices)
+ref = DeviceEngine(CollectionConfig(name="ref", dim=128, metric="cosine",
+                                    dtype="int8", segment_rows=65536),
+                   device="cuda:0")
+assert eng.multiprocess and eng.capacity == ref.capacity == 65536
+rng = np.random.default_rng(5)
+v = rng.standard_normal((65536, 128)).astype(np.float32)
+for e in (eng, ref):
+    e.write(np.arange(65536), v)
+    e.erase(np.arange(0, 65536, 7))
+q = rng.standard_normal((64, 128)).astype(np.float32)
+cuda_topk.reset_launches()
+got = eng.search(q, 16)
+assert cuda_topk.launches["fused_topk[int8-cosine]"] == 2
+want = ref.search(q, 16)
+np.testing.assert_array_equal(got[1], want[1])
+np.testing.assert_array_equal(got[0], want[0])
+print(f"RANK{rank}_OK", flush=True)
+'''
+
+
+@pytest.mark.cuda
+def test_cuda_two_ranks_share_one_card_over_gloo(tmp_path, cuda_device):
+    """Two processes on one card, 2 shards each: the backend rule picks
+    gloo (NCCL refuses a shared card), and the 4-shard search equals the
+    one-shard engine's on both ranks. Each rank has its own timeout."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    script = tmp_path / "rank.py"
+    script.write_text(_TWO_RANKS)
+    repo = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    procs = [subprocess.Popen([sys.executable, str(script), str(r),
+                               str(port)], cwd=repo, env=env, text=True,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"RANK{r}_OK" in out, out[-3000:]
+        assert "backend gloo" in out, out[-3000:]

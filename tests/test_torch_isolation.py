@@ -4,10 +4,12 @@ JAX package's.
 
 - In a subprocess whose import system refuses ``vrod_tpu`` (exactly that
   package, not ``vrod_tpu_torch``), ``jax``, ``jaxlib`` and ``ml_dtypes``,
-  every module of ``vrod_tpu_torch`` (the serving modules among them),
-  ``chip_smoke``, ``tools/kexp_floor.py`` and ``tools/kexp_extract.py``
-  imports, and a collection (int8, bfloat16) goes create -> bulk_insert ->
-  search -> snapshot -> delete -> load -> serve -> verify on the CPU.
+  every module of ``vrod_tpu_torch`` (the serving modules and ``parallel``
+  among them), ``chip_smoke``, ``tools/kexp_floor.py`` and
+  ``tools/kexp_extract.py`` imports, a collection (int8, bfloat16) goes
+  create -> bulk_insert -> search -> snapshot -> delete -> load -> serve ->
+  verify on the CPU, and the row-sharding dry run runs over 2 CPU shards,
+  in the refusing process itself and as ``dryrun_multichip(2)``.
 - A database written by either package loads in the other and answers the
   same queries; for the same operations both packages write the same WAL
   bytes.
@@ -59,8 +61,10 @@ assert {"vrod_tpu_torch.wal.wal", "vrod_tpu_torch._native.build",
         "vrod_tpu_torch.utils.embeddings", "vrod_tpu_torch.netaddr",
         "vrod_tpu_torch.client", "vrod_tpu_torch.pool",
         "vrod_tpu_torch.frontend", "vrod_tpu_torch.server",
-        "vrod_tpu_torch.replication", "vrod_tpu_torch.utils.verify"
-        } <= set(mods), mods
+        "vrod_tpu_torch.replication", "vrod_tpu_torch.utils.verify",
+        "vrod_tpu_torch.parallel", "vrod_tpu_torch.parallel.mesh",
+        "vrod_tpu_torch.parallel.distributed",
+        "vrod_tpu_torch.parallel.dryrun"} <= set(mods), mods
 import chip_smoke  # noqa: F401
 import runpy
 runpy.run_path("tools/kexp_floor.py", run_name="kexp_floor")
@@ -98,6 +102,9 @@ assert [(h.record_id, h.score) for h in wire] == \
 db.close()
 report = verify_image(f"{root}/db")
 assert report["ok"], report
+from vrod_tpu_torch.parallel import dryrun
+dryrun._dryrun_impl(2)
+dryrun.dryrun_multichip(2)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
 assert not bad, bad
 print("ok", len(mods))

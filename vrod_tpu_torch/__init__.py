@@ -2,8 +2,9 @@
 
 The same exact-kNN vector store as ``vrod_tpu`` — collections, WAL-first
 mutations, snapshots, the command layer and CLI — with the device side
-rebuilt on PyTorch: rows live in torch tensors on one CUDA device, and the
-search runs hand-written CUDA kernels (``ops/cuda_topk.py``, built from
+rebuilt on PyTorch: rows live in torch tensors row-sharded over one or more
+CUDA devices (``parallel``: in one process or across a process group), and
+the search runs hand-written CUDA kernels (``ops/cuda_topk.py``, built from
 ``csrc/`` with nvcc for sm_90a). The host modules (config, errors,
 records, allocator, WAL, snapshot format, payload store, image verifier,
 metrics, locks, embeddings, the native runtime in ``_native/``) and the

@@ -5,15 +5,17 @@ The port's fork of ``vrod_tpu.collection``, bound to the port's engine:
   host   C++ slot allocator (free-list, live bitmap, id<->slot binding)
        + C++ WAL (CRC-framed, fsync'd before device mutation is acked)
        + payload table (id -> string payload)
-  device (capacity, dim) embedding tensor + aux + validity on one device
-         (see ``vrod_tpu_torch/engine.py``)
+  device (capacity, dim) embedding tensor + aux + validity, row-sharded
+         over the mesh (see ``vrod_tpu_torch/engine.py``)
 
 The host parts are the port's copies of ``vrod_tpu``'s modules, so the WAL
 and snapshot formats are one and the same: a directory written by either
-package loads in the other. The JAX collection's multi-process paths (rank fingerprint
-allgather, coordination-KV agreement rounds, the replicated snapshot
-gather) are not in this fork: one process owns a collection, and a
-process-spanning collection is ROADMAP Queue 1 item 7.
+package loads in the other. On a process-spanning mesh
+(``parallel.distributed``) mutations and maintenance are collective, as in
+the JAX package: rank 0 alone writes the WAL, a load first checks that every
+rank holds byte-identical durable state (an all-gather of its
+fingerprint), and a snapshot agrees on each chunk's mutation generation
+through the process group's ``TCPStore`` before it gathers the chunk.
 
 Durability: every mutation appends to the collection WAL *before* touching
 device state; ``snapshot()`` persists live records + payloads, then truncates
@@ -25,6 +27,7 @@ safe. Record model is the reference's ``(f32 embedding, string payload)``
 
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import threading
@@ -127,11 +130,13 @@ class SearchHit:
 
 class Collection:
     def __init__(self, path: Path, config: CollectionConfig, *,
-                 device=None, wal_sync: bool = True):
+                 devices=None, mesh=None, device=None,
+                 wal_sync: bool = True):
         self.path = Path(path)
         self.config = config
         self.wal_sync = wal_sync
-        self.engine = DeviceEngine(config, device=device)
+        self.engine = DeviceEngine(config, mesh=mesh, devices=devices,
+                                   device=device)
         self.alloc = SlotAllocator(self.engine.capacity)
         self.wal = Wal(self.path / WAL_FILE)
         # Group commit: concurrent mutations share one fsync before ack
@@ -172,6 +177,20 @@ class Collection:
         # whether the WAL can serve a follower's position or the follower
         # must re-bootstrap from the snapshot.
         self._wal_floor = 0
+        # Collective-maintenance conversation counter (process-spanning
+        # meshes): one per collective snapshot, advanced identically on
+        # every rank (maintenance is collective by contract); keys the
+        # host-side KV agreement rounds (see _mh_agreed_write), whose keys
+        # ``_mh_keys[seq]`` are deleted lazily two conversations later.
+        self._mh_seq = 0
+        self._mh_keys: dict[int, list[str]] = {}
+        # The collective-maintenance gate of a process-spanning mesh: app
+        # mutations take a number (started) before the write lock and
+        # count themselves done after it; a collective gather holds new
+        # numbers back at an agreed count (limit) until it has run.
+        self._mh_gate = threading.Condition()
+        self._mh_started = self._mh_done = 0
+        self._mh_limit: int | None = None
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -248,8 +267,17 @@ class Collection:
 
         If the apply raises (e.g. device OOM during a grow/scatter) the WAL
         is rewound to its pre-append size: the op was never acked, so it
-        must not silently materialize on the next replay."""
+        must not silently materialize on the next replay.
+
+        On a process-spanning mesh, mutations are COLLECTIVE: every rank
+        must call the same mutation with identical arguments in the same
+        order. Rank 0 alone owns WAL durability; follower ranks apply the
+        op to their (device + host-live) state without logging — appending
+        to a second WAL would fork the durable truth."""
         self._mutgen += 1  # under the write lock; invalidates filter masks
+        if not self._owns_wal():
+            apply_fn()
+            return 0
         pre = self.wal.valid_size
         lsn = self.wal.append(ops.encode(op), sync=False)
         try:
@@ -262,11 +290,169 @@ class Collection:
             raise
         return lsn
 
+    def _owns_wal(self) -> bool:
+        """True when this process owns durable host truth: always on a
+        single-process mesh; rank 0 (the leader) on a process-spanning
+        mesh (``parallel/distributed.py`` leader model)."""
+        if not self.engine.multiprocess:
+            return True
+        from .parallel import distributed
+        return distributed.is_leader()
+
     def _ack(self, lsn: int) -> None:
-        """Block until the op at ``lsn`` is durable (shared group fsync)."""
+        """Block until the op at ``lsn`` is durable (shared group fsync).
+        Follower ranks have nothing to sync (lsn 0, no WAL append)."""
         if self.wal_sync and lsn:
             self._commit.sync_upto(lsn)
         self._maybe_auto_snapshot()
+
+    def _check_ranks_identical(self) -> None:
+        """Restore on a process-spanning mesh replays WAL frames whose
+        device work is collective (growth): every rank must replay the
+        SAME sequence, which requires byte-identical durable state on all
+        ranks (the documented contract: distribute the leader's snapshot +
+        WAL to every rank before a collective load). A rank with a diverged
+        WAL — e.g. reusing the follower's own (empty) directory from a
+        previous serving session — would hang the group mid-replay, so
+        verify the fingerprints agree up front with one tiny all-gather and
+        fail fast on every rank."""
+        if not self.engine.multiprocess:
+            return
+        import zlib
+        from .parallel import distributed
+        meta_crc = 0
+        for snap in ("snapshot", "snapshot.old", "snapshot.tmp"):
+            p = self.path / snap / "meta.json"
+            if p.exists():
+                meta_crc = zlib.crc32(p.read_bytes())
+                break
+        all_fp = distributed.all_gather_int64(
+            [self.wal.valid_size, self.wal.frame_count, meta_crc])
+        if not (all_fp == all_fp[0]).all():
+            raise RuntimeError(
+                "Collection restore on a process-spanning mesh requires "
+                "byte-identical snapshot + WAL state on every rank "
+                f"(fingerprints {all_fp.tolist()} by rank, this rank "
+                f"{distributed.process_index()}): copy the leader's "
+                "collection directory to all ranks, then load collectively")
+
+    def _mh_exchange(self, client, tag: str, retry: int, payload: dict,
+                     timeout_s: float) -> list[dict]:
+        """One host-side agreement round over the process group's KV
+        store (NOT a device collective — the exchange must not itself need
+        the dispatch-order property it establishes). Keys are globally
+        unique per round: the engine's per-load nonce x this collection's
+        conversation seq x tag x retry; this rank's keys of two
+        conversations ago are deleted lazily (see _snapshot_impl)."""
+        from .parallel import distributed
+        prefix = (f"vrod/{self.engine.mh_nonce}/{self.config.name}/"
+                  f"{self._mh_seq}/{tag}/r{retry}")
+        rank = distributed.process_index()
+        self._mh_keys.setdefault(self._mh_seq, []).append(
+            f"{prefix}/{rank}")
+        vals = distributed.kv_exchange(
+            client, prefix, rank, distributed.process_count(),
+            json.dumps(payload), timeout_s)
+        return [json.loads(v) for v in vals]
+
+    @contextlib.contextmanager
+    def _mutating(self):
+        """The write lock of one app mutation. On a process-spanning mesh
+        the mutation first takes its number under the maintenance gate
+        (waiting while a collective gather holds numbers past an agreed
+        count back), and counts itself done after the lock is released;
+        see ``_mh_agreed_write``."""
+        if not self.engine.multiprocess:
+            with self._rw.write():
+                yield
+            return
+        with self._mh_gate:
+            while self._mh_limit is not None \
+                    and self._mh_started >= self._mh_limit:
+                self._mh_gate.wait()
+            self._mh_started += 1
+        try:
+            with self._rw.write():
+                yield
+        finally:
+            with self._mh_gate:
+                self._mh_done += 1
+                self._mh_gate.notify_all()
+
+    @contextlib.contextmanager
+    def _mh_agreed_write(self, tag: str, extra=None):
+        """Write lock at a cross-rank-AGREED count of app mutations.
+
+        Collective work (a snapshot's chunk gathers) must take the same
+        place in every rank's stream of collectives. App mutations are
+        collective and totally ordered by the SPMD contract, and some of
+        them run collectives themselves (growth re-lays rows across
+        ranks), so what thread timing can still skew is WHERE a gather
+        lands between them — rank 0's writer could slip a mutation between
+        chunks 3 and 4 while rank 1's slips it between 4 and 5. This guard
+        pins the interleave: each rank holds back app mutations past the
+        number it has started (``_mutating``), exchanges that number
+        host-side, raises its hold to the largest, lets its writers finish
+        every mutation up to it, and only then takes its write lock — so
+        every rank holds its lock after the SAME mutations, and nothing can
+        run until the locks release. A rank never waits on another while
+        it holds its write lock with a mutation of its own still due: a
+        mutation that waits in a collective for its twin on another rank
+        always finds that twin free to start. The wait is bounded by
+        VROD_MH_AGREE_TIMEOUT_S (default 120 s). (The JAX package agrees
+        on the generation under the lock and retries; a torch collective
+        blocks its host thread, which would turn that retry into a
+        deadlock with a growing mutation.)
+
+        ``extra`` (callable -> dict, evaluated under the lock) merges
+        per-rank data into the exchanged payload; the body receives the
+        agreed list of all ranks' payloads, ordered by rank. Scope: one
+        conversation per collection at a time (under ``_maint``);
+        cross-COLLECTION ordering remains the app's SPMD contract, as for
+        mutations."""
+        import os
+        import time
+        from .parallel import distributed
+        client = distributed.coordination_client()
+        if client is None:
+            raise RuntimeError(
+                "collective maintenance on a process-spanning mesh needs "
+                "the process group's store "
+                "(parallel.distributed.initialize)")
+        timeout_s = float(os.environ.get("VROD_MH_AGREE_TIMEOUT_S", "120"))
+        deadline = time.monotonic() + timeout_s
+        gate = self._mh_gate
+        with gate:
+            self._mh_limit = mine = self._mh_started
+        try:
+            gens = [int(p["mutgen"]) for p in self._mh_exchange(
+                client, tag, 0, {"mutgen": mine}, timeout_s)]
+            target = max(gens)
+            with gate:
+                self._mh_limit = target
+                gate.notify_all()
+                while self._mh_done < target:
+                    left = deadline - time.monotonic()
+                    if left <= 0:
+                        raise RuntimeError(
+                            f"collective {tag!r} on {self.config.name!r}: "
+                            f"ranks disagree on mutation generation "
+                            f"({gens}) and this rank made no progress "
+                            f"within {timeout_s}s — collective mutations "
+                            "must be invoked on every rank (SPMD contract)")
+                    gate.wait(left)
+            self._rw.acquire_write()
+            try:
+                payload = {"mutgen": target}
+                if extra is not None:
+                    payload.update(extra())
+                yield self._mh_exchange(client, tag, 1, payload, timeout_s)
+            finally:
+                self._rw.release_write()
+        finally:
+            with gate:
+                self._mh_limit = None
+                gate.notify_all()
 
     def _fragmented(self) -> bool:
         """True only when compaction would ACTUALLY reclaim a segment: the
@@ -288,6 +474,13 @@ class Collection:
         lock briefly for the compaction move + shrink)."""
         budget = self.config.auto_snapshot_wal_bytes
         if self._closing:
+            return
+        if self.engine.multiprocess:
+            # Background maintenance runs collectives; firing
+            # asynchronously on ONE rank would hang the group. Multi-
+            # process maintenance works, but must be invoked explicitly
+            # and collectively (snapshot/reindex/truncate_wal on every
+            # rank, no concurrent searches — see _snapshot_impl).
             return
         want_snap = budget > 0 and self.wal.valid_size >= budget
         want_compact = self._fragmented()
@@ -367,7 +560,7 @@ class Collection:
 
     def insert(self, vector, payload: str = "") -> int:
         vecs = self._check_one(vector)
-        with self._rw.write():
+        with self._mutating():
             rid = self.next_id
             lsn = self._log_and_apply(
                 ops.InsertOp(rid, vecs[0], payload),
@@ -386,34 +579,37 @@ class Collection:
             payloads = [""] * n
         if len(payloads) != n:
             raise ValueError("payloads length must match vectors")
-        with self._rw.write():
+        with self._mutating():
             rids = np.arange(self.next_id, self.next_id + n, dtype=np.uint64)
             # Cap WAL frame size: a 10M-row ingest must not become one
             # multi-GB frame (bounded replay memory, finer torn-tail
             # granularity). Each chunk is its own op; one fsync at the end
             # covers them all (group durability before ack).
             chunk = max(1, self.WAL_FRAME_ROWS_MAX)
-            # Same protocol as _log_and_apply (bump generation, append,
-            # apply, rewind on failure), inlined to loop over WAL frame
-            # chunks. Keep the two in sync.
+            # Same protocol as _log_and_apply (WAL-ownership check, bump
+            # generation, append, apply, rewind on failure), inlined to
+            # loop over WAL frame chunks. Keep the two in sync.
             self._mutgen += 1
             lsn = 0
-            pre = self.wal.valid_size
-            try:
-                for start in range(0, n, chunk):
-                    end = min(start + chunk, n)
-                    lsn = self.wal.append(
-                        ops.encode(ops.BulkOp(
-                            rids[start:end], vecs[start:end],
-                            list(payloads[start:end]))),
-                        sync=False)
+            if not self._owns_wal():
                 self._apply_insert(rids, vecs, payloads)
-            except BaseException:
+            else:
+                pre = self.wal.valid_size
                 try:
-                    self.wal.rewind(pre)
-                except Exception:
-                    pass
-                raise
+                    for start in range(0, n, chunk):
+                        end = min(start + chunk, n)
+                        lsn = self.wal.append(
+                            ops.encode(ops.BulkOp(
+                                rids[start:end], vecs[start:end],
+                                list(payloads[start:end]))),
+                            sync=False)
+                    self._apply_insert(rids, vecs, payloads)
+                except BaseException:
+                    try:
+                        self.wal.rewind(pre)
+                    except Exception:
+                        pass
+                    raise
         self._ack(lsn)
         metrics.counters.inc("collection.inserts", n)
         return rids
@@ -441,7 +637,7 @@ class Collection:
         self.next_id = max(self.next_id, int(rids.max()) + 1)
 
     def delete(self, record_id: int) -> None:
-        with self._rw.write():
+        with self._mutating():
             rid = _checked_id(record_id)
             if rid is None or self.alloc.slot_of(rid) == NO_ID:
                 raise RecordNotFoundError(f"No record with id {record_id}")
@@ -454,7 +650,7 @@ class Collection:
         """Bulk DELETE: one WAL frame, one device scatter. Unknown ids are
         skipped; returns the number actually deleted."""
         rids = _as_id_array(record_ids)
-        with self._rw.write():
+        with self._mutating():
             # Dedupe (stable): a duplicated id must not be counted twice
             # or release a slot that a same-batch duplicate already freed.
             _, first = np.unique(rids, return_index=True)
@@ -507,7 +703,7 @@ class Collection:
         """UPDATE = delete + insert under the same record id
         (reference: UpdateCommand stub, types.rs:82-93)."""
         vecs = self._check_one(vector)
-        with self._rw.write():
+        with self._mutating():
             rid = _checked_id(record_id)
             if rid is None or self.alloc.slot_of(rid) == NO_ID:
                 raise RecordNotFoundError(f"No record with id {record_id}")
@@ -760,6 +956,10 @@ class Collection:
         return moved
 
     def _reindex_impl(self) -> int:
+        # Collective on a process-spanning mesh (invoke on every rank):
+        # the compaction plan comes from the replicated allocator, the
+        # move and shrink are collectives every rank runs, and
+        # _snapshot_impl handles the collective persist.
         with self._rw.write():
             src, dst = self.alloc.plan_compaction()
             if src.size:
@@ -947,6 +1147,18 @@ class Collection:
         ``sync=False`` defers the fsync so a catch-up batch shares one
         (call :meth:`replica_sync` after the batch)."""
         op = ops.decode(frame)  # validate before touching the WAL
+        if self.engine.multiprocess:
+            # A replica applies frames as its tailer receives them — an
+            # inherently rank-local trigger that cannot satisfy the SPMD
+            # requirement that every rank run the same collective work at
+            # the same point. Scale READS of a process-spanning store with
+            # one-process replicas restored from its BACKUP image instead.
+            raise RuntimeError(
+                "replication onto a process-spanning mesh is not supported: "
+                "a replica's WAL-tail applies are rank-local events and "
+                "cannot be run collectively; restore a BACKUP image "
+                "onto single-host replicas to scale reads "
+                "(docs/operations.md)")
         with self._rw.write():
             if lsn <= max(self._wal_floor, self.wal.last_lsn):
                 return False
@@ -980,13 +1192,23 @@ class Collection:
         redundant and are dropped (``truncate_until`` keeps any tail
         appended concurrently with the snapshot).
 
-        Non-blocking: a brief write lock fixes
+        Non-blocking on single-process meshes: a brief write lock fixes
         the cut (live slots, ids, last durable LSN), then the device->host
         gather and disk writes run chunk-at-a-time taking only short read
         locks — searches and mutations proceed throughout. The snapshot is
         fuzzy (a concurrently rebound slot may be captured with stale data)
         and the preserved WAL tail re-establishes exactness on restore,
-        because replay is idempotent and ordered."""
+        because replay is idempotent and ordered.
+
+        On a PROCESS-SPANNING mesh the snapshot is collective (call it on
+        every rank) and near-non-blocking: each chunk's gather runs under
+        a write lock acquired at a cross-rank-AGREED mutation generation
+        (host-side coordination, ``_mh_agreed_write``), so collective
+        mutations make progress BETWEEN chunks while the mutation/chunk
+        interleave stays identical on every rank. Concurrent SEARCHES on
+        a process-spanning mesh remain the app's responsibility to order
+        symmetrically; do not issue them concurrently with maintenance
+        (see ``_snapshot_impl``)."""
         with self._maint:
             p = self._snapshot_impl()
         # A compaction budget crossed during this snapshot was deferred
@@ -996,6 +1218,39 @@ class Collection:
         return p
 
     def _snapshot_impl(self) -> Path:
+        # On a process-spanning mesh this is a COLLECTIVE operation:
+        # invoke it on EVERY rank (like mutations). Each rank runs the
+        # same chunked collective gather and writes its OWN local snapshot
+        # files with the leader's LSN cut, so after it the rank
+        # directories are byte-identical again (a later collective load's
+        # fingerprint check passes without re-distributing files). The
+        # gathers are collectives and must run in the SAME order on every
+        # rank between the mutations; each chunk gathers under
+        # _mh_agreed_write, a host-side per-chunk generation agreement
+        # that pins the mutation/chunk interleave identically on every
+        # rank, so writers make progress BETWEEN chunks. The capture stays
+        # fuzzy exactly like the single-process form (mutations during the
+        # gather have LSN > cut; the preserved WAL tail + idempotent replay
+        # re-establish exactness on restore), and the captured bytes stay
+        # byte-identical across ranks: the gather leaves identical rows on
+        # every rank, and host payloads are read UNDER the agreed lock at
+        # the agreed generation.
+        if self.engine.multiprocess:
+            # Lazy key cleanup: every rank is provably past conversation
+            # seq-2 once any rank enters seq (it returned from seq-1,
+            # which required every rank's final-round write, which follows
+            # all of that rank's seq-2 reads). TCPStore deletes one key at
+            # a time, so each rank deletes its own keys of that round.
+            self._mh_seq += 1
+            from .parallel import distributed
+            client = distributed.coordination_client()
+            for key in self._mh_keys.pop(self._mh_seq - 2, []):
+                if client is not None:
+                    client.delete_key(key)
+        return self._snapshot_run()
+
+    def _snapshot_run(self) -> Path:
+        multiprocess = self.engine.multiprocess
         wlock = self._rw.write
         rlock = self._rw.read
         snap_dir = self.path / SNAPSHOT_DIR
@@ -1013,13 +1268,40 @@ class Collection:
         # cross-restart monotonicity, and (b) hand replication bootstraps
         # a position of 0 below the primary's floor — an infinite resync
         # loop (caught by the replication fuzz).
-        with wlock():
+        plan: dict = {}
+
+        def plan_cut() -> dict:
             self.wal.sync()  # everything applied so far is durable
             self._commit.mark_synced()
-            live_slots = self.alloc.live_slots()
-            rids = self.alloc.ids_of(live_slots.astype(np.uint64))
-            next_id = self.next_id
-            last_lsn = max(self.wal.last_lsn, self._wal_floor)
+            plan["live_slots"] = self.alloc.live_slots()
+            plan["rids"] = self.alloc.ids_of(
+                plan["live_slots"].astype(np.uint64))
+            plan["next_id"] = self.next_id
+            return {"live": int(plan["live_slots"].size),
+                    "next_id": plan["next_id"],
+                    "last_lsn": max(self.wal.last_lsn, self._wal_floor)}
+
+        if multiprocess:
+            # The LSN cut is the LEADER's: followers never append to their
+            # WALs (rank 0 owns durability), so their local last_lsn is
+            # whatever the last distributed load left behind — stamping it
+            # into meta.json would fork LSN assignment after a restore.
+            # The exchanged (live, next_id) cross-check catches a rank
+            # that missed a mutation BEFORE anything is written.
+            with self._mh_agreed_write("cut", extra=plan_cut) as all_p:
+                key = (all_p[0]["live"], all_p[0]["next_id"])
+                if any((p["live"], p["next_id"]) != key for p in all_p):
+                    raise RuntimeError(
+                        "Collective snapshot requires identical replicated "
+                        "host state on every rank ((live, next_id) by "
+                        f"rank: {[(p['live'], p['next_id']) for p in all_p]}"
+                        "): a rank missed a mutation")
+                last_lsn = int(all_p[0]["last_lsn"])
+        else:
+            with wlock():
+                last_lsn = int(plan_cut()["last_lsn"])
+        live_slots, rids, next_id = (
+            plan["live_slots"], plan["rids"], plan["next_id"])
 
         # Phase 2 — chunked gather + streaming write, no write lock held.
         # Vectors persist in the STORED representation (f32/bf16/int8 +
@@ -1035,9 +1317,22 @@ class Collection:
             for start in range(0, n, chunk):
                 sl = live_slots[start:start + chunk].astype(np.int64)
                 rid_chunk = rids[start:start + chunk]
-                with rlock():
-                    rows, auxv = self.engine.gather_raw(sl)
-                    pmap = self.payloads.get_many(rid_chunk.tolist())
+                if multiprocess:
+                    # Gather (a collective) and read host payloads under
+                    # the AGREED write lock (identical bytes on every rank
+                    # by identical generation). The gather returns copies,
+                    # so in-place mutations after the release cannot reach
+                    # them; the host copy, CRC and disk write — the
+                    # dominant chunk cost — run after release, so writers
+                    # progress between chunks.
+                    with self._mh_agreed_write(f"c{start}"):
+                        rows, auxv = self.engine.gather_raw(sl, sync=False)
+                        pmap = self.payloads.get_many(rid_chunk.tolist())
+                    rows, auxv = to_numpy(rows), to_numpy(auxv)
+                else:
+                    with rlock():
+                        rows, auxv = self.engine.gather_raw(sl)
+                        pmap = self.payloads.get_many(rid_chunk.tolist())
                 pls = [pmap.get(int(r), "") for r in rid_chunk.tolist()]
                 vw.write_rows(rows)
                 aw.write_rows(auxv.astype(np.float32))
@@ -1158,6 +1453,7 @@ class Collection:
         self.next_id = max(self.next_id, int(rids.max()) + 1)
 
     def _restore(self) -> None:
+        self._check_ranks_identical()
         snap_dir, meta = self._pick_snapshot()
         if snap_dir is not None:
             from . import snapshot as snapio

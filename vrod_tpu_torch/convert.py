@@ -1,10 +1,12 @@
 """Carry engine state between the JAX package and the port, byte for byte.
 
 ``engine_state_from_numpy`` turns the JAX engine's arrays
-(``np.asarray(eng.x)``, ``np.asarray(eng.aux)``, ``np.asarray(eng.valid)``)
-into the port's tensors without conversion, and
-``DeviceEngine.load_state`` installs them, so both packages can search
-identical stored rows. The int8/int4 l2 norms lane is derived state: it is
+(``np.asarray(eng.x)``, ``np.asarray(eng.aux)``, ``np.asarray(eng.valid)``:
+the global ``(capacity, ...)`` state, whatever its shards) into the port's
+tensors without conversion, and ``DeviceEngine.load_state`` installs them,
+splitting them over the port's shards as ``P(ROWS_AXIS)`` splits them, so
+both packages can search identical stored rows (a JAX 8-shard state
+searches the same in the port at 8 shards). The int8/int4 l2 norms lane is derived state: it is
 never carried, and ``load_state`` rebuilds it from x and aux, bit for bit
 the JAX engine's.
 

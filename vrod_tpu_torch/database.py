@@ -1,8 +1,11 @@
 """Database: the on-disk root + collection registry.
 
 The port's fork of ``vrod_tpu.database``, bound to the port's
-``Collection``; ``devices=`` becomes ``device=`` (a torch device, default
-from ``VROD_PLATFORM``). The on-disk layout is the JAX package's.
+``Collection``. ``devices=`` (torch devices, or a process-spanning list from
+``parallel.distributed.global_devices()``; default
+``runtime.default_devices()``) is passed to every collection as in the JAX
+package; ``device=d`` is the shorthand of ``devices=[d]``. The on-disk
+layout is the JAX package's.
 
 Preserves the reference's on-disk contract: a database is a directory
 containing ``vr_config`` and ``vr_wal``
@@ -36,9 +39,12 @@ LOCK_FILE = "vr_lock"
 
 class Database:
     def __init__(self, path: Path, config: DatabaseConfig, *,
-                 device=None, wal_sync: bool = True):
+                 devices=None, device=None, wal_sync: bool = True):
         self.path = Path(path)
         self.config = config
+        if device is not None and devices is not None:
+            raise ValueError("pass device= or devices=, not both")
+        self._devices = devices
         self._device = device
         self._wal_sync = wal_sync
         # Exclusive advisory lock: a second process opening the same DB
@@ -194,7 +200,8 @@ class Database:
         try:
             col = Collection.create(
                 self._collection_dir(name), cfg,
-                device=self._device, wal_sync=self._wal_sync)
+                devices=self._devices, device=self._device,
+                wal_sync=self._wal_sync)
         except FileExistsError:
             # The directory appeared between the exists() check and mkdir
             # (an external actor — in-process creates are registry-locked).
@@ -441,7 +448,8 @@ class Database:
                 raise CollectionNotFoundError(f"No collection named {name!r}")
             col = Collection.load(
                 self._collection_dir(name),
-                device=self._device, wal_sync=self._wal_sync)
+                devices=self._devices, device=self._device,
+                wal_sync=self._wal_sync)
             self._collections[name] = col
             return col
 

@@ -271,10 +271,21 @@ def rescore(x, aux, valid, q, cand_idx, *, k: int, metric: str,
     safe_idx = cand_idx.clamp(min=0).long()
     b, kp = safe_idx.shape
     rows = x[safe_idx.reshape(-1)].reshape(b, kp, x.shape[1])
+    return rescore_rows(rows, aux[safe_idx], valid[safe_idx], q, cand_idx,
+                        k=k, metric=metric, packed=packed)
+
+
+def rescore_rows(rows, aux_c, ok, q, cand_idx, *, k: int, metric: str,
+                 packed: bool = False, combine=None):
+    """``rescore`` on the candidates' stored rows (B, k', D), their aux and
+    their live bits (B, k'), as gathered from whichever shards hold them.
+    ``combine`` (optional) maps the scores (B, k'), -inf where a candidate
+    is dead or empty, before the top-k: a process-spanning engine takes
+    the max over the ranks there, each having scored the rows it holds."""
+    quant = rows.dtype == torch.int8
     rows = unpack_int4_rows(rows) if packed else rows.float()
     g = (rows * q.float()[:, None, :]).sum(dim=2)
-    aux_c = aux[safe_idx]
-    if x.dtype == torch.int8:
+    if quant:
         if metric == "l2":
             n2 = (rows ** 2).sum(dim=2) * (aux_c * aux_c)
             s = 2.0 * (g * aux_c) - n2
@@ -286,8 +297,9 @@ def rescore(x, aux, valid, q, cand_idx, *, k: int, metric: str,
         s = 2.0 * g - aux_c
     else:
         s = g
-    ok = (cand_idx >= 0) & valid[safe_idx]
-    s = torch.where(ok, s, NEG_INF)
+    s = torch.where((cand_idx >= 0) & ok, s, NEG_INF)
+    if combine is not None:
+        s = combine(s)
     top_v, pos = torch.sort(s, dim=1, descending=True, stable=True)
     top_v, pos = top_v[:, :k], pos[:, :k]
     top_i = torch.gather(cand_idx, 1, pos)

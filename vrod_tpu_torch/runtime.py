@@ -4,6 +4,12 @@
 ``cpu`` places collections on the CPU (plain PyTorch ops); ``gpu`` or
 ``cuda``, or no value, places them on ``cuda:0``. Without a GPU the latter
 raises: the port never moves to the CPU on its own.
+
+``default_devices()`` is the row mesh's default device list, the
+counterpart of ``jax.devices()``: one entry per visible card, or the one
+CPU device under ``VROD_PLATFORM=cpu``. Torch has one CPU device and no
+counterpart of XLA's forced host device count, so a CPU mesh of n shards is
+asked for as ``[torch.device("cpu")] * n``.
 """
 
 from __future__ import annotations
@@ -23,6 +29,15 @@ def default_device() -> torch.device:
         return resolve_device("cuda")
     raise ConfigError(
         f"VROD_PLATFORM={platform!r}: expected cpu, gpu or cuda")
+
+
+def default_devices() -> list[torch.device]:
+    """Every device a collection may shard over by default: ``[cpu]``
+    under ``VROD_PLATFORM=cpu``, else each visible CUDA card."""
+    first = default_device()
+    if first.type == "cpu":
+        return [first]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def resolve_device(device=None) -> torch.device:

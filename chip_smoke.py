@@ -54,7 +54,8 @@ nothing falls back to the CPU or to a plain version):
      262,144 rows, bfloat16/float32 at top-100 on 131,072 rows (f32x3: a
      float32 collection searched at precision "exact").
 4. Floor experiments, on the main path's reopened state (k_scan 28 and
-   112) and on phase (iii)'s (k_scan 108), before those collections close:
+   112) and on phase (iii)'s (k_scan 108, the JAX engine's bf16 top-100
+   width), before those collections close:
    the A/B pairs of ``tools/kexp_floor.py`` (the port's kexp17/18/20/22)
    with the launch counters set to 0 before and read after: X8 and X6
    (``cuda_floor.fused_theta``, margin 0 and the engine's margin, sample
@@ -128,6 +129,24 @@ nothing falls back to the CPU or to a plain version):
    ranks' answers must be equal (a digest of every id and score), and each
    rank's K1 must launch (its counters set to 0 before and read after, in
    its own process). A failed rank fails the run.
+9. The remaining verbs, on the main path's reopened 1M x 768 int8 cosine
+   database (kept open since phase 6), with the launch counters set to 0
+   before and read after; K1 and K3 of int8-cosine must launch in each of
+   (a)-(d). (a) Filtered SEARCHSIMILAR: ``within_ids`` of 100,000 seeded
+   live ids, then ``exclude_ids`` of 100,000, 5 batches of 256 each at
+   top-16: no id outside the filter and recall 1.0 against the exact
+   float32 scan of only the admitted rows; one request through
+   ``CommandBuilder`` with ``;within=`` answers as ``search_similar``;
+   prints the mask build time and the filtered p50 beside the unfiltered.
+   (b) Top-100 at the engine's k_scan, 5 batches, recall 1.0. (c) Delete
+   250,000 seeded ids, then REINDEX: rows must move and the capacity
+   shrink, the same queries return the same ids and scores as before the
+   REINDEX and no deleted id; prints its time. (d) BACKUP into the
+   phase's directory, ``verify_image`` ok, ``Database.load`` of the image
+   on the card answers as the source; prints both times. (e) The fuzz
+   streams on the card: ``tools/fuzz_backup.py`` and
+   ``tools/fuzz_cold_count.py`` one seed each, and two configurations of
+   ``tools/fuzz_model.py``'s op stream, each against its host model.
 
 Per kernel and leg, at the shapes of its first (largest) phase, the script
 also computes the kernel's bound (the larger of the bytes its inputs and
@@ -217,6 +236,13 @@ SHARDS = 4
 SHARDED_MIN_ROWS = SHARDS * (262144 - 65536) + 1
 MH_RANKS, MH_SHARDS_PER_RANK, MH_ROWS, MH_SEARCHES = 2, 2, 262144, 5
 MH_TIMEOUT_S = 300
+# Phase 9: query batches, the filters' id counts, the ids deleted before
+# REINDEX, the fuzz seeds run on the card (tools/fuzz_backup.py seed 2 is
+# its int8 tier; the model stream's configurations by index in
+# tools/fuzz_model.CONFIGS).
+VERB_BATCHES, VERB_TOP_K, VERB_TOP_K_WIDE = 5, 16, 100
+FILTER_IDS, REINDEX_DELETE = 100_000, 250_000
+FUZZ_BACKUP_SEED, FUZZ_COLD_SEED, FUZZ_MODEL_CONFIGS = 2, 0, (1, 2)
 
 def log(*a):
     print(*a, flush=True)
@@ -1162,7 +1188,8 @@ def db_phase(dev, card, cmp, *, name, leg, top_k, rows, searches, reopen,
     likewise, the serve phase's launch counts or None). With ``keep`` (a
     dict), it also keeps the phase's answers before and after the reopen,
     the deleted ids, its ``engine.search`` p50 and its device time per
-    search, for phase 7 to hold the sharded collection against."""
+    search, for phase 7 to hold the sharded collection against, and the
+    open database and its directory (``db``, ``dir``) for phase 9."""
     import torch
     from vrod_tpu_torch import Database
     from vrod_tpu_torch.engine import FloorSettings, floor_gate
@@ -1305,10 +1332,14 @@ def db_phase(dev, card, cmp, *, name, leg, top_k, rows, searches, reopen,
             if extract_kscans else None
         served = serve_phase(card, db, col, queries, top_k, set(gone),
                              seed + 1) if serve else None
-        db.close()
+        if keep is not None:
+            keep.update(db=db, dir=tmp)  # phase 9 closes and removes it
+        else:
+            db.close()
         return launches, times, floor, extract, served
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if keep is None or keep.get("dir") != tmp:
+            shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
 
 
@@ -1585,6 +1616,212 @@ def mh_worker(rank, port, workdir, seed) -> int:
     return 0
 
 
+def launch_delta(before):
+    """Launches since the counts ``before`` (a dict of K.launches)."""
+    from vrod_tpu_torch.ops import cuda_topk as K
+    return {n: c - before.get(n, 0) for n, c in K.launches.items()
+            if c - before.get(n, 0)}
+
+
+def need_kernels(delta, what, leg="int8-cosine"):
+    for kern in ("fused_topk", "sampled_submax"):
+        if not delta.get(f"{kern}[{leg}]"):
+            raise AssertionError(f"{what}: launched no {kern}[{leg}]")
+
+
+def filtered_round(col, queries, ids, mode, what):
+    """Filtered ``search_similar`` of every batch at VERB_TOP_K: K1 and K3
+    rise with each; no id outside the filter; recall 1.0 against the exact
+    float32 scan over only the admitted rows. Returns (mask build ms,
+    per-batch latencies in s)."""
+    import torch
+    from vrod_tpu_torch.ops import cuda_topk as K
+    eng = col.engine
+    t0 = time.perf_counter()
+    slots = col.alloc.slots_of(np.asarray(ids, np.uint64)).astype(np.int64)
+    mask = eng.filter_mask_from_slots(slots, mode=mode)
+    torch.cuda.synchronize(eng.device)
+    mask_ms = (time.perf_counter() - t0) * 1e3
+    admitted = eng.valid & mask
+    idset = set(np.asarray(ids).tolist())
+    lat = []
+    kw = {"within_ids" if mode == "within" else "exclude_ids": ids}
+    for b, q in enumerate(queries):
+        n0 = dict(K.launches)
+        t0 = time.perf_counter()
+        hits = col.search_similar(q, VERB_TOP_K, **kw)
+        lat.append(time.perf_counter() - t0)
+        need_kernels(launch_delta(n0), f"{what} {b}")
+        for hs in hits:
+            inside = [h.record_id in idset for h in hs]
+            outside = not all(inside) if mode == "within" else any(inside)
+            if outside:
+                raise AssertionError(f"{what} {b}: an id outside the "
+                                     f"{mode} filter")
+        check_hits(hits, oracle_kth(eng, q, VERB_TOP_K,
+                                    (eng.x, eng.aux, admitted)),
+                   "cosine", VERB_TOP_K, f"{what} {b}")
+    return mask_ms, lat
+
+
+def verbs_phase(card, main, seed):
+    """Phase 9 (module docstring): filtered SEARCHSIMILAR, top-100, REINDEX
+    and BACKUP on the main path's reopened collection, then the fuzz
+    streams on the card. Closes the main path's database (the caller
+    removes its directory). Returns its launch counts."""
+    import torch
+    from vrod_tpu_torch import Database
+    from vrod_tpu_torch.commands.builder import CommandBuilder
+    from vrod_tpu_torch.ops import cuda_topk as K
+    from vrod_tpu_torch.verify_image import verify_image
+    db, tmp = main["db"], main["dir"]
+    wall0 = time.perf_counter()
+    try:
+        col = db.collection("docs")
+        eng = col.engine
+        dev = eng.device
+        rng = np.random.default_rng(seed)
+        queries = [rng.standard_normal((BATCH, DIM), dtype=np.float32)
+                   for _ in range(VERB_BATCHES)]
+        live = col.alloc.ids_of(col.alloc.live_slots().astype(np.uint64))
+        K.reset_launches()
+
+        # (a) filtered SEARCHSIMILAR
+        n0 = dict(K.launches)
+        col.search_similar(queries[0], VERB_TOP_K)  # warm-up
+        lat = []
+        for q in queries:
+            t0 = time.perf_counter()
+            col.search_similar(q, VERB_TOP_K)
+            lat.append(time.perf_counter() - t0)
+        p50 = {"unfiltered": float(np.percentile(lat, 50)) * 1e3}
+        within = rng.choice(live, FILTER_IDS, replace=False)
+        exclude = rng.choice(live, FILTER_IDS, replace=False)
+        mask_ms = {}
+        for mode, ids in (("within", within), ("exclude", exclude)):
+            mask_ms[mode], lat = filtered_round(
+                col, queries, ids, mode, f"filtered {mode}")
+            p50[mode] = float(np.percentile(lat, 50)) * 1e3
+        q0 = queries[0][0]
+        arg = (",".join(repr(float(v)) for v in q0) + f";k={VERB_TOP_K}"
+               + ";within=" + ",".join(str(int(i)) for i in within))
+        out = CommandBuilder(db).build("docs", "SEARCHSIMILAR",
+                                       arg).execute()
+        verb_ids = [int(line.split("\t")[0]) for line in out.splitlines()]
+        api_ids = [h.record_id for h in
+                   col.search_similar(q0, VERB_TOP_K, within_ids=within)]
+        if verb_ids != api_ids:
+            raise AssertionError(f"SEARCHSIMILAR ;within=: {verb_ids} vs "
+                                 f"search_similar {api_ids}")
+        a_counts = launch_delta(n0)
+        need_kernels(a_counts, "(a)")
+        log(f"verbs (a): {VERB_BATCHES} x b{BATCH} top-{VERB_TOP_K} within "
+            f"{FILTER_IDS} ids and excluding {FILTER_IDS}: recall 1.0 "
+            f"against the exact scan of the admitted rows, no id outside "
+            f"the filter; the ;within= verb answered as search_similar; "
+            f"mask build {mask_ms['within']:.3f} / {mask_ms['exclude']:.3f}"
+            f" ms; search_similar p50 within {p50['within']:.3f} ms, "
+            f"exclude {p50['exclude']:.3f} ms, unfiltered "
+            f"{p50['unfiltered']:.3f} ms [{card}]")
+
+        # (b) int8 cosine top-100 at the policy's k_scan
+        n0 = dict(K.launches)
+        search_round(col, queries, "int8-cosine", VERB_TOP_K_WIDE,
+                     "top-100")
+        need_kernels(launch_delta(n0), "(b)")
+        log(f"verbs (b): {VERB_BATCHES} x b{BATCH} top-{VERB_TOP_K_WIDE} "
+            f"at k_scan {eng.scan_widths(VERB_TOP_K_WIDE)[1]}: recall 1.0")
+
+        # (c) delete, then REINDEX
+        gone = rng.choice(live, REINDEX_DELETE, replace=False)
+        if col.delete_many(gone) != REINDEX_DELETE:
+            raise AssertionError("delete_many deleted fewer ids")
+        n0 = dict(K.launches)
+        before = search_round(col, queries, "int8-cosine", VERB_TOP_K,
+                              "before REINDEX")
+        kept = col.alloc.ids_of(col.alloc.live_slots().astype(np.uint64))
+        slots0 = col.alloc.slots_of(kept)
+        cap0 = eng.capacity
+        t0 = time.perf_counter()
+        moved = col.reindex()
+        torch.cuda.synchronize(dev)
+        reindex_s = time.perf_counter() - t0
+        rebound = int((col.alloc.slots_of(kept) != slots0).sum())
+        if moved < 1 or rebound < 1 or col.engine.capacity >= cap0:
+            raise AssertionError(f"REINDEX moved {moved} rows ({rebound} "
+                                 f"rebound), capacity {cap0} -> "
+                                 f"{col.engine.capacity}")
+        after = search_round(col, queries, "int8-cosine", VERB_TOP_K,
+                             "after REINDEX")
+        gone_set = set(gone.tolist())
+        for b, (bq, aq) in enumerate(zip(before, after)):
+            if any(r in gone_set for hs in aq for r, _ in hs):
+                raise AssertionError("REINDEX: a deleted id came back")
+            if bq != aq:
+                raise AssertionError(f"REINDEX changed batch {b}'s answers")
+        need_kernels(launch_delta(n0), "(c)")
+        log(f"verbs (c): deleted {REINDEX_DELETE}, REINDEX moved {moved} "
+            f"rows, capacity {cap0} -> {col.engine.capacity}, in "
+            f"{reindex_s:.3f} s; the same ids and scores before and after, "
+            f"no deleted id [{card}]")
+
+        # (d) BACKUP, verify_image, load the image on the card
+        dest = tmp / "backup"
+        t0 = time.perf_counter()
+        stats = db.backup(dest)
+        backup_s = time.perf_counter() - t0
+        report = verify_image(dest)
+        if not report["ok"]:
+            raise AssertionError(f"verify_image: {report}")
+        n0 = dict(K.launches)
+        t0 = time.perf_counter()
+        db2 = Database.load(dest, device=dev)
+        col2 = db2.collection("docs")
+        torch.cuda.synchronize(dev)
+        load_s = time.perf_counter() - t0
+        if col2.count != col.count:
+            raise AssertionError(f"backup count {col2.count} vs "
+                                 f"{col.count}")
+        restored = search_round(col2, queries, "int8-cosine", VERB_TOP_K,
+                                "backup loaded")
+        db2.close()
+        if restored != after:
+            raise AssertionError("the backup's answers differ")
+        need_kernels(launch_delta(n0), "(d)")
+        log(f"verbs (d): BACKUP of {col.count} rows ({stats}) in "
+            f"{backup_s:.3f} s, verify_image ok, Database.load of the image "
+            f"on {dev} in {load_s:.3f} s, its answers equal the source's "
+            f"[{card}]")
+        db.close()
+
+        # (e) the fuzz streams on the card
+        t0 = time.perf_counter()
+        tool_module("fuzz_backup").run_seed(FUZZ_BACKUP_SEED)
+        tool_module("fuzz_cold_count").run_seed(FUZZ_COLD_SEED)
+        fm = tool_module("fuzz_model")
+        for i in FUZZ_MODEL_CONFIGS:
+            seed_i, cfg_kw = fm.CONFIGS[i]
+            with tempfile.TemporaryDirectory(prefix="vrod_fuzz_") as td:
+                cols, model = fm.run_stream(
+                    [fm.port_opens(td, cfg_kw, device=dev)], seed_i)
+                if cols[0].engine.x.device.type != dev.type:
+                    raise AssertionError("the model stream left the card")
+                for c in cols:
+                    c.close()
+        torch.cuda.synchronize(dev)
+        launches = dict(K.launches)
+        log(f"verbs (e): fuzz_backup seed {FUZZ_BACKUP_SEED}, fuzz_cold_count "
+            f"seed {FUZZ_COLD_SEED} and the model stream "
+            f"{[fm.CONFIGS[i] for i in FUZZ_MODEL_CONFIGS]} on {dev}: ok in "
+            f"{time.perf_counter() - t0:.1f} s")
+        log(f"verbs: launches "
+            f"{json.dumps({n: c for n, c in launches.items() if c})}; "
+            f"{time.perf_counter() - wall0:.1f} s [{card}]")
+        return launches
+    finally:
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--rows", type=int, default=1_000_000,
@@ -1669,10 +1906,14 @@ def main(argv=None) -> int:
             extracts.append((name, leg, extract))
     # Phases 7 and 8: their launches join the totals, each path's read in
     # its own run (phase 8's in each rank's process).
-    sharded = shard_phase(card, main_path, rows=args.rows,
-                          seed=args.seed + 10)
-    ranks = mh_phase(card, args.seed + 30)
-    for n in [sharded] + ranks:
+    try:
+        sharded = shard_phase(card, main_path, rows=args.rows,
+                              seed=args.seed + 10)
+        ranks = mh_phase(card, args.seed + 30)
+        verbs = verbs_phase(card, main_path, args.seed + 40)
+    finally:
+        shutil.rmtree(main_path["dir"], ignore_errors=True)
+    for n in [sharded] + ranks + [verbs]:
         for kname, c in n.items():
             launches[kname] += c
     kernels = []

@@ -720,3 +720,62 @@ def test_cuda_two_ranks_share_one_card_over_gloo(tmp_path, cuda_device):
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0 and f"RANK{r}_OK" in out, out[-3000:]
         assert "backend gloo" in out, out[-3000:]
+
+
+# -- filtered search and REINDEX on the card -------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_filtered_search_then_reindex_matches_cpu(rng, cuda_device,
+                                                       tmp_path):
+    """A small int8 cosine collection on cuda:0 and the same rows on the
+    port's CPU path: a ``within_ids`` and an ``exclude_ids`` search, then a
+    delete of a third of the rows and REINDEX (rows move, the capacity
+    shrinks), then the filtered searches again. Every answer on the card
+    has the CPU path's ids, and its scores within 1e-5 (the card's float32
+    rescore sums in another order)."""
+    from vrod_tpu_torch.collection import Collection
+    n, d, k = 6144, 64, 10
+    vecs = rng.standard_normal((n, d)).astype(np.float32)
+    q = rng.standard_normal((16, d)).astype(np.float32)
+    cols = []
+    for dev in (cuda_device, torch.device("cpu")):
+        cfg = CollectionConfig(name="fr", dim=d, metric="cosine",
+                               dtype="int8", segment_rows=1024)
+        col = Collection.create(tmp_path / f"c{len(cols)}", cfg,
+                                device=dev)
+        col.bulk_insert(vecs)
+        cols.append(col)
+    ids = np.arange(1, n + 1)
+    within = rng.choice(ids, 1500, replace=False)
+    exclude = rng.choice(ids, 1500, replace=False)
+    gone = rng.choice(ids, n // 3, replace=False)
+
+    def answers(col):
+        out = []
+        for kw in ({"within_ids": within}, {"exclude_ids": exclude}):
+            hits = col.search_similar(q, k, **kw)
+            out.append((np.array([[h.record_id for h in hs] for hs in hits]),
+                        np.array([[h.score for h in hs] for hs in hits])))
+        return out
+
+    def same(a, b):
+        for (ia, sa), (ib, sb) in zip(a, b):
+            np.testing.assert_array_equal(ia, ib)
+            np.testing.assert_allclose(sa, sb, rtol=0, atol=1e-5)
+
+    same(*[answers(c) for c in cols])
+    caps = []
+    for col in cols:
+        col.delete_many(gone)
+        cap = col.engine.capacity
+        assert col.reindex() > 0
+        caps.append((cap, col.engine.capacity))
+    assert caps[0] == caps[1] and caps[0][1] < caps[0][0], caps
+    after = [answers(c) for c in cols]
+    same(*after)
+    gone_set = set(gone.tolist())
+    for ia, _ in after[0]:
+        assert not gone_set & set(ia.ravel().tolist())
+    for col in cols:
+        col.close()

@@ -5,8 +5,9 @@ JAX package's.
 - In a subprocess whose import system refuses ``vrod_tpu`` (exactly that
   package, not ``vrod_tpu_torch``), ``jax``, ``jaxlib`` and ``ml_dtypes``,
   every module of ``vrod_tpu_torch`` (the serving modules and ``parallel``
-  among them), ``chip_smoke``, ``tools/kexp_floor.py`` and
-  ``tools/kexp_extract.py`` imports, a collection (int8, bfloat16) goes
+  among them), ``chip_smoke``, ``tools/kexp_floor.py``,
+  ``tools/kexp_extract.py``, ``tools/recall_margin.py`` and every
+  ``tools/fuzz_*.py`` imports, a collection (int8, bfloat16) goes
   create -> bulk_insert -> search -> snapshot -> delete -> load -> serve ->
   verify on the CPU, and the row-sharding dry run runs over 2 CPU shards,
   in the refusing process itself and as ``dryrun_multichip(2)``.
@@ -69,6 +70,12 @@ import chip_smoke  # noqa: F401
 import runpy
 runpy.run_path("tools/kexp_floor.py", run_name="kexp_floor")
 runpy.run_path("tools/kexp_extract.py", run_name="kexp_extract")
+runpy.run_path("tools/recall_margin.py", run_name="recall_margin")
+import glob
+fuzz = sorted(glob.glob("tools/fuzz_*.py"))
+assert len(fuzz) == 8, fuzz
+for f in fuzz:
+    runpy.run_path(f, run_name=f.split("/")[-1][:-3])
 
 from vrod_tpu_torch import Database, VrodClient, VrodServer
 from vrod_tpu_torch.verify_image import verify_image

@@ -122,10 +122,12 @@ def test_search_options_match_jax(rng, dtype, metric, k):
 
 def test_search_widths_follow_margin_and_rescore(rng):
     """(k_out, k_scan): the JAX policy by default (int8: at least 12, k/4
-    past 100), ``margin`` overrides it, and no rescore means no margin."""
+    past 100), raised past k_out 16 to the margin measured on the H100
+    (int8: 36, ``engine.WIDE_K_MARGIN``; the JAX engine scans 112 at top
+    100), ``margin`` overrides it, and no rescore means no margin."""
     _, eng = engines(rng, 2048, 32, "int8", "cosine")
     assert eng.scan_widths(16) == (16, 28)
-    assert eng.scan_widths(100) == (100, 112)
+    assert eng.scan_widths(100) == (100, 136)
     assert eng.scan_widths(200) == (256, 320)
     assert eng.scan_widths(16, margin=32) == (16, 48)
     assert eng.scan_widths(16, margin=32, rescore=False) == (16, 16)

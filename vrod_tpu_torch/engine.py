@@ -74,6 +74,15 @@ BATCH_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 K_BUCKETS = (8, 16, 32, 64, 96, 100, 112, 128, 256, 512, 1024)
 MAX_K = 1024
 
+# The least rescore margin, by stored dtype, of a search whose k_out exceeds
+# 16, measured on the H100 (tools/recall_margin.py, 1,048,576 x 768 rows,
+# 4 batches of 256 queries, cosine/dot/l2, tools/recall_results_h100.jsonl):
+# 1.5 x the least margin that held recall 1.0 on every batch at top-100
+# (int8 and int4 24, bfloat16 8), rounded up. At k_out 16 the JAX policy
+# held with room (int8/int4 8 of 12, floats 4 of 8), and float32 in TF32
+# needed 4 at top-100, so those stay the JAX engine's.
+WIDE_K_MARGIN = {"int8": 36, "int4": 36, "bfloat16": 12}
+
 # Sampled-floor defaults, the JAX engine's (engine.py:106-158 and the
 # VROD_THETA0_* defaults at :829-844); their H100 values are not measured
 # yet (ROADMAP). The tile budget is the TPU pre-pass's
@@ -583,9 +592,10 @@ class DeviceEngine:
                     rescore: bool = True) -> tuple[int, int]:
         """(k_out, k_scan) of a search for top-k (k <= MAX_K): k bucketed,
         and that plus the candidate margin, slack for the scan's rank
-        jitter that the exact rescore recovers from (JAX engine
-        :787-804). An explicit ``margin`` overrides the policy; without
-        the rescore the margin is 0."""
+        jitter that the exact rescore recovers from: the JAX engine's
+        policy (:787-804), raised past k_out 16 to ``WIDE_K_MARGIN``, the
+        margins measured on the H100. An explicit ``margin`` overrides the
+        policy; without the rescore the margin is 0."""
         k_out = min(_bucket(k, K_BUCKETS), self.capacity)
         if not rescore:
             margin = 0
@@ -594,6 +604,8 @@ class DeviceEngine:
                          k_out // 8 if k_out > 100 else 0)
             if self.quant:
                 margin = max(margin, 12, k_out // 4 if k_out > 100 else 0)
+            if k_out > 16:
+                margin = max(margin, WIDE_K_MARGIN.get(self.cfg.dtype, 0))
         return k_out, min(k_out + margin, self.capacity)
 
     def _query_inputs(self, q, qp, precision):

@@ -215,6 +215,8 @@ def global_devices(local=None):
 # NCCL takes tensors on the rank's card, gloo on the host; these helpers
 # stage a tensor to where the backend wants it and back, and move dtypes
 # that a backend may not reduce or gather (bool, bfloat16) as raw bytes.
+# Outside a process group each acts over a world of one process, as JAX's
+# collectives do in a single process.
 
 
 def _staged(t: torch.Tensor) -> torch.Tensor:
@@ -227,6 +229,8 @@ def _staged(t: torch.Tensor) -> torch.Tensor:
 
 def all_gather(t: torch.Tensor) -> torch.Tensor:
     """(world, *t.shape): every rank's ``t``, on ``t``'s device."""
+    if _group is None:
+        return t.unsqueeze(0).clone()
     x = _staged(t)
     out = [torch.empty_like(x) for _ in range(_group.world)]
     dist.all_gather(out, x)
@@ -235,6 +239,8 @@ def all_gather(t: torch.Tensor) -> torch.Tensor:
 
 def all_reduce_max(t: torch.Tensor) -> torch.Tensor:
     """The elementwise max of every rank's float32 ``t``."""
+    if _group is None:
+        return t.clone()
     x = _staged(t)
     dist.all_reduce(x, op=dist.ReduceOp.MAX)
     return x.to(t.device)
@@ -243,6 +249,8 @@ def all_reduce_max(t: torch.Tensor) -> torch.Tensor:
 def broadcast(t: torch.Tensor, src: int) -> torch.Tensor:
     """Rank ``src``'s ``t`` (every rank passes a tensor of its shape and
     dtype), on ``t``'s device."""
+    if _group is None:
+        return t.clone()
     x = _staged(t)
     dist.broadcast(x, src)
     return x.to(t.device).view(t.dtype)

@@ -147,6 +147,24 @@ nothing falls back to the CPU or to a plain version):
    streams on the card: ``tools/fuzz_backup.py`` and
    ``tools/fuzz_cold_count.py`` one seed each, and two configurations of
    ``tools/fuzz_model.py``'s op stream, each against its host model.
+10. The repo's tools and examples over the package, each a process on
+   ``cuda:0`` (``PYTHONPATH`` this checkout): ``tools/filter_bench.py`` at
+   its defaults (1,048,576 x 768 bfloat16 cosine, b256, top-16: no
+   excluded slot returned, the allowlist held; its K1 must launch) and at
+   ``--dtype int8`` (K1 and K3 must launch: the floor opens); then, beside
+   ``tools/soak_serve.py`` for SOAK_MINUTES in the background (errors 0,
+   fds back within 16 of their start, K1 launched; the RSS and
+   device-memory plateau is judged from the 2-minute mark, which this
+   soak does not reach, and the output says so), the three port examples
+   (``examples/torch_quickstart.py``, whose lines must equal its lines on
+   the CPU, every name and score to 3 decimals; ``torch_serving.py``;
+   ``torch_replication.py``, read-your-writes and the cutover lines) and
+   ``tools/repl_drill.py`` at DRILL_ROWS x 768 with a 100,000-row tail
+   (the one depth cut of its 10M: one bootstrap, then a resume after a
+   SIGKILL with no bootstrap or resync, spot records bit-identical). Each
+   tool's JSON summary is printed on a line of its own; the launches in
+   the tools' processes are printed apart and join no count of the
+   kernels' line.
 
 Per kernel and leg, at the shapes of its first (largest) phase, the script
 also computes the kernel's bound (the larger of the bytes its inputs and
@@ -174,6 +192,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -243,6 +262,12 @@ MH_TIMEOUT_S = 300
 VERB_BATCHES, VERB_TOP_K, VERB_TOP_K_WIDE = 5, 16, 100
 FILTER_IDS, REINDEX_DELETE = 100_000, 250_000
 FUZZ_BACKUP_SEED, FUZZ_COLD_SEED, FUZZ_MODEL_CONFIGS = 2, 0, (1, 2)
+# Phase 10: the soak's minutes (no 2-minute plateau mark within them), the
+# drill's rows and tail (the depth cut of tools/repl_drill.py's 10M rows),
+# and the time limit of each tool's process.
+SOAK_MINUTES = 1.5
+DRILL_ROWS, DRILL_TAIL_ROWS = 1_048_576, 100_000
+TOOL_TIMEOUT_S = 600
 
 def log(*a):
     print(*a, flush=True)
@@ -1822,6 +1847,157 @@ def verbs_phase(card, main, seed):
         torch.cuda.empty_cache()
 
 
+def run_tool(argv, what, cwd=None):
+    """One of the repo's programs (a ``tools/`` script or an example) in a
+    process of its own on ``cuda:0``: its standard output; a non-zero exit
+    fails the phase."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root), VROD_PLATFORM="cuda")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, *argv], cwd=cwd or root, env=env,
+                         capture_output=True, text=True,
+                         timeout=TOOL_TIMEOUT_S)
+    if out.returncode != 0:
+        raise AssertionError(f"{what} exited {out.returncode}:\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-5000:]}")
+    log(f"  {what}: {time.perf_counter() - t0:.1f} s")
+    return out.stdout
+
+
+def tool_summary(stdout, what):
+    """The JSON summary a tool prints as its last line, ``ok`` true; printed
+    on a line of its own."""
+    summary = json.loads(stdout.strip().splitlines()[-1])
+    if summary.get("ok") is not True:
+        raise AssertionError(f"{what}: not ok: {summary}")
+    print(json.dumps(summary), flush=True)
+    return summary
+
+
+def device_mib(memory):
+    """(max allocated, max reserved) MiB of a drill process's memory."""
+    return tuple(round(memory[f"device_max_{k}_bytes"] / 2 ** 20, 1)
+                 for k in ("allocated", "reserved"))
+
+
+def need_launches(launches, kernels, what):
+    for name in kernels:
+        if not launches.get(name):
+            raise AssertionError(f"{what}: launched no {name}")
+
+
+def tools_phase(card):
+    """Phase 10 (module docstring): the repo's tools and examples on the
+    card, each in its own process: ``tools/filter_bench.py`` (bfloat16,
+    then int8), ``tools/soak_serve.py`` (in the background, beside) the
+    three port examples and ``tools/repl_drill.py`` at DRILL_ROWS. Prints
+    the search kernels' launches in the tools' processes, counted apart."""
+    import torch
+    torch.cuda.empty_cache()
+    log(f"phase 10: the tools and examples, each a process on cuda:0 "
+        f"[{card}]")
+    launches = {}
+
+    def count(summary):
+        for name, c in summary["launches"].items():
+            launches[name] = launches.get(name, 0) + c
+
+    for dtype, kernels in (
+            ("bfloat16", ["fused_topk[bf16-cosine]"]),
+            ("int8", ["fused_topk[int8-cosine]",
+                      "sampled_submax[int8-cosine]"])):
+        fb = tool_summary(run_tool(
+            ["tools/filter_bench.py", "--dtype", dtype],
+            f"filter_bench {dtype}"), f"filter_bench {dtype}")
+        need_launches(fb["launches"], kernels, f"filter_bench {dtype}")
+        count(fb)
+        log(f"  filter_bench {dtype} {fb['rows']:,} x {fb['dim']} b"
+            f"{fb['batch']} top-{fb['k']}: p50 unfiltered / exclude "
+            f"{fb['excluded']:,} / within {fb['within']:,} = "
+            f"{' / '.join(f'{v:.3f}' for v in fb['p50_ms'])} ms, window "
+            f"means {' / '.join(f'{v:.3f}' for v in fb['latency_ms'])} ms; "
+            f"mask {fb['mask_build_ms']:.3f} ms (first "
+            f"{fb['mask_build_cold_ms']:.3f}) [{card}]")
+
+    root = Path(__file__).resolve().parent
+    soak_out = tempfile.TemporaryFile(mode="w+")
+    soak = subprocess.Popen(
+        [sys.executable, "tools/soak_serve.py", "--minutes",
+         str(SOAK_MINUTES)], cwd=root, stdout=soak_out,
+        stderr=subprocess.DEVNULL,
+        env=dict(os.environ, PYTHONPATH=str(root), VROD_PLATFORM="cuda"))
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            cpu_quick = subprocess.run(
+                [sys.executable, str(root / "examples/torch_quickstart.py")],
+                cwd=tmp, capture_output=True, text=True, check=True,
+                timeout=TOOL_TIMEOUT_S, env=dict(
+                    os.environ, PYTHONPATH=str(root), VROD_PLATFORM="cpu"))
+            quick = run_tool([str(root / "examples/torch_quickstart.py")],
+                               "examples/torch_quickstart.py", cwd=tmp)
+            lines = quick.splitlines()
+            if (lines[:1] != ["Inserted 18 records"]
+                    or "recall check: 1.0" not in lines[-1]
+                    or lines != cpu_quick.stdout.splitlines()):
+                raise AssertionError(f"quickstart printed {lines}, on the "
+                                     f"CPU {cpu_quick.stdout.splitlines()}")
+            serving = run_tool([str(root / "examples/torch_serving.py")],
+                                 "examples/torch_serving.py", cwd=tmp)
+            if not (serving.startswith("served ") and "from 8 clients" in
+                    serving and "packed batches" in serving
+                    and "auto-snapshots: " in serving):
+                raise AssertionError(f"serving printed {serving!r}")
+            repl = run_tool([str(root / "examples/torch_replication.py")],
+                              "examples/torch_replication.py", cwd=tmp)
+            for want in ("read-your-writes through the pool: Hit(501, "
+                         "1.000000, 'fresh-write')", "fenced:",
+                         "promoted:", "replica promoted; first write on "
+                         "the new primary: id 502"):
+                if want not in repl:
+                    raise AssertionError(f"replication printed {repl!r}")
+            if repl.splitlines()[-1] != "done":
+                raise AssertionError(f"replication printed {repl!r}")
+            for out in (quick, serving, repl):
+                for line in out.splitlines():
+                    log(f"    {line}")
+        drill = tool_summary(run_tool(
+            ["tools/repl_drill.py", "--rows", str(DRILL_ROWS),
+             "--tail-rows", str(DRILL_TAIL_ROWS)], "repl_drill"),
+            "repl_drill")
+        log(f"  repl_drill {drill['rows']:,} x {drill['dim']} int8 (the depth"
+            f" cut of 10M), tail {drill['tail_rows']:,}: ingest "
+            f"{drill['ingest_rows_per_s']:,.0f} rows/s, snapshot "
+            f"{drill['snapshot_gb_per_s']:.3f} GB/s, bootstrap "
+            f"{drill['times']['bootstrap_s']:.1f} s, resume "
+            f"{drill['times']['resume_s']:.1f} s with no bootstrap or "
+            f"resync, {drill['verified_records']} records bit-identical; "
+            f"device max allocated / reserved MiB "
+            f"{ {n: device_mib(m) for n, m in drill['memory'].items()} }, "
+            f"card memory.used by phase {drill['card_used_peak_mb']} "
+            f"[{card}]")
+        soak.wait(timeout=SOAK_MINUTES * 60 + TOOL_TIMEOUT_S)
+    finally:
+        if soak.poll() is None:
+            soak.kill()
+            soak.wait(timeout=60)
+    soak_out.seek(0)
+    text = soak_out.read()
+    soak_out.close()
+    if soak.returncode != 0:
+        raise AssertionError(f"soak_serve exited {soak.returncode}: {text}")
+    sk = tool_summary(text, "soak_serve")
+    need_launches(sk["launches"], ["fused_topk[int8-cosine]"], "soak_serve")
+    count(sk)
+    log(f"  soak_serve {sk['wall_s']} s: {sk['searches']:,} searches "
+        f"({sk['qps']:.1f}/s), {sk['mutations']:,} mutations, errors "
+        f"{sk['errors']}, fds {sk['fd_start']} -> {sk['fd_end']}; device "
+        f"allocated peak {sk['dev_alloc_peak_mb']:.1f} MiB, end "
+        f"{sk['dev_alloc_end_mb']:.1f}; the RSS and device-memory plateau "
+        f"is judged from the 2-minute mark, which a "
+        f"{SOAK_MINUTES * 60:.0f} s soak does not reach [{card}]")
+    log(f"phase 10 launches (counted apart): {json.dumps(launches)}")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--rows", type=int, default=1_000_000,
@@ -1913,6 +2089,7 @@ def main(argv=None) -> int:
         verbs = verbs_phase(card, main_path, args.seed + 40)
     finally:
         shutil.rmtree(main_path["dir"], ignore_errors=True)
+    tools_phase(card)
     for n in [sharded] + ranks + [verbs]:
         for kname, c in n.items():
             launches[kname] += c

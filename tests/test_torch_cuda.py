@@ -155,6 +155,31 @@ def test_cuda_kernels_match_plain(rng, case, leg, cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_growth_releases_earlier_capacities(rng, cuda_device):
+    """Growing segment by segment, the caching allocator keeps none of the
+    earlier capacities reserved: after each growth the engine's device
+    holds its state, at most one block that a write staged its float32
+    chunk in (the allocator may place the new rows inside it), and little
+    more (tools/repl_drill.py at 10M rows reserved 44 GB for 7.7 GB of
+    rows before the engine released them; here 1 + ... + 7 old
+    capacities would be 1.4 GB)."""
+    seg, dim, segments = 65536, 768, 8
+    cfg = CollectionConfig(name="grow", dim=dim, metric="cosine",
+                           dtype="int8", segment_rows=seg, shards=1)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved(cuda_device)
+    eng = DeviceEngine(cfg, device=cuda_device)
+    chunk = rng.standard_normal((seg, dim)).astype(np.float32)
+    for i in range(segments):
+        assert eng.ensure_capacity((i + 1) * seg) == (i > 0)
+        state = (i + 1) * seg * (dim + 4 + 1)  # rows, aux, valid
+        assert torch.cuda.memory_reserved(cuda_device) - base <= \
+            state + chunk.nbytes + (64 << 20), i
+        eng.write(np.arange(i * seg, (i + 1) * seg), chunk)
+    assert eng.capacity == segments * seg
+
+
+@pytest.mark.cuda
 def test_cuda_engine_matches_cpu_engine(rng, cuda_device):
     """One state, searched by the engine on the CPU (plain versions) and on
     the card (K1, and K3 where the floor gate opens at k 100): the same

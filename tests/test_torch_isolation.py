@@ -6,8 +6,13 @@ JAX package's.
   package, not ``vrod_tpu_torch``), ``jax``, ``jaxlib`` and ``ml_dtypes``,
   every module of ``vrod_tpu_torch`` (the serving modules and ``parallel``
   among them), ``chip_smoke``, ``tools/kexp_floor.py``,
-  ``tools/kexp_extract.py``, ``tools/recall_margin.py`` and every
-  ``tools/fuzz_*.py`` imports, a collection (int8, bfloat16) goes
+  ``tools/kexp_extract.py``, ``tools/recall_margin.py``, every
+  ``tools/fuzz_*.py``, the tools ``tools/filter_bench.py``,
+  ``tools/soak_serve.py`` and ``tools/repl_drill.py``, and the port's
+  examples ``examples/torch_quickstart.py``, ``torch_serving.py`` and
+  ``torch_replication.py`` import (each loaded as a module, so no
+  ``main()`` runs; no import statement of theirs, inside ``main()`` too,
+  names a refused package), a collection (int8, bfloat16) goes
   create -> bulk_insert -> search -> snapshot -> delete -> load -> serve ->
   verify on the CPU, and the row-sharding dry run runs over 2 CPU shards,
   in the refusing process itself and as ``dryrun_multichip(2)``.
@@ -76,6 +81,19 @@ fuzz = sorted(glob.glob("tools/fuzz_*.py"))
 assert len(fuzz) == 8, fuzz
 for f in fuzz:
     runpy.run_path(f, run_name=f.split("/")[-1][:-3])
+programs = ["tools/filter_bench.py", "tools/soak_serve.py",
+           "tools/repl_drill.py", "examples/torch_quickstart.py",
+           "examples/torch_serving.py", "examples/torch_replication.py"]
+import ast
+for f in programs:
+    ns = runpy.run_path(f, run_name=f.split("/")[-1][:-3])
+    assert callable(ns["main"]), f
+    # Their imports inside main() too: every import statement of the file.
+    for node in ast.walk(ast.parse(open(f).read())):
+        names = [a.name for a in node.names] if isinstance(
+            node, ast.Import) else [node.module or ""] if isinstance(
+            node, ast.ImportFrom) else []
+        assert not [n for n in names if n.split(".")[0] in BANNED], (f, names)
 
 from vrod_tpu_torch import Database, VrodClient, VrodServer
 from vrod_tpu_torch.verify_image import verify_image

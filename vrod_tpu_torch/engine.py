@@ -380,6 +380,7 @@ class DeviceEngine:
             return False
         self._relayout(int(math.ceil(needed_slots / self._grow_unit))
                        * self._grow_unit)
+        self._release_cached()
         return True
 
     def shrink_target(self, needed_slots: int) -> int:
@@ -395,7 +396,20 @@ class DeviceEngine:
         if new_cap >= self.capacity:
             return False
         self._relayout(new_cap)
+        self._release_cached()
         return True
+
+    def _release_cached(self) -> None:
+        """Return the freed buffers of a relayout to the device (the
+        caching allocator keeps a freed block for reuse, but no later
+        capacity fits a smaller block): without this a collection grown
+        segment by segment keeps every earlier capacity reserved (10M x
+        768 int8 rows grown by 1,048,576-row segments: 44 GB reserved for
+        7.7 GB of rows, on a card that two such processes share)."""
+        for dev in set(self._devs):
+            if dev.type == "cuda":
+                with torch.cuda.device(dev):
+                    torch.cuda.empty_cache()
 
     def _relayout(self, new_cap: int) -> None:
         """Capacity ``new_cap``, with every kept slot ``s`` moved to shard

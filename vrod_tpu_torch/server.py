@@ -28,7 +28,7 @@ response. Two request forms are accepted:
 
 Admin verbs: ``PING``, ``STATS`` (uptime + process-wide counters — the
 ``frontend.batch`` counter vs ``server.request`` shows cross-client
-batching), ``SHUTDOWN``.
+batching — and the process's RSS and device memory), ``SHUTDOWN``.
 
 Security model: no auth — bind to loopback or a mode-0700 unix socket (the
 default), exactly like the CLI's local trust model. Anyone who can connect
@@ -143,6 +143,28 @@ class _ThreadingUnixServer(socketserver.ThreadingUnixStreamServer):
     daemon_threads = True
     block_on_close = False
     request_queue_size = 128
+
+
+def process_memory() -> dict:
+    """This process's resident set (``VmRSS``, read now: ``ru_maxrss``
+    would carry a parent's peak across fork and exec) and, once it has
+    used a CUDA device, the memory its tensors hold on its current device
+    (allocated) and its caching allocator keeps there (reserved), now and
+    at their peaks, in bytes: what a drill or a soak reads on the card,
+    where the rows live outside RSS."""
+    import torch
+    out = {}
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                out["rss_bytes"] = int(line.split()[1]) * 1024
+    if torch.cuda.is_initialized():
+        out.update(
+            device_allocated_bytes=torch.cuda.memory_allocated(),
+            device_max_allocated_bytes=torch.cuda.max_memory_allocated(),
+            device_reserved_bytes=torch.cuda.memory_reserved(),
+            device_max_reserved_bytes=torch.cuda.max_memory_reserved())
+    return out
 
 
 class VrodServer:
@@ -376,7 +398,8 @@ class VrodServer:
                      "counters": metrics.counters.snapshot(),
                      # p50/p95/p99 per timed event (server.request =
                      # whole-request wall time incl. batching wait).
-                     "latencies": metrics.latencies.snapshot()}
+                     "latencies": metrics.latencies.snapshot(),
+                     "memory": process_memory()}
             if self._replicator is not None:
                 stats["replication"] = self._replicator.status()
             return stats

@@ -165,6 +165,19 @@ nothing falls back to the CPU or to a plain version):
    tool's JSON summary is printed on a line of its own; the launches in
    the tools' processes are printed apart and join no count of the
    kernels' line.
+11. The port's bench, ``bench_torch.py``, each run a process on
+   ``cuda:0``: the headline at its defaults (1,000,000 x 768 int8 cosine,
+   b256, top-16), then ``--quick`` runs: l2, int4 dot, and the workloads
+   batch-sweep, scaling, mixed, serve and serve-batch (BENCH_RUNS). Each
+   run's line is printed and must hold a positive ``value``, no
+   ``error``, this card's line, recall 1.0 in every
+   ``recall_full_scan@k``, the mixed workload's ``final_count`` (its
+   rows + 128 an iteration) and a K1 launch; the headline must launch K3
+   too. Their launches are printed apart, as phase 10's. Then one warm
+   headline search of the bench's engine in this process under
+   ``torch.cuda.set_sync_debug_mode("warn")``: its synchronizing calls
+   are printed by the line that made each (a one-slot readback, the
+   control, must show as one).
 
 Per kernel and leg, at the shapes of its first (largest) phase, the script
 also computes the kernel's bound (the larger of the bytes its inputs and
@@ -268,6 +281,19 @@ FUZZ_BACKUP_SEED, FUZZ_COLD_SEED, FUZZ_MODEL_CONFIGS = 2, 0, (1, 2)
 SOAK_MINUTES = 1.5
 DRILL_ROWS, DRILL_TAIL_ROWS = 1_048_576, 100_000
 TOOL_TIMEOUT_S = 600
+# Phase 11: bench_torch.py's runs (the headline at its defaults first),
+# and the final count of its mixed workload at --quick (65,536 rows, 3
+# iterations, each +256 -128).
+BENCH_RUNS = (("headline", []),
+              ("l2", ["--metric", "l2", "--quick"]),
+              ("int4 dot", ["--dtype", "int4", "--metric", "dot", "--quick"]),
+              ("batch-sweep", ["--workload", "batch-sweep", "--quick"]),
+              ("scaling", ["--workload", "scaling", "--quick"]),
+              ("mixed", ["--workload", "mixed", "--quick"]),
+              ("serve", ["--workload", "serve", "--quick"]),
+              ("serve-batch", ["--workload", "serve-batch", "--quick"]))
+MIXED_QUICK_COUNT = 65536 + 128 * 3
+
 
 def log(*a):
     print(*a, flush=True)
@@ -1998,6 +2024,110 @@ def tools_phase(card):
     log(f"phase 10 launches (counted apart): {json.dumps(launches)}")
 
 
+def check_bench_line(line, what, card):
+    """A bench_torch line as phase 11 requires it (module docstring)."""
+    extra = line.get("extra") or {}
+    recalls = [p["recall_full_scan@k"]
+               for p in extra.get("curve", {}).values()]
+    if "recall_full_scan@k" in extra:
+        recalls.append(extra["recall_full_scan@k"])
+    faults = []
+    if "error" in line or not line.get("value") or line["value"] <= 0:
+        faults.append("no value")
+    if extra.get("card") != card:
+        faults.append(f"card {extra.get('card')!r}")
+    if any(r != 1.0 for r in recalls):
+        faults.append(f"recall {recalls}")
+    if what == "mixed" and extra.get("final_count") != MIXED_QUICK_COUNT:
+        faults.append(f"final_count, want {MIXED_QUICK_COUNT}")
+    kernels = ["fused_topk"] + (["sampled_submax"] if what == "headline"
+                                else [])
+    for kern in kernels:
+        if not any(n.startswith(kern + "[") for n in
+                   extra.get("launches", {})):
+            faults.append(f"launched no {kern}")
+    if faults:
+        raise AssertionError(f"bench_torch {what}: {'; '.join(faults)}: "
+                             f"{json.dumps(line)}")
+
+
+def host_syncs():
+    """The synchronizing calls of one warm headline search (bench_torch's
+    engine, fill and queries; 3 searches before) under
+    ``torch.cuda.set_sync_debug_mode("warn")``: {where: count}, where
+    naming the innermost line of this checkout on the call's stack, its
+    source, and the line outside the checkout that made the call. A
+    control must show: a one-slot readback of a result is one such call."""
+    import linecache
+    import traceback
+    import warnings
+    import torch
+    import bench_torch
+    root = Path(__file__).resolve().parent
+    eng = bench_torch.build_engine(1_000_000, DIM, "cosine", "int8")
+    q = bench_torch.staged_queries(BATCH, DIM, eng.device)
+    for _ in range(3):
+        _, idx = eng.search(q, 16, as_numpy=False)
+    torch.cuda.synchronize()
+
+    def syncs(fn):
+        sites = {}
+
+        def seen(message, category, filename, lineno, file=None,
+                 line=None):
+            if "called a synchronizing CUDA operation" not in str(message):
+                return
+            ours = [f for f in traceback.extract_stack(sys._getframe(1))
+                    if Path(f.filename).is_relative_to(root)][-1]
+            path = Path(ours.filename).relative_to(root)
+            src = linecache.getline(ours.filename, ours.lineno).strip()
+            where = (f"{path}:{ours.lineno} ({src}), via "
+                     f"{Path(filename).parent.name}/{Path(filename).name}:"
+                     f"{lineno}")
+            sites[where] = sites.get(where, 0) + 1
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = seen
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return sites
+
+    found = syncs(lambda: eng.search(q, 16, as_numpy=False))
+    control = syncs(lambda: idx[0, :1].cpu())
+    if sum(control.values()) != 1:
+        raise AssertionError(f"sync debug mode saw {control} for one "
+                             "readback")
+    del eng, idx
+    torch.cuda.empty_cache()
+    return found
+
+
+def bench_phase(card):
+    """Phase 11 (module docstring): bench_torch.py's runs, each a process
+    on cuda:0, then the headline search's host syncs."""
+    import torch
+    torch.cuda.empty_cache()
+    log(f"phase 11: bench_torch.py, each run a process on cuda:0 [{card}]")
+    launches = {}
+    for what, argv in BENCH_RUNS:
+        out = run_tool(["bench_torch.py", *argv], f"bench_torch {what}")
+        line = json.loads(out.strip().splitlines()[-1])
+        print(json.dumps(line), flush=True)
+        check_bench_line(line, what, card)
+        for name, c in line["extra"]["launches"].items():
+            launches[name] = launches.get(name, 0) + c
+    log(f"phase 11 launches (counted apart): {json.dumps(launches)}")
+    sites = host_syncs()
+    log(f"phase 11: one warm headline search under sync debug mode made "
+        f"{sum(sites.values())} synchronizing calls [{card}]")
+    for where, n in sites.items():
+        log(f"  {n} x {where}")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--rows", type=int, default=1_000_000,
@@ -2090,6 +2220,7 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(main_path["dir"], ignore_errors=True)
     tools_phase(card)
+    bench_phase(card)
     for n in [sharded] + ranks + [verbs]:
         for kname, c in n.items():
             launches[kname] += c

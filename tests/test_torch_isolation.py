@@ -7,7 +7,8 @@ JAX package's.
   every module of ``vrod_tpu_torch`` (the serving modules and ``parallel``
   among them), ``chip_smoke``, ``tools/kexp_floor.py``,
   ``tools/kexp_extract.py``, ``tools/recall_margin.py``, every
-  ``tools/fuzz_*.py``, the tools ``tools/filter_bench.py``,
+  ``tools/fuzz_*.py``, the port's bench ``bench_torch.py`` (which must not
+  import ``bench.py`` either), the tools ``tools/filter_bench.py``,
   ``tools/soak_serve.py`` and ``tools/repl_drill.py``, and the port's
   examples ``examples/torch_quickstart.py``, ``torch_serving.py`` and
   ``torch_replication.py`` import (each loaded as a module, so no
@@ -42,7 +43,7 @@ REPO = Path(__file__).resolve().parent.parent
 _ISOLATED = r'''
 import importlib, importlib.abc, pkgutil, sys
 
-BANNED = ("vrod_tpu", "jax", "jaxlib", "ml_dtypes")
+BANNED = ("vrod_tpu", "jax", "jaxlib", "ml_dtypes", "bench")
 
 
 class Refuse(importlib.abc.MetaPathFinder):
@@ -81,9 +82,10 @@ fuzz = sorted(glob.glob("tools/fuzz_*.py"))
 assert len(fuzz) == 8, fuzz
 for f in fuzz:
     runpy.run_path(f, run_name=f.split("/")[-1][:-3])
-programs = ["tools/filter_bench.py", "tools/soak_serve.py",
-           "tools/repl_drill.py", "examples/torch_quickstart.py",
-           "examples/torch_serving.py", "examples/torch_replication.py"]
+programs = ["bench_torch.py", "tools/filter_bench.py",
+            "tools/soak_serve.py", "tools/repl_drill.py",
+            "examples/torch_quickstart.py", "examples/torch_serving.py",
+            "examples/torch_replication.py"]
 import ast
 for f in programs:
     ns = runpy.run_path(f, run_name=f.split("/")[-1][:-3])

@@ -28,10 +28,20 @@ nothing falls back to the CPU or to a plain version):
    fail the same comparison, and on the f32x3 leg so must the TF32 leg's
    plain version. For every leg theta0, the engine's floor from
    K3, must be at or below K1's own k-th value, and K3's maximum must
-   equal K1's top-1 on the sample bit for bit. K1 at case (d)'s dim 96
+   equal K1's top-1 on the sample bit for bit, from K1's small-scan
+   kernel and from its long scan alike. K1 at case (d)'s dim 96
    (8,192 rows, the shapes of the TPU's K2, its auto-pipelined kernel for
    dims that are not a multiple of 128) is timed beside its plain version,
-   its bound and its library yardstick.
+   its bound and its library yardstick, by events and by device time.
+   Edge shapes (g): K3 on one 16,384-row block at b1, b200 and b512, and
+   K1 at 8,192 x 96 at b1, b200 and b512 and at 8,192 x 30 (no TMA) at
+   b200; every K1 call below CUT_TILES tiles a part must take the
+   small-scan kernel (``cuda_topk.small_scans``), and ties across the
+   small scan's list cuts must keep the lowest slots. K3 must make exactly
+   one launch a call and K1's small scan one (int8 cosine at (d)), K1's
+   long scan two (the main path: the profiler's count of the port's
+   kernels a call). Device times: the kernel's calls captured in a CUDA
+   graph and replayed between two events (``graph_ms``).
 3. Database phases through the entry points: ``Database.new`` ->
    ``create_collection`` (dim 768) -> ``bulk_insert`` of seeded rows in
    65,536-row chunks (WAL first, fsync) -> 20 x ``search_similar`` at batch
@@ -279,7 +289,7 @@ FUZZ_BACKUP_SEED, FUZZ_COLD_SEED, FUZZ_MODEL_CONFIGS = 2, 0, (1, 2)
 # drill's rows and tail (the depth cut of tools/repl_drill.py's 10M rows),
 # and the time limit of each tool's process.
 SOAK_MINUTES = 1.5
-DRILL_ROWS, DRILL_TAIL_ROWS = 1_048_576, 100_000
+DRILL_ROWS, DRILL_TAIL_ROWS = 524_288, 100_000
 TOOL_TIMEOUT_S = 600
 # Phase 11: bench_torch.py's runs (the headline at its defaults first),
 # and the final count of its mixed workload at --quick (65,536 rows, 3
@@ -319,6 +329,79 @@ def cuda_time_ms(fn, iters=20, warmup=3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters=20):
+    """Device time per call of ``fn``, a kernel's wrapper: ``iters`` calls
+    captured in one CUDA graph and replayed between two CUDA events, so the
+    kernels run back to back without the host's work between them."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    del graph
+    return ms
+
+
+def device_time(fn, calls=5):
+    """(CUDA time per call in ms, device operations per call, the port's
+    kernels among them per call) of ``fn`` by torch.profiler over ``calls``
+    warm calls: the kernels' own time, without the host work around their
+    launches."""
+    import inspect
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    kw = {"acc_events": True} \
+        if "acc_events" in inspect.signature(profile).parameters else {}
+    with profile(activities=[ProfilerActivity.CUDA], **kw) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, count, ours = 0.0, 0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            total += getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0))
+            count += ev.count
+            ours += ev.count if "vrod::" in ev.key else 0
+    return total / 1e3 / calls, count / calls, ours / calls
+
+
+def need_ops(fn, want, what, tries=5):
+    """``fn`` must launch exactly ``want`` of the port's kernels a call
+    (the query's cast for the float legs is a torch op of its own). The
+    profiler now and then keeps none or only some of a window's kernels
+    (seen on the H100 host, more often the more windows a process has
+    taken), never more than ran, so a window is taken again, up to
+    ``tries`` in all, while it shows fewer."""
+    seen = []
+    for _ in range(tries):
+        ours = device_time(fn)[2]
+        seen.append(ours)
+        if ours >= want:
+            break
+    if ours != want:
+        raise AssertionError(f"{what}: {seen} of the port's kernels a call "
+                             f"in {len(seen)} profiles, not {want}")
 
 
 def row_dtype(dtype):
@@ -503,6 +586,13 @@ class Compare:
         top1, _ = K.fused_topk(*args, k=1, metric=metric, **kw)
         if not torch.equal(top1[:, 0], got.amax(dim=1)):
             raise AssertionError(f"{what}: K3's max is not K1's top-1")
+        # The same from K1's long scan (query groups of 256), which a k
+        # past SMALL_MAX_K takes at any size.
+        top1, _ = K.fused_topk(*args, k=K.SMALL_MAX_K + 1, metric=metric,
+                               **kw)
+        if not torch.equal(top1[:, 0], got.amax(dim=1)):
+            raise AssertionError(f"{what}: K3's max is not the top-1 of "
+                                 "K1's long scan")
         return got
 
     def topk(self, leg, args, kw, k, what, offset=0, theta0=None,
@@ -697,23 +787,39 @@ def kernel_cases(cmp, rng, dev, leg):
     cmp.topk(leg, args, kw, 112, f"{leg} (c) k 112, floor", 0, theta_c)
     cmp.floor_sound(leg, args, kw, 112, theta_c, f"{leg} (c)")
     cmp.topk(leg, args, kw, 1280, f"{leg} (c) k 1280")
+    # (g) K3 on one block at the batch's edges.
+    for b in (1, 200, 512):
+        qg = torch.from_numpy(rng.standard_normal((b, DIM),
+                                                  dtype=np.float32))
+        ag, kg = kernel_inputs(x[:16384], qg, leg, dev, dead_every=7)
+        cmp.submax(leg, ag, kg, 16384, f"{leg} (g) K3 one block b{b}")
     k2 = {}
     for d in (96, 30):
         xd = torch.from_numpy(rng.standard_normal((8192, d),
                                                   dtype=np.float32))
-        qd = torch.from_numpy(rng.standard_normal((BATCH, d),
-                                                  dtype=np.float32))
-        ad, kd = kernel_inputs(xd, qd, leg, dev, dead_every=5)
+        for b in (1, 200, 512, BATCH) if d == 96 else (200, BATCH):
+            qd = torch.from_numpy(rng.standard_normal((b, d),
+                                                      dtype=np.float32))
+            ad, kd = kernel_inputs(xd, qd, leg, dev, dead_every=5)
+            small = K.small_scans[leg]
+            cmp.topk(leg, ad, kd, 28, f"{leg} (d) dim {d} b{b}", 77)
+            if K.small_scans[leg] != small + 1:
+                raise AssertionError(f"{leg} (d) dim {d} b{b}: K1 did not "
+                                     "take its small-scan kernel")
         cmp.submax(leg, ad, kd, 4096, f"{leg} (d) K3 dim {d}")
-        cmp.topk(leg, ad, kd, 28, f"{leg} (d) dim {d}", 77)
         if d == 96:
             # K2's shapes (the TPU's auto-pipelined kernel for dims that
-            # are not a multiple of 128): K1 at dim 96, its library
+            # are not a multiple of 128): K1 at dim 96, b256, its library
             # yardstick and its bound.
             kk = dict(k=28, metric=metric, index_offset=77, **kd)
             gemm = library_gemm(leg, ad[0], ad[3])
             extra = [v for v in kd.values() if torch.is_tensor(v)]
+            if leg == "int8-cosine":
+                need_ops(lambda: K.fused_topk(*ad, **kk), 1,
+                         f"{leg} (d) K1's small scan")
             k2 = {"fused_topk_dim96": cuda_time_ms(
+                      lambda: K.fused_topk(*ad, **kk)),
+                  "fused_topk_dim96_device": graph_ms(
                       lambda: K.fused_topk(*ad, **kk)),
                   "fused_topk_dim96_plain": cuda_time_ms(
                       lambda: K.fused_topk_plain(*ad, **kk), iters=5),
@@ -744,6 +850,17 @@ def kernel_cases(cmp, rng, dev, leg):
     if i[0, :112].tolist() != [7] + copies[:111]:
         raise AssertionError(f"{leg} (e) ties across list cuts: copies of "
                              "row 7 not lowest slot first")
+    # The same across the small scan's cuts (after every tile): copies in
+    # the first seven tiles of part 0 at 16,384 rows, k 28.
+    _, parts, _ = K.small_plan(16384, BATCH, 28, sms)
+    copies = [t * parts * K.TILE_ROWS + r for t in range(7)
+              for r in range(8, 48)]
+    at, kt = tie_inputs(leg, dev, rng, 16384, copies)
+    v, i = cmp.topk(leg, at, kt, 28, f"{leg} (e) ties across small-scan "
+                    "cuts", bound=exact)
+    if i[0, :28].tolist() != [7] + copies[:27]:
+        raise AssertionError(f"{leg} (e) ties across small-scan cuts: "
+                             "copies of row 7 not lowest slot first")
     dead = torch.zeros_like(args[2])
     v, i = cmp.topk(leg, args[:2] + [dead, args[3]], kw, 28,
                     f"{leg} (f) all dead")
@@ -762,6 +879,8 @@ def kernel_cases(cmp, rng, dev, leg):
         "fused_topk_plain": cuda_time_ms(
             lambda: K.fused_topk_plain(*args, **k1), iters=5),
         "sampled_submax": cuda_time_ms(
+            lambda: K.sampled_submax(*sample, **k3)),
+        "sampled_submax_device": graph_ms(
             lambda: K.sampled_submax(*sample, **k3)),
         "sampled_submax_plain": cuda_time_ms(
             lambda: K.sampled_submax_plain(*sample, **k3), iters=5),
@@ -1352,11 +1471,19 @@ def db_phase(dev, card, cmp, *, name, leg, top_k, rows, searches, reopen,
             "fused_topk_plain": cuda_time_ms(
                 lambda: K.fused_topk_plain(*a1, **kw1), iters=5),
             "fused_topk": cuda_time_ms(lambda: K.fused_topk(*a1, **kw1)),
+            "fused_topk_device": graph_ms(
+                lambda: K.fused_topk(*a1, **kw1)),
             "sampled_submax": cuda_time_ms(
+                lambda: K.sampled_submax(*a3, **kw3)),
+            "sampled_submax_device": graph_ms(
                 lambda: K.sampled_submax(*a3, **kw3)),
             "sampled_submax_plain": cuda_time_ms(
                 lambda: K.sampled_submax_plain(*a3, **kw3), iters=5),
         }
+        if name == "main path":
+            need_ops(lambda: K.fused_topk(*a1, **kw1), 2,
+                     f"{name} K1's long scan and its merge")
+            need_ops(lambda: K.sampled_submax(*a3, **kw3), 1, f"{name} K3")
         dim = eng.cfg.dim
         extra_t = [v for v in extras.values() if hasattr(v, "numel")]
         times["fused_topk_bound"] = bound_of(
@@ -2174,8 +2301,10 @@ def main(argv=None) -> int:
 
     cmp = Compare()
     rng = np.random.default_rng(args.seed + 1)
+    k2_times = {}
     for leg in K.LEGS:
         times = kernel_cases(cmp, rng, dev, leg)
+        k2_times[leg] = times
         log(f"kernel cases (a)-(f) {leg}: K1 max err "
             f"{cmp.max_err[f'fused_topk[{leg}]']:.6g}, K3 max err "
             f"{cmp.max_err[f'sampled_submax[{leg}]']:.6g}; shape (a) 65536 x "
@@ -2217,6 +2346,10 @@ def main(argv=None) -> int:
                               seed=args.seed + 10)
         ranks = mh_phase(card, args.seed + 30)
         verbs = verbs_phase(card, main_path, args.seed + 40)
+        # Phase 9's K1 launches that took the small-scan kernel (its fuzz
+        # streams' small collections; the counters were last set to 0 at
+        # its start).
+        small = dict(K.small_scans)
     finally:
         shutil.rmtree(main_path["dir"], ignore_errors=True)
     tools_phase(card)
@@ -2234,19 +2367,42 @@ def main(argv=None) -> int:
             phase, rows, t = times[leg]
             bound_ms, bound_by = t[kern + "_bound"]
             log(f"{kname}: {launches[kname]} launches; at {phase}'s shapes "
-                f"({rows} rows) {t[kern]:.4f} ms vs plain "
+                f"({rows} rows) {t[kern]:.4f} ms (device "
+                f"{t[kern + '_device']:.4f} ms) vs plain "
                 f"{t[kern + '_plain']:.4f} ms, bound {bound_ms:.4f} ms "
                 f"({bound_by}; {bound_ms / t[kern]:.1%} of it reached), "
                 f"library (two calls) {t[kern + '_library']:.4f} ms; max "
                 f"abs err vs plain {cmp.max_err[kname]:.6g}, at most "
                 f"{cmp.max_share[kname]:.4g} of the score bound [{card}]")
-            kernels.append({
+            entry = {
                 "name": kname, "route": "cuda", "source": SOURCES[kern][0],
                 "replaces": SOURCES[kern][1], "launches": launches[kname],
                 "max_abs_err": cmp.max_err[kname], "ms": t[kern],
+                "device_ms": t[kern + "_device"],
                 "plain_ms": t[kern + "_plain"], "bound_ms": bound_ms,
                 "bound_by": bound_by,
-                "library_ms": t[kern + "_library"]})
+                "library_ms": t[kern + "_library"]}
+            if kern == "fused_topk":
+                # The small-scan kernel at the K2 shapes (8,192 x 96, b256,
+                # k 28), and its launches in phase 9.
+                k2 = k2_times[leg]
+                small_bound = k2["fused_topk_dim96_bound"][0]
+                entry.update(
+                    small_launches=small[leg],
+                    small_ms=k2["fused_topk_dim96"],
+                    small_device_ms=k2["fused_topk_dim96_device"],
+                    small_plain_ms=k2["fused_topk_dim96_plain"],
+                    small_bound_ms=small_bound,
+                    small_library_ms=k2["fused_topk_dim96_library"])
+                log(f"{kname} small scan: {small[leg]} of phase 9's K1 "
+                    f"launches; at "
+                    f"8192 x 96, b{BATCH}, k 28: "
+                    f"{k2['fused_topk_dim96']:.4f} ms (device "
+                    f"{k2['fused_topk_dim96_device']:.4f} ms) vs plain "
+                    f"{k2['fused_topk_dim96_plain']:.4f} ms, bound "
+                    f"{small_bound:.4f} ms, library (two calls) "
+                    f"{k2['fused_topk_dim96_library']:.4f} ms [{card}]")
+            kernels.append(entry)
     for name, leg, (fl, _, ftimes) in floors:
         for kern, t in ftimes.items():
             kname = f"{kern}[{leg}]"

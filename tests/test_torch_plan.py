@@ -4,7 +4,8 @@ as the chunked plan they replace did, and the TMA dispatch must send the
 shapes TMA cannot load (rows not a multiple of 16 bytes, unaligned bases)
 to the copying producer. A build with extra defines (the measurement
 scripts' variants) lives beside the default library, never in its place.
-The extraction kernels' plans (``cuda_extract.extract_plan``) are K1's
+(K3's segments are its clusters' blocks: ``submax_tiles``.) The
+extraction kernels' plans (``cuda_extract.extract_plan``) are K1's
 grid with each kernel's list capacity, and X2's carry goes to shared
 memory only where it fits beside the ring."""
 
@@ -61,16 +62,15 @@ def test_topk_plan_covers_every_slot_once(n, b, sms):
                                    (4096, 256), (256, 256), (8192, 4096)])
 @pytest.mark.parametrize("b", [8, 40, 256, 300])
 def test_submax_plan_segments_tile_each_block(n, blk, b):
-    groups, spb = K.submax_plan(n, b, blk, 132)
-    assert groups == -(-b // K.GROUP_QUERIES)
+    width, groups, spb = K.submax_plan(n, b, blk, 132)
+    assert groups == -(-b // width)
     assert spb & (spb - 1) == 0 and (blk // K.TILE_ROWS) % spb == 0
     assert (n // blk) * spb * groups <= max(132, (n // blk) * groups)
-    seg_tiles = blk // spb // K.TILE_ROWS
     hits = torch.zeros(n, dtype=torch.int32)
     for j in range(n // blk):
         for sg in range(spb):
-            t0 = j * blk // K.TILE_ROWS + sg * seg_tiles
-            hits[t0 * K.TILE_ROWS:(t0 + seg_tiles) * K.TILE_ROWS] += 1
+            for t in K.submax_tiles(j, sg, blk, spb):
+                hits[t * K.TILE_ROWS:(t + 1) * K.TILE_ROWS] += 1
     assert bool((hits == 1).all())
 
 

@@ -81,22 +81,36 @@ def disk_need(rows: int, dim: int, tail_rows: int) -> int:
                                 2 * snap + 2 * tail_rows * wal_row))
 
 
+def du(path: Path) -> int:
+    """Bytes of the files under ``path``; a file removed while the walk
+    runs (a WAL segment, a snapshot's temp file) counts as gone."""
+    total = 0
+    for root, _, files in os.walk(path):
+        for name in files:
+            try:
+                total += os.lstat(os.path.join(root, name)).st_size
+            except FileNotFoundError:
+                pass
+    return total
+
+
 class Sampler:
     """Every second: the card's memory.used (nvidia-smi, MiB), its peak by
-    phase, and the work directory's disk use above its start."""
+    phase, and the work directory's disk use above its start: the bytes of
+    its own files, not the file system's use, which other processes'
+    writes to the same disk would inflate."""
 
     def __init__(self, work: Path, cuda: bool):
         self.work, self.cuda = work, cuda
         self.phase = "A"
         self.card_used: dict[str, float] = {}
-        self.disk0 = shutil.disk_usage(work).used
+        self.disk0 = du(work)
         self.disk_peak = 0
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True)
 
     def sample(self) -> None:
-        self.disk_peak = max(self.disk_peak,
-                             shutil.disk_usage(self.work).used - self.disk0)
+        self.disk_peak = max(self.disk_peak, du(self.work) - self.disk0)
         if not self.cuda:
             return
         out = subprocess.run(
@@ -148,8 +162,6 @@ def wait_caught_up(rc, names, timeout: float = 3600) -> float:
     raise TimeoutError(f"Replica never caught up: {rc.stats()}")
 
 
-def du(path: Path) -> int:
-    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
 
 
 def log_tail(path: Path, n: int = 40) -> str:

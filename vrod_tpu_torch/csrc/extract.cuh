@@ -427,9 +427,10 @@ __global__ void __launch_bounds__(kThreads, 1) extract_local(
       const int offset = *a.offset;
       const auto run = [&](const auto& dots) {
         consume_all<Kind, kEpi, false, kE>(
-            geo, ring, stage, phase, a.aux, a.mask, a.n, a.b, a.k, offset,
-            part, a.parts, tiles, q0, a.cap, gate, no_ig, nullptr, len, hist,
-            a.cand_v, a.cand_i, a.cand_n, NoSkip{}, dots);
+            geo, ring, stage, phase, a.aux, FloatMask{a.mask}, a.n, a.b, a.k,
+            offset, part, a.parts, tiles, q0, a.cap,
+            ((size_t)part * a.b + q0) * a.cap, gate, no_ig, nullptr, len,
+            hist, a.cand_v, a.cand_i, a.cand_n, NoSkip{}, dots);
       };
       if constexpr (kMode == kXGate) {
         run(WholeTile{});
@@ -472,11 +473,10 @@ struct LaunchExtract {
     int smem = 1024 + ring_n * kStageBytes;
     if (kMode == kXCarry && a.carry_smem) smem += kGroup * a.k * 8;
     auto* kern = extract_local<Kind, kEpi, kMode, kE>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
+    e = ensure_smem<extract_local<Kind, kEpi, kMode, kE>>(smem);
+    if (e != 0) return e;
     kern<<<a.groups * a.parts, kThreads, smem, s>>>(maps, a);
-    err = cudaGetLastError();
+    cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     if constexpr (kMode == kXFloor) {
       const long total = (long)a.b * a.k;

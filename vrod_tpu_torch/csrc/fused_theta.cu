@@ -262,8 +262,9 @@ __global__ void __launch_bounds__(kThreads, 1) fused_theta_local(
     consumer_sync();
     const IntGate none{nullptr, 0.0f, 0.0f};
     consume_all<Kind, kEpi, false>(
-        geo, ring, stage, phase, aux, mask, n, b, k, offset, part, parts,
-        tiles, q0, cap, gate, none, qsv, len, hist, cand_v, cand_i, cand_n,
+        geo, ring, stage, phase, aux, FloatMask{mask}, n, b, k, offset, part,
+        parts, tiles, q0, cap, ((size_t)part * b + q0) * cap, gate, none, qsv,
+        len, hist, cand_v, cand_i, cand_n,
         SampleSkip{bmax, s_blocks, blk_tiles, sample_tiles, b, q0,
                    skip != 0});
   }
@@ -291,8 +292,8 @@ struct LaunchTheta {
     }
     const int smem = 1024 + kRing * kStageBytes;
     auto* kern = fused_theta_local<Kind, kEpi, kTma>;
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaError_t e =
+        (cudaError_t)ensure_smem<fused_theta_local<Kind, kEpi, kTma>>(smem);
     if (e != cudaSuccess) return (int)e;
     // The barriers need every block resident at once.
     int dev = 0, sms = 0, per_sm = 0;

@@ -112,15 +112,15 @@ template <class Kind, int kEpi, bool kTma, bool kIntGate>
 __global__ void __launch_bounds__(kThreads, 1) fused_topk_local(
     const __grid_constant__ Maps maps, const int8_t* __restrict__ x,
     const int8_t* __restrict__ q, const float* __restrict__ aux,
-    const float* __restrict__ mask, const float* __restrict__ qs2,
-    int row_bytes, const float* __restrict__ theta0, int n, int b, int k,
-    int offset, int groups, int parts, int cap,
-    float* __restrict__ cand_v, int* __restrict__ cand_i,
-    int* __restrict__ cand_n) {
+    const __grid_constant__ RowMask mask,
+    const float* __restrict__ q_scale, int row_bytes,
+    const float* __restrict__ theta0, int n, int b, int k, int offset,
+    int groups, int parts, int cap, float* __restrict__ cand_v,
+    int* __restrict__ cand_i, int* __restrict__ cand_n) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t full[kRing], empty[kRing];
-  // max(theta0, the list's k-th), and the group's qs2 (kScaleQs); read
-  // as float2 pairs.
+  // max(theta0, the list's k-th), and the group's 2 * q_scale (kScaleQs);
+  // read as float2 pairs.
   __shared__ __align__(16) float gate[kGroup];
   __shared__ __align__(16) float qsv[kGroup];
   __shared__ int len[kGroup];
@@ -139,8 +139,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_topk_local(
                    kIntGate ? arange[1] : 0.0f};
   for (int i = threadIdx.x; i < kGroup; i += kThreads) {
     const int qq = q0 + i;
-    gate[i] = qq < b ? theta0[qq] : INFINITY;
-    qsv[i] = kEpi == kScaleQs && qq < b ? qs2[qq] : 0.0f;
+    gate[i] = qq >= b ? INFINITY : theta0 != nullptr ? theta0[qq] : -INFINITY;
+    qsv[i] = kEpi == kScaleQs && qq < b ? __fmul_rn(2.0f, q_scale[qq]) : 0.0f;
     len[i] = 0;
     if constexpr (kIntGate) gint[i] = int_gate(gate[i], ig.amin, ig.amax);
   }
@@ -156,9 +156,108 @@ __global__ void __launch_bounds__(kThreads, 1) fused_topk_local(
     int stage = 0, phase = 0;
     consume_all<Kind, kEpi, kIntGate>(
         geo, ring, stage, phase, aux, mask, n, b, k, offset, part, parts,
-        tiles, q0, cap, gate, ig, qsv, len, hist, cand_v, cand_i, cand_n,
+        tiles, q0, cap, ((size_t)part * b + q0) * cap, gate, ig, qsv, len,
+        hist, cand_v, cand_i, cand_n, NoSkip{});
+  }
+}
+
+// -- K1's small scans ------------------------------------------------------
+//
+// The TPU's K2 shapes (pallas_topk.py: _fused_call -> _kernel): scans too
+// short for the persistent grid above, whose parts would walk fewer tiles
+// than one cut interval (ops/cuda_topk.py: small_plan). There the card
+// fills by splitting the queries: groups of kSmallGroup = 16 (wgmma n16),
+// each scanned by a cluster of `parts` blocks; block p of a cluster walks
+// row tiles p, p + parts, ... as K1's parts do, with its 16 candidate
+// lists in shared memory (cap = k + 2 tiles, cut after every tile: the
+// same consume_all, cuts, gate and select as K1), so no list leaves the
+// chip. Then the cluster merges in the same launch: each (block, warp)
+// takes some queries of the group and gathers their parts' lists from the
+// other blocks' shared memory (ld.shared::cluster) into its own, then
+// selects and ranks as K1's merge does. One launch, no scratch, no fills.
+// What bounds these scans is not the rows (0.0003 ms of bytes at 8,192 x
+// 96) but the exact selects of the list cuts, one warp a list: a block of
+// 16 queries gives each of its 8 warps two lists where 64 would give
+// eight, and more blocks share them out.
+
+// ops/cuda_topk.py's SMALL_GROUP, SMALL_RING and SMALL_MAX_K (the plan and
+// its shared-memory checks) follow these.
+constexpr int kSmallGroup = 16;
+constexpr int kSmallRing = 4;
+constexpr int kSmallRingBytes = kSmallRing * stage_bytes(kSmallGroup);
+
+template <class Kind, int kEpi, bool kTma>
+__global__ void __launch_bounds__(kThreads, 1) fused_topk_small(
+    const __grid_constant__ Maps maps, const int8_t* __restrict__ x,
+    const int8_t* __restrict__ q, const float* __restrict__ aux,
+    const __grid_constant__ RowMask mask,
+    const float* __restrict__ q_scale, int row_bytes,
+    const float* __restrict__ theta0, int n, int b, int k, int offset,
+    int parts, int cap, float* __restrict__ out_v, int* __restrict__ out_i) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full[kSmallRing], empty[kSmallRing];
+  __shared__ __align__(16) float gate[kSmallGroup];
+  __shared__ __align__(16) float qsv[kSmallGroup];
+  __shared__ int len[kSmallGroup];
+  __shared__ unsigned hist[kConsumers / 32 * 256];
+  const Ring ring{align1024(smem_raw), full, empty, kSmallRing};
+  float* lv = reinterpret_cast<float*>(ring.base + kSmallRingBytes);
+  int* li = reinterpret_cast<int*>(lv + (size_t)kSmallGroup * cap);
+  const Geometry geo = make_geometry<Kind>(row_bytes);
+  const int part = cluster_rank();
+  const int q0 = blockIdx.y * kSmallGroup;
+  const int tiles = (n + kTileRows - 1) / kTileRows;
+  ring_init(ring);
+  for (int i = threadIdx.x; i < kSmallGroup; i += kThreads) {
+    const int qq = q0 + i;
+    gate[i] = qq >= b ? INFINITY : theta0 != nullptr ? theta0[qq] : -INFINITY;
+    qsv[i] = kEpi == kScaleQs && qq < b ? __fmul_rn(2.0f, q_scale[qq]) : 0.0f;
+    len[i] = 0;
+  }
+  __syncthreads();
+  // Every thread stays to the cluster barriers below; only the consumer
+  // warps (the registers setmaxnreg gave them) merge.
+  if (threadIdx.x >= kConsumers) {
+    producer_regs();
+    if (threadIdx.x < kConsumers + 32) {
+      produce<Kind, kTma, kSmallGroup>(maps, Loads{x, q, n, b}, geo, ring,
+                                       q0, part, tiles, parts);
+    }
+  } else {
+    consumer_regs();
+    int stage = 0, phase = 0;
+    const IntGate none{nullptr, 0.0f, 0.0f};
+    consume_all<Kind, kEpi, false, 1, NoSkip, WholeTile, kSmallGroup>(
+        geo, ring, stage, phase, aux, mask, n, b, k, offset, part, parts,
+        tiles, q0, cap, 0, gate, none, qsv, len, hist, lv, li, nullptr,
         NoSkip{});
   }
+  cluster_sync();  // every block's lists are cut to k
+  if (threadIdx.x < kConsumers) {
+    // This warp's gather buffer: the ring, free after the scan.
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    float* gv = reinterpret_cast<float*>(ring.base) + (size_t)warp * 2 * parts * k;
+    int* gi = reinterpret_cast<int*>(gv + (size_t)parts * k);
+    for (int ql = part + parts * warp; ql < kSmallGroup && q0 + ql < b;
+         ql += parts * (kConsumers / 32)) {
+      int nn = 0;
+      for (int p = 0; p < parts; ++p) {
+        const int L = ld_peer_s32(peer_addr(&len[ql], p));
+        const uint32_t va = peer_addr(lv + (size_t)ql * cap, p);
+        const uint32_t ia = peer_addr(li + (size_t)ql * cap, p);
+        for (int e = lane; e < L; e += 32) {
+          gv[nn + e] = ld_peer_f32(va + 4 * e);
+          gi[nn + e] = ld_peer_s32(ia + 4 * e);
+        }
+        nn += L;
+      }
+      merge_ranked(gv, gi, nn, k, hist + warp * 256,
+                   out_v + (size_t)(q0 + ql) * k,
+                   out_i + (size_t)(q0 + ql) * k);
+      __syncwarp();
+    }
+  }
+  cluster_sync();  // no block leaves while another reads its lists
 }
 
 }  // namespace
@@ -166,67 +265,150 @@ __global__ void __launch_bounds__(kThreads, 1) fused_topk_local(
 
 using namespace vrod;
 
+// The maps of a launch: the wrapper's cached encodings when it gives them,
+// else encoded here (X9).
+template <class Kind, bool kTma>
+int launch_maps(Maps* maps, const void* const* m3, const void* x,
+                const void* q, int n, int b, int row_bytes) {
+  if constexpr (!kTma) {
+    *maps = Maps{};
+    return 0;
+  }
+  if (m3 != nullptr) {
+    *maps = maps_from(m3[0], m3[1], m3[2]);
+    return 0;
+  }
+  return make_maps(maps, Kind::kPacked, x, q, n, b, row_bytes);
+}
+
+// The scratch of a long scan, one buffer: lists (parts, b, cap) of values
+// and of slots, their lengths (parts, b), and the merge's gather (b,
+// parts, k) of values and of slots.
+struct Scratch {
+  float* cand_v;
+  int* cand_i;
+  int* cand_n;
+  float* merge_v;
+  int* merge_i;
+  Scratch(void* base, int parts, int b, int k, int cap) {
+    const size_t lists = (size_t)parts * b * cap, gather = (size_t)b * parts * k;
+    cand_v = static_cast<float*>(base);
+    cand_i = reinterpret_cast<int*>(cand_v + lists);
+    cand_n = cand_i + lists;
+    merge_v = reinterpret_cast<float*>(cand_n + (size_t)parts * b);
+    merge_i = reinterpret_cast<int*>(merge_v + gather);
+  }
+};
+
 template <bool kIntGate>
 struct LaunchTopk {
   template <class Kind, int kEpi, bool kTma>
-  static int run(const void* x, const void* aux, const void* mask,
-                 const void* q, const void* qs2, int row_bytes,
-                 const void* theta0, int n, int b, int k, int offset,
-                 int groups, int parts, int cap, void* cand_v, void* cand_i,
-                 void* cand_n, void* merge_v, void* merge_i, void* out_v,
-                 void* out_i, cudaStream_t s) {
-    Maps maps{};
-    if constexpr (kTma) {
-      const int e = make_maps(&maps, Kind::kPacked, x, q, n, b, row_bytes);
-      if (e != 0) return e;
-    }
+  static int run(const void* x, const void* aux, RowMask mask, const void* q,
+                 const void* q_scale, int row_bytes, const void* theta0,
+                 int n, int b, int k, int offset, int groups, int parts,
+                 int cap, void* scratch, void* out_v, void* out_i,
+                 const void* const* m3, cudaStream_t s) {
+    Maps maps;
+    int e = launch_maps<Kind, kTma>(&maps, m3, x, q, n, b, row_bytes);
+    if (e != 0) return e;
     const int smem = 1024 + kRing * kStageBytes;
-    auto* kern = fused_topk_local<Kind, kEpi, kTma, kIntGate>;
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    kern<<<groups * parts, kThreads, smem, s>>>(
-        maps, static_cast<const int8_t*>(x), static_cast<const int8_t*>(q),
-        static_cast<const float*>(aux), static_cast<const float*>(mask),
-        static_cast<const float*>(qs2), row_bytes,
-        static_cast<const float*>(theta0), n, b, k, offset, groups, parts,
-        cap, static_cast<float*>(cand_v), static_cast<int*>(cand_i),
-        static_cast<int*>(cand_n));
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    return launch_merge(cand_v, cand_i, cand_n, parts, cap, b, k, merge_v,
-                        merge_i, out_v, out_i, s);
+    e = ensure_smem<fused_topk_local<Kind, kEpi, kTma, kIntGate>>(smem);
+    if (e != 0) return e;
+    const Scratch sc(scratch, parts, b, k, cap);
+    fused_topk_local<Kind, kEpi, kTma, kIntGate>
+        <<<groups * parts, kThreads, smem, s>>>(
+            maps, static_cast<const int8_t*>(x),
+            static_cast<const int8_t*>(q), static_cast<const float*>(aux),
+            mask, static_cast<const float*>(q_scale), row_bytes,
+            static_cast<const float*>(theta0), n, b, k, offset, groups,
+            parts, cap, sc.cand_v, sc.cand_i, sc.cand_n);
+    e = (int)cudaGetLastError();
+    if (e != 0) return e;
+    return launch_merge(sc.cand_v, sc.cand_i, sc.cand_n, parts, cap, b, k,
+                        sc.merge_v, sc.merge_i, out_v, out_i, s);
+  }
+};
+
+struct LaunchSmall {
+  template <class Kind, int kEpi, bool kTma>
+  static int run(const void* x, const void* aux, RowMask mask, const void* q,
+                 const void* q_scale, int row_bytes, const void* theta0,
+                 int n, int b, int k, int offset, int groups, int parts,
+                 int cap, void* out_v, void* out_i, const void* const* m3,
+                 cudaStream_t s) {
+    if (parts < 1 || parts > kMaxCluster || parts * k * 8 * (kConsumers / 32)
+                                                 > kSmallRingBytes) {
+      return (int)cudaErrorInvalidValue;
+    }
+    Maps maps;
+    int e = launch_maps<Kind, kTma>(&maps, m3, x, q, n, b, row_bytes);
+    if (e != 0) return e;
+    const int smem = 1024 + kSmallRingBytes + kSmallGroup * cap * 8;
+    e = ensure_smem<fused_topk_small<Kind, kEpi, kTma>>(smem);
+    if (e != 0) return e;
+    return launch_clusters(
+        fused_topk_small<Kind, kEpi, kTma>, dim3(parts, groups), parts, smem,
+        s, maps, static_cast<const int8_t*>(x),
+        static_cast<const int8_t*>(q), static_cast<const float*>(aux), mask,
+        static_cast<const float*>(q_scale), row_bytes,
+        static_cast<const float*>(theta0), n, b, k, offset, parts, cap,
+        static_cast<float*>(out_v), static_cast<int*>(out_i));
   }
 };
 
 // elem/epi: score.cuh's Elem and Epi codes; tma: rows and queries load by
 // TMA (row bytes a multiple of 16, 16-byte aligned bases), else the
-// producer warp copies them. row_bytes: bytes per stored row (int4: dim /
-// 2). qs2 (b,) is read by kScaleQs only. groups, parts, cap: the plan
-// (ops/cuda_topk.py: topk_plan).
+// producer warp copies them. valid (n,) bool and bias (n,) or null: the
+// rows' mask (RowMask). q_scale (b,) is read by kScaleQs only; theta0 (b,)
+// or null (no floor). row_bytes: bytes per stored row (int4: dim / 2).
+// groups, parts, cap: the plan (ops/cuda_topk.py: topk_plan, small_plan).
+// scratch: the long scan's buffer (Scratch). maps: the three encoded
+// tensor maps (x, q, q_hi; vrod_encode_map), null without TMA. small:
+// the small-scan kernel (no scratch).
 extern "C" int vrod_fused_topk(
-    int elem, int epi, int tma, const void* x, const void* aux,
-    const void* mask, const void* q, const void* qs2, const void* theta0,
-    int n, int row_bytes, int b, int k, int offset, int groups, int parts,
-    int cap, void* cand_v, void* cand_i, void* cand_n,
-    void* merge_v, void* merge_i, void* out_v, void* out_i, void* stream) {
+    int elem, int epi, int tma, int small, const void* x, const void* aux,
+    const void* valid, const void* bias, const void* q, const void* q_scale,
+    const void* theta0, int n, int row_bytes, int b, int k, int offset,
+    int groups, int parts, int cap, void* scratch, void* out_v, void* out_i,
+    const void* x_map, const void* q_map, const void* q_hi_map,
+    void* stream) {
+  const RowMask mask{static_cast<const uint8_t*>(valid),
+                     static_cast<const float*>(bias)};
+  const void* m3[3] = {x_map, q_map, q_hi_map};
+  const void* const* maps = x_map != nullptr ? m3 : nullptr;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (small) {
+    return dispatch_leg<LaunchSmall, true>(
+        elem, epi, tma != 0, x, aux, mask, q, q_scale, row_bytes, theta0, n,
+        b, k, offset, groups, parts, cap, out_v, out_i, maps, s);
+  }
   return dispatch_leg<LaunchTopk<false>, true>(
-      elem, epi, tma != 0, x, aux, mask, q, qs2, row_bytes, theta0, n, b, k,
-      offset, groups, parts, cap, cand_v, cand_i, cand_n, merge_v,
-      merge_i, out_v, out_i, static_cast<cudaStream_t>(stream));
+      elem, epi, tma != 0, x, aux, mask, q, q_scale, row_bytes, theta0, n, b,
+      k, offset, groups, parts, cap, scratch, out_v, out_i, maps, s);
 }
 
 // X9: K1 with the int32 gate bound, int8 rows under cosine or dot only
-// (epilogue kScale with mask 0 or -inf); arguments as vrod_fused_topk's.
+// (epilogue kScale, mask 0 or -inf: no bias); arguments as
+// vrod_fused_topk's, its maps encoded here.
 extern "C" int vrod_fused_intgate(
-    int tma, const void* x, const void* aux, const void* mask,
+    int tma, const void* x, const void* aux, const void* valid,
     const void* q, const void* theta0, int n, int row_bytes, int b, int k,
-    int offset, int groups, int parts, int cap, void* cand_v, void* cand_i,
-    void* cand_n, void* merge_v, void* merge_i, void* out_v, void* out_i,
-    void* stream) {
+    int offset, int groups, int parts, int cap, void* scratch, void* out_v,
+    void* out_i, void* stream) {
   auto* run = tma ? &LaunchTopk<true>::run<I8, kScale, true>
                   : &LaunchTopk<true>::run<I8, kScale, false>;
-  return run(x, aux, mask, q, nullptr, row_bytes, theta0, n, b, k, offset,
-             groups, parts, cap, cand_v, cand_i, cand_n, merge_v, merge_i,
-             out_v, out_i, static_cast<cudaStream_t>(stream));
+  return run(x, aux, RowMask{static_cast<const uint8_t*>(valid), nullptr},
+             q, nullptr, row_bytes, theta0, n, b, k, offset, groups, parts,
+             cap, scratch, out_v, out_i, nullptr,
+             static_cast<cudaStream_t>(stream));
+}
+
+// One tensor map (score.cuh: encode_map) into `out` (128 bytes of host
+// memory), which the wrapper caches by everything it encodes.
+extern "C" int vrod_encode_map(void* out, const void* base, int inner,
+                               long outer, long stride, int box_outer) {
+  CUtensorMap m;
+  const int e = encode_map(&m, base, inner, outer, stride, box_outer);
+  if (e == 0) std::memcpy(out, &m, sizeof(m));
+  return e;
 }

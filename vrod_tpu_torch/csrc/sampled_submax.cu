@@ -12,18 +12,28 @@
 // What bounds it on an H100: at the int8 headline the sample is 25 MB of
 // rows (32,768 x 768: 7.5 us at 3.35 TB/s) and 12.9 G integer operations
 // for B = 256 (6.5 us on the tensor cores; the float legs' larger samples
-// scale both), so with so little work what bounds it is parallelism and
-// each block's start-up. The TPU grid is (query tiles, row blocks): only
-// two row blocks at the int8 headline. Here each row block is split into
-// spb segments of whole 128-row tiles so the grid fills the SMs. A tile's
-// row t feeds lane t (blocks and segments start on whole tiles), so the
-// thread that holds a (query, row) accumulator alone owns that (query,
-// lane) maximum, kept in shared memory across the segment's tiles without
-// atomics; when spb > 1 a second pass takes the max over the segments'
-// partial results (max is exact, so the order does not matter).
-
-#include <algorithm>
-#include <cmath>
+// scale both), so with so little work what bounds it is parallelism, each
+// block's start-up and what leaves the chip besides the output.
+//
+// The design. The TPU grid is (query tiles, row blocks): only two row
+// blocks at the int8 headline. Here the queries split into groups of kN =
+// 64 or 128 (wgmma n64/n128: the scoring core's narrow widths; the plan,
+// ops/cuda_topk.py: submax_plan, takes 128 where that grid is as large as
+// 64's, since a wider group reads each row tile for twice the queries)
+// and each (row block, query group) pair is one cluster of spb blocks,
+// each block a segment of whole 128-row tiles of the row block, so the
+// grid fills the card. A block streams its tiles through a ring of 192 KB,
+// and its wgmmas of one stage run while the next stage's rows load into
+// registers (score.cuh: consume_tile_overlap). A tile's row t feeds lane t (blocks
+// and segments start on whole tiles), so the thread that holds a (query,
+// row) accumulator alone owns that (query, lane) maximum: the maxima live
+// in that thread's registers across the segment's tiles (kN / 2 a thread
+// beside as many accumulators), which leaves all of shared memory to the
+// ring. At the end each block puts its maxima in its shared memory
+// and block r of the cluster takes the max over the cluster's blocks of
+// its share of the (query, lane) pairs through distributed shared memory
+// and writes them out: one launch, and nothing but the output leaves the
+// chip (max is exact, so the order does not matter).
 
 #include "score.cuh"
 
@@ -31,104 +41,112 @@ namespace vrod {
 namespace {
 
 constexpr int kLanes = 128;
-constexpr int kRing = 2;  // stages: the running maxima take the rest
-constexpr int kBestBytes = kGroup * kLanes * 4;
-
 static_assert(kLanes == kTileRows, "tile row t feeds lane t");
 
-// Where (query column ql, lane l) lives in the maxima: query rows of 128
-// floats, lanes XOR-swizzled by bits 1-2 of the query so the eight lanes and
-// four query columns of one accumulator index hit 32 distinct banks.
+// The ring of a kN-query block: 8 stages of 24 KB (n64) or 6 of 32 KB
+// (n128); the block's maxima (kN x 128 floats) reuse it after the scan.
+// ops/cuda_topk.py's SUBMAX_GROUPS and SUBMAX_RING_BYTES follow these.
+template <int kN>
+struct Width {
+  static constexpr int kRing = 192 * 1024 / stage_bytes(kN);
+  static constexpr int kSmem = 1024 + kRing * stage_bytes(kN);
+  static_assert(kN * kLanes * 4 <= kRing * stage_bytes(kN), "maxima");
+  static_assert(kSmem <= 227 * 1024, "a block's shared memory");
+};
+
+// Where (query column ql, lane l) lives in a block's maxima: query rows of
+// 128 floats, lanes XOR-swizzled by bits 1-2 of the query so the eight
+// lanes and four query columns of one accumulator index hit 32 distinct
+// banks.
 __device__ __forceinline__ int best_at(int ql, int l) {
   return ql * kLanes + (l ^ (((ql >> 1) & 3) << 3));
 }
 
-// The consumer warpgroups of K3: per row tile, the dots, then each score
-// into its (query, lane) maximum; at the end the maxima out.
-template <class Kind, int kEpi>
-__device__ __forceinline__ void consume_all(
-    const Geometry& geo, const Ring& ring, const float* __restrict__ aux,
-    const float* __restrict__ mask, int n, int b, int blk, int j, int sg,
-    int q0, int t0, int seg_tiles, const float* qsv, float* best,
-    float* __restrict__ out) {
-  using Acc = typename Kind::Acc;
-  Acc acc[kAcc];
-  int stage = 0, phase = 0;
-  for (int t = t0; t < t0 + seg_tiles; ++t) {
-    consume_tile<Kind>(acc, geo, ring, stage, phase);
-    const int lane0 = tile_row(0);
-    float aux_r[2], mask_r[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      aux_r[h] = aux[t * kTileRows + lane0 + 8 * h];
-      mask_r[h] = mask[t * kTileRows + lane0 + 8 * h];
-    }
-#pragma unroll
-    for (int i = 0; i < kAcc; ++i) {
-      const int h = (i >> 1) & 1;
-      const int ql = query_col(i);
-      float* m = &best[best_at(ql, lane0 + 8 * h)];
-      *m = fmaxf(*m, score_epilogue<kEpi>(dot_value(acc[i]), aux_r[h],
-                                          mask_r[h], qsv[ql]));
-    }
-  }
-  consumer_sync();
-  const size_t width = (size_t)kLanes * (n / blk);
-  for (int e = threadIdx.x; e < kGroup * kLanes; e += kConsumers) {
-    const int ql = e / kLanes, l = e % kLanes;
-    if (q0 + ql < b) {
-      out[((size_t)sg * b + q0 + ql) * width + (size_t)j * kLanes + l] =
-          best[best_at(ql, l)];
-    }
-  }
-}
-
-template <class Kind, int kEpi, bool kTma>
-__global__ void __launch_bounds__(kThreads, 1) submax_partial(
+template <class Kind, int kEpi, bool kTma, int kN>
+__global__ void __launch_bounds__(kThreads, 1) submax_kernel(
     const __grid_constant__ Maps maps, const int8_t* __restrict__ x,
     const int8_t* __restrict__ q, const float* __restrict__ aux,
-    const float* __restrict__ mask, const float* __restrict__ qs2,
-    int row_bytes, int n, int b, int blk, int spb, float* __restrict__ out) {
+    const __grid_constant__ RowMask mask,
+    const float* __restrict__ q_scale, int row_bytes,
+    int n, int b, int blk, int spb, float* __restrict__ out) {
   extern __shared__ uint8_t smem_raw[];
+  constexpr int kRing = Width<kN>::kRing;
   __shared__ uint64_t full[kRing], empty[kRing];
-  __shared__ float qsv[kGroup];
+  __shared__ float qsv[kN];
   const Ring ring{align1024(smem_raw), full, empty, kRing};
-  float* best = reinterpret_cast<float*>(ring.base + kRing * kStageBytes);
+  float* best = reinterpret_cast<float*>(ring.base);  // after the scan
   const Geometry geo = make_geometry<Kind>(row_bytes);
+  const int sg = cluster_rank();
   const int j = blockIdx.x / spb;
-  const int sg = blockIdx.x % spb;
-  const int q0 = blockIdx.y * kGroup;
+  const int q0 = blockIdx.y * kN;
   const int seg_tiles = blk / spb / kTileRows;
   const int t0 = (j * blk) / kTileRows + sg * seg_tiles;
   ring_init(ring);
-  for (int i = threadIdx.x; i < kGroup * kLanes; i += kThreads) {
-    best[i] = -INFINITY;
-  }
-  for (int i = threadIdx.x; i < kGroup; i += kThreads) {
-    qsv[i] = kEpi == kScaleQs && q0 + i < b ? qs2[q0 + i] : 0.0f;
+  for (int i = threadIdx.x; i < kN; i += kThreads) {
+    qsv[i] = kEpi == kScaleQs && q0 + i < b
+                 ? __fmul_rn(2.0f, q_scale[q0 + i]) : 0.0f;
   }
   __syncthreads();
   if (threadIdx.x >= kConsumers) {
     producer_regs();
     if (threadIdx.x < kConsumers + 32) {
-      produce<Kind, kTma>(maps, Loads{x, q, n, b}, geo, ring, q0, t0,
-                          t0 + seg_tiles, 1);
+      produce<Kind, kTma, kN>(maps, Loads{x, q, n, b}, geo, ring, q0, t0,
+                              t0 + seg_tiles, 1);
     }
   } else {
     consumer_regs();
-    consume_all<Kind, kEpi>(geo, ring, aux, mask, n, b, blk, j, sg, q0,
-                            t0, seg_tiles, qsv, best, out);
+    using Acc = typename Kind::Acc;
+    Acc acc[kN / 2];
+    float mx[kN / 2];
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) mx[i] = -INFINITY;
+    const int lane0 = tile_row(0);
+    int stage = 0, phase = 0;
+    for (int t = t0; t < t0 + seg_tiles; ++t) {
+      float aux_r[2];
+      RowMask::Raw raw[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long r = (long)t * kTileRows + lane0 + 8 * h;
+        aux_r[h] = ldg_f32(aux + r);
+        raw[h] = mask.fetch(r);
+      }
+      consume_tile_overlap<Kind>(acc, geo, ring, stage, phase);
+      const float mask_r[2] = {RowMask::value(raw[0]),
+                               RowMask::value(raw[1])};
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) {
+        const int h = (i >> 1) & 1;
+        mx[i] = fmaxf(mx[i], score_epilogue<kEpi>(dot_value(acc[i]),
+                                                  aux_r[h], mask_r[h],
+                                                  qsv[query_col(i)]));
+      }
+    }
+    // The ring is free once both warpgroups have taken their last stage.
+    consumer_sync();
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) {
+      best[best_at(query_col(i), lane0 + 8 * ((i >> 1) & 1))] = mx[i];
+    }
   }
-}
-
-__global__ void submax_reduce(const float* __restrict__ part, int spb,
-                              size_t total, float* __restrict__ out) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float m = part[i];
-    for (int s = 1; s < spb; ++s) m = fmaxf(m, part[(size_t)s * total + i]);
-    out[i] = m;
+  cluster_sync();  // every block's maxima are in its shared memory
+  if (threadIdx.x < kConsumers) {
+    // Block sg's share: queries [sg * kN / spb, (sg + 1) * kN / spb).
+    const int per = kN / spb;
+    const size_t width = (size_t)kLanes * (n / blk);
+    for (int e = threadIdx.x; e < per * kLanes; e += kConsumers) {
+      const int ql = sg * per + e / kLanes, l = e % kLanes;
+      const float* at = &best[best_at(ql, l)];
+      float m = *at;
+      for (int p = 0; p < spb; ++p) {
+        if (p != sg) m = fmaxf(m, ld_peer_f32(peer_addr(at, p)));
+      }
+      if (q0 + ql < b) {
+        out[(size_t)(q0 + ql) * width + (size_t)j * kLanes + l] = m;
+      }
+    }
   }
+  cluster_sync();  // no block leaves while another reads its maxima
 }
 
 }  // namespace
@@ -137,46 +155,58 @@ __global__ void submax_reduce(const float* __restrict__ part, int spb,
 using namespace vrod;
 
 struct LaunchSubmax {
-  template <class Kind, int kEpi, bool kTma>
-  static int run(const void* x, const void* aux, const void* mask,
-                 const void* q, const void* qs2, int row_bytes, int n, int b,
-                 int blk, int spb, int groups, void* part, void* out,
-                 cudaStream_t s) {
-    Maps maps{};
-    if constexpr (kTma) {
-      const int e = make_maps(&maps, Kind::kPacked, x, q, n, b, row_bytes);
-      if (e != 0) return e;
+  template <class Kind, int kEpi, bool kTma, int kN>
+  static int launch(const void* x, const void* aux, RowMask mask,
+                    const void* q, const void* q_scale, int row_bytes, int n,
+                    int b, int blk, int spb, int groups, void* out,
+                    const void* const* m3, cudaStream_t s) {
+    if (spb < 1 || spb > kMaxCluster || kN % spb != 0) {
+      return (int)cudaErrorInvalidValue;
     }
-    const int smem = 1024 + kRing * kStageBytes + kBestBytes;
-    auto* kern = submax_partial<Kind, kEpi, kTma>;
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    float* dst = static_cast<float*>(spb > 1 ? part : out);
-    kern<<<dim3((n / blk) * spb, groups), kThreads, smem, s>>>(
-        maps, static_cast<const int8_t*>(x), static_cast<const int8_t*>(q),
-        static_cast<const float*>(aux), static_cast<const float*>(mask),
-        static_cast<const float*>(qs2), row_bytes, n, b, blk, spb, dst);
-    e = cudaGetLastError();
-    if (e != cudaSuccess || spb == 1) return (int)e;
-    const size_t total = (size_t)b * kLanes * (n / blk);
-    const int grid = (int)std::min<size_t>(4096, (total + 255) / 256);
-    submax_reduce<<<grid, 256, 0, s>>>(static_cast<const float*>(part), spb,
-                                       total, static_cast<float*>(out));
-    return (int)cudaGetLastError();
+    Maps maps{};
+    if constexpr (kTma) maps = maps_from(m3[0], m3[1], m3[2]);
+    constexpr int kSmem = Width<kN>::kSmem;
+    const int e = ensure_smem<submax_kernel<Kind, kEpi, kTma, kN>>(kSmem);
+    if (e != 0) return e;
+    return launch_clusters(
+        submax_kernel<Kind, kEpi, kTma, kN>, dim3((n / blk) * spb, groups),
+        spb, kSmem, s, maps, static_cast<const int8_t*>(x),
+        static_cast<const int8_t*>(q), static_cast<const float*>(aux), mask,
+        static_cast<const float*>(q_scale), row_bytes, n, b, blk, spb,
+        static_cast<float*>(out));
+  }
+  template <class Kind, int kEpi, bool kTma>
+  static int run(int width, const void* x, const void* aux, RowMask mask,
+                 const void* q, const void* q_scale, int row_bytes, int n,
+                 int b, int blk, int spb, int groups, void* out,
+                 const void* const* m3, cudaStream_t s) {
+    auto* go = width == 128 ? &LaunchSubmax::launch<Kind, kEpi, kTma, 128>
+                            : &LaunchSubmax::launch<Kind, kEpi, kTma, 64>;
+    if (width != 64 && width != 128) return (int)cudaErrorInvalidValue;
+    return go(x, aux, mask, q, q_scale, row_bytes, n, b, blk, spb, groups,
+              out, m3, s);
   }
 };
 
-// elem/epi: score.cuh's Elem and Epi codes; tma as for vrod_fused_topk.
-// row_bytes: bytes per stored row (int4: dim / 2). qs2 (b,) is read by
-// kScaleQs only. spb, groups: the plan (ops/cuda_topk.py: submax_plan).
+// elem/epi: score.cuh's Elem and Epi codes; tma as for vrod_fused_topk,
+// with the maps encoded by the wrapper (x, q, q_hi; null without TMA).
+// valid (n,) bool and bias (n,) or null: the rows' mask (RowMask).
+// row_bytes: bytes per stored row (int4: dim / 2). q_scale (b,) is read by
+// kScaleQs only. width, spb, groups: the plan (ops/cuda_topk.py:
+// submax_plan), width the queries a block takes (64 or 128).
 extern "C" int vrod_sampled_submax(int elem, int epi, int tma, const void* x,
-                                   const void* aux, const void* mask,
-                                   const void* q, const void* qs2, int n,
-                                   int row_bytes, int b, int blk, int spb,
-                                   int groups, void* part, void* out,
+                                   const void* aux, const void* valid,
+                                   const void* bias, const void* q,
+                                   const void* q_scale, int n, int row_bytes,
+                                   int b, int blk, int width, int spb,
+                                   int groups, void* out, const void* x_map,
+                                   const void* q_map, const void* q_hi_map,
                                    void* stream) {
+  const void* m3[3] = {x_map, q_map, q_hi_map};
   return dispatch_leg<LaunchSubmax, true>(
-      elem, epi, tma != 0, x, aux, mask, q, qs2, row_bytes, n, b, blk, spb,
-      groups, part, out, static_cast<cudaStream_t>(stream));
+      elem, epi, tma != 0, width, x, aux,
+      RowMask{static_cast<const uint8_t*>(valid),
+              static_cast<const float*>(bias)},
+      q, q_scale, row_bytes, n, b, blk, spb, groups, out,
+      static_cast<const void* const*>(m3), static_cast<cudaStream_t>(stream));
 }

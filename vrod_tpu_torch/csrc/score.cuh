@@ -55,6 +55,18 @@
 // zeros (TMA's out-of-bounds fill), which add nothing to a dot: 0 as int8,
 // an int4 nibble pair, bf16 and float32.
 //
+// The query group is 256 wide for K1's long scans (kGroup); the sampled
+// sub-max pre-pass (K3) takes groups of 64 and K1's small scans groups of
+// 16 (wgmma m64n64, m64n16: the same instructions at a narrower N, over
+// the same k-steps in the same order; chip_smoke.py holds K3's maxima to
+// both K1 paths' scores bit for bit on every leg). Every function of the
+// core takes the width kN as a template parameter, 256 by default.
+//
+// The mask of a row comes from the row's live bit and bias (RowMask: -inf
+// on a dead slot, else the bias, int8/int4 + l2's -|x_hat|^2, else 0),
+// read by the kernels themselves, so no call builds an (n,) mask first;
+// the extraction and floor experiments keep their float mask (FloatMask).
+//
 // Shapes TMA cannot take (row bytes not a multiple of 16, or unaligned
 // bases: int8 dim 30, packed int4 D/2 = 15) take the same kernel with the
 // producer warp copying each stage with plain loads into the same swizzled
@@ -75,7 +87,11 @@
 
 #include <dlfcn.h>
 
+#include <atomic>
+#include <cmath>
 #include <cstdint>
+#include <cstring>
+#include <utility>
 #include <cuda.h>
 #include <cuda_runtime.h>
 
@@ -98,6 +114,11 @@ constexpr int kAcc = kGroup / 2;               // accumulators per thread
 constexpr int kRowBox = kTileRows * kKBlock;   // 16 KB
 constexpr int kQueryBox = kGroup * kKBlock;    // 32 KB
 constexpr int kStageBytes = kRowBox + kQueryBox;
+// A stage of a kN-query group: the row box, then kN query rows.
+__host__ __device__ constexpr int stage_bytes(int kN) {
+  return kRowBox + kN * kKBlock;
+}
+constexpr int kMaxCluster = 8;                 // portable cluster size
 
 // Host codes of the element kinds and epilogues (ops/cuda_topk.py).
 enum Elem : int { kI8 = 0, kI4 = 1, kBF16 = 2, kF32 = 3, kF32X3 = 4 };
@@ -121,6 +142,50 @@ __host__ __device__ inline Geometry make_geometry(int row_bytes) {
 // half), and the packed int4 queries' high half.
 struct Maps {
   CUtensorMap x, q, q_hi;
+};
+
+// The additive mask of row r as K1 and K3 read it: -inf on a dead slot,
+// else the row's bias (nullptr: 0). The plain versions' mask tensor holds
+// the same values (ops/cuda_topk.py: _Call.mask). A consumer fetches a
+// tile's rows (and their aux) before its dots and takes value() after
+// them: the loads are asm volatile, so they stay ahead of the ring's waits
+// and the wgmmas and their latency hides under the dots (left to the
+// compiler, the loads sank to their use and cost K1 ~4% at the headline).
+__device__ __forceinline__ uint32_t ldg_u8(const uint8_t* p) {
+  uint32_t v;
+  asm volatile("ld.global.nc.u8 %0, [%1];\n" : "=r"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ float ldg_f32(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];\n" : "=f"(v) : "l"(p));
+  return v;
+}
+
+struct RowMask {
+  const uint8_t* valid;  // (n,) bool
+  const float* bias;     // (n,) or nullptr
+  struct Raw {
+    uint32_t live;
+    float bias;
+  };
+  __device__ __forceinline__ Raw fetch(long r) const {
+    return Raw{ldg_u8(valid + r), bias != nullptr ? ldg_f32(bias + r) : 0.0f};
+  }
+  __device__ __forceinline__ static float value(const Raw& m) {
+    return m.live == 0 ? -INFINITY : m.bias;
+  }
+};
+
+// A mask given as one float per row (the floor and extraction experiments).
+struct FloatMask {
+  const float* mask;
+  using Raw = float;
+  __device__ __forceinline__ float fetch(long r) const {
+    return ldg_f32(mask + r);
+  }
+  __device__ __forceinline__ static float value(float m) { return m; }
 };
 
 // Order-isomorphic int32 key of a float: a < b  <=>  key(a) < key(b).
@@ -201,6 +266,44 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
 }
 
+// -- Clusters: rank, barrier, and a peer block's shared memory ----------
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+// Every thread of every block of the cluster: the shared memory writes
+// before it are visible to the whole cluster after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address of `p` (this block's shared memory) in block `rank` of the
+// cluster.
+__device__ __forceinline__ uint32_t peer_addr(const void* p, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float ld_peer_f32(uint32_t a) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(a)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ int ld_peer_s32(uint32_t a) {
+  int v;
+  asm volatile("ld.shared::cluster.s32 %0, [%1];\n" : "=r"(v) : "r"(a)
+               : "memory");
+  return v;
+}
+
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" :: "n"(kConsumers) : "memory");
 }
@@ -243,6 +346,46 @@ __device__ __forceinline__ int swizzled(int r, int c) {
 #define VROD_D128(c, d)                                                 \
   VROD_D32(c, d, 0), VROD_D32(c, d, 32), VROD_D32(c, d, 64),            \
       VROD_D32(c, d, 96)
+#define VROD_ACC_REGS_64                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "  \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "  \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "                \
+  "{%64, %65, %66, %67}, %68, p"
+#define VROD_SETP_64 "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+#define VROD_ACC_REGS_32                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+  "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p"
+#define VROD_SETP_32 "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+#define VROD_ACC_REGS_8                                                \
+  "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p"
+#define VROD_SETP_8 "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+#define VROD_D64(c, d) VROD_D32(c, d, 0), VROD_D32(c, d, 32)
+#define VROD_D32N(c, d) VROD_D32(c, d, 0)
+#define VROD_D8N(c, d) VROD_D8(c, d, 0)
+// One wgmma of a kind at the group width kN (256, 128, 64 or 16): SHAPE is
+// the instruction's k and types, TAIL its immediates after the predicate.
+#define VROD_WGMMA(SHAPE, TAIL, C)                                          \
+  if constexpr (kN == 256) {                                                \
+    asm volatile(VROD_SETP " wgmma.mma_async.sync.aligned.m64n256" SHAPE   \
+                 " " VROD_ACC_REGS TAIL ";\n}\n"                           \
+                 : VROD_D128(C, d) : VROD_IN(a, desc, scale));              \
+  } else if constexpr (kN == 128) {                                         \
+    asm volatile(VROD_SETP_64 " wgmma.mma_async.sync.aligned.m64n128"      \
+                 SHAPE " " VROD_ACC_REGS_64 TAIL ";\n}\n"                  \
+                 : VROD_D64(C, d) : VROD_IN(a, desc, scale));               \
+  } else if constexpr (kN == 64) {                                          \
+    asm volatile(VROD_SETP_32 " wgmma.mma_async.sync.aligned.m64n64"       \
+                 SHAPE " " VROD_ACC_REGS_32 TAIL ";\n}\n"                  \
+                 : VROD_D32N(C, d) : VROD_IN(a, desc, scale));              \
+  } else {                                                                  \
+    static_assert(kN == 16, "group widths 256, 128, 64, 16");               \
+    asm volatile(VROD_SETP_8 " wgmma.mma_async.sync.aligned.m64n16"        \
+                 SHAPE " " VROD_ACC_REGS_8 TAIL ";\n}\n"                   \
+                 : VROD_D8N(C, d) : VROD_IN(a, desc, scale));               \
+  }
 #define VROD_R(v) "+r"(v)
 #define VROD_F(v) "+f"(v)
 #define VROD_IN(a, desc, scale)                                         \
@@ -250,23 +393,15 @@ __device__ __forceinline__ int swizzled(int r, int c) {
 
 // -- The element kinds: register transform of A, and the wgmma -----------
 
-__device__ __forceinline__ void wgmma_s8(int (&d)[kAcc],
-                                         const uint32_t (&a)[4],
-                                         uint64_t desc, int scale) {
-  asm volatile(VROD_SETP
-               " wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
-               VROD_ACC_REGS ";\n}\n"
-               : VROD_D128(VROD_R, d) : VROD_IN(a, desc, scale));
-}
-
 struct I8 {
   using Acc = int;
   static constexpr bool kPacked = false;
   static constexpr bool kSplit = false;
   __device__ static void a_in(uint32_t (&)[4], bool) {}
-  __device__ static void mma(Acc (&d)[kAcc], const uint32_t (&a)[4],
+  template <int kN>
+  __device__ static void mma(Acc (&d)[kN / 2], const uint32_t (&a)[4],
                              uint64_t desc, int scale) {
-    wgmma_s8(d, a, desc, scale);
+    VROD_WGMMA("k32.s32.s8.s8", "", VROD_R)
   }
 };
 
@@ -291,12 +426,10 @@ struct BF16 {
   static constexpr bool kPacked = false;
   static constexpr bool kSplit = false;
   __device__ static void a_in(uint32_t (&)[4], bool) {}
-  __device__ static void mma(Acc (&d)[kAcc], const uint32_t (&a)[4],
+  template <int kN>
+  __device__ static void mma(Acc (&d)[kN / 2], const uint32_t (&a)[4],
                              uint64_t desc, int scale) {
-    asm volatile(VROD_SETP
-                 " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-                 VROD_ACC_REGS ", 1, 1, 0;\n}\n"
-                 : VROD_D128(VROD_F, d) : VROD_IN(a, desc, scale));
+    VROD_WGMMA("k16.f32.bf16.bf16", ", 1, 1, 0", VROD_F)
   }
 };
 
@@ -315,12 +448,10 @@ struct TF32 {
 #pragma unroll
     for (int i = 0; i < 4; ++i) a[i] = tf32(a[i]);
   }
-  __device__ static void mma(Acc (&d)[kAcc], const uint32_t (&a)[4],
+  template <int kN>
+  __device__ static void mma(Acc (&d)[kN / 2], const uint32_t (&a)[4],
                              uint64_t desc, int scale) {
-    asm volatile(VROD_SETP
-                 " wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
-                 VROD_ACC_REGS ", 1, 1;\n}\n"
-                 : VROD_D128(VROD_F, d) : VROD_IN(a, desc, scale));
+    VROD_WGMMA("k8.f32.tf32.tf32", ", 1, 1", VROD_F)
   }
 };
 
@@ -419,7 +550,7 @@ struct Loads {
 // The producer warp's copy of one stage without TMA: the row tile's and
 // the query group's k-block kb (packed int4: the high query half when hi)
 // into the swizzled layout TMA would write, zeros outside the data.
-template <class Kind>
+template <class Kind, int kN = kGroup>
 __device__ void copy_stage(const Loads& ld, const Geometry& geo, int t,
                            int q0, int kb, bool hi, uint8_t* rows,
                            uint8_t* qs) {
@@ -434,7 +565,7 @@ __device__ void copy_stage(const Loads& ld, const Geometry& geo, int t,
   }
   const int qstride = Kind::kPacked ? 2 * rb : rb;
   const int qcol0 = Kind::kPacked && hi ? rb : 0;
-  for (int e = lane; e < kGroup * kKBlock; e += 32) {
+  for (int e = lane; e < kN * kKBlock; e += 32) {
     const int r = e / kKBlock, c = e % kKBlock;
     const int qq = q0 + r;
     const int col = kb * kKBlock + c;
@@ -459,7 +590,7 @@ __device__ __forceinline__ void consumer_regs() {
 // step, ... < t1, in the order the consumers take them, from ring position
 // (stage, phase), which it advances (a kernel with two passes over the
 // rows continues the ring where the first pass left it).
-template <class Kind, bool kTma>
+template <class Kind, bool kTma, int kN = kGroup>
 __device__ __forceinline__ void produce_tiles(
     const Maps& maps, const Loads& ld, const Geometry& geo, const Ring& ring,
     int q0, int t0, int t1, int step, int& stage, int& phase) {
@@ -469,18 +600,18 @@ __device__ __forceinline__ void produce_tiles(
       const bool hi = Kind::kPacked && v >= geo.kbs;
       const int kb = hi ? v - geo.kbs : v;
       mbar_wait(&ring.empty[stage], phase ^ 1);
-      uint8_t* rows = ring.base + stage * kStageBytes;
+      uint8_t* rows = ring.base + stage * stage_bytes(kN);
       uint8_t* qs = rows + kRowBox;
       if constexpr (kTma) {
         if (lane == 0) {
-          mbar_expect(&ring.full[stage], kStageBytes);
+          mbar_expect(&ring.full[stage], stage_bytes(kN));
           tma_load(rows, &maps.x, kb * kKBlock, t * kTileRows,
                    &ring.full[stage]);
           tma_load(qs, hi ? &maps.q_hi : &maps.q, kb * kKBlock, q0,
                    &ring.full[stage]);
         }
       } else {
-        copy_stage<Kind>(ld, geo, t, q0, kb, hi, rows, qs);
+        copy_stage<Kind, kN>(ld, geo, t, q0, kb, hi, rows, qs);
         __syncwarp();
         if (lane == 0) mbar_arrive(&ring.full[stage]);
       }
@@ -492,13 +623,13 @@ __device__ __forceinline__ void produce_tiles(
   }
 }
 
-template <class Kind, bool kTma>
+template <class Kind, bool kTma, int kN = kGroup>
 __device__ void produce(const Maps& maps, const Loads& ld,
                         const Geometry& geo, const Ring& ring, int q0,
                         int t0, int t1, int step) {
   int stage = 0, phase = 0;
-  produce_tiles<Kind, kTma>(maps, ld, geo, ring, q0, t0, t1, step, stage,
-                            phase);
+  produce_tiles<Kind, kTma, kN>(maps, ld, geo, ring, q0, t0, t1, step,
+                                stage, phase);
 }
 
 // A consumer warp's pass over one row tile's stages without the dots (a
@@ -517,78 +648,141 @@ __device__ __forceinline__ void pass_tile(const Geometry& geo,
   }
 }
 
-// A consumer warpgroup's dots of stages [v0, v1) of one row tile (its
-// k-blocks, packed int4: low then high nibbles): acc[i] accumulates the dot
-// of tile row tile_row(i) with query group column query_col(i), from zero
-// at stage 0. Walks the stages in the producer's order, advancing (stage,
-// phase). The ping-pong of extract.cuh signals the other warpgroup between
-// two such calls.
+// The rows' A registers of one stage: a (and F32X3's small parts).
 template <class Kind>
-__device__ __forceinline__ void consume_stages(
-    typename Kind::Acc (&acc)[kAcc], const Geometry& geo, const Ring& ring,
-    int& stage, int& phase, int v0, int v1) {
+struct StageA {
+  uint32_t a[kKSteps][4];
+  // F32X3: the rows' small parts, multiplied with the query's big part
+  // (the first walk of the k-blocks) after their big parts.
+  uint32_t small[Kind::kSplit ? kKSteps : 1][4];
+};
+
+// A consumer warpgroup's wgmmas of stage v of a row tile (its k-block v,
+// packed int4 and F32X3: the second walk from v = kbs), at ring position
+// `stage`: waits for the stage, loads this warp's 16 rows into A's
+// registers, applies the kind's transform, issues the wgmmas (accumulating
+// from zero at v = 0) and commits them as one group.
+template <class Kind, int kA>
+__device__ __forceinline__ void issue_stage(typename Kind::Acc (&acc)[kA],
+                                            StageA<Kind>& st,
+                                            const Geometry& geo,
+                                            const Ring& ring, int stage,
+                                            int phase, int v) {
+  constexpr int kN = 2 * kA;
   const int lane = threadIdx.x & 31;
   // ldmatrix.x4: lanes 8j..8j+7 address matrix j, the rows 0-7 (j even)
   // or 8-15 (j odd) of this warp's 16 and the k-step's low (j < 2) or high
   // 16 bytes. Register j then holds the A fragment's word j.
   const int r = (threadIdx.x >> 5) * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
   const int chunk_hi = lane >> 4;
-  for (int v = v0; v < v1; ++v) {
-    const bool hi = Kind::kPacked && v >= geo.kbs;
-    mbar_wait(&ring.full[stage], phase);
-    const uint8_t* rows = ring.base + stage * kStageBytes;
-    const uint32_t rows_a = smem_u32(rows) + r * kKBlock;
-    const uint32_t qs_a = smem_u32(rows + kRowBox);
-    uint32_t a[kKSteps][4];
-    // F32X3: the rows' small parts, multiplied with the query's big part
-    // (the first walk of the k-blocks) after their big parts.
-    uint32_t small[Kind::kSplit ? kKSteps : 1][4];
+  const bool hi = Kind::kPacked && v >= geo.kbs;
+  mbar_wait(&ring.full[stage], phase);
+  const uint8_t* rows = ring.base + stage * stage_bytes(kN);
+  const uint32_t rows_a = smem_u32(rows) + r * kKBlock;
+  const uint32_t qs_a = smem_u32(rows + kRowBox);
 #pragma unroll
-    for (int s = 0; s < kKSteps; ++s) {
-      ldmatrix_x4(a[s], rows_a + ((((2 * s + chunk_hi) ^ lane) & 7) << 4));
-      if constexpr (Kind::kSplit) {
-        Kind::split(a[s], small[s]);
-      } else {
-        Kind::a_in(a[s], hi);
-      }
-    }
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-    for (int s = 0; s < kKSteps; ++s) {
-      // tools/kernel_probe.py builds the ring alone without the MMAs; such
-      // a build returns wrong results by design.
-#ifndef VROD_PROBE_NO_MMA
-      Kind::mma(acc, a[s], sw128_desc(qs_a + s * 32), v > 0 || s > 0);
-#endif
-    }
+  for (int s = 0; s < kKSteps; ++s) {
+    ldmatrix_x4(st.a[s], rows_a + ((((2 * s + chunk_hi) ^ lane) & 7) << 4));
     if constexpr (Kind::kSplit) {
-      if (!hi) {
+      Kind::split(st.a[s], st.small[s]);
+    } else {
+      Kind::a_in(st.a[s], hi);
+    }
+  }
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-        for (int s = 0; s < kKSteps; ++s) {
+  for (int s = 0; s < kKSteps; ++s) {
+    // tools/kernel_probe.py builds the ring alone without the MMAs; such
+    // a build returns wrong results by design.
 #ifndef VROD_PROBE_NO_MMA
-          Kind::mma(acc, small[s], sw128_desc(qs_a + s * 32), 1);
+    Kind::template mma<kN>(acc, st.a[s], sw128_desc(qs_a + s * 32),
+                           v > 0 || s > 0);
 #endif
-        }
+  }
+  if constexpr (Kind::kSplit) {
+    if (!hi) {
+#pragma unroll
+      for (int s = 0; s < kKSteps; ++s) {
+#ifndef VROD_PROBE_NO_MMA
+        Kind::template mma<kN>(acc, st.small[s], sw128_desc(qs_a + s * 32),
+                               1);
+#endif
       }
     }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Hand a consumed stage back to the producer (one arrival a warp).
+__device__ __forceinline__ void release_stage(const Ring& ring, int stage) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(&ring.empty[stage]);
+}
+
+__device__ __forceinline__ void next_stage(const Ring& ring, int& stage,
+                                           int& phase) {
+  if (++stage == ring.n) {
+    stage = 0;
+    phase ^= 1;
+  }
+}
+
+// A consumer warpgroup's dots of stages [v0, v1) of one row tile (its
+// k-blocks, packed int4: low then high nibbles): acc[i] accumulates the dot
+// of tile row tile_row(i) with query group column query_col(i), from zero
+// at stage 0. Walks the stages in the producer's order, advancing (stage,
+// phase); each stage's wgmmas complete before it goes back. The ping-pong
+// of extract.cuh signals the other warpgroup between two such calls.
+template <class Kind, int kA>
+__device__ __forceinline__ void consume_stages(
+    typename Kind::Acc (&acc)[kA], const Geometry& geo, const Ring& ring,
+    int& stage, int& phase, int v0, int v1) {
+  StageA<Kind> st;
+  for (int v = v0; v < v1; ++v) {
+    issue_stage<Kind>(acc, st, geo, ring, stage, phase, v);
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&ring.empty[stage]);
-    if (++stage == ring.n) {
-      stage = 0;
-      phase ^= 1;
-    }
+    release_stage(ring, stage);
+    next_stage(ring, stage, phase);
   }
 }
 
 // A consumer warpgroup's dots of one whole row tile.
-template <class Kind>
-__device__ __forceinline__ void consume_tile(typename Kind::Acc (&acc)[kAcc],
+template <class Kind, int kA>
+__device__ __forceinline__ void consume_tile(typename Kind::Acc (&acc)[kA],
                                              const Geometry& geo,
                                              const Ring& ring, int& stage,
                                              int& phase) {
   consume_stages<Kind>(acc, geo, ring, stage, phase, 0, geo.nv);
+}
+
+// The same dots with each stage's loads and wgmmas issued while the
+// previous stage's wgmmas run: A's registers alternate between two sets,
+// and a stage goes back once the next one's group is committed and its
+// own has completed (wait_group 1). The wgmmas, and so every
+// accumulator's order of sums, are consume_tile's. For narrow groups
+// (K3's 64 queries), whose short wgmmas would otherwise leave the tensor
+// cores idle while each stage's registers load.
+template <class Kind, int kA>
+__device__ __forceinline__ void consume_tile_overlap(
+    typename Kind::Acc (&acc)[kA], const Geometry& geo, const Ring& ring,
+    int& stage, int& phase) {
+  StageA<Kind> st[2];
+  int held = -1;
+  const auto step = [&](StageA<Kind>& s, int v) {
+    issue_stage<Kind>(acc, s, geo, ring, stage, phase, v);
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    if (held >= 0) release_stage(ring, held);
+    held = stage;
+    next_stage(ring, stage, phase);
+  };
+  int v = 0;
+  for (; v + 1 < geo.nv; v += 2) {
+    step(st[0], v);
+    step(st[1], v + 1);
+  }
+  if (v < geo.nv) step(st[0], v);
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  release_stage(ring, held);
 }
 
 // Where acc[i] of this consumer thread lies: the wgmma accumulator layout
@@ -658,6 +852,56 @@ inline int make_maps(Maps* m, bool packed, const void* x, const void* q,
   }
   return encode_map(&m->q_hi, static_cast<const int8_t*>(q) + row_bytes,
                     row_bytes, b, qstride, kGroup);
+}
+
+// The maps of a K1 or K3 launch from the wrapper's cached encodings
+// (ops/cuda_topk.py: tensor_map; vrod_encode_map writes them): three
+// 128-byte maps in host memory, q_hi null unless packed or split.
+inline Maps maps_from(const void* x, const void* q, const void* q_hi) {
+  Maps m;
+  std::memcpy(&m.x, x, sizeof(CUtensorMap));
+  std::memcpy(&m.q, q, sizeof(CUtensorMap));
+  std::memcpy(&m.q_hi, q_hi != nullptr ? q_hi : q, sizeof(CUtensorMap));
+  return m;
+}
+
+// Raise a kernel's dynamic shared memory limit to `smem` on the current
+// device, once per kernel and device (the attribute is the context's).
+constexpr int kMaxDevices = 64;
+template <auto kKern>
+int ensure_smem(int smem) {
+  static std::atomic<int> set[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < kMaxDevices && set[dev].load(std::memory_order_relaxed) >= smem) {
+    return 0;
+  }
+  e = cudaFuncSetAttribute(kKern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e == cudaSuccess && dev < kMaxDevices) set[dev].store(smem);
+  return (int)e;
+}
+
+// A launch in clusters of `cluster` blocks along x (cluster 1: blocks
+// alone); a cluster the card cannot place fails the launch, with no
+// fallback.
+template <class... P, class... A>
+int launch_clusters(void (*kern)(P...), dim3 grid, int cluster, int smem,
+                    cudaStream_t s, A&&... args) {
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kern, std::forward<A>(args)...);
 }
 
 }  // namespace vrod

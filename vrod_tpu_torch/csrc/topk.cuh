@@ -205,11 +205,11 @@ struct IntGate {
 // The consumer warps cut every list of the group longer than `limit` (>=
 // k) to its k best and raise its query's gate to the new k-th value (and,
 // with the int gate, that query's G).
-template <bool kIntGate>
+template <bool kIntGate, int kN = kGroup>
 __device__ void cut_lists(float* cand_v, int* cand_i, int* len, float* gate,
                           const IntGate& ig, unsigned* hist, size_t list0,
                           int q0, int b, int k, int cap, int limit) {
-  for (int ql = threadIdx.x >> 5; ql < kGroup && q0 + ql < b;
+  for (int ql = threadIdx.x >> 5; ql < kN && q0 + ql < b;
        ql += kConsumers / 32) {
     const int n = len[ql];
     if (n <= limit) continue;  // warp-uniform
@@ -234,15 +234,15 @@ __device__ void cut_lists(float* cand_v, int* cand_i, int* len, float* gate,
 // are first held against their pairs' G: when none is above, no score can
 // pass and the epilogues are not computed. Nothing here writes a gate, so
 // the __restrict__ views let their loads run ahead of the appends.
-template <class Kind, int kEpi, bool kIntGate, int kE = 1>
+template <class Kind, int kEpi, bool kIntGate, int kE = 1, int kA = kAcc>
 __device__ __forceinline__ void gate_tile(
-    const typename Kind::Acc (&acc)[kAcc], const float (&aux_r)[2],
+    const typename Kind::Acc (&acc)[kA], const float (&aux_r)[2],
     const float (&mask_r)[2], int row0, int offset, float* v_list0,
     int* i_list0, int cap, const float* __restrict__ gate,
     const int* __restrict__ gint, const float* __restrict__ qsv, int* len) {
-  static_assert((kAcc / 4) % kE == 0, "kE divides the query pairs");
+  static_assert((kA / 4) % kE == 0, "kE divides the query pairs");
 #pragma unroll
-  for (int j0 = 0; j0 < kAcc / 4; j0 += kE) {
+  for (int j0 = 0; j0 < kA / 4; j0 += kE) {
     if constexpr (kIntGate) {
       bool over = false;
 #pragma unroll
@@ -303,8 +303,8 @@ struct NoSkip {
 // that signal the other warpgroup between two ranges of the tile's
 // stages.) `first`: the part's first tile; done(): after its last.
 struct WholeTile {
-  template <class Kind>
-  __device__ __forceinline__ void tile(typename Kind::Acc (&acc)[kAcc],
+  template <class Kind, int kA>
+  __device__ __forceinline__ void tile(typename Kind::Acc (&acc)[kA],
                                        const Geometry& geo, const Ring& ring,
                                        int& stage, int& phase, bool) const {
     consume_tile<Kind>(acc, geo, ring, stage, phase);
@@ -317,21 +317,27 @@ struct WholeTile {
 // where the two warpgroups wait for each other. A list holds cap = k +
 // (cut_every + 1) tiles of candidates (ops/cuda_topk.py: topk_plan): at a
 // cut, lists longer than cap - cut_every tiles are cut back to k, so the
-// next cut_every tiles (at most 128 candidates each) always fit. The ring
-// position (stage, phase) continues from the caller's. kE: gate_tile's
-// query pairs per branch; `dots` takes a tile's dots (WholeTile: K1's).
+// next cut_every tiles (at most 128 candidates each) always fit. Query
+// ql's list starts at cand_v + list0 + ql * cap (global lists: list0 =
+// (part * b + q0) * cap; lists in shared memory: 0), and its length goes
+// to cand_n[part * b + q0 + ql] unless cand_n is null. The ring position
+// (stage, phase) continues from the caller's. kE: gate_tile's query pairs
+// per branch; `dots` takes a tile's dots (WholeTile: K1's); mask: the
+// row's additive mask (RowMask, FloatMask; a kernel's RowMask parameter is
+// __grid_constant__, so the reference reads it in place and holds no
+// registers); kN: the query group's width.
 template <class Kind, int kEpi, bool kIntGate, int kE = 1, class Skip,
-          class Dots = WholeTile>
+          class Dots = WholeTile, int kN = kGroup, class Mask>
 __device__ __forceinline__ void consume_all(
     const Geometry& geo, const Ring& ring, int& stage, int& phase,
-    const float* __restrict__ aux, const float* __restrict__ mask, int n,
+    const float* __restrict__ aux, const Mask& mask, int n,
     int b, int k, int offset, int part, int parts, int tiles, int q0,
-    int cap, float* gate, const IntGate& ig, const float* qsv, int* len,
-    unsigned* hist, float* __restrict__ cand_v, int* __restrict__ cand_i,
-    int* __restrict__ cand_n, const Skip& skip, const Dots& dots = Dots{}) {
+    int cap, size_t list0, float* gate, const IntGate& ig, const float* qsv,
+    int* len, unsigned* hist, float* __restrict__ cand_v,
+    int* __restrict__ cand_i, int* __restrict__ cand_n, const Skip& skip,
+    const Dots& dots = Dots{}) {
   using Acc = typename Kind::Acc;
-  const size_t list0 = ((size_t)part * b + q0) * cap;
-  Acc acc[kAcc];
+  Acc acc[kN / 2];
   const int cut_every = (cap - k) / kTileRows - 1;
   int since_cut = 0;
   for (int t = part; t < tiles; t += parts) {
@@ -339,16 +345,21 @@ __device__ __forceinline__ void consume_all(
     // by the gate.
     const int row0 = t * kTileRows + tile_row(0);
     float aux_r[2], mask_r[2];
+    typename Mask::Raw raw[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int gr = row0 + 8 * h;
-      aux_r[h] = gr < n ? aux[gr] : 0.0f;
-      mask_r[h] = gr < n ? mask[gr] : -INFINITY;
+      aux_r[h] = gr < n ? ldg_f32(aux + gr) : 0.0f;
+      raw[h] = mask.fetch(gr < n ? gr : 0);
     }
     if (skip(t, gate)) {
       pass_tile(geo, ring, stage, phase);
     } else {
       dots.template tile<Kind>(acc, geo, ring, stage, phase, t == part);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mask_r[h] = row0 + 8 * h < n ? Mask::value(raw[h]) : -INFINITY;
+      }
       // tools/kernel_probe.py builds K1 without the gate to see where the
       // time goes; such a build returns wrong results by design.
 #ifndef VROD_PROBE_NO_GATE
@@ -360,18 +371,49 @@ __device__ __forceinline__ void consume_all(
     if (++since_cut == cut_every) {
       since_cut = 0;
       consumer_sync();  // the tiles' candidates and lengths are in
-      cut_lists<kIntGate>(cand_v, cand_i, len, gate, ig, hist, list0, q0, b,
-                          k, cap, cap - cut_every * kTileRows);
+      cut_lists<kIntGate, kN>(cand_v, cand_i, len, gate, ig, hist, list0,
+                              q0, b, k, cap, cap - cut_every * kTileRows);
       consumer_sync();  // gates and lengths are read again
     }
   }
   dots.done(part < tiles);
   consumer_sync();
-  cut_lists<kIntGate>(cand_v, cand_i, len, gate, ig, hist, list0, q0, b, k,
-                      cap, k);
+  cut_lists<kIntGate, kN>(cand_v, cand_i, len, gate, ig, hist, list0, q0, b,
+                          k, cap, k);
   consumer_sync();
-  for (int i = threadIdx.x; i < kGroup && q0 + i < b; i += kConsumers) {
+  if (cand_n == nullptr) return;
+  for (int i = threadIdx.x; i < kN && q0 + i < b; i += kConsumers) {
     cand_n[(size_t)part * b + q0 + i] = len[i];
+  }
+}
+
+// A warp's end of the merge of one query: its n gathered candidates (gv,
+// gi) cut to the k best (an exact select, in place) and written to ov/oi
+// ranked by (value desc, slot asc), (-inf, -1) on the ranks past them.
+__device__ void merge_ranked(float* gv, int* gi, int n, int k, unsigned* hist,
+                             float* __restrict__ ov, int* __restrict__ oi) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();
+  if (n > k) {
+    warp_select(gv, gi, n, k, hist);
+    n = k;
+  }
+  __syncwarp();
+  for (int e = lane; e < n; e += 32) {
+    const float ve = gv[e];
+    const int ke = float_key(ve);
+    const int ie = gi[e];
+    int rank = 0;
+    for (int f = 0; f < n; ++f) {
+      const int kf = float_key(gv[f]);
+      rank += kf > ke || (kf == ke && gi[f] < ie);
+    }
+    ov[rank] = ve;
+    oi[rank] = ie;
+  }
+  for (int e = n + lane; e < k; e += 32) {
+    ov[e] = -INFINITY;
+    oi[e] = -1;
   }
 }
 
@@ -405,30 +447,8 @@ __global__ void __launch_bounds__(kMergeThreads) fused_topk_merge(
     }
     n += __shfl_sync(kFull, incl, 31);
   }
-  __syncwarp();
-  if (n > k) {
-    warp_select(gv, gi, n, k, hist + (threadIdx.x >> 5) * 256);
-    n = k;
-  }
-  __syncwarp();
-  float* ov = out_v + (size_t)qq * k;
-  int* oi = out_i + (size_t)qq * k;
-  for (int e = lane; e < n; e += 32) {
-    const float ve = gv[e];
-    const int ke = float_key(ve);
-    const int ie = gi[e];
-    int rank = 0;
-    for (int f = 0; f < n; ++f) {
-      const int kf = float_key(gv[f]);
-      rank += kf > ke || (kf == ke && gi[f] < ie);
-    }
-    ov[rank] = ve;
-    oi[rank] = ie;
-  }
-  for (int e = n + lane; e < k; e += 32) {
-    ov[e] = -INFINITY;
-    oi[e] = -1;
-  }
+  merge_ranked(gv, gi, n, k, hist + (threadIdx.x >> 5) * 256,
+               out_v + (size_t)qq * k, out_i + (size_t)qq * k);
 }
 
 // The merge launch behind a scan: b / 2 blocks of two warps.

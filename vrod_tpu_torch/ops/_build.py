@@ -141,25 +141,30 @@ def load(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
         return _libs[defines]
     lib = ctypes.CDLL(str(build(defines)))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    # (elem, epi, tma, x, aux, mask, q, qs2, theta0, n, row_bytes, b, k,
-    #  offset, groups, parts, cap, 7 scratch/output pointers, stream)
+    # (elem, epi, tma, small, x, aux, valid, bias, q, q_scale, theta0, n,
+    #  row_bytes, b, k, offset, groups, parts, cap, scratch, out_v, out_i,
+    #  x_map, q_map, q_hi_map, stream)
     lib.vrod_fused_topk.restype = ci
-    lib.vrod_fused_topk.argtypes = [ci] * 3 + [vp] * 6 + [ci] * 8 + [vp] * 8
-    # (elem, epi, tma, x, aux, mask, q, qs2, n, row_bytes, b, blk, spb,
-    #  groups, part, out, stream)
+    lib.vrod_fused_topk.argtypes = [ci] * 4 + [vp] * 7 + [ci] * 8 + [vp] * 7
+    # (elem, epi, tma, x, aux, valid, bias, q, q_scale, n, row_bytes, b,
+    #  blk, width, spb, groups, out, x_map, q_map, q_hi_map, stream)
     lib.vrod_sampled_submax.restype = ci
-    lib.vrod_sampled_submax.argtypes = [ci] * 3 + [vp] * 5 + [ci] * 6 \
-        + [vp] * 3
+    lib.vrod_sampled_submax.argtypes = [ci] * 3 + [vp] * 6 + [ci] * 7 \
+        + [vp] * 5
+    # (out, base, inner, outer, stride, box_outer): one tensor map
+    lib.vrod_encode_map.restype = ci
+    lib.vrod_encode_map.argtypes = [vp, vp, ci, ctypes.c_long,
+                                    ctypes.c_long, ci]
     # (elem, epi, tma, x, aux, mask, q, qs2, margin, n, row_bytes, b, k,
     #  offset, groups, parts, cap, sample_tiles, blk_tiles, iters, skip,
     #  10 scratch/output pointers, stream)
     lib.vrod_fused_theta.restype = ci
     lib.vrod_fused_theta.argtypes = [ci] * 3 + [vp] * 6 + [ci] * 12 \
         + [vp] * 11
-    # (tma, x, aux, mask, q, theta0, n, row_bytes, b, k, offset, groups,
-    #  parts, cap, 7 scratch/output pointers, stream)
+    # (tma, x, aux, valid, q, theta0, n, row_bytes, b, k, offset, groups,
+    #  parts, cap, scratch, out_v, out_i, stream)
     lib.vrod_fused_intgate.restype = ci
-    lib.vrod_fused_intgate.argtypes = [ci] + [vp] * 5 + [ci] * 8 + [vp] * 8
+    lib.vrod_fused_intgate.argtypes = [ci] + [vp] * 5 + [ci] * 8 + [vp] * 4
     # The extraction experiments X1-X4, one entry point per mode file
     # (csrc/extract.cuh: VROD_EXTRACT_PARAMS): (elem, epi, variant, x, aux,
     # mask, q, offset, n, row_bytes, b, k, groups, parts, cap, block_rows,

@@ -159,7 +159,9 @@ def fused_theta(x, aux, valid, q, *, k, metric, block_rows, s_blocks,
         merge_v = torch.empty(b * parts * k, dtype=torch.float32, device=dev)
         merge_i = torch.empty(b * parts * k, dtype=torch.int32, device=dev)
         rc = lib.vrod_fused_theta(
-            *call.launch_args(), m.data_ptr(), n, call.row_bytes, b, k, 0,
+            call.elem, call.epi, int(call.tma), call.x.data_ptr(),
+            call.aux.data_ptr(), call.mask.data_ptr(), call.q.data_ptr(),
+            K._ptr(call.qs2), m.data_ptr(), n, call.row_bytes, b, k, 0,
             groups, parts, cap, sample_tiles, blk_tiles,
             BISECT_ITERS, int(bool(skip_sample_dots)), sub_keys.data_ptr(),
             bmax.data_ptr(), theta0.data_ptr(), cand_v.data_ptr(),
@@ -283,22 +285,17 @@ def fused_intgate(x, aux, valid, q, *, k, metric, theta0=None):
     if n == 0:
         return out_v, out_i
     t0 = K._theta(theta0, b, dev)
-    groups, parts, cap = K.topk_plan(n, b, k, K._sms(dev))
+    sms = K._sms(dev)
+    groups, parts, cap = K.topk_plan(n, b, k, sms)
     lib = _build.load()
-    _, _, tma, xp, auxp, maskp, qp, _ = call.launch_args()
     with torch.cuda.device(dev):
-        cand_v = torch.empty(parts * b * cap, dtype=torch.float32,
-                             device=dev)
-        cand_i = torch.empty(parts * b * cap, dtype=torch.int32, device=dev)
-        cand_n = torch.empty(parts * b, dtype=torch.int32, device=dev)
-        merge_v = torch.empty(b * parts * k, dtype=torch.float32, device=dev)
-        merge_i = torch.empty(b * parts * k, dtype=torch.int32, device=dev)
+        scratch = torch.empty(K.scratch_bytes(n, b, k, sms),
+                              dtype=torch.uint8, device=dev)
         rc = lib.vrod_fused_intgate(
-            tma, xp, auxp, maskp, qp, t0.data_ptr(), n, call.row_bytes, b, k,
-            0, groups, parts, cap, cand_v.data_ptr(),
-            cand_i.data_ptr(), cand_n.data_ptr(), merge_v.data_ptr(),
-            merge_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-            K._stream(dev))
+            int(call.tma), call.x.data_ptr(), call.aux.data_ptr(),
+            call.valid.data_ptr(), call.q.data_ptr(), t0.data_ptr(), n,
+            call.row_bytes, b, k, 0, groups, parts, cap, scratch.data_ptr(),
+            out_v.data_ptr(), out_i.data_ptr(), K._stream(dev))
     _ok(rc, "fused_intgate launch")
     launches[f"fused_intgate[{call.leg}]"] += 1
     return out_v, out_i

@@ -10,21 +10,30 @@ wrapper falls back from the kernel to the plain version.
 
 - ``fused_topk`` (K1, ``csrc/fused_topk.cu``) replaces the Pallas kernel
   ``pallas_topk.fused_topk`` -> ``_fused_call_db``/``_kernel_db`` (and the
-  auto-pipelined ``_fused_call``/``_kernel``, which the CUDA kernel covers:
-  it takes any dim). Bound on the H100 by bytes: one search streams every
-  stored row, 805 MB of int8 at 1M x 768, with the dots (on the tensor
-  cores) close behind. A persistent grid (``topk_plan``) streams each row
-  tile once per group of 256 queries through a TMA ring into wgmma, gates
-  every score in its register against max(theta0, the query's running
-  k-th), and writes only the candidates that pass; see the source for the
-  exact select and merge that replace the TPU's sequential carry.
+  auto-pipelined ``_fused_call``/``_kernel``, the TPU's K2: any dim).
+  Bound on the H100 by bytes: one search streams every stored row, 805 MB
+  of int8 at 1M x 768, with the dots (on the tensor cores) close behind. A
+  persistent grid (``topk_plan``) streams each row tile once per group of
+  256 queries through a TMA ring into wgmma, gates every score in its
+  register against max(theta0, the query's running k-th), and writes only
+  the candidates that pass; see the source for the exact select and merge
+  that replace the TPU's sequential carry. Scans too short for that grid
+  (``small_plan``: the K2 shapes) take one cluster launch over query
+  groups of 16 with the candidate lists and the merge on the chip.
 - ``sampled_submax`` (K3, ``csrc/sampled_submax.cu``) replaces
   ``pallas_topk.sampled_submax`` -> ``_submax_kernel``. It scores a prefix
   sample with K1's scoring core (bit-identical scores, which the floor's
   soundness needs) and emits 128 strided group maxima per row block. The
   sample is small (25 MB at the int8 headline), so parallelism bounds it:
-  ``submax_plan`` splits each row block into segments so the grid fills
-  the card.
+  ``submax_plan`` gives each (row block, query group of 64 or 128) a
+  cluster of segments that reduce their maxima through distributed shared
+  memory, in one launch.
+
+The kernels read the rows' mask from ``valid`` and ``row_bias``
+themselves, the tensor maps of a launch come from a cache keyed by all
+they encode (``TensorMaps``), and each kernel's shared-memory attribute is
+set once, so a call's host work is its checks, the plan and one launch
+(two for K1's long scans: the merge).
 
 Scores, in both (``csrc/score.cuh``), with mask 0 on live slots and -inf on
 dead ones and every float op rounded once:
@@ -46,13 +55,17 @@ dead ones and every float op rounded once:
   float32 rescore restores exactness.
 
 ``launches`` counts kernel launches per kernel and leg (e.g.
-``fused_topk[int8-l2]``); only a CUDA launch adds to it.
+``fused_topk[int8-l2]``); only a CUDA launch adds to it. ``small_scans``
+counts, per leg, the K1 launches that took the small-scan kernel.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
+import threading
+from collections import OrderedDict
 
 import torch
 
@@ -80,14 +93,33 @@ _EPI_SCALE, _EPI_SCALE_QS, _EPI_L2, _EPI_DOT = range(4)
 TILE_ROWS = 128
 GROUP_QUERIES = 256
 CUT_TILES = 4
+# K3: queries per block (wgmma n64 or n128) and its ring (192 KB of
+# stages of the 16 KB row box and the query box). K1's small scans:
+# queries per block (wgmma n16), their ring, and the largest k whose merge
+# (parts x k candidates a warp) fits the ring it reuses. Clusters: at most
+# MAX_CLUSTER blocks (portable).
+SUBMAX_GROUPS = (128, 64)
+SUBMAX_RING_BYTES = 192 * 1024
+SMALL_GROUP = 16
+MAX_CLUSTER = 8
+SMALL_RING = 4
+_SMALL_STAGE = TILE_ROWS * 128 + SMALL_GROUP * 128
+SMALL_MAX_K = 64
+# Shared memory a block may use, and the small-scan kernel's static part
+# (gate, qsv, len, the selects' histograms, barriers).
+SMEM_LIMIT = 232448
+SMALL_STATIC_SMEM = 3 * SMALL_GROUP * 4 + 8 * 256 * 4 + 2 * SMALL_RING * 8
 
 launches = {f"{kern}[{leg}]": 0 for kern in ("fused_topk", "sampled_submax")
             for leg in LEGS}
+small_scans = dict.fromkeys(LEGS, 0)
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    for leg in small_scans:
+        small_scans[leg] = 0
 
 
 def _row_kind(x: torch.Tensor, packed: bool, precision: str) -> str:
@@ -179,7 +211,7 @@ class _Call:
         self.elem = _ELEM[_row_kind(x, packed, precision)]
         self.packed = packed
         self.split = self.leg.startswith("f32x3")
-        self.x, self.aux = x, aux
+        self.x, self.aux, self.valid = x, aux, valid
         # The query as the kernel reads it: bfloat16 rows take it rounded
         # to bfloat16 (the Pallas kernel's q.astype(x.dtype)), float32 rows
         # rounded to TF32 (the tensor cores would truncate it), or at
@@ -192,18 +224,33 @@ class _Call:
             self.q = tf32_round(q)
         else:
             self.q = q.to(x.dtype).contiguous()
-        # The additive mask stream: -inf on dead slots, else row_bias (0
-        # everywhere but int8/int4 + l2's -|x_hat|^2).
-        mask = torch.zeros_like(aux) if row_bias is None \
-            else row_bias.float().reshape(self.n).clone()
-        self.mask = mask.masked_fill_(~valid, NEG_INF)
-        self.qs2 = (2.0 * q_scale.float()).reshape(self.b).contiguous() \
+        # The kernels read the mask from valid and the bias themselves
+        # (csrc/score.cuh: RowMask); the plain versions build it (mask).
+        self.bias = row_bias.float().reshape(self.n).contiguous() \
+            if row_bias is not None else None
+        self.q_scale = q_scale.float().reshape(self.b).contiguous() \
             if quant_l2 else None
+        self._mask = None
         if self.quant:
             self.epi = _EPI_SCALE_QS if quant_l2 else _EPI_SCALE
         else:
             self.epi = {"cosine": _EPI_SCALE, "l2": _EPI_L2,
                         "dot": _EPI_DOT}[metric]
+
+    @property
+    def mask(self) -> torch.Tensor:
+        """The additive mask (N,): -inf on dead slots, else row_bias (0
+        everywhere but int8/int4 + l2's -|x_hat|^2); built on first use."""
+        if self._mask is None:
+            mask = torch.zeros_like(self.aux) if self.bias is None \
+                else self.bias.clone()
+            self._mask = mask.masked_fill_(~self.valid, NEG_INF)
+        return self._mask
+
+    @property
+    def qs2(self):
+        """2 * q_scale (B,) for int8/int4 + l2, else None."""
+        return None if self.q_scale is None else 2.0 * self.q_scale
 
     def scores(self, lo, hi):
         """Plain scores (B, hi - lo) of rows [lo, hi): the kernels' inputs
@@ -228,20 +275,36 @@ class _Call:
         if self.epi == _EPI_SCALE:
             s = g * aux
         elif self.epi == _EPI_SCALE_QS:
-            s = (g * aux) * self.qs2[:, None]
+            s = (g * aux) * (2.0 * self.q_scale)[:, None]
         elif self.epi == _EPI_L2:
             s = 2.0 * g - aux
         else:
             s = g
         return s + self.mask[lo:hi][None, :]
 
-    def launch_args(self):
-        qs2 = self.qs2.data_ptr() if self.qs2 is not None else None
-        return (self.elem, self.epi,
-                int(use_tma(self.x, self.q, self.row_bytes)),
-                self.x.data_ptr(),
-                self.aux.data_ptr(), self.mask.data_ptr(), self.q.data_ptr(),
-                qs2)
+    def pointers(self):
+        """K1's and K3's input pointers: rows, aux, valid, bias, query and
+        q_scale (None where absent)."""
+        return (self.x.data_ptr(), self.aux.data_ptr(),
+                self.valid.data_ptr(), _ptr(self.bias), self.q.data_ptr(),
+                _ptr(self.q_scale))
+
+    @property
+    def tma(self) -> bool:
+        return use_tma(self.x, self.q, self.row_bytes)
+
+    def maps(self, group: int):
+        """The encoded tensor maps (x, q, q_hi) of a launch whose blocks
+        take ``group`` queries; (None, None, None) without TMA."""
+        if not self.tma:
+            return None, None, None
+        rb, n, b = self.row_bytes, self.n, self.b
+        qstride = self.q.shape[1] * self.q.element_size()
+        x_map = tensor_maps.get(self.x.data_ptr(), rb, n, rb, TILE_ROWS)
+        q_map = tensor_maps.get(self.q.data_ptr(), rb, b, qstride, group)
+        q_hi = tensor_maps.get(self.q.data_ptr() + rb, rb, b, qstride,
+                               group) if qstride != rb else None
+        return x_map, q_map, q_hi
 
     @property
     def row_bytes(self) -> int:
@@ -328,6 +391,55 @@ def _theta(theta0, b, device):
     return t0.reshape(b).contiguous()
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+class TensorMaps:
+    """Encoded TMA tensor maps, each kept under everything its encoding
+    holds: the base pointer, the inner extent (bytes), the outer extent
+    (rows), the row stride (bytes) and the box's rows (the element type,
+    bytes, and the 128-byte swizzled box width are the kernels' own). A
+    changed pointer, shape, stride or box is a new entry; the least
+    recently used of more than ``size`` go. ``encode(ptr, inner, outer,
+    stride, box)`` returns an object holding the 128 encoded bytes and its
+    host address (``_encode_map``); the cache hands out the address."""
+
+    def __init__(self, encode, size: int = 256):
+        self._encode, self._size = encode, size
+        self._maps: OrderedDict = OrderedDict()
+        self._lock = threading.Lock()
+
+    def __len__(self) -> int:
+        return len(self._maps)
+
+    def get(self, ptr: int, inner: int, outer: int, stride: int,
+            box: int) -> int:
+        key = (ptr, inner, outer, stride, box)
+        with self._lock:
+            held = self._maps.get(key)
+            if held is not None:
+                self._maps.move_to_end(key)
+                return held[1]
+        held = self._encode(*key)
+        with self._lock:
+            self._maps[key] = held
+            while len(self._maps) > self._size:
+                self._maps.popitem(last=False)
+        return held[1]
+
+
+def _encode_map(ptr, inner, outer, stride, box):
+    buf = ctypes.create_string_buffer(128)
+    addr = ctypes.addressof(buf)
+    _ok(_build.load().vrod_encode_map(addr, ptr, inner, outer, stride, box),
+        "tensor map encode")
+    return buf, addr
+
+
+tensor_maps = TensorMaps(_encode_map)
+
+
 def _ok(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
@@ -339,6 +451,38 @@ def _stream(device) -> ctypes.c_void_p:
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def scratch_bytes(n: int, b: int, k: int, sms: int) -> int:
+    """Bytes of a long scan's one scratch buffer (csrc/fused_topk.cu:
+    Scratch): the part lists of values and slots, their lengths, and the
+    merge's gather of values and slots."""
+    _, parts, cap = topk_plan(n, b, k, sms)
+    return 4 * (2 * parts * b * cap + parts * b + 2 * b * parts * k)
+
+
+def small_plan(n: int, b: int, k: int, sms: int):
+    """K1's small-scan grid, or None where the long scan takes the call:
+    (groups, parts, cap). It takes a scan whose ``topk_plan`` would leave a
+    part fewer than CUT_TILES row tiles, at k up to SMALL_MAX_K. Query
+    group g (queries [16 g, 16 g + 16)) is one cluster of ``parts``
+    blocks; block p walks row tiles p, p + parts, ... (``part_tiles``), at
+    least CUT_TILES of them where there are that many, with its lists of
+    cap = k + 2 tiles (cut after every tile) in shared memory."""
+    tiles = _cdiv(n, TILE_ROWS)
+    long_parts = topk_plan(n, b, k, sms)[1]
+    if k > SMALL_MAX_K or tiles >= long_parts * CUT_TILES:
+        return None
+    parts = max(1, min(MAX_CLUSTER, tiles // CUT_TILES))
+    return _cdiv(b, SMALL_GROUP), parts, k + 2 * TILE_ROWS
+
+
+def small_smem(k: int) -> int:
+    """Shared memory of a small-scan block at top-k: the dynamic part (the
+    ring and the 16 queries' lists) and the static part."""
+    cap = k + 2 * TILE_ROWS
+    return 1024 + SMALL_RING * _SMALL_STAGE + SMALL_GROUP * cap * 8 \
+        + SMALL_STATIC_SMEM
 
 
 def topk_plan(n: int, b: int, k: int, sms: int) -> tuple[int, int, int]:
@@ -359,18 +503,43 @@ def part_tiles(part: int, parts: int, n: int) -> range:
 
 
 def submax_plan(n: int, b: int, block_rows: int, sms: int
-                ) -> tuple[int, int]:
+                ) -> tuple[int, int, int]:
     """K3's grid for an n-row sample in blocks of ``block_rows`` (a
-    multiple of 128) on ``sms`` SMs: (groups, spb). Each row block splits
-    into spb segments of whole 128-row tiles, spb a power of two dividing
-    block_rows / 128, the largest that keeps the grid (blocks x spb x
-    groups) within about one block per SM."""
-    groups = _cdiv(b, GROUP_QUERIES)
-    target = max(1, sms // ((n // block_rows) * groups))
-    spb = 1
-    while spb * 2 <= target and (block_rows // TILE_ROWS) % (spb * 2) == 0:
-        spb *= 2
-    return groups, spb
+    multiple of 128) on ``sms`` SMs: (width, groups, spb). Queries go in
+    groups of ``width``; each (row block, query group) pair is one cluster
+    of spb blocks, each a segment of block_rows / 128 / spb whole tiles
+    (``submax_tiles``), spb a power of two up to MAX_CLUSTER dividing the
+    block's tiles, the largest that keeps the grid (pairs x spb) within one
+    block per SM. The width is 128 where that grid has as many blocks as
+    64's (each block then reads its rows for twice the queries), else 64."""
+    def grid(width):
+        groups = _cdiv(b, width)
+        pairs = (n // block_rows) * groups
+        spb = 1
+        while (spb * 2 <= MAX_CLUSTER and pairs * spb * 2 <= sms
+               and (block_rows // TILE_ROWS) % (spb * 2) == 0):
+            spb *= 2
+        return width, groups, spb, pairs * spb
+
+    wide, narrow = (grid(w) for w in SUBMAX_GROUPS)
+    return (wide if wide[3] >= narrow[3] else narrow)[:3]
+
+
+def submax_smem(width: int) -> int:
+    """Dynamic shared memory of a K3 block taking ``width`` queries: its
+    ring of whole stages (the row box and the query box) within
+    SUBMAX_RING_BYTES, aligned to 1 KB."""
+    stage = TILE_ROWS * 128 + width * 128
+    return 1024 + SUBMAX_RING_BYTES // stage * stage
+
+
+def submax_tiles(block: int, segment: int, block_rows: int, spb: int
+                 ) -> range:
+    """The row tiles that segment ``segment`` of row block ``block`` scores
+    (every query group alike)."""
+    seg = block_rows // TILE_ROWS // spb
+    t0 = block * block_rows // TILE_ROWS + segment * seg
+    return range(t0, t0 + seg)
 
 
 def use_tma(x: torch.Tensor, q: torch.Tensor, row_bytes: int) -> bool:
@@ -382,8 +551,24 @@ def use_tma(x: torch.Tensor, q: torch.Tensor, row_bytes: int) -> bool:
         and q.data_ptr() % 16 == 0
 
 
+_SMS: dict = {}
+
+
 def _sms(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    """The device's SM count, asked once per device."""
+    index = torch.device(device).index
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[index]
+
+
+def _on(device):
+    """The device guard of a launch, where ``device`` is not already the
+    current one (the kernels launch on the current device)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 # -- K1 ------------------------------------------------------------------
@@ -443,29 +628,35 @@ def fused_topk(x, aux, valid, q, *, k, metric, index_offset=0,
 
 def _topk_cuda(lib, call, k, index_offset, theta0):
     """K1's launch on the card from kernel library ``lib`` (the default
-    build; ``tools/`` passes variants built with other defines)."""
+    build; ``tools/`` passes variants built with other defines): the
+    small-scan kernel where ``small_plan`` takes the call, else the long
+    scan and its merge. Either writes every rank of the outputs."""
     n, b, dev = call.n, call.b, call.device
-    out_v = torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev)
-    out_i = torch.full((b, k), -1, dtype=torch.int32, device=dev)
     if n == 0:
-        return out_v, out_i
-    t0 = _theta(theta0, b, dev)
-    groups, parts, cap = topk_plan(n, b, k, _sms(dev))
-    with torch.cuda.device(dev):
-        cand_v = torch.empty(parts * b * cap, dtype=torch.float32,
-                             device=dev)
-        cand_i = torch.empty(parts * b * cap, dtype=torch.int32, device=dev)
-        cand_n = torch.empty(parts * b, dtype=torch.int32, device=dev)
-        merge_v = torch.empty(b * parts * k, dtype=torch.float32, device=dev)
-        merge_i = torch.empty(b * parts * k, dtype=torch.int32, device=dev)
+        return (torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev),
+                torch.full((b, k), -1, dtype=torch.int32, device=dev))
+    out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    t0 = None if theta0 is None else _theta(theta0, b, dev)
+    sms = _sms(dev)
+    plan = small_plan(n, b, k, sms)
+    scratch = None
+    if plan is None:
+        plan = topk_plan(n, b, k, sms)
+        scratch = torch.empty(scratch_bytes(n, b, k, sms), dtype=torch.uint8,
+                              device=dev)
+    small = scratch is None
+    maps = call.maps(SMALL_GROUP if small else GROUP_QUERIES)
+    with _on(dev):
         rc = lib.vrod_fused_topk(
-            *call.launch_args(), t0.data_ptr(), n, call.row_bytes, b, k,
-            int(index_offset), groups, parts, cap,
-            cand_v.data_ptr(), cand_i.data_ptr(), cand_n.data_ptr(),
-            merge_v.data_ptr(), merge_i.data_ptr(), out_v.data_ptr(),
-            out_i.data_ptr(), _stream(dev))
+            call.elem, call.epi, int(call.tma), int(small), *call.pointers(),
+            _ptr(t0), n, call.row_bytes, b, k,
+            int(index_offset), *plan, _ptr(scratch), out_v.data_ptr(),
+            out_i.data_ptr(), *maps, _stream(dev))
     _ok(rc, "fused_topk launch")
     launches[f"fused_topk[{call.leg}]"] += 1
+    if small:
+        small_scans[call.leg] += 1
     return out_v, out_i
 
 
@@ -508,17 +699,22 @@ def sampled_submax(x, aux, valid, q, *, metric, block_rows, row_bias=None,
     _check_blocks(n, block_rows)
     if call.device.type == "cpu":
         return _submax_plain(call, block_rows)
-    dev = call.device
-    width = 128 * (n // block_rows)
-    out = torch.empty((b, width), dtype=torch.float32, device=dev)
-    lib = _build.load()
-    groups, spb = submax_plan(n, b, block_rows, _sms(dev))
-    with torch.cuda.device(dev):
-        part = torch.empty(spb * b * width if spb > 1 else 1,
-                           dtype=torch.float32, device=dev)
+    return _submax_cuda(_build.load(), call, block_rows)
+
+
+def _submax_cuda(lib, call, block_rows):
+    """K3's launch on the card from kernel library ``lib`` (the default
+    build; ``tools/`` passes variants built with other defines)."""
+    n, b, dev = call.n, call.b, call.device
+    out = torch.empty((b, 128 * (n // block_rows)), dtype=torch.float32,
+                      device=dev)
+    width, groups, spb = submax_plan(n, b, block_rows, _sms(dev))
+    maps = call.maps(width)
+    with _on(dev):
         rc = lib.vrod_sampled_submax(
-            *call.launch_args(), n, call.row_bytes, b, block_rows, spb,
-            groups, part.data_ptr(), out.data_ptr(), _stream(dev))
+            call.elem, call.epi, int(call.tma), *call.pointers(), n,
+            call.row_bytes, b, block_rows, width,
+            spb, groups, out.data_ptr(), *maps, _stream(dev))
     _ok(rc, "sampled_submax launch")
     launches[f"sampled_submax[{call.leg}]"] += 1
     return out

@@ -87,9 +87,15 @@ nothing falls back to the CPU or to a plain version):
    checked for agreement and timed once. Then, not counted, each kernel
    against its plain twin on the state (dead slots: deleted and never
    written) and on case (e)'s ties across list cuts at the phase's first
-   k_scan and at 112 (X2's carry in shared, then in global memory): int8
-   EXACT, bfloat16 within the bound, the ties EXACT and lowest slot first;
-   and X2's count (one part per query group) EQUAL to its closed form.
+   k_scan and at 112: int8 EXACT, bfloat16 within the bound, the ties
+   EXACT and lowest slot first; and X2's count (one part per query group)
+   EQUAL to its closed form. On the main path, also not counted, the
+   store's and the carry's edge cases at 65,536 x 768 (``extract_edges``):
+   int8 at k 1, 33, 34, 112, 128, 150 and 230 (past the store's and then
+   the carry's on-chip limit) for 1, 200 and 300 queries, all nine legs
+   (int8, bf16, f32 x cosine, l2, dot) at b256 k 28, and X2's count at
+   tiles 1, 2 and 4, each against its plain twin or closed form; and the
+   plans' shared memory equal to the built kernels' own, k 1 to 256.
 6. Serving, on the main path. During its ingest every chunk is also
    quantized on the port's CPU path: the share of stored bytes that differ
    (a cosine norm whose last ulp differs flips a byte at a rounding edge)
@@ -200,11 +206,14 @@ for int4, ``torch.matmul`` in bfloat16, in float32 with TF32 on, and for
 f32x3 in float32 with TF32 off), then ``torch.topk(k_scan)`` (K1) or the
 max over the strided 128-row groups (K3).
 
-The floor kernels' bound is K1's (the rows and inputs once, the scan's
-operations); their yardstick is the stock composition's time, since no
-one PyTorch call computes their function (``library_ms`` null). The
-extraction kernels' bound is K1's too; their yardstick is K1 with no
-floor on the same tensors (``k1_ms``; ``library_ms`` null).
+The floor and extraction kernels' bound is K1's (the rows and inputs
+once, the scan's operations). Their output is a top-k of K1's score
+space, so their ``library_ms`` is the leg's GEMM then
+``torch.topk(k_scan)`` at each kernel's own shapes (the floor kernels: the
+phase's rows; the extraction kernels: the whole blocks; the floor
+variant X1's too, though it returns a max); beside it the floor kernels
+keep the stock composition's time (``stock_ms``) and the extraction
+kernels K1 with no floor on the same tensors (``k1_ms``).
 
 The last two lines of standard output are one JSON object per line: the
 kernels' account (one entry per kernel and leg), then ``{"ok": true,
@@ -257,6 +266,13 @@ FLOOR_KSCANS = {"main path": (28, 112), "(iii)": (108,)}
 # cuda_extract.KERNEL_CALLS).
 EXTRACT_KSCANS = {"main path": (28, 112), "(iii)": (108,)}
 EXTRACT_BLOCK = 2048
+# Phase 5's edge cases of the store and the carry: rows, k (33/34: where
+# X2's carry once left shared memory; 112 and 128; 150: the store's lists
+# past the on-chip limit, in global memory; 230: X2's carry there too) and
+# batches (200: no multiple of a query group; 300: five groups of 64).
+EDGE_ROWS = 65536
+EDGE_KS = (1, 33, 34, 112, 128, 150, 230)
+EDGE_BATCHES = (1, 200, 300)
 # The serve phase (6): client processes and connections in each (256 in
 # flight: one full batch of the server's QueryBatcher), their single
 # queries (batches of the main path's queries), and the replica's rows.
@@ -947,13 +963,15 @@ def floor_phase(cmp, card, name, leg, args, k_scans):
         x8 = first[("x8", "plain")]
         n, d = args[0].shape
         bound = bound_of(args, BATCH * k * 8, 2 * BATCH * n * d, dtype)
+        gemm = library_gemm(leg, args[0], args[3])
+        library = cuda_time_ms(lambda: gemm().topk(k, dim=1), iters=5)
         times["fused_theta"] = dict(
             ms=x8["variant_ms"], device_ms=x8["variant_device_ms"],
             kernels=x8["variant_kernels_per_call"],
             stock_ms=x8["stock_ms"], stock_device_ms=x8["stock_device_ms"],
             plain_ms=cuda_time_ms(
                 lambda: F.fused_theta_plain(*args, **kw), iters=3),
-            bound=bound, k_scan=k, rows=n)
+            bound=bound, library_ms=library, k_scan=k, rows=n)
         if leg in F.INTGATE_LEGS:
             x9 = first[("x9", "intgate")]
             times["fused_intgate"] = dict(
@@ -964,7 +982,7 @@ def floor_phase(cmp, card, name, leg, args, k_scans):
                 plain_ms=cuda_time_ms(lambda: F.fused_intgate_plain(
                     *args, k=k, metric=leg.split("-")[1], theta0=theta0),
                     iters=3),
-                bound=bound, k_scan=k, rows=n)
+                bound=bound, library_ms=library, k_scan=k, rows=n)
     return launches, recs, times
 
 
@@ -1042,8 +1060,8 @@ def extract_phase(cmp, card, name, leg, args, k_scans):
         "the closed form")
     targs, copies = tie_extract_inputs(leg, args[0].device,
                                        np.random.default_rng(7))
-    # At the phase's first k_scan (X2's carry in shared memory at k 28) and
-    # at 112 (in global memory).
+    # At the phase's first k_scan and at 112 (X2's carry and the store's
+    # lists on chip at both, in query groups of 64).
     for kt in dict.fromkeys((k, 112)):
         for kern in X.KERNELS:
             _, i = cmp.extract(kern, leg, targs, kt,
@@ -1067,9 +1085,89 @@ def extract_phase(cmp, card, name, leg, args, k_scans):
             k1_device_ms=k1["reference_device_ms"],
             plain_ms=cuda_time_ms(lambda kern=kern: X.run_kernel(
                 kern, *xargs, plain=True, **kw), iters=2, warmup=1),
-            bound=bound, k_scan=k, rows=n)
+            bound=bound, library_ms=r["library_ms"], k_scan=k, rows=n)
+    if leg == "int8-cosine":
+        extract_edges(cmp, card, args[0].device)
     log(f"{name} extraction experiments: {time.perf_counter() - wall0:.1f} s")
     return launches, recs, times
+
+
+def extract_edges(cmp, card, dev):
+    """Phase 5's edge cases of the redesigned store and carry, not counted,
+    each against its plain twin on EDGE_ROWS x 768 seeded cosine rows: int8
+    at each of EDGE_KS for 1, 200 (no multiple of a query group) and 300
+    queries; every leg (int8, bfloat16, float32 x cosine, l2, dot) at b256,
+    k 28; X2's count at tiles 1, 2 and 4 EQUAL to its closed form. int8
+    EXACT, the float legs within the bound. First, the plans' shared
+    memory (``carry_smem``, ``store_smem``) EQUAL to the library's account
+    of the built kernels at every k to 256, and EDGE_KS reaching past both
+    on-chip limits. Prints each kernel's launches a call and the wall
+    time."""
+    import torch
+    from vrod_tpu_torch.ops import _build
+    from vrod_tpu_torch.ops import cuda_extract as X
+    wall0 = time.perf_counter()
+    lib = _build.load()
+    for k in range(1, 257):
+        for stage in X.CARRY_STAGES:
+            for on_chip in (True, False):
+                got = lib.vrod_extract_carry_smem(k, stage, int(on_chip))
+                if got != X.carry_smem(k, stage, on_chip):
+                    raise AssertionError(
+                        f"carry_smem({k}, {stage}, {on_chip}) = "
+                        f"{X.carry_smem(k, stage, on_chip)}, the kernel "
+                        f"needs {got}")
+        cap, on_chip = X.store_plan(k)
+        got = lib.vrod_extract_store_smem(cap, int(on_chip))
+        if got != X.store_smem(cap, on_chip):
+            raise AssertionError(f"store_smem({cap}, {on_chip}) = "
+                                 f"{X.store_smem(cap, on_chip)}, the kernel "
+                                 f"needs {got}")
+    off = {kern: [k for k in EDGE_KS if not X.extract_plan(
+        kern, EDGE_ROWS, BATCH, k, 132).on_chip] for kern in ("carry", "store")}
+    if not all(off.values()):
+        raise AssertionError(f"EDGE_KS {EDGE_KS} leave a kernel's global-"
+                             f"memory path untested: off chip at {off}")
+    log(f"edge cases: the plans' shared memory equals the kernels' at k "
+        f"1-256; in global memory: the carry at k {off['carry']}, the "
+        f"store's lists at k {off['store']}")
+    ke = tool_module("kexp_extract")
+    kerns = ("carry", "store")
+    calls = dict.fromkeys(kerns, 0)
+    X.reset_launches()
+    for i, dtype in enumerate(X.X_DTYPES):
+        state = ke.make_state(dtype, EDGE_ROWS, DIM, max(EDGE_BATCHES), 50 + i,
+                              dev)
+        xargs = ke.experiment_args(state)
+        if dtype == "int8":
+            for k in EDGE_KS:
+                for b in EDGE_BATCHES:
+                    sub = xargs[:3] + [xargs[3][:b].contiguous(), xargs[4]]
+                    for kern in kerns:
+                        cmp.extract(kern, "int8-cosine", sub, k,
+                                    f"edge int8 k {k} b {b}")
+                        calls[kern] += 1
+            for tiles in (1, 2, 4):
+                cnt = ke.count_of(state[:3] + [state[3][:BATCH].contiguous()],
+                                  28, EXTRACT_BLOCK, tiles)[2]
+                calls["carry"] += 1
+                log(f"edge X2 count (tiles {tiles}, k 28, {EDGE_ROWS} rows, "
+                    f"b{BATCH}): {int(cnt[0])}, equal to the closed form")
+        sub = xargs[:3] + [xargs[3][:BATCH].contiguous(), xargs[4]]
+        for metric in X.X_METRICS:
+            for kern in kerns:
+                cmp.extract(kern, f"{dtype}-{metric}", sub, 28,
+                            f"edge {dtype}-{metric} k 28 b{BATCH}")
+                calls[kern] += 1
+        del state, xargs, sub
+        torch.cuda.empty_cache()
+    for kern in kerns:
+        n = sum(c for name, c in X.launches.items()
+                if name.startswith(f"extract_{kern}["))
+        log(f"edge cases: extract_{kern} agrees with its plain twin or "
+            f"closed form in {calls[kern]} calls, {n / calls[kern]:g} launch "
+            f"a call [{card}]")
+    log(f"edge cases: {time.perf_counter() - wall0:.1f} s")
 
 
 def oracle_kth(eng, q, top_k, state=None):
@@ -2416,13 +2514,14 @@ def main(argv=None) -> int:
                 f"{t['stock_ms']:.4f} ms "
                 f"(device {t['stock_device_ms']:.4f}); max abs err vs plain "
                 f"{cmp.max_err[kname]:.6g}, at most "
-                f"{cmp.max_share[kname]:.4g} of the score bound [{card}]")
+                f"{cmp.max_share[kname]:.4g} of the score bound; library "
+                f"(GEMM + topk) {t['library_ms']:.4f} ms [{card}]")
             kernels.append({
                 "name": kname, "route": "cuda", "source": SOURCES[kern][0],
                 "replaces": SOURCES[kern][1], "launches": fl[kname],
                 "max_abs_err": cmp.max_err[kname], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None,
+                "bound_by": bound_by, "library_ms": t["library_ms"],
                 "stock_ms": t["stock_ms"]})
     from vrod_tpu_torch.ops import cuda_extract as X
     for name, leg, (xl, _, xtimes) in extracts:
@@ -2430,14 +2529,19 @@ def main(argv=None) -> int:
             kname = f"extract_{kern}[{leg}]"
             fn = X.KERNEL_CALLS[kern][0]
             bound_ms, bound_by = t["bound"]
+            # By events: the profiler of a long process keeps only part of
+            # these calls' kernels (its device time and count are printed
+            # as it saw them).
             log(f"{kname}: {xl[kname]} launches in {name}'s extraction "
                 f"experiments; at its shapes ({t['rows']} rows, k_scan "
                 f"{t['k_scan']}, blocks of {EXTRACT_BLOCK}) {t['ms']:.4f} ms "
-                f"(device {t['device_ms']:.4f} ms, {t['kernels']:g} kernels "
-                f"a call) vs plain {t['plain_ms']:.4f} ms, bound "
-                f"{bound_ms:.4f} ms ({bound_by}; {reached(bound_ms, t)}); "
-                f"K1 with no floor {t['k1_ms']:.4f} ms (device "
-                f"{t['k1_device_ms']:.4f}); max abs err vs plain "
+                f"(profiler: device {t['device_ms']:.4f} ms, "
+                f"{t['kernels']:g} kernels a call) vs plain "
+                f"{t['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}; {bound_ms / t['ms']:.1%} of it reached by "
+                f"events); K1 with no floor {t['k1_ms']:.4f} ms (device "
+                f"{t['k1_device_ms']:.4f}); library (GEMM + topk) "
+                f"{t['library_ms']:.4f} ms; max abs err vs plain "
                 f"{cmp.max_err[kname]:.6g}, at most "
                 f"{cmp.max_share[kname]:.4g} of the score bound [{card}]")
             kernels.append({
@@ -2448,7 +2552,7 @@ def main(argv=None) -> int:
                 "launches": xl[kname],
                 "max_abs_err": cmp.max_err[kname], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None,
+                "bound_by": bound_by, "library_ms": t["library_ms"],
                 "k1_ms": t["k1_ms"]})
     for leg, share in cmp.control_share.items():
         log(f"float control {leg}: truncated inputs reached at least "

@@ -29,6 +29,7 @@ import torch
 
 from vrod_tpu_torch.config import DTYPES, METRICS, CollectionConfig
 from vrod_tpu_torch.engine import DeviceEngine
+from vrod_tpu_torch.ops import _build
 from vrod_tpu_torch.ops import cuda_extract
 from vrod_tpu_torch.ops import cuda_floor
 from vrod_tpu_torch.ops import cuda_topk
@@ -523,13 +524,14 @@ def test_cuda_extract_ties_across_list_cuts(cuda_device, mode, dtype, k):
     query 0 = row 7 (K1's tie case, test_cuda_k1_ties_across_list_cuts):
     the copies meet gates and carries that earlier copies raised to their
     score. Rows of -1/0/1 and queries of four +-2 under dot make every
-    score exact, so each mode EQUALS its plain twin, lowest slot first. At
-    k 28 X2's carry lies in shared memory, at k 112 in global memory."""
+    score exact, so each mode EQUALS its plain twin, lowest slot first. X2's
+    carry and the store's lists lie in shared memory at both k (query groups
+    of 64 at every k)."""
     rng = np.random.default_rng(78)
     b, d = 8, 128
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    _, parts, _, _, _ = cuda_extract.extract_plan(
-        mode, 8 * cuda_topk.TILE_ROWS * sms, b, k, sms)
+    parts = cuda_extract.extract_plan(
+        mode, 8 * cuda_topk.TILE_ROWS * sms, b, k, sms).parts
     n = 8 * parts * cuda_topk.TILE_ROWS
     copies = [t * parts * cuda_topk.TILE_ROWS + r for t in range(7)
               for r in range(8, 48)]
@@ -558,6 +560,51 @@ def test_cuda_extract_ties_across_list_cuts(cuda_device, mode, dtype, k):
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert got[1][0].tolist() == [7] + copies[:k - 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 33, 34, 112, 128, 150, 230])
+@pytest.mark.parametrize("b", [1, 200, 300])
+@pytest.mark.parametrize("mode", ["carry", "store"])
+def test_cuda_carry_and_store_edges(rng, cuda_device, mode, b, k):
+    """The redesigned store and carry at their plans' edges: k 1, 33/34
+    (where X2's old carry left shared memory), 112 and 128, and past the
+    on-chip limits, where the lists (k 150) and then the carry too (k 230)
+    live in global memory; one query, a batch that is no multiple of the
+    group (200) and 300 (five groups of 64): int8 EQUAL to the plain twin,
+    one launch a call, and every slot of a whole block (the rows past the
+    last one unread)."""
+    on_chip = cuda_extract.extract_plan(mode, 16384, b, k, 132).on_chip
+    assert on_chip == (k <= (226 if mode == "carry" else 144))
+    n, blk, offset = 16384 + 77, 1024, 3
+    args = x_args(rng, n, 128, b, cuda_device, "int8", offset)
+    kw = dict(k=k, metric="cosine", block_rows=blk, precision_name="fast")
+    cuda_extract.reset_launches()
+    got = cuda_extract.run_kernel(mode, *args, **kw)
+    want = cuda_extract.run_kernel(mode, *args, plain=True, **kw)
+    torch.cuda.synchronize()
+    assert cuda_extract.launches[f"extract_{mode}[int8-cosine]"] == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[1].max()) < n // blk * blk + offset
+
+
+@pytest.mark.cuda
+def test_cuda_extract_smem_is_the_kernels(cuda_device):
+    """The plans' shared memory (``carry_smem``, ``store_smem``: the ring,
+    the stages or the score tile, the carry or the lists, the static part)
+    is the kernels' own, as the library reports it from the built kernels
+    (their static size and ``narrow_smem``), on chip and off, at every k
+    to 256 and the capacities of both placements."""
+    lib = _build.load()
+    for k in range(1, 257):
+        for stage in cuda_extract.CARRY_STAGES:
+            for on_chip in (True, False):
+                assert lib.vrod_extract_carry_smem(k, stage, int(on_chip)) \
+                    == cuda_extract.carry_smem(k, stage, on_chip), (k, stage)
+        cap, on_chip = cuda_extract.store_plan(k)
+        assert lib.vrod_extract_store_smem(cap, int(on_chip)) \
+            == cuda_extract.store_smem(cap, on_chip), k
+    assert lib.vrod_extract_store_smem(177, 1) > cuda_extract.SMEM_BYTES
 
 
 @pytest.mark.cuda

@@ -5,9 +5,10 @@ shapes TMA cannot load (rows not a multiple of 16 bytes, unaligned bases)
 to the copying producer. A build with extra defines (the measurement
 scripts' variants) lives beside the default library, never in its place.
 (K3's segments are its clusters' blocks: ``submax_tiles``.) The
-extraction kernels' plans (``cuda_extract.extract_plan``) are K1's
-grid with each kernel's list capacity, and X2's carry goes to shared
-memory only where it fits beside the ring."""
+extraction kernels' plans (``cuda_extract.extract_plan``): the gated
+kernels and the floor run K1's grid with each kernel's list capacity;
+the store and X2's carry take query groups of 64 whose lists and carry
+stay in shared memory to k 128, within a block's 227 KB."""
 
 import pytest
 import torch
@@ -141,19 +142,100 @@ def test_theta_plan_refuses_bad_samples(blk, s_blocks, n):
         F.theta_plan(n, 8, 8, blk, s_blocks, 132)
 
 
-@pytest.mark.parametrize("k,ring,smem", [(8, 4, True), (9, 4, True),
-                                         (10, 3, True), (28, 3, True),
-                                         (33, 3, True), (34, 4, False),
-                                         (108, 4, False), (112, 4, False)])
-def test_carry_plan_keeps_the_carry_in_shared_memory_when_it_fits(k, ring,
-                                                                  smem):
-    """X2's carry (256 queries x k x 8 bytes) sits beside the deepest ring
-    of 4 or 3 stages that leaves it room in a block's 227 KB, else in
-    global memory beside 4 stages: 4 stages to k 9, 3 to k 33."""
-    assert cuda_extract.carry_plan(k) == (ring, smem)
-    need = 1024 + ring * cuda_extract.STAGE_BYTES + 256 * k * 8 \
-        + cuda_extract.CARRY_STATIC_BYTES
-    assert (need <= cuda_extract.SMEM_BYTES) == smem
+@pytest.mark.parametrize("k,stage,on_chip", [
+    (1, 32, True), (8, 32, True), (9, 32, True), (10, 32, True),
+    (28, 32, True), (33, 32, True), (34, 32, True), (62, 32, True),
+    (63, 32, True), (108, 32, True), (112, 32, True), (128, 32, True),
+    (150, 32, True), (194, 32, True), (195, 16, True), (220, 16, True),
+    (226, 16, True), (227, 16, False), (1280, 16, False)])
+def test_carry_plan_keeps_the_carry_in_shared_memory_when_it_fits(
+        k, stage, on_chip):
+    """X2's carry (64 queries x k x 8 bytes) sits in shared memory beside a
+    4-stage ring and two stages a query, at the largest stage (32, else 16)
+    that leaves it room in a block's 227 KB: stages of 32 to k 194, of 16
+    to k 226; past that in global memory with stages of 16."""
+    assert cuda_extract.NARROW == 64
+    assert cuda_extract.carry_plan(k) == (stage, on_chip)
+    need = 1024 + 4 * (128 * 128 + 64 * 128) + 2 * 64 * stage * 8 \
+        + 64 * k * 8 + 832
+    assert need == cuda_extract.carry_smem(k, stage)
+    assert (need <= cuda_extract.SMEM_BYTES) == on_chip
+    assert cuda_extract.carry_smem(k, stage, on_chip) \
+        <= cuda_extract.SMEM_BYTES
+    if on_chip and stage == 16:
+        assert cuda_extract.carry_smem(k, 32) > cuda_extract.SMEM_BYTES
+
+
+@pytest.mark.parametrize("k", range(1, 129))
+def test_new_plans_keep_carry_and_lists_on_chip_to_k_128(k):
+    """For every k the smoke and the experiments take (1..128), X2's carry
+    and the store's lists stay in shared memory, and each plan's need (the
+    ring, the stages or the score tile, the carry or the lists, the static
+    part) stays within a block's 227 KB; the store's lists take k + 32 at
+    least, so a cut always leaves room for the next 32 scores."""
+    stage, on_chip = cuda_extract.carry_plan(k)
+    assert on_chip and 1 <= stage <= 32
+    assert cuda_extract.carry_smem(k, stage) <= cuda_extract.SMEM_BYTES
+    cap, son_chip = cuda_extract.store_plan(k)
+    assert son_chip and cap >= k + cuda_extract.STORE_SLACK
+    assert cuda_extract.store_smem(cap) <= cuda_extract.SMEM_BYTES
+    assert cuda_extract.store_smem(cap + 1) > cuda_extract.SMEM_BYTES
+    for kernel in ("carry", "store"):
+        plan = cuda_extract.extract_plan(kernel, 1 << 20, 256, k, 132)
+        assert plan.on_chip
+
+
+@pytest.mark.parametrize("k,carry_on_chip,store_on_chip", [
+    (1, True, True), (28, True, True), (112, True, True),
+    (128, True, True), (144, True, True), (145, True, False),
+    (1280, False, False)])
+def test_new_plans_group_width_by_k(k, carry_on_chip, store_on_chip):
+    """The query group each new plan takes by k: 64 for both at every k
+    (n64 measured faster than n128 on the H100), X2's carry on chip to k
+    226 and the store's 176-entry lists to k 144, then in global memory at
+    the same group; the other kernels keep K1's 256."""
+    for kernel, on_chip in (("carry", carry_on_chip),
+                            ("store", store_on_chip)):
+        plan = cuda_extract.extract_plan(kernel, 1 << 20, 256, k, 132)
+        assert (plan.width, plan.groups) == (64, 4)
+        assert plan.on_chip == on_chip
+    assert cuda_extract.store_plan(k)[0] == (
+        176 if store_on_chip else K.topk_plan(1, 1, k, 1)[2])
+    assert cuda_extract.extract_plan("gate", 1 << 20, 256, k, 132).width \
+        == 256
+
+
+@pytest.mark.parametrize("b", [1, 255, 256, 300])
+@pytest.mark.parametrize("k", [1, 28, 112])
+@pytest.mark.parametrize("kernel", ["carry", "store"])
+@pytest.mark.parametrize("count", [False, True])
+def test_new_plans_launch_arguments(kernel, b, k, count):
+    """The launch of the store and the carry for batches of 1, 255, 256 and
+    300 on 132 SMs: groups of 64 cover every query once, the grid
+    (groups x parts) is about one block per SM (X2 with ``count``: one part
+    a group), and the scratch the wrapper allocates holds every (part,
+    query) list the kernel hands over, the merge's gather and the
+    per-block counts."""
+    n, sms = 1 << 20, 132
+    count = count and kernel == "carry"
+    plan = cuda_extract.extract_plan(kernel, n, b, k, sms, count=count)
+    assert plan.width == 64
+    assert (plan.groups - 1) * plan.width < b <= plan.groups * plan.width
+    if count:
+        assert plan.parts == 1
+    else:
+        assert plan.parts == max(1, min(n // 128, sms // plan.groups))
+        assert plan.groups * plan.parts <= max(sms, plan.groups)
+    if kernel == "carry":
+        assert plan.cap == k and 1 <= plan.stage <= 32
+    else:
+        assert plan.cap >= k + cuda_extract.STORE_SLACK and plan.stage == 0
+    size = cuda_extract.scratch_sizes(kernel, plan, b, k, n // 2048, count)
+    stride = k if kernel == "carry" or plan.on_chip else plan.cap
+    assert size["cand_v"] == size["cand_i"] == plan.parts * b * stride
+    assert size["cand_n"] == plan.parts * b
+    assert size["merge"] == b * plan.parts * k
+    assert size["cnt"] == (n // 2048 * b if count else 1)
 
 
 @pytest.mark.parametrize("kernel", list(cuda_extract.KERNELS))
@@ -162,21 +244,29 @@ def test_carry_plan_keeps_the_carry_in_shared_memory_when_it_fits(k, ring,
 @pytest.mark.parametrize("count", [False, True])
 def test_extract_plan_is_k1_grid_with_each_kernels_lists(kernel, n, b, k,
                                                          count):
-    """Every extraction kernel runs K1's persistent grid; its list capacity
-    is K1's for the gated kernels (cut every 4 tiles), k + 1 tile for the
-    store kernel (cut every tile), k for X2's carry and none for the floor;
-    X2 with ``count`` runs one part per query group (rows in global
-    order)."""
-    groups, parts, cap, ring, smem = cuda_extract.extract_plan(
-        kernel, n, b, k, 132, count=count and kernel == "carry")
+    """The gated kernels and the floor run K1's persistent grid (256-query
+    groups); their list capacity is K1's (cut every 4 tiles) and none for
+    the floor. The store and X2's carry take groups of 64 in as many
+    parts as keep about one block per SM: the store's lists of its
+    plan's capacity, the carry's k; X2 with ``count`` runs one part per
+    query group (rows in global order)."""
+    plan = cuda_extract.extract_plan(kernel, n, b, k, 132,
+                                     count=count and kernel == "carry")
     g1, p1, cap1 = K.topk_plan(n, b, k, 132)
-    assert groups == g1
-    want_cap = {"floor": 0, "store": k + 128, "carry": k}.get(kernel, cap1)
-    assert cap == want_cap
-    assert parts == (1 if count and kernel == "carry" else p1)
-    if kernel == "carry":
-        assert (ring, smem) == cuda_extract.carry_plan(k)
+    if kernel in ("store", "carry"):
+        assert plan.groups == -(-b // plan.width)
+        p1 = max(1, min(-(-n // 128), 132 // plan.groups))
     else:
-        assert (ring, smem) == (4, False)
+        assert plan.groups == g1 and plan.width == 256
+    want_cap = {"floor": 0, "store": cuda_extract.store_plan(k)[0],
+                "carry": k}.get(kernel, cap1)
+    assert plan.cap == want_cap
+    assert plan.parts == (1 if count and kernel == "carry" else p1)
+    if kernel == "carry":
+        assert (plan.stage, plan.on_chip) == cuda_extract.carry_plan(k)
+    elif kernel == "store":
+        assert (plan.cap, plan.on_chip) == cuda_extract.store_plan(k)
+    else:
+        assert (plan.on_chip, plan.stage) == (False, 0)
     with pytest.raises(ValueError, match="kernel"):
         cuda_extract.extract_plan("unroll8", n, b, k, 132)

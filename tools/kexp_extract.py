@@ -19,9 +19,15 @@ the same tensors, each variant of ``ops/cuda_extract.py`` against K1
 Each pair must agree (int8: equal values and slots; bfloat16/float32: the
 score bound of ``cuda_topk.topk_disagreement``). Variant names that share a
 build (``cuda_extract.KERNELS``) are timed once, by the first of them; the
-timing is warm: CUDA events (mean of ``--iters`` calls) and the card's
-kernel time and kernels per call (torch.profiler over 5 calls), K1 once
-per k_scan. One JSON record per (dtype, k_scan, experiment, variant), with
+timing is warm: CUDA events (mean of ``--iters`` calls back to back), the
+card's kernel time and kernels per call (torch.profiler over 5 calls) and
+the host's enqueue time per call (``perf_counter`` around ``--iters``
+calls, no synchronize), K1 once per k_scan. Beside them, once per k_scan:
+the bound (``chip_smoke.bound_of``: the inputs read and the outputs
+written once at the HBM rate, against 2 B N D operations at the type's
+dense peak) and the library call that computes the same top-k
+(``chip_smoke.library_gemm``'s GEMM, then ``torch.topk(k_scan)``; by
+events). One JSON record per (dtype, k_scan, experiment, variant), with
 its ``kernel`` and either its times or ``timed_as``, is printed and written
 to ``--out``;
 with ``--count`` one more per (dtype, k_scan): X2's ``cnt`` (tiles 1, 2
@@ -40,7 +46,9 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+from chip_smoke import bound_of, library_gemm  # noqa: E402
 from kernel_ab import card_line, device_ms, events_ms  # noqa: E402
+from launch_cost import host_ms  # noqa: E402
 
 DTYPES = {"int8": "int8", "bf16": "bf16", "bfloat16": "bf16", "f32": "f32",
           "float32": "f32"}
@@ -139,6 +147,23 @@ def count_of(args, k_scan, block_rows=2048, tiles=1):
     return got
 
 
+def yardsticks(args, dtype, k_scan, block_rows=2048, iters=5):
+    """(bound_ms, bound_by, library_ms) of one k_scan over the whole blocks
+    of K1's inputs ``args``: the bound of the experiments' inputs and (B,
+    k) outputs, and the library's GEMM + ``torch.topk(k_scan)`` by
+    events."""
+    xa = experiment_args(args)
+    n, d = args[0].shape
+    ns = n // block_rows * block_rows
+    whole = [xa[0][:ns], xa[1][:, :ns], xa[2][:, :ns], xa[3], xa[4]]
+    b = args[3].shape[0]
+    bound_ms, bound_by = bound_of(whole, b * k_scan * 8, 2 * b * ns * d,
+                                  dtype)
+    gemm = library_gemm(f"{dtype}-cosine", whole[0], args[3])
+    lib = events_ms(lambda: gemm().topk(k_scan, dim=1), iters)
+    return bound_ms, bound_by, lib
+
+
 def agree(args, got, want, what):
     """Raise unless ``got`` agrees with ``want`` (int8 rows: equal; float
     rows: within the score bound, slots outside near-ties)."""
@@ -170,10 +195,12 @@ def run_pairs(args, dtype, k_scans, experiments, *, block_rows=2048,
 
     def timed(f):
         dev_ms, per_call = device_ms(f)
-        return events_ms(f, iters), dev_ms, per_call
+        return events_ms(f, iters), dev_ms, per_call, host_ms(f, iters)
 
     for k_scan in k_scans:
         first, k1 = {}, None
+        bound_ms, bound_by, lib_ms = yardsticks(args, dtype, k_scan,
+                                                block_rows)
         for exp, variant, kern, ref, fn in pairs(args, k_scan, experiments,
                                                  block_rows):
             want, got = ref(), fn()
@@ -196,8 +223,11 @@ def run_pairs(args, dtype, k_scans, experiments, *, block_rows=2048,
                 v = timed(fn)
                 rec.update(reference_ms=r[0], reference_device_ms=r[1],
                            reference_kernels_per_call=r[2],
+                           reference_host_ms=r[3],
                            variant_ms=v[0], variant_device_ms=v[1],
-                           variant_kernels_per_call=v[2])
+                           variant_kernels_per_call=v[2], variant_host_ms=v[3],
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=lib_ms)
             recs.append(rec)
             print(json.dumps(rec), flush=True)
         if count:

@@ -1,7 +1,9 @@
 // The extraction experiments of the JAX package, X1-X4, as modes of K1's
-// machinery (score.cuh's producer, ring and wgmma m64n256 consumers;
-// topk.cuh's radix select, list cuts and merge). Each mode is built in a
-// .cu file of its own (extract_*.cu), one C entry point per file.
+// machinery (score.cuh's producer, ring and wgmma consumers, m64n256 or,
+// for the store and the carry, m64n64; topk.cuh's radix select,
+// list cuts and merge). Each mode is built in a
+// .cu file of its own (extract_*.cu), one C entry point per file (the
+// store and the carry add their shared-memory account).
 //
 // Replaces the Pallas kernels experiments/kexp.py: make_call -> build_kernel
 // (X1), kexp2.py: make_call (X2), kexp3.py: make_call (X3) and kexp5.py:
@@ -16,9 +18,14 @@
 //   kXFloor     X1 floor: the dots, the epilogue and a running max per
 //               query in registers; no lists, no cuts. Every rank holds the
 //               query's max, ids -1 (kexp.py's floor). The scan's floor.
-//   kXStore     X1 base/maxref ("store the block, then extract"): no
-//               register gate; every finite score of a tile is appended to
-//               its query's list and the lists are cut to k after each tile.
+//   kXStore     X1 base/maxref ("store the block, then extract"), at a
+//               query group of 64 (wgmma n64, kNarrow): every
+//               score of a tile goes to a score tile in shared memory;
+//               then each consumer warp reads its queries' stored scores
+//               and appends those above the query's k-th (the value a cut
+//               last left, -inf before) to the query's list, in shared
+//               memory where it fits beside the ring and the store, else
+//               in global memory; a list is cut to k only when it fills.
 //   kXGate      X1 gate/nostore/argmax/subdot and X4 (kE = 1, 2, 4): K1's
 //               own consume_all and gate_tile (topk.cuh) from theta0 =
 //               -inf, with one divergent branch per kE query pairs (4 kE
@@ -29,18 +36,27 @@
 //               ordered named barriers, so one warpgroup's gate runs under
 //               the other's wgmmas.
 //   kXCarry     X2: a sorted running top-k of exactly k (value, slot) per
-//               query, in shared memory when it fits beside the ring (else
-//               in global memory, where L2 holds it), each passing score
-//               inserted in place by a whole warp under a per-query lock;
-//               no candidate lists and no cuts. With `count`, one part
-//               per query group walks the rows in global order and
-//               counts, after each block, the carry entries that block
+//               query, in shared memory beside the ring (query groups of
+//               64, kNarrow; global memory only where it does not fit),
+//               with no candidate lists, no cuts and no locks. Per
+//               tile each score above its query's carried k-th joins the
+//               query's stage in shared memory (places taken by
+//               warp-aggregated counts); after one consumer barrier the
+//               warp that owns a query whose stage is full sorts it in its
+//               lanes (bitonic) and merges it into the carry (binary
+//               search and a shift), keeping k. Stages alternate between
+//               two buffers a tile, so one barrier a tile; a stage that
+//               overflows is merged and refilled in rounds. With `count`,
+//               one part per query group walks the rows in global order
+//               and counts, after each block, the carry entries that block
 //               put there (kexp2's while-iterations follow from those
 //               counts).
 // What bounds every mode: K1's bound, the rows once (805 MB at the int8
 // main path, 0.24 ms at 3.35 TB/s) with the dots close behind.
 
 #pragma once
+
+#include <type_traits>
 
 #include "topk.cuh"
 
@@ -63,11 +79,12 @@ struct XArgs {
   const float* mask;    // (n,) additive
   const int* offset;    // (1,) added to every slot
   int n, b, k, row_bytes, groups, parts, cap, block_rows;
-  int ring;             // kXCarry: stages of the ring (<= kRing)
   int count;            // kXCarry: count the carry entries per block
-  int carry_smem;       // kXCarry: the carry lives in shared memory
-  float* cand_v;        // lists (parts, b, cap); kXFloor: maxima (parts, b)
-  int* cand_i;
+  int on_chip;          // kXStore: the lists, kXCarry: the carry, in shared
+                        // memory (handed over as (parts, b, k) lists)
+  int stage;            // kXCarry: entries of each stage a query (<= 32)
+  float* cand_v;        // lists (parts, b, cap, or k when on_chip);
+  int* cand_i;          // kXFloor: maxima (parts, b)
   int* cand_n;          // (parts, b)
   int* cnt;             // kXCarry with count: (n / block_rows, b)
 };
@@ -115,249 +132,612 @@ struct PingPong {
   }
 };
 
-// X2: the whole warp inserts (s, id) into one query's sorted carry (v,
-// ix)[0, k) if it comes before the carry's k-th by (value desc, slot asc),
-// under the query's lock (lane 0 takes it); lane l moves elements l, l +
-// 32, ..., so an insert costs a few warp-wide passes, not k steps of one
-// thread. The carry's new k-th value goes to *gate. A call, not inlined:
-// carry_tile's 64 unrolled query pairs would otherwise copy it 64 times.
-__device__ __noinline__ void carry_insert(float* cv, int* ci, int k,
-                                             int* lock, float* gate, float s,
-                                             int id) {
-  const int lane = threadIdx.x & 31;
-  if (lane == 0) {
-    while (atomicCAS(lock, 0, 1) != 0) {
-    }
-  }
-  __syncwarp();
-  __threadfence_block();
-  volatile float* v = cv;
-  volatile int* ix = ci;
-  // The entries that come before (s, id) are a prefix: its length is the
-  // insert position.
-  int pos = 0;
-  for (int base = 0; base < k; base += 32) {
-    const int e = base + lane;
-    bool before = false;
-    if (e < k) {
-      const float ve = v[e];
-      before = ve > s || (ve == s && ix[e] < id);
-    }
-    pos += __popc(__ballot_sync(kFull, before));
-  }
-  if (pos < k) {
-    // Shift [pos, k - 1) up by one: each chunk reads its old entries, takes
-    // each one's predecessor by shuffle (lane 0: the previous chunk's last),
-    // then writes.
-    float last_v = 0.0f;
-    int last_i = 0;
-    for (int base = 0; base < k; base += 32) {
-      const int e = base + lane;
-      const float ve = e < k ? v[e] : 0.0f;
-      const int ie = e < k ? ix[e] : 0;
-      float pv = __shfl_up_sync(kFull, ve, 1);
-      int pi = __shfl_up_sync(kFull, ie, 1);
-      if (lane == 0) {
-        pv = last_v;
-        pi = last_i;
-      }
-      last_v = __shfl_sync(kFull, ve, 31);
-      last_i = __shfl_sync(kFull, ie, 31);
-      __syncwarp();
-      if (e < k && e >= pos) {
-        v[e] = e == pos ? s : pv;
-        ix[e] = e == pos ? id : pi;
-        if (e == k - 1) *reinterpret_cast<volatile float*>(gate) = v[e];
-      }
-    }
-  }
-  __threadfence_block();
-  __syncwarp();
-  if (lane == 0) atomicExch(lock, 0);
+// A consumer barrier that also votes (bar.red.or on its own id): true in
+// every consumer thread when `v` holds in any of them.
+constexpr int kBarVote = 4;
+
+__device__ __forceinline__ bool consumer_any(bool v) {
+  int r;
+  asm volatile(
+      "{\n .reg .pred p, q;\n setp.ne.b32 q, %1, 0;\n"
+      " bar.red.or.pred p, %2, %3, q;\n selp.b32 %0, 1, 0, p;\n}\n"
+      : "=r"(r)
+      : "r"((int)v), "n"(kBarVote), "n"(kConsumers)
+      : "memory");
+  return r != 0;
 }
 
-// X2's pass over one tile's scores: a score at or above its query's
-// carried k-th value (a stale read is sound: the k-th only rises) joins
-// the warp's queue (value, slot, query: 128 entries, four per lane), and
-// the warp then inserts the queue's entries one by one, each under its
-// query's lock. Every warp fills its queue in the same query order, so
-// each drains it from its own start: warps 0-3 at the entries of queries
-// 0, 2, 4, 6 of the pair group, warps 4-7 at 1, 3, 5, 7, and the eight
-// seldom wait on one lock.
-template <class Kind, int kEpi>
-__device__ __forceinline__ void carry_tile(
-    const typename Kind::Acc (&acc)[kAcc], const float (&aux_r)[2],
-    const float (&mask_r)[2], int row0, int offset, float* cv, int* ci,
-    int k, float* gate, int* lock, float* queue_v, int* queue_i,
-    int* queue_q) {
+// The experiments' score of acc[i] (its row's aux and mask in aux_r[h],
+// mask_r[h], h = (i >> 1) & 1).
+template <class Kind, int kEpi, int kA>
+__device__ __forceinline__ float x_score(
+    const typename Kind::Acc (&acc)[kA], int i, const float (&aux_r)[2],
+    const float (&mask_r)[2]) {
+  return score_epilogue<kEpi>(dot_value(acc[i]), aux_r[(i >> 1) & 1],
+                              mask_r[(i >> 1) & 1], 0.0f);
+}
+
+// The rows' aux and mask of one tile for this thread (rows row0 and row0 +
+// 8, -inf past n).
+__device__ __forceinline__ void x_rows(const XArgs& a, int row0,
+                                       float (&aux_r)[2],
+                                       float (&mask_r)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gr = row0 + 8 * h;
+    aux_r[h] = gr < a.n ? ldg_f32(a.aux + gr) : 0.0f;
+    mask_r[h] = gr < a.n ? ldg_f32(a.mask + gr) : -INFINITY;
+  }
+}
+
+// -- X2: the carry -----------------------------------------------------------
+
+// This thread's waiting scores (bit i of `wait`: acc[i]) join their
+// queries' stage (values sv, slots si: S places a query; counts sn). The
+// eight lanes 4g + t of a warp hold the same two query columns, so lane t
+// takes the places of all eight with one shared atomic a column, and
+// ballots place each lane's scores after those of the lanes below it. A
+// score whose stage is full keeps waiting; returns the bits that wait.
+template <class Kind, int kEpi, int kA, class W>
+__device__ __forceinline__ W carry_stage(const typename Kind::Acc (&acc)[kA],
+                                         const float (&aux_r)[2],
+                                         const float (&mask_r)[2], int slot0,
+                                         W wait, float* sv, int* si, int* sn,
+                                         int S) {
   const int lane = threadIdx.x & 31;
+  const unsigned same = 0x11111111u << (lane & 3);
+  const unsigned lt = lanemask_lt();
 #pragma unroll
-  for (int j = 0; j < kAcc / 4; ++j) {
-    const int ql = query_col(4 * j);
-    const float2 g2 = *reinterpret_cast<const float2*>(gate + ql);
-    float s[4];
-    bool p[4];
-    int mine = 0;
+  for (int j = 0; j < kA / 4; ++j) {
+    const unsigned bits = (unsigned)(wait >> (4 * j)) & 15u;
+    if (!__any_sync(kFull, bits != 0)) continue;
+    const int col = query_col(4 * j);  // columns col (e = 0) and col + 1
+    int at[2], cnt[2], base[2] = {0, 0};
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s[e] = score_epilogue<kEpi>(dot_value(acc[4 * j + e]), aux_r[e >> 1],
-                                  mask_r[e >> 1], 0.0f);
-      p[e] = s[e] > -INFINITY && s[e] >= (e & 1 ? g2.y : g2.x);
-      mine += p[e];
+    for (int e = 0; e < 2; ++e) {
+      const unsigned b0 = __ballot_sync(kFull, (bits >> e) & 1u) & same;
+      const unsigned b1 =
+          __ballot_sync(kFull, (bits >> (2 + e)) & 1u) & same;
+      cnt[e] = __popc(b0) + __popc(b1);
+      at[e] = __popc(b0 & lt) + __popc(b1 & lt);
+      if (lane < 4 && cnt[e] > 0) base[e] = atomicAdd(sn + col + e, cnt[e]);
+      at[e] += __shfl_sync(kFull, base[e], lane & 3);
     }
-    if (__any_sync(kFull, mine > 0)) {
-      int incl = mine;
 #pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int t = __shfl_up_sync(kFull, incl, o);
-        if (lane >= o) incl += t;
-      }
-      int at = incl - mine;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (p[e]) {
-          queue_v[at] = s[e];
-          queue_i[at] = row0 + 8 * (e >> 1) + offset;
-          queue_q[at] = ql + (e & 1);
-          ++at;
+    for (int i = 0; i < 4; ++i) {
+      if ((bits >> i) & 1u) {
+        const int e = i & 1;
+        const int p = at[e]++;
+        if (p < S) {
+          const int q = col + e;
+          sv[q * S + p] = x_score<Kind, kEpi>(acc, 4 * j + i, aux_r, mask_r);
+          si[q * S + p] = slot0 + 8 * (i >> 1);
+          wait &= ~((W)1 << (4 * j + i));
         }
       }
-      const int total = __shfl_sync(kFull, incl, 31);
-      const int warp = (threadIdx.x >> 5) & 7;
-      const int start = (4 * (warp & 3) + (warp >> 2)) % total;
-      __syncwarp();
-#pragma unroll 1
-      for (int c0 = 0; c0 < total; ++c0) {
-        const int c = c0 + start < total ? c0 + start : c0 + start - total;
-        const int q = queue_q[c];
-        carry_insert(cv + (size_t)q * k, ci + (size_t)q * k, k, lock + q,
-                     gate + q, queue_v[c], queue_i[c]);
+    }
+  }
+  return wait;
+}
+
+// A whole warp merges one query's stage, m (1..32) entries (sv, si), into
+// its carry (cv, ci)[0, k), sorted by (value desc, slot asc) with (-inf,
+// -1) on empty ranks: the stage is sorted in the lanes (a bitonic network
+// over the least power of two >= m lanes), each entry finds by binary
+// search the c carry entries that come before it (so it lands at c +
+// lane), and the carry entries from the first such place on move down by
+// the stage entries that come before them, four chunks of 32 at a time
+// from the top, each batch read before it is written; what passes rank k
+// drops. Returns the carry's new k-th value.
+__device__ float carry_merge(float* cv, int* ci, int k, const float* sv,
+                             const int* si, int m) {
+  const int lane = threadIdx.x & 31;
+  float v = lane < m ? sv[lane] : -INFINITY;
+  int id = lane < m ? si[lane] : INT_MAX;
+  for (int size = 2; size < 2 * m; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const float ov = __shfl_xor_sync(kFull, v, stride);
+      const int oi = __shfl_xor_sync(kFull, id, stride);
+      const bool better = ov > v || (ov == v && oi < id);
+      const bool keep_best = ((lane & size) == 0) == ((lane & stride) == 0);
+      if (better == keep_best) {
+        v = ov;
+        id = oi;
       }
-      __syncwarp();  // the queue is read before it is written again
+    }
+  }
+  int c = k;
+  if (lane < m) {
+    int lo = 0, hi = k;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      const float w = cv[mid];
+      if (w > v || (w == v && ci[mid] < id)) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    c = lo;
+  }
+  const int cmin = __shfl_sync(kFull, c, 0);
+  if (cmin < k) {
+    // Four chunks at a time, from the top: all four read, then written.
+    const int low = cmin >> 5;
+    for (int top = (k - 1) >> 5; top >= low; top -= 4) {
+      float w[4];
+      int wi[4], dst[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = (top - u) * 32 + lane;
+        // The stage entries before carry entry i: those with c <= i.
+        int add = 0;
+#pragma unroll
+        for (int st = 16; st > 0; st >>= 1) {
+          const int cl = __shfl_sync(kFull, c, add + st - 1);
+          if (add + st <= m && cl <= i) add += st;
+        }
+        dst[u] = top - u >= low && i >= cmin && i + add < k ? i + add : -1;
+        if (dst[u] >= 0) {
+          w[u] = cv[i];
+          wi[u] = ci[i];
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (dst[u] >= 0) {
+          cv[dst[u]] = w[u];
+          ci[dst[u]] = wi[u];
+        }
+      }
+      __syncwarp();
+    }
+    if (lane < m && c + lane < k) {
+      cv[c + lane] = v;
+      ci[c + lane] = id;
+    }
+    __syncwarp();
+  }
+  return cv[k - 1];
+}
+
+// The carry entries of one query that lie in slots [lo, lo + rows).
+__device__ int carry_count(const float* cv, const int* ci, int k, long lo,
+                           int rows) {
+  int n = 0;
+  for (int base = 0; base < k; base += 32) {
+    const int e = base + (threadIdx.x & 31);
+    bool in = false;
+    if (e < k) {
+      const long id = ci[e];
+      in = cv[e] > -INFINITY && id >= lo && id < lo + rows;
+    }
+    n += __popc(__ballot_sync(kFull, in));
+  }
+  return n;
+}
+
+// A warp merges the stages of at least `at` entries of the queries it owns
+// [own0, own1) in one buffer (values bv, slots bi, counts bn) into their
+// carries, and raises their gates.
+__device__ void carry_merge_own(int own0, int own1, int k, int S, int at,
+                                float* bv, int* bi, int* bn, float* cv,
+                                int* ci, float* gate) {
+  for (int ql = own0; ql < own1; ++ql) {
+    const int m = min(bn[ql], S);
+    if (m == 0 || m < at) continue;  // warp-uniform
+    const float kth = carry_merge(cv + (size_t)ql * k, ci + (size_t)ql * k, k,
+                                  bv + ql * S, bi + ql * S, m);
+    if ((threadIdx.x & 31) == 0) {
+      gate[ql] = kth;
+      bn[ql] = 0;
     }
   }
 }
 
-// The consumer warpgroups of the modes that are not K1's consume_all
-// (kXFloor, kXStore, kXCarry): per row tile the dots, then the mode's
-// extraction; then the mode's hand-over (lists and lengths, or maxima) to
-// the second launch.
-template <class Kind, int kEpi, int kMode>
-__device__ __forceinline__ void extract_consume(
-    const Geometry& geo, const Ring& ring, const XArgs& a, int part,
-    int tiles, int q0, float* gate, float* cut_gate, int* len,
-    unsigned* hist, float* cv, int* ci, float* queue_v, int* queue_i,
-    int* queue_q) {
+// X2's consumer warpgroups. Per tile: the dots; each score above its
+// query's carried k-th (gate: exact after each merge; a stale read is
+// lower, which is sound) waits for a place in its query's stage of this
+// tile's buffer; the vote barrier; then each warp merges the stages of the
+// queries it owns (kN / 8 of them) that are full and raises their gates,
+// while the other warps may already stage the next tile into the other
+// buffer. A stage waits in its buffer until it is full (or until another
+// stage of the buffer fills, or the carry must be exact: a counted block's
+// end, the part's end), so one merge takes up to S passing scores of
+// several tiles at once; what waits above the carried k-th only keeps the
+// gate lower, which is sound (merging every tile, or at 16 or 24 of 32,
+// measured slower: PERF.md). When a stage filled, every warp waits for the merges
+// (now of every stage of the buffer), re-tests what still waits against
+// the new k-th (at or above it now: the carry may hold this tile's rows,
+// and a tie with a lower slot comes first) and stages it, in rounds until
+// nothing waits. At a counted block's end and at the part's end every
+// stage of both buffers is merged, behind barriers that keep the other
+// warps from staging into them meanwhile.
+template <class Kind, int kEpi, int kN>
+__device__ __forceinline__ void carry_consume(const Geometry& geo,
+                                              const Ring& ring,
+                                              const XArgs& a, int part,
+                                              int tiles, int q0, float* gate,
+                                              int* staged, float* cv,
+                                              int* ci, float* sv, int* si) {
+  constexpr int kA = kN / 2;
+  constexpr int kOwn = kN / (kConsumers / 32);
   using Acc = typename Kind::Acc;
-  const size_t list0 = ((size_t)part * a.b + q0) * a.cap;
+  using Wait = typename std::conditional<(kA > 32), unsigned long long,
+                                         unsigned>::type;
+  const int lane = threadIdx.x & 31;
+  const int own0 = (threadIdx.x >> 5) * kOwn;
+  const int own1 = min(own0 + kOwn, a.b - q0);
   const int offset = *a.offset;
-  Acc acc[kAcc];
-  float rmax[kAcc / 2];  // kXFloor: the running max per query column
-#pragma unroll
-  for (int c = 0; c < kAcc / 2; ++c) rmax[c] = -INFINITY;
-  const IntGate no_ig{nullptr, 0.0f, 0.0f};
-  int stage = 0, phase = 0;
+  const int S = a.stage, k = a.k;
+  Acc acc[kA];
+  int stage = 0, phase = 0, buf = 0;
   for (int t = part; t < tiles; t += a.parts) {
     const int row0 = t * kTileRows + tile_row(0);
     float aux_r[2], mask_r[2];
+    x_rows(a, row0, aux_r, mask_r);
+    consume_tile<Kind>(acc, geo, ring, stage, phase);
+    Wait wait = 0;
+#pragma unroll
+    for (int i = 0; i < kA; ++i) {
+      if (x_score<Kind, kEpi>(acc, i, aux_r, mask_r) > gate[query_col(i)]) {
+        wait |= (Wait)1 << i;
+      }
+    }
+    float* bv = sv + (size_t)buf * kN * S;
+    int* bi = si + (size_t)buf * kN * S;
+    int* bn = staged + buf * kN;
+    const bool block_end =
+        a.count && ((t + 1) * kTileRows) % a.block_rows == 0;
+    for (;;) {
+      wait = carry_stage<Kind, kEpi>(acc, aux_r, mask_r, row0 + offset, wait,
+                                     bv, bi, bn, S);
+      const bool more = consumer_any(wait != 0);
+      carry_merge_own(own0, own1, k, S,
+                      more || block_end ? 1 : S, bv, bi, bn, cv, ci, gate);
+      if (!more) break;
+      consumer_sync();  // the merges are done: the stages are free
+#pragma unroll
+      for (int i = 0; i < kA; ++i) {
+        if (((wait >> i) & 1) &&
+            !(x_score<Kind, kEpi>(acc, i, aux_r, mask_r) >=
+              gate[query_col(i)])) {
+          wait &= ~((Wait)1 << i);
+        }
+      }
+    }
+    if (block_end) {
+      // One part walks every tile in order: with the other buffer's stages
+      // merged too, the carries hold the exact top-k of the rows up to
+      // this block's end.
+      consumer_sync();  // no warp stages the next tile yet
+      carry_merge_own(own0, own1, k, S, 1, sv + (size_t)(buf ^ 1) * kN * S,
+                      si + (size_t)(buf ^ 1) * kN * S, staged + (buf ^ 1) * kN,
+                      cv, ci, gate);
+      const int j = (t + 1) * kTileRows / a.block_rows - 1;
+      const long lo = (long)j * a.block_rows + offset;
+      for (int ql = own0; ql < own1; ++ql) {
+        const int c = carry_count(cv + (size_t)ql * k, ci + (size_t)ql * k,
+                                  k, lo, a.block_rows);
+        if (lane == 0) a.cnt[(size_t)j * a.b + q0 + ql] = c;
+      }
+      consumer_sync();  // the other buffer is merged before it is staged
+    }
+    buf ^= 1;
+  }
+  consumer_sync();  // every tile is staged: what waits in either buffer
+  for (int b2 = 0; b2 < 2; ++b2) {
+    carry_merge_own(own0, own1, k, S, 1, sv + (size_t)b2 * kN * S,
+                    si + (size_t)b2 * kN * S, staged + b2 * kN, cv, ci, gate);
+  }
+  // The hand-over: each carry's finite entries are its prefix.
+  const size_t list0 = ((size_t)part * a.b + q0) * k;
+  for (int ql = own0; ql < own1; ++ql) {
+    int n = 0;
+    for (int base = 0; base < k; base += 32) {
+      const int e = base + lane;
+      const float v = e < k ? cv[(size_t)ql * k + e] : -INFINITY;
+      n += __popc(__ballot_sync(kFull, v > -INFINITY));
+      if (a.on_chip && e < k) {
+        a.cand_v[list0 + (size_t)ql * k + e] = v;
+        a.cand_i[list0 + (size_t)ql * k + e] = ci[(size_t)ql * k + e];
+      }
+    }
+    if (lane == 0) a.cand_n[(size_t)part * a.b + q0 + ql] = n;
+  }
+}
+
+template <class Kind, int kEpi, int kN>
+__global__ void __launch_bounds__(kThreads, 1) extract_carry(
+    const __grid_constant__ Maps maps, const __grid_constant__ XArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full[kRing], empty[kRing];
+  __shared__ float gate[kN];       // the carried k-th; +inf past the batch
+  __shared__ int staged[2 * kN];   // entries of each stage, two buffers
+  uint8_t* base = align1024(smem_raw);
+  const Ring ring{base, full, empty, kRing};
+  const Geometry geo = make_geometry<Kind>(a.row_bytes);
+  const int part = blockIdx.x / a.groups;
+  const int q0 = blockIdx.x % a.groups * kN;
+  const int tiles = (a.n + kTileRows - 1) / kTileRows;
+  const int live = min(kN, a.b - q0);
+  // Shared memory: the ring, the carry (kN x k values, then slots) when on
+  // chip, then the stages (2 x kN x S values, then slots).
+  uint8_t* rest = base + ring.n * stage_bytes(kN);
+  float* cv;
+  int* ci;
+  if (a.on_chip) {
+    cv = reinterpret_cast<float*>(rest);
+    ci = reinterpret_cast<int*>(cv + (size_t)kN * a.k);
+    rest += (size_t)kN * a.k * 8;
+  } else {
+    const size_t list0 = ((size_t)part * a.b + q0) * a.k;
+    cv = a.cand_v + list0;
+    ci = a.cand_i + list0;
+  }
+  float* sv = reinterpret_cast<float*>(rest);
+  int* si = reinterpret_cast<int*>(sv + (size_t)2 * kN * a.stage);
+  for (int e = threadIdx.x; e < live * a.k; e += kThreads) {
+    cv[e] = -INFINITY;
+    ci[e] = -1;
+  }
+  for (int i = threadIdx.x; i < kN; i += kThreads) {
+    gate[i] = i < live ? -INFINITY : INFINITY;
+    staged[i] = 0;
+    staged[kN + i] = 0;
+  }
+  ring_init(ring);
+  __syncthreads();
+  if (threadIdx.x >= kConsumers) {
+    producer_regs();
+    if (threadIdx.x < kConsumers + 32) {
+      produce<Kind, true, kN>(maps, Loads{a.x, a.q, a.n, a.b}, geo, ring, q0,
+                              part, tiles, a.parts);
+    }
+  } else {
+    consumer_regs();
+    carry_consume<Kind, kEpi, kN>(geo, ring, a, part, tiles, q0, gate,
+                                  staged, cv, ci, sv, si);
+  }
+}
+
+// -- X1's store --------------------------------------------------------------
+
+// Floats a query row of the score tile: a pitch of 132 puts the 32 scores
+// a warp stores at once (8 rows x 4 query columns) in 32 banks.
+constexpr int kStorePitch = kTileRows + 4;
+
+// One query's extraction from the stored tile whose row r has slot slot0
+// + r (row: the query's 128 stored scores), by a whole warp: lane l reads
+// rows 4l..4l+3 at once and appends those above the query's k-th (g) to
+// its list (v, ix; n of cap entries), places by a warp scan. Where the
+// tile's passing scores would not fit, the rows go 32 at a time in slot
+// order instead, and a list that could not take the next 32 is cut to its
+// k best first (topk.cuh: warp_select), which raises the k-th; the list's
+// entries then all have lower slots than what follows, so a tie with the
+// k-th never passes. (Reading 32 rows at a time throughout measured 3-9%
+// slower: PERF.md.)
+__device__ __forceinline__ void store_extract(const float* row, int slot0,
+                                              float& g, int& n, float* v,
+                                              int* ix, int k, int cap,
+                                              unsigned* hist) {
+  const int lane = threadIdx.x & 31;
+  const float4 s4 = reinterpret_cast<const float4*>(row)[lane];
+  const float s[4] = {s4.x, s4.y, s4.z, s4.w};
+  int mine = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) mine += s[e] > g;
+  if (!__any_sync(kFull, mine > 0)) return;
+  int incl = mine;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += t;
+  }
+  const int total = __shfl_sync(kFull, incl, 31);
+  if (n + total <= cap) {
+    int p = n + incl - mine;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (s[e] > g) {
+        v[p] = s[e];
+        ix[p] = slot0 + 4 * lane + e;
+        ++p;
+      }
+    }
+    n += total;
+    return;
+  }
+  const unsigned lt = lanemask_lt();
+#pragma unroll
+  for (int c = 0; c < kTileRows / 32; ++c) {
+    const float sc = row[32 * c + lane];
+    unsigned bal = __ballot_sync(kFull, sc > g);
+    if (bal == 0) continue;
+    if (n + __popc(bal) > cap) {
+      g = fmaxf(g, key_float(warp_select(v, ix, n, k, hist)));
+      n = k;
+      bal = __ballot_sync(kFull, sc > g);
+    }
+    if (sc > g) {
+      const int p = n + __popc(bal & lt);
+      v[p] = sc;
+      ix[p] = slot0 + 32 * c + lane;
+    }
+    n += __popc(bal);
+  }
+}
+
+// X1 base/maxref's consumer warpgroups. Per tile: the dots; once every
+// warp has read the last tile's store, every score goes to the store;
+// then each warp extracts the queries it owns (kN / 8: store_extract).
+template <class Kind, int kEpi, int kN>
+__device__ __forceinline__ void store_consume(
+    const Geometry& geo, const Ring& ring, const XArgs& a, int part,
+    int tiles, int q0, float* gate, int* len, unsigned* hist, float* store,
+    float* lv, int* li) {
+  constexpr int kA = kN / 2;
+  constexpr int kOwn = kN / (kConsumers / 32);
+  using Acc = typename Kind::Acc;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int own0 = warp * kOwn;
+  const int own1 = min(own0 + kOwn, a.b - q0);
+  const int offset = *a.offset;
+  unsigned* my_hist = hist + warp * 256;
+  Acc acc[kA];
+  int stage = 0, phase = 0;
+  for (int t = part; t < tiles; t += a.parts) {
+    float aux_r[2], mask_r[2];
+    x_rows(a, t * kTileRows + tile_row(0), aux_r, mask_r);
+    consume_tile<Kind>(acc, geo, ring, stage, phase);
+    consumer_sync();  // the last tile's store has been read
+#pragma unroll
+    for (int i = 0; i < kA; ++i) {
+      store[query_col(i) * kStorePitch + tile_row(i)] =
+          x_score<Kind, kEpi>(acc, i, aux_r, mask_r);
+    }
+    consumer_sync();  // the tile is stored
+    for (int ql = own0; ql < own1; ++ql) {
+      float g = gate[ql];
+      int n = len[ql];
+      store_extract(store + ql * kStorePitch, t * kTileRows + offset, g, n,
+                    lv + (size_t)ql * a.cap, li + (size_t)ql * a.cap, a.k,
+                    a.cap, my_hist);
+      if (lane == 0) {
+        gate[ql] = g;
+        len[ql] = n;
+      }
+    }
+  }
+  // The hand-over: each list cut to its k best.
+  const int out_cap = a.on_chip ? a.k : a.cap;
+  const size_t list0 = ((size_t)part * a.b + q0) * out_cap;
+  for (int ql = own0; ql < own1; ++ql) {
+    __syncwarp();
+    int n = len[ql];
+    float* v = lv + (size_t)ql * a.cap;
+    int* ix = li + (size_t)ql * a.cap;
+    if (n > a.k) {
+      warp_select(v, ix, n, a.k, my_hist);
+      n = a.k;
+    }
+    __syncwarp();
+    if (a.on_chip) {
+      for (int e = lane; e < n; e += 32) {
+        a.cand_v[list0 + (size_t)ql * out_cap + e] = v[e];
+        a.cand_i[list0 + (size_t)ql * out_cap + e] = ix[e];
+      }
+    }
+    if (lane == 0) a.cand_n[(size_t)part * a.b + q0 + ql] = n;
+  }
+}
+
+template <class Kind, int kEpi, int kN>
+__global__ void __launch_bounds__(kThreads, 1) extract_store(
+    const __grid_constant__ Maps maps, const __grid_constant__ XArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full[kRing], empty[kRing];
+  __shared__ float gate[kN];  // each list's k-th after its last cut
+  __shared__ int len[kN];     // list lengths
+  __shared__ __align__(16) unsigned hist[kConsumers / 32 * 256];
+  uint8_t* base = align1024(smem_raw);
+  const Ring ring{base, full, empty, kRing};
+  const Geometry geo = make_geometry<Kind>(a.row_bytes);
+  const int part = blockIdx.x / a.groups;
+  const int q0 = blockIdx.x % a.groups * kN;
+  const int tiles = (a.n + kTileRows - 1) / kTileRows;
+  // Shared memory: the ring, the score tile (kN x kStorePitch), then the
+  // lists (kN x cap values, then slots) when on chip.
+  float* store = reinterpret_cast<float*>(base + ring.n * stage_bytes(kN));
+  float* lv;
+  int* li;
+  if (a.on_chip) {
+    lv = store + kN * kStorePitch;
+    li = reinterpret_cast<int*>(lv + (size_t)kN * a.cap);
+  } else {
+    const size_t list0 = ((size_t)part * a.b + q0) * a.cap;
+    lv = a.cand_v + list0;
+    li = a.cand_i + list0;
+  }
+  for (int i = threadIdx.x; i < kN; i += kThreads) {
+    gate[i] = -INFINITY;
+    len[i] = 0;
+  }
+  ring_init(ring);
+  __syncthreads();
+  if (threadIdx.x >= kConsumers) {
+    producer_regs();
+    if (threadIdx.x < kConsumers + 32) {
+      produce<Kind, true, kN>(maps, Loads{a.x, a.q, a.n, a.b}, geo, ring, q0,
+                              part, tiles, a.parts);
+    }
+  } else {
+    consumer_regs();
+    store_consume<Kind, kEpi, kN>(geo, ring, a, part, tiles, q0, gate, len,
+                                  hist, store, lv, li);
+  }
+}
+
+// -- The modes on K1's 256-query groups (kXFloor, kXGate, kXPingPong) --------
+
+// kXFloor's consumer warpgroups: per row tile the dots and a running max
+// per query in registers; then the maxima to the second launch.
+template <class Kind, int kEpi>
+__device__ __forceinline__ void floor_consume(const Geometry& geo,
+                                              const Ring& ring,
+                                              const XArgs& a, int part,
+                                              int tiles, int q0,
+                                              unsigned* hist) {
+  using Acc = typename Kind::Acc;
+  Acc acc[kAcc];
+  float rmax[kAcc / 2];  // the running max per query column
+#pragma unroll
+  for (int c = 0; c < kAcc / 2; ++c) rmax[c] = -INFINITY;
+  int stage = 0, phase = 0;
+  for (int t = part; t < tiles; t += a.parts) {
+    float aux_r[2], mask_r[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int gr = row0 + 8 * h;
+      const int gr = t * kTileRows + tile_row(0) + 8 * h;
       aux_r[h] = gr < a.n ? a.aux[gr] : 0.0f;
       mask_r[h] = gr < a.n ? a.mask[gr] : -INFINITY;
     }
     consume_tile<Kind>(acc, geo, ring, stage, phase);
-    if constexpr (kMode == kXFloor) {
 #pragma unroll
-      for (int i = 0; i < kAcc; ++i) {
-        const int c = (i >> 2) * 2 + (i & 1);
-        rmax[c] = fmaxf(rmax[c], score_epilogue<kEpi>(
-                                     dot_value(acc[i]), aux_r[(i >> 1) & 1],
-                                     mask_r[(i >> 1) & 1], 0.0f));
-      }
-    } else if constexpr (kMode == kXCarry) {
-      const int q0w = (threadIdx.x >> 5) * 128;  // this warp's queue
-      carry_tile<Kind, kEpi>(acc, aux_r, mask_r, row0, offset, cv, ci, a.k,
-                             gate, len, queue_v + q0w, queue_i + q0w,
-                             queue_q + q0w);
-      if (a.count && ((t + 1) * kTileRows) % a.block_rows == 0) {
-        // One part walks every tile in order: the carry now holds the
-        // exact top-k of the rows up to this block's end.
-        consumer_sync();
-        const int j = (t + 1) * kTileRows / a.block_rows - 1;
-        const long lo = (long)j * a.block_rows + offset;
-        for (int i = threadIdx.x; i < kGroup && q0 + i < a.b;
-             i += kConsumers) {
-          int c = 0;
-          for (int e = 0; e < a.k; ++e) {
-            const long id = ci[(size_t)i * a.k + e];
-            c += cv[(size_t)i * a.k + e] > -INFINITY && id >= lo &&
-                 id < lo + a.block_rows;
-          }
-          a.cnt[(size_t)j * a.b + q0 + i] = c;
-        }
-        consumer_sync();
-      }
-    } else {
-      // kXStore: K1's gate_tile against a gate of -inf that is never
-      // raised (the cuts raise cut_gate), so every finite score is
-      // appended; then every list is cut back to k.
-      gate_tile<Kind, kEpi, false>(acc, aux_r, mask_r, row0, offset,
-                                   a.cand_v + list0, a.cand_i + list0, a.cap,
-                                   gate, nullptr, nullptr, len);
-      consumer_sync();
-      cut_lists<false>(a.cand_v, a.cand_i, len, cut_gate, no_ig, hist, list0,
-                       q0, a.b, a.k, a.cap, a.k);
-      consumer_sync();
+    for (int i = 0; i < kAcc; ++i) {
+      const int c = (i >> 2) * 2 + (i & 1);
+      rmax[c] = fmaxf(rmax[c], score_epilogue<kEpi>(
+                                   dot_value(acc[i]), aux_r[(i >> 1) & 1],
+                                   mask_r[(i >> 1) & 1], 0.0f));
     }
   }
-  if constexpr (kMode == kXFloor) {
-    // Lanes 4g + t (g = 0..7) hold the same queries: fold them, then the
-    // eight warps (each its own rows) through shared memory.
+  // Lanes 4g + t (g = 0..7) hold the same queries: fold them, then the
+  // eight warps (each its own rows) through shared memory.
+#pragma unroll
+  for (int c = 0; c < kAcc / 2; ++c) {
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      rmax[c] = fmaxf(rmax[c], __shfl_xor_sync(kFull, rmax[c], o));
+    }
+  }
+  float* red = reinterpret_cast<float*>(hist);  // (8 warps, kGroup)
+  const int lane = threadIdx.x & 31;
+  if (lane < 4) {
 #pragma unroll
     for (int c = 0; c < kAcc / 2; ++c) {
-#pragma unroll
-      for (int o = 4; o < 32; o <<= 1) {
-        rmax[c] = fmaxf(rmax[c], __shfl_xor_sync(kFull, rmax[c], o));
-      }
+      red[(threadIdx.x >> 5) * kGroup + (c >> 1) * 8 + lane * 2 + (c & 1)] =
+          rmax[c];
     }
-    float* red = reinterpret_cast<float*>(hist);  // (8 warps, kGroup)
-    const int lane = threadIdx.x & 31;
-    if (lane < 4) {
-#pragma unroll
-      for (int c = 0; c < kAcc / 2; ++c) {
-        red[(threadIdx.x >> 5) * kGroup + (c >> 1) * 8 + lane * 2 + (c & 1)] =
-            rmax[c];
-      }
+  }
+  consumer_sync();
+  for (int i = threadIdx.x; i < kGroup && q0 + i < a.b; i += kConsumers) {
+    float m = -INFINITY;
+    for (int w = 0; w < kConsumers / 32; ++w) {
+      m = fmaxf(m, red[w * kGroup + i]);
     }
-    consumer_sync();
-    for (int i = threadIdx.x; i < kGroup && q0 + i < a.b; i += kConsumers) {
-      float m = -INFINITY;
-      for (int w = 0; w < kConsumers / 32; ++w) {
-        m = fmaxf(m, red[w * kGroup + i]);
-      }
-      a.cand_v[(size_t)part * a.b + q0 + i] = m;
-    }
-  } else if constexpr (kMode == kXCarry) {
-    consumer_sync();
-    for (int i = threadIdx.x; i < kGroup && q0 + i < a.b; i += kConsumers) {
-      int n = 0;
-      for (int e = 0; e < a.k; ++e) {
-        const float v = cv[(size_t)i * a.k + e];
-        const int id = ci[(size_t)i * a.k + e];
-        n += v > -INFINITY;
-        if (a.carry_smem) {
-          a.cand_v[list0 + (size_t)i * a.k + e] = v;
-          a.cand_i[list0 + (size_t)i * a.k + e] = id;
-        }
-      }
-      a.cand_n[(size_t)part * a.b + q0 + i] = n;
-    }
-  } else {
-    // Every tile ended with a cut and a consumer_sync.
-    for (int i = threadIdx.x; i < kGroup && q0 + i < a.b; i += kConsumers) {
-      a.cand_n[(size_t)part * a.b + q0 + i] = len[i];
-    }
+    a.cand_v[(size_t)part * a.b + q0 + i] = m;
   }
 }
 
@@ -366,50 +746,21 @@ __global__ void __launch_bounds__(kThreads, 1) extract_local(
     const __grid_constant__ Maps maps, const __grid_constant__ XArgs a) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t full[kRing], empty[kRing];
-  // The gate (K1's: max of -inf and the list's k-th; kXStore: -inf, never
-  // raised; kXCarry: the carry's k-th), read as float2 pairs, +inf past the
-  // batch.
+  // K1's gate (max of -inf and the list's k-th), read as float2 pairs,
+  // +inf past the batch.
   __shared__ __align__(16) float gate[kGroup];
-  // kXStore's cuts raise this one instead.
-  __shared__ float cut_gate[kMode == kXStore ? kGroup : 1];
-  __shared__ int len[kGroup];  // list lengths; kXCarry: the locks
+  __shared__ int len[kGroup];  // list lengths
   // A select's counters per warp; kXFloor: the warps' maxima.
-  __shared__ __align__(16) unsigned hist[kMode == kXCarry ? 1
-                                         : kConsumers / 32 * 256];
-  // kXCarry: each consumer warp's queue of passing scores (value, slot,
-  // query), 128 entries.
-  constexpr int kQueue = kMode == kXCarry ? kConsumers / 32 * 128 : 1;
-  __shared__ float queue_v[kQueue];
-  __shared__ int queue_i[kQueue], queue_q[kQueue];
+  __shared__ __align__(16) unsigned hist[kConsumers / 32 * 256];
   uint8_t* base = align1024(smem_raw);
-  const Ring ring{base, full, empty, kMode == kXCarry ? a.ring : kRing};
+  const Ring ring{base, full, empty, kRing};
   const Geometry geo = make_geometry<Kind>(a.row_bytes);
   const int part = blockIdx.x / a.groups;
   const int q0 = blockIdx.x % a.groups * kGroup;
   const int tiles = (a.n + kTileRows - 1) / kTileRows;
   ring_init(ring);
-  float* cv = nullptr;
-  int* ci = nullptr;
-  if constexpr (kMode == kXCarry) {
-    const size_t list0 = ((size_t)part * a.b + q0) * a.cap;
-    if (a.carry_smem) {
-      cv = reinterpret_cast<float*>(base + ring.n * kStageBytes);
-      ci = reinterpret_cast<int*>(cv + (size_t)kGroup * a.k);
-    } else {
-      cv = a.cand_v + list0;
-      ci = a.cand_i + list0;
-    }
-    // Past the batch the carry is not read (gate +inf); in global memory
-    // it has no room there.
-    const int live = min(kGroup, a.b - q0) * a.k;
-    for (int e = threadIdx.x; e < live; e += kThreads) {
-      cv[e] = -INFINITY;
-      ci[e] = -1;
-    }
-  }
   for (int i = threadIdx.x; i < kGroup; i += kThreads) {
     gate[i] = q0 + i < a.b ? -INFINITY : INFINITY;
-    if constexpr (kMode == kXStore) cut_gate[i] = gate[i];
     len[i] = 0;
   }
   __syncthreads();
@@ -421,7 +772,9 @@ __global__ void __launch_bounds__(kThreads, 1) extract_local(
     }
   } else {
     consumer_regs();
-    if constexpr (kMode == kXGate || kMode == kXPingPong) {
+    if constexpr (kMode == kXFloor) {
+      floor_consume<Kind, kEpi>(geo, ring, a, part, tiles, q0, hist);
+    } else {
       int stage = 0, phase = 0;
       const IntGate no_ig{nullptr, 0.0f, 0.0f};
       const int offset = *a.offset;
@@ -437,10 +790,6 @@ __global__ void __launch_bounds__(kThreads, 1) extract_local(
       } else {
         run(PingPong{max(1, min(geo.nv / 2, ring.n))});
       }
-    } else {
-      extract_consume<Kind, kEpi, kMode>(geo, ring, a, part, tiles, q0, gate,
-                                         cut_gate, len, hist, cv, ci, queue_v,
-                                         queue_i, queue_q);
     }
   }
 }
@@ -460,33 +809,101 @@ __global__ void extract_floor_finish(const float* __restrict__ part_max,
   out_i[e] = -1;
 }
 
+// The query group of the store and the carry (wgmma n64): measured
+// faster than n128 for both at every k of the smoke (PERF.md).
+constexpr int kNarrow = 64;
+
+// The dynamic shared memory of a kXStore or kXCarry block, past the
+// 1024-byte alignment (ops/cuda_extract.py's plans follow it, and the
+// card tests hold them to vrod_extract_{store,carry}_smem).
+template <int kMode>
+int narrow_smem(const XArgs& a) {
+  int smem = 1024 + kRing * stage_bytes(kNarrow);
+  if constexpr (kMode == kXStore) {
+    smem += kNarrow * kStorePitch * 4;
+    if (a.on_chip) smem += kNarrow * a.cap * 8;
+  } else {
+    smem += 2 * kNarrow * a.stage * 8;
+    if (a.on_chip) smem += kNarrow * a.k * 8;
+  }
+  return smem;
+}
+
+// The store's or the carry's kernel of one leg.
+template <int kMode, class Kind, int kEpi>
+constexpr auto narrow_kernel() {
+  if constexpr (kMode == kXStore) {
+    return extract_store<Kind, kEpi, kNarrow>;
+  } else {
+    return extract_carry<Kind, kEpi, kNarrow>;
+  }
+}
+
+// A kXStore or kXCarry block's whole shared memory: the kernel's static
+// part (the same in every leg) and narrow_smem; -1 if the card cannot say.
+template <int kMode>
+int narrow_need(const XArgs& a) {
+  cudaFuncAttributes attr{};
+  if (cudaFuncGetAttributes(&attr, narrow_kernel<kMode, I8, kScale>()) !=
+      cudaSuccess) {
+    return -1;
+  }
+  return (int)attr.sharedSizeBytes + narrow_smem<kMode>(a);
+}
+
 template <int kMode, int kE>
 struct LaunchExtract {
+  // The store and the carry: a need above the card's limit fails
+  // ensure_smem.
+  template <class Kind, int kEpi>
+  static int narrow(const XArgs& a, const Maps& maps, cudaStream_t s) {
+    constexpr auto kern = narrow_kernel<kMode, Kind, kEpi>();
+    if (kMode == kXCarry && (a.stage < 1 || a.stage > 32)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    if (kMode == kXStore && a.cap < a.k + 32) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const int smem = narrow_smem<kMode>(a);
+    const int e = ensure_smem<kern>(smem);
+    if (e != 0) return e;
+    kern<<<a.groups * a.parts, kThreads, smem, s>>>(maps, a);
+    return (int)cudaGetLastError();
+  }
+
   template <class Kind, int kEpi>
   static int run(const XArgs& a, void* merge_v, void* merge_i, void* out_v,
                  void* out_i, cudaStream_t s) {
+    constexpr bool kIsNarrow = kMode == kXStore || kMode == kXCarry;
     Maps maps{};
-    int e = make_maps(&maps, false, a.x, a.q, a.n, a.b, a.row_bytes);
+    int e = make_maps(&maps, false, a.x, a.q, a.n, a.b, a.row_bytes,
+                      kIsNarrow ? kNarrow : kGroup);
     if (e != 0) return e;
-    const int ring_n = kMode == kXCarry ? a.ring : kRing;
-    if (ring_n < 2 || ring_n > kRing) return (int)cudaErrorInvalidValue;
-    int smem = 1024 + ring_n * kStageBytes;
-    if (kMode == kXCarry && a.carry_smem) smem += kGroup * a.k * 8;
-    auto* kern = extract_local<Kind, kEpi, kMode, kE>;
-    e = ensure_smem<extract_local<Kind, kEpi, kMode, kE>>(smem);
-    if (e != 0) return e;
-    kern<<<a.groups * a.parts, kThreads, smem, s>>>(maps, a);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    if constexpr (kMode == kXFloor) {
-      const long total = (long)a.b * a.k;
-      extract_floor_finish<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
-          a.cand_v, a.parts, a.b, a.k, static_cast<float*>(out_v),
-          static_cast<int*>(out_i));
-      return (int)cudaGetLastError();
-    } else {
-      return launch_merge(a.cand_v, a.cand_i, a.cand_n, a.parts, a.cap, a.b,
+    if constexpr (kIsNarrow) {
+      e = narrow<Kind, kEpi>(a, maps, s);
+      if (e != 0) return e;
+      return launch_merge(a.cand_v, a.cand_i, a.cand_n, a.parts,
+                          a.on_chip || kMode == kXCarry ? a.k : a.cap, a.b,
                           a.k, merge_v, merge_i, out_v, out_i, s);
+    } else {
+      const int smem = 1024 + kRing * kStageBytes;
+      auto* kern = extract_local<Kind, kEpi, kMode, kE>;
+      e = ensure_smem<extract_local<Kind, kEpi, kMode, kE>>(smem);
+      if (e != 0) return e;
+      kern<<<a.groups * a.parts, kThreads, smem, s>>>(maps, a);
+      cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+      if constexpr (kMode == kXFloor) {
+        const long total = (long)a.b * a.k;
+        extract_floor_finish<<<(unsigned)((total + 255) / 256), 256, 0,
+                               s>>>(a.cand_v, a.parts, a.b, a.k,
+                                    static_cast<float*>(out_v),
+                                    static_cast<int*>(out_i));
+        return (int)cudaGetLastError();
+      } else {
+        return launch_merge(a.cand_v, a.cand_i, a.cand_n, a.parts, a.cap,
+                            a.b, a.k, merge_v, merge_i, out_v, out_i, s);
+      }
     }
   }
 };
@@ -536,9 +953,9 @@ int run_extract(int elem, int epi, const XArgs& a, void* merge_v,
   int elem, int epi, int variant, const void *x, const void *aux,            \
       const void *mask, const void *q, const void *offset, int n,            \
       int row_bytes, int b, int k, int groups, int parts, int cap,           \
-      int block_rows, int ring, int count, int carry_smem, void *cand_v,     \
-      void *cand_i, void *cand_n, void *cnt, void *merge_v, void *merge_i,   \
-      void *out_v, void *out_i, void *stream
+      int block_rows, int count, int on_chip, int stage,                     \
+      void *cand_v, void *cand_i, void *cand_n, void *cnt,                   \
+      void *merge_v, void *merge_i, void *out_v, void *out_i, void *stream
 #define VROD_EXTRACT_XARGS                                                   \
   vrod::XArgs{static_cast<const int8_t*>(x),                           \
                     static_cast<const int8_t*>(q),                           \
@@ -546,6 +963,7 @@ int run_extract(int elem, int epi, const XArgs& a, void* merge_v,
                     static_cast<const float*>(mask),                         \
                     static_cast<const int*>(offset),                         \
                     n, b, k, row_bytes, groups, parts, cap, block_rows,      \
-                    ring, count, carry_smem, static_cast<float*>(cand_v),    \
+                    count, on_chip, stage,                                   \
+                    static_cast<float*>(cand_v),                             \
                     static_cast<int*>(cand_i), static_cast<int*>(cand_n),    \
                     static_cast<int*>(cnt)}

@@ -839,19 +839,20 @@ inline int encode_map(CUtensorMap* m, const void* base, int inner,
 }
 
 // The maps of a launch on rows x (n, row_bytes) and queries q (b,
-// row_bytes; packed int4 (b, 2 * row_bytes), split into its halves).
+// row_bytes; packed int4 (b, 2 * row_bytes), split into its halves), the
+// queries in boxes of a group of q_box.
 inline int make_maps(Maps* m, bool packed, const void* x, const void* q,
-                     int n, int b, int row_bytes) {
+                     int n, int b, int row_bytes, int q_box = kGroup) {
   int e = encode_map(&m->x, x, row_bytes, n, row_bytes, kTileRows);
   if (e != 0) return e;
   const long qstride = packed ? 2L * row_bytes : row_bytes;
-  e = encode_map(&m->q, q, row_bytes, b, qstride, kGroup);
+  e = encode_map(&m->q, q, row_bytes, b, qstride, q_box);
   if (e != 0 || !packed) {
     m->q_hi = m->q;
     return e;
   }
   return encode_map(&m->q_hi, static_cast<const int8_t*>(q) + row_bytes,
-                    row_bytes, b, qstride, kGroup);
+                    row_bytes, b, qstride, q_box);
 }
 
 // The maps of a K1 or K3 launch from the wrapper's cached encodings

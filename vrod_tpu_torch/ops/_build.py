@@ -168,10 +168,16 @@ def load(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     # The extraction experiments X1-X4, one entry point per mode file
     # (csrc/extract.cuh: VROD_EXTRACT_PARAMS): (elem, epi, variant, x, aux,
     # mask, q, offset, n, row_bytes, b, k, groups, parts, cap, block_rows,
-    # ring, count, carry_smem, 8 scratch/output pointers, stream)
+    # count, on_chip, stage, 8 scratch/output pointers, stream)
     for mode in EXTRACT_MODES:
         fn = getattr(lib, f"vrod_extract_{mode}")
         fn.restype = ci
         fn.argtypes = [ci] * 3 + [vp] * 5 + [ci] * 11 + [vp] * 9
+    # The store's and the carry's whole shared memory a block: (k, stage,
+    # on_chip) and (cap, on_chip)
+    lib.vrod_extract_carry_smem.restype = ci
+    lib.vrod_extract_carry_smem.argtypes = [ci] * 3
+    lib.vrod_extract_store_smem.restype = ci
+    lib.vrod_extract_store_smem.argtypes = [ci] * 2
     _libs[defines] = lib
     return lib

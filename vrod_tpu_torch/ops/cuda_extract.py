@@ -16,13 +16,15 @@ the exact int32 dot, not K1's scaled one), and returns the exact top-k by
 
 - ``kexp_call(variant)`` (X1): ``floor`` returns (B, k) filled with each
   query's max score over the whole blocks and ids -1 (the scan's floor, not
-  a top-k); ``base``/``maxref`` run the store mode (no register gate, every
-  finite score appended, lists cut every tile); ``gate``, ``nostore``,
+  a top-k); ``base``/``maxref`` run the store mode (every score of a tile
+  stored in shared memory, then only those above the query's running k-th
+  appended to its list, which is cut when full); ``gate``, ``nostore``,
   ``argmax`` and ``subdot`` run K1's gate, topk.cuh's own ``consume_all``
   and ``gate_tile`` (on the TPU they differ in Mosaic's stores and argmax;
   on the H100 every score stays in its register, so they share one build);
 - ``kexp2_call(tiles, count)`` (X2): the running top-k carried sorted per
-  query and inserted in place; also returns ``cnt`` (1,) int32, kexp2's
+  query in shared memory and merged in place, a tile's passing scores at a
+  time; also returns ``cnt`` (1,) int32, kexp2's
   while-iteration count under ``KEXP_COUNT=1`` when ``count``, else 0;
 - ``kexp3_call`` (X3): K1's ``consume_all`` with the consumer
   warpgroups in ping-pong;
@@ -50,6 +52,8 @@ a CUDA launch adds to it.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -98,51 +102,122 @@ def reset_launches() -> None:
 # -- Launch plans ------------------------------------------------------------
 
 SMEM_BYTES = 232448         # a block's shared memory on the H100 (227 KB)
-STAGE_BYTES = 48 * 1024     # one ring stage (score.cuh: kStageBytes)
-K1_RING = 4                 # the ring of every mode but X2 (topk.cuh)
-# Static shared memory of X2's kernel (barriers, gates, locks, the warps'
-# 12 KB of insert queues) and slack.
-CARRY_STATIC_BYTES = 16384
+ROW_BOX = 128 * 128         # a stage's row tile (score.cuh: kRowBox)
+RING = 4                    # stages of every kernel's ring (topk.cuh: kRing)
+# The store's and the carry's query group (wgmma n64; extract.cuh:
+# kNarrow): n64 measured faster than n128 for both at every k of the smoke
+# (PERF.md; each warp merges or extracts for 8 queries a tile, not 16),
+# though each block reads its rows for fewer queries. The carry's stage
+# sizes, largest first (places a query, each of two buffers).
+NARROW = 64
+CARRY_STAGES = (32, 16)
+STORE_PITCH = 132           # floats a query row of the store's score tile
+# A store list holds k + 32 at least: after a cut, one more chunk of 32.
+STORE_SLACK = 32
+# Static shared memory of each kernel (extract.cuh's __shared__ arrays):
+# the ring's 8 barriers; X2's gates and two buffers' stage counts; the
+# store's gates, list lengths and its 8 warps' 256-bin select counters.
+# The card tests hold carry_smem/store_smem, these included, to the
+# library's vrod_extract_{carry,store}_smem.
+CARRY_STATIC_BYTES = 8 * 8 + 3 * NARROW * 4
+STORE_STATIC_BYTES = 8 * 8 + 2 * NARROW * 4 + 8 * 256 * 4
+STAGE_BYTES = ROW_BOX + NARROW * 128  # one ring stage: rows' and queries'
+
+
+class XPlan(NamedTuple):
+    """A kernel's launch plan (``extract_plan``)."""
+    groups: int     # query groups of `width`
+    parts: int      # row parts: block (part, group) walks tiles part, +parts
+    cap: int        # a (part, query) list's capacity; X2: k, its carry
+    on_chip: bool   # the store's lists, X2's carry, in shared memory
+    width: int      # queries a block: NARROW, or K1's group
+    stage: int      # X2: places of a query's stage (0 for the others)
+
+
+def carry_smem(k: int, stage: int, on_chip: bool = True) -> int:
+    """X2's shared memory a block (csrc/extract.cuh: narrow_smem, plus the
+    static part): the ring, two stages of ``stage`` places a query, and the
+    carry (NARROW x k values and slots) when on chip."""
+    return (1024 + RING * STAGE_BYTES + 2 * NARROW * stage * 8
+            + (NARROW * k * 8 if on_chip else 0) + CARRY_STATIC_BYTES)
 
 
 def carry_plan(k: int) -> tuple[int, bool]:
-    """X2's (ring stages, carry in shared memory) for top-k: the deepest
-    ring of 4 or 3 stages beside which 256 queries x k x 8 bytes of carry
-    fit in a block's shared memory (k <= 9 with 4 stages, <= 33 with 3),
-    else the carry in global memory (L2) beside 4 stages."""
-    for ring in (K1_RING, 3):
-        need = 1024 + ring * STAGE_BYTES + K.GROUP_QUERIES * k * 8 \
-            + CARRY_STATIC_BYTES
-        if need <= SMEM_BYTES:
-            return ring, True
-    return K1_RING, False
+    """X2's (stage, on_chip) for top-k: the largest stage at which the
+    carry fits in shared memory beside a 4-stage ring (32 to k 194, 16 to
+    k 226); past that the carry in global memory (L2) with the least
+    stage."""
+    for stage in CARRY_STAGES:
+        if carry_smem(k, stage) <= SMEM_BYTES:
+            return stage, True
+    return CARRY_STAGES[-1], False
+
+
+def store_smem(cap: int, on_chip: bool = True) -> int:
+    """The store's shared memory a block (as ``carry_smem``): the ring,
+    the score tile (NARROW x STORE_PITCH floats) and the lists (NARROW x
+    cap values and slots) when on chip."""
+    return (1024 + RING * STAGE_BYTES + NARROW * STORE_PITCH * 4
+            + (NARROW * cap * 8 if on_chip else 0) + STORE_STATIC_BYTES)
+
+
+def store_plan(k: int) -> tuple[int, bool]:
+    """The store's (cap, on_chip) for top-k: lists of as many entries as
+    fit in shared memory beside the ring and the score tile (176), where
+    that is k + 32 at least (to k 144); else the lists in global memory
+    with K1's capacity."""
+    room = (SMEM_BYTES - store_smem(0)) // (NARROW * 8)
+    if room >= k + STORE_SLACK:
+        return room, True
+    return K.topk_plan(1, 1, k, 1)[2], False
 
 
 def extract_plan(kernel: str, n: int, b: int, k: int, sms: int,
-                 count: bool = False) -> tuple[int, int, int, int, bool]:
-    """A kernel's grid for n rows (whole blocks), b queries, top-k on ``sms``
-    SMs: (groups, parts, cap, ring, carry_smem). The grid is K1's
-    (``topk_plan``). cap is a (part, query) list's capacity: K1's for the
-    gated modes (k and 5 tiles: cuts every 4 tiles), k + 1 tile for the
-    store mode (cut every tile), k for X2's carry, 0 for the floor (one max
-    per part and query). With ``count`` X2 runs one part per query group,
-    so that it walks the rows in global order."""
+                 count: bool = False) -> XPlan:
+    """A kernel's grid for n rows (whole blocks), b queries, top-k on
+    ``sms`` SMs. The gated kernels and the floor run K1's (``topk_plan``:
+    256-query groups, about one block per SM, K1's list capacity; the
+    floor keeps one max per part and query, cap 0). The store and the carry
+    take groups of NARROW (``store_plan``, ``carry_plan``) in as many
+    parts as leave about one block per SM. With ``count`` X2 runs one part
+    per query group, so that it walks the rows in global order."""
     if kernel not in KERNELS:
         raise ValueError(f"kernel {kernel!r}: expected one of "
                          f"{tuple(KERNELS)}")
     mode = KERNELS[kernel][0]
     groups, parts, cap = K.topk_plan(n, b, k, sms)
-    ring, smem = K1_RING, False
+    width, stage, on_chip = K.GROUP_QUERIES, 0, False
     if mode == "floor":
         cap = 0
     elif mode == "store":
-        cap = k + K.TILE_ROWS
+        width = NARROW
+        cap, on_chip = store_plan(k)
     elif mode == "carry":
-        cap = k
-        ring, smem = carry_plan(k)
-        if count:
-            parts = 1
-    return groups, parts, cap, ring, smem
+        width, cap = NARROW, k
+        stage, on_chip = carry_plan(k)
+    if width != K.GROUP_QUERIES:
+        groups = -(-b // width)
+        parts = max(1, min(-(-n // K.TILE_ROWS), sms // groups))
+    if count and mode == "carry":
+        parts = 1
+    return XPlan(groups, parts, cap, on_chip, width, stage)
+
+
+def scratch_sizes(kernel: str, plan: XPlan, b: int, k: int, nblocks: int,
+                  count: bool = False) -> dict[str, int]:
+    """The elements of each scratch tensor of a launch: the (part, query)
+    lists handed to the merge (``cand``: stride k where the store's lists
+    or X2's carry stayed on chip, else the plan's capacity; the floor: one
+    max a part and query), their lengths, X2's per-block counts and the
+    merge's gather (``merge``: every part's k a query)."""
+    mode = KERNELS[kernel][0]
+    stride = k if mode == "carry" or (mode == "store" and plan.on_chip) \
+        else plan.cap
+    lists = plan.parts * b * stride
+    return {"cand_v": plan.parts * b if mode == "floor" else lists,
+            "cand_i": max(lists, 1), "cand_n": plan.parts * b,
+            "cnt": nblocks * b if count else 1,
+            "merge": b * plan.parts * k}
 
 
 # -- Validation and the plain scores ---------------------------------------
@@ -306,25 +381,23 @@ def _launch(kernel, call, *, count=False):
         return out_v, out_i, None
     b, k, dev = call.b, call.k, call.device
     mode, unroll = KERNELS[kernel]
-    groups, parts, cap, ring, smem = extract_plan(
-        kernel, call.n_scan, b, k, K._sms(dev), count)
+    plan = extract_plan(kernel, call.n_scan, b, k, K._sms(dev), count)
+    size = scratch_sizes(kernel, plan, b, k, call.nblocks, count)
     lib = _build.load()
     f32, i32 = torch.float32, torch.int32
     with torch.cuda.device(dev):
-        lists = parts * b * cap
-        cand_v = torch.empty(parts * b if mode == "floor" else lists,
-                             dtype=f32, device=dev)
-        cand_i = torch.empty(max(lists, 1), dtype=i32, device=dev)
-        cand_n = torch.empty(parts * b, dtype=i32, device=dev)
-        cnt = torch.empty(call.nblocks * b if count else 1, dtype=i32,
-                          device=dev)
-        merge_v = torch.empty(b * parts * k, dtype=f32, device=dev)
-        merge_i = torch.empty(b * parts * k, dtype=i32, device=dev)
+        cand_v = torch.empty(size["cand_v"], dtype=f32, device=dev)
+        cand_i = torch.empty(size["cand_i"], dtype=i32, device=dev)
+        cand_n = torch.empty(size["cand_n"], dtype=i32, device=dev)
+        cnt = torch.empty(size["cnt"], dtype=i32, device=dev)
+        merge_v = torch.empty(size["merge"], dtype=f32, device=dev)
+        merge_i = torch.empty(size["merge"], dtype=i32, device=dev)
         rc = getattr(lib, f"vrod_extract_{mode}")(
             call.elem, call.epi, unroll, call.x.data_ptr(),
             call.aux.data_ptr(), call.mask.data_ptr(), call.q.data_ptr(),
             call.offset.data_ptr(), call.n_scan, call.row_bytes, b, k,
-            groups, parts, cap, call.block_rows, ring, int(count), int(smem),
+            plan.groups, plan.parts, plan.cap, call.block_rows, int(count),
+            int(plan.on_chip), plan.stage,
             cand_v.data_ptr(), cand_i.data_ptr(), cand_n.data_ptr(),
             cnt.data_ptr(), merge_v.data_ptr(), merge_i.data_ptr(),
             out_v.data_ptr(), out_i.data_ptr(), K._stream(dev))

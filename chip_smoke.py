@@ -90,12 +90,14 @@ nothing falls back to the CPU or to a plain version):
    k_scan and at 112: int8 EXACT, bfloat16 within the bound, the ties
    EXACT and lowest slot first; and X2's count (one part per query group)
    EQUAL to its closed form. On the main path, also not counted, the
-   store's and the carry's edge cases at 65,536 x 768 (``extract_edges``):
-   int8 at k 1, 33, 34, 112, 128, 150 and 230 (past the store's and then
-   the carry's on-chip limit) for 1, 200 and 300 queries, all nine legs
-   (int8, bf16, f32 x cosine, l2, dot) at b256 k 28, and X2's count at
-   tiles 1, 2 and 4, each against its plain twin or closed form; and the
-   plans' shared memory equal to the built kernels' own, k 1 to 256.
+   edge cases of every kernel but the floor at 65,536 x 768
+   (``extract_edges``): int8 at k 1, 33, 34, 112, 128, 150, 210, 211 and
+   230 (past the store's lists', the gated kernels' lists' and then the
+   carry's on-chip limit) for 1, 200 and 300 queries, every leg each
+   takes (int8, bf16, f32 x cosine, l2, dot; X4 cosine) at b256 k 28, and
+   X2's count at tiles 1, 2 and 4, each against its plain twin or closed
+   form; and the plans' shared memory equal to the built kernels' own, k
+   1 to 256.
 6. Serving, on the main path. During its ingest every chunk is also
    quantized on the port's CPU path: the share of stored bytes that differ
    (a cosine norm whose last ulp differs flips a byte at a rounding edge)
@@ -218,6 +220,10 @@ kernels K1 with no floor on the same tensors (``k1_ms``).
 The last two lines of standard output are one JSON object per line: the
 kernels' account (one entry per kernel and leg), then ``{"ok": true,
 "device": {...}}``.
+
+The script leaves no process behind, however it ends: it adopts every
+process its children leave (Linux's ``PR_SET_CHILD_SUBREAPER``) and, before
+it exits, stops each one still running and names it on standard error.
 """
 
 from __future__ import annotations
@@ -266,12 +272,15 @@ FLOOR_KSCANS = {"main path": (28, 112), "(iii)": (108,)}
 # cuda_extract.KERNEL_CALLS).
 EXTRACT_KSCANS = {"main path": (28, 112), "(iii)": (108,)}
 EXTRACT_BLOCK = 2048
-# Phase 5's edge cases of the store and the carry: rows, k (33/34: where
+# Phase 5's edge cases of every kernel but the floor: rows, k (33/34: where
 # X2's carry once left shared memory; 112 and 128; 150: the store's lists
-# past the on-chip limit, in global memory; 230: X2's carry there too) and
-# batches (200: no multiple of a query group; 300: five groups of 64).
+# past the on-chip limit, in global memory; 210/211: the last k whose
+# gated lists stay on chip, and the first past it; 230: X2's carry in
+# global memory too) and batches (200: no multiple of a query group; 300:
+# five groups of 64).
 EDGE_ROWS = 65536
-EDGE_KS = (1, 33, 34, 112, 128, 150, 230)
+EDGE_KS = (1, 33, 34, 112, 128, 150, 210, 211, 230)
+EDGE_KERNELS = ("carry", "store", "gate", "unroll2", "unroll4", "pingpong")
 EDGE_BATCHES = (1, 200, 300)
 # The serve phase (6): client processes and connections in each (256 in
 # flight: one full batch of the server's QueryBatcher), their single
@@ -988,14 +997,19 @@ def floor_phase(cmp, card, name, leg, args, k_scans):
 
 def tie_extract_inputs(leg, dev, rng):
     """Case (e)'s ties across list cuts as the experiments take them: 40
-    copies of row 7 in each of the first seven row tiles of part 0, query 0
-    = row 7, rows of -1/0/1 and queries of four +-2, aux 1, no dead slot,
-    so every score is exact; (x, aux2d, mask2d, q, offset) and the
-    copies."""
+    copies of row 7 in each of the first seven row tiles of part 0 of the
+    gated kernels' plan (the store's and the carry's: the same groups of
+    64), query 0 = row 7, rows of -1/0/1 and queries of four +-2, aux 1,
+    no dead slot, so every score is exact; (x, aux2d, mask2d, q, offset)
+    and the copies. The first tiles fill query 0's list, so a cut raises
+    its k-th to the copies' score and later copies meet a k-th equal to
+    theirs."""
     import torch
+    from vrod_tpu_torch.ops import cuda_extract as X
     from vrod_tpu_torch.ops import cuda_topk as K
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    _, parts, _ = K.topk_plan(8 * K.TILE_ROWS * sms, BATCH, 112, sms)
+    parts = X.extract_plan("gate", 8 * K.TILE_ROWS * sms, BATCH, 112,
+                           sms).parts
     n = 8 * parts * K.TILE_ROWS
     copies = [t * parts * K.TILE_ROWS + r for t in range(7)
               for r in range(8, 48)]
@@ -1060,8 +1074,8 @@ def extract_phase(cmp, card, name, leg, args, k_scans):
         "the closed form")
     targs, copies = tie_extract_inputs(leg, args[0].device,
                                        np.random.default_rng(7))
-    # At the phase's first k_scan and at 112 (X2's carry and the store's
-    # lists on chip at both, in query groups of 64).
+    # At the phase's first k_scan and at 112 (X2's carry and every list on
+    # chip at both, in query groups of 64).
     for kt in dict.fromkeys((k, 112)):
         for kern in X.KERNELS:
             _, i = cmp.extract(kern, leg, targs, kt,
@@ -1093,16 +1107,16 @@ def extract_phase(cmp, card, name, leg, args, k_scans):
 
 
 def extract_edges(cmp, card, dev):
-    """Phase 5's edge cases of the redesigned store and carry, not counted,
-    each against its plain twin on EDGE_ROWS x 768 seeded cosine rows: int8
-    at each of EDGE_KS for 1, 200 (no multiple of a query group) and 300
-    queries; every leg (int8, bfloat16, float32 x cosine, l2, dot) at b256,
-    k 28; X2's count at tiles 1, 2 and 4 EQUAL to its closed form. int8
-    EXACT, the float legs within the bound. First, the plans' shared
-    memory (``carry_smem``, ``store_smem``) EQUAL to the library's account
-    of the built kernels at every k to 256, and EDGE_KS reaching past both
-    on-chip limits. Prints each kernel's launches a call and the wall
-    time."""
+    """Phase 5's edge cases of EDGE_KERNELS, not counted, each against its
+    plain twin on EDGE_ROWS x 768 seeded cosine rows: int8 at each of
+    EDGE_KS for 1, 200 (no multiple of a query group) and 300 queries;
+    every leg a kernel takes (int8, bfloat16, float32 x cosine, l2, dot;
+    X4 cosine) at b256, k 28; X2's count at tiles 1, 2 and 4 EQUAL to its
+    closed form. int8 EXACT, the float legs within the bound. First, the
+    plans' shared memory (``carry_smem``, ``store_smem``, ``gate_smem``)
+    EQUAL to the library's account of the built kernels at every k to 256,
+    and EDGE_KS reaching past every on-chip limit. Prints each kernel's
+    launches a call and the wall time."""
     import torch
     from vrod_tpu_torch.ops import _build
     from vrod_tpu_torch.ops import cuda_extract as X
@@ -1117,22 +1131,31 @@ def extract_edges(cmp, card, dev):
                         f"carry_smem({k}, {stage}, {on_chip}) = "
                         f"{X.carry_smem(k, stage, on_chip)}, the kernel "
                         f"needs {got}")
-        cap, on_chip = X.store_plan(k)
-        got = lib.vrod_extract_store_smem(cap, int(on_chip))
-        if got != X.store_smem(cap, on_chip):
-            raise AssertionError(f"store_smem({cap}, {on_chip}) = "
-                                 f"{X.store_smem(cap, on_chip)}, the kernel "
-                                 f"needs {got}")
+        for plan, smem, fn in ((X.store_plan, X.store_smem,
+                                lib.vrod_extract_store_smem),
+                               (X.gate_plan, X.gate_smem,
+                                lib.vrod_extract_gate_smem)):
+            cap, on_chip = plan(k)
+            got = fn(cap, int(on_chip))
+            if got != smem(cap, on_chip):
+                raise AssertionError(f"{smem.__name__}({cap}, {on_chip}) = "
+                                     f"{smem(cap, on_chip)}, the kernel "
+                                     f"needs {got}")
     off = {kern: [k for k in EDGE_KS if not X.extract_plan(
-        kern, EDGE_ROWS, BATCH, k, 132).on_chip] for kern in ("carry", "store")}
+        kern, EDGE_ROWS, BATCH, k, 132).on_chip] for kern in EDGE_KERNELS}
     if not all(off.values()):
         raise AssertionError(f"EDGE_KS {EDGE_KS} leave a kernel's global-"
                              f"memory path untested: off chip at {off}")
+    edge = max(k for k in range(1, 257) if X.gate_plan(k)[1])
+    if edge not in EDGE_KS or edge + 1 not in EDGE_KS:
+        raise AssertionError(f"EDGE_KS {EDGE_KS} miss the gated lists' "
+                             f"on-chip edge, k {edge} and {edge + 1}")
     log(f"edge cases: the plans' shared memory equals the kernels' at k "
         f"1-256; in global memory: the carry at k {off['carry']}, the "
-        f"store's lists at k {off['store']}")
+        f"store's lists at k {off['store']}, the gated kernels' lists at k "
+        f"{off['gate']} (on chip to k {edge})")
     ke = tool_module("kexp_extract")
-    kerns = ("carry", "store")
+    kerns = EDGE_KERNELS
     calls = dict.fromkeys(kerns, 0)
     X.reset_launches()
     for i, dtype in enumerate(X.X_DTYPES):
@@ -1156,6 +1179,8 @@ def extract_edges(cmp, card, dev):
         sub = xargs[:3] + [xargs[3][:BATCH].contiguous(), xargs[4]]
         for metric in X.X_METRICS:
             for kern in kerns:
+                if f"{dtype}-{metric}" not in X.kernel_legs(kern):
+                    continue
                 cmp.extract(kern, f"{dtype}-{metric}", sub, 28,
                             f"edge {dtype}-{metric} k 28 b{BATCH}")
                 calls[kern] += 1
@@ -2567,5 +2592,70 @@ def main(argv=None) -> int:
     return 0
 
 
+def adopt_orphans():
+    """Make this process the parent of every process that one it starts
+    leaves behind, however deep (``PR_SET_CHILD_SUBREAPER``), so that
+    ``stop_leftovers`` finds it."""
+    import ctypes
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(36, 1, 0, 0, 0) != 0:  # PR_SET_CHILD_SUBREAPER
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+
+
+def children():
+    """{pid: state} of this process's children, adopted ones included."""
+    out = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            stat = Path("/proc", d, "stat").read_text()
+        except OSError:
+            continue
+        state, ppid = stat.rsplit(")", 1)[1].split()[:2]
+        if int(ppid) == os.getpid():
+            out[int(d)] = state
+    return out
+
+
+def stop_leftovers():
+    """Stop (SIGTERM, then SIGKILL after 10 s) and reap every child still
+    there, until none is left; name each that was running on standard
+    error. multiprocessing's resource tracker (the serve phase's spawn
+    context starts it) ignores SIGTERM and would outlive this process by
+    the moment it takes to see the end: it is stopped first, by its own
+    shutdown, once nothing it tracks is left."""
+    import gc
+    import signal
+    tracker = sys.modules.get("multiprocessing.resource_tracker")
+    if tracker is not None:
+        gc.collect()
+        tracker._resource_tracker._stop()
+    while kids := children():
+        for pid, state in kids.items():
+            if state != "Z":
+                try:
+                    cmd = Path("/proc", str(pid), "cmdline").read_bytes()
+                except OSError:
+                    cmd = b""
+                cmd = cmd.replace(b"\0", b" ").decode(errors="replace")
+                print(f"chip_smoke: stopping pid {pid}, left running: {cmd}",
+                      file=sys.stderr, flush=True)
+                os.kill(pid, signal.SIGTERM)
+        end = time.monotonic() + 10
+        for pid in kids:
+            while not os.waitpid(pid, os.WNOHANG)[0]:
+                if time.monotonic() > end:
+                    os.kill(pid, signal.SIGKILL)
+                    os.waitpid(pid, 0)
+                    break
+                time.sleep(0.05)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    adopt_orphans()
+    try:
+        rc = main()
+    finally:
+        stop_leftovers()
+    sys.exit(rc)

@@ -451,7 +451,9 @@ def test_cuda_fused_theta_refuses_a_grid_that_is_not_co_resident(
 X_KERNELS = list(cuda_extract.KERNELS)
 # name, n (not a multiple of the block), dim, batch, k, block_rows, offset
 X_CASES = [("small", 8492, 128, 40, 28, 1024, 1000),
-           ("b264_k112", 65636, 96, 264, 112, 2048, 7)]
+           ("b264_k112", 65636, 96, 264, 112, 2048, 7),
+           ("b256_k108", 131172, 128, 256, 108, 2048, 11)]
+GATED = ["gate", "unroll2", "unroll4", "pingpong"]
 _X_ROW = {"int8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32}
 
 
@@ -496,8 +498,9 @@ def x_agree(dtype, metric, args, got, want):
     (kern, leg) for kern in X_KERNELS
     for leg in cuda_extract.kernel_legs(kern)])
 def test_cuda_extract_matches_plain(rng, cuda_device, case, mode, leg):
-    """Every kernel on every leg it takes, against its plain twin: int8
-    EQUAL, bfloat16/float32 within the score bound; the floor's ids -1."""
+    """Every kernel on every leg it takes, against its plain twin, at k 28,
+    112 and 108 with dead slots: int8 EQUAL, bfloat16/float32 within the
+    score bound; the floor's ids -1."""
     _, n, d, b, k, blk, offset = case
     dtype, metric = leg.split("-")
     args = x_args(rng, n, d, b, cuda_device, dtype, offset)
@@ -589,12 +592,54 @@ def test_cuda_carry_and_store_edges(rng, cuda_device, mode, b, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 33, 112, 128, 210, 211, 230])
+@pytest.mark.parametrize("b", [1, 200, 300])
+@pytest.mark.parametrize("mode", GATED)
+def test_cuda_gated_edges(rng, cuda_device, mode, b, k):
+    """The gated kernels (X1's gate, X4, X3) at their plan's edges: k 1,
+    33, 112, 128, the last k whose 242-entry lists stay in shared memory
+    (210) and past it (211, 230: lists of K1's capacity in global memory);
+    one query, a batch that is no multiple of the group (200) and 300
+    (five groups of 64): int8 EQUAL to the plain twin, one launch a call,
+    and every slot of a whole block."""
+    on_chip = cuda_extract.extract_plan(mode, 16384, b, k, 132).on_chip
+    assert on_chip == (k <= 210)
+    n, blk, offset = 16384 + 77, 1024, 3
+    args = x_args(rng, n, 128, b, cuda_device, "int8", offset)
+    kw = dict(k=k, metric="cosine", block_rows=blk, precision_name="fast")
+    cuda_extract.reset_launches()
+    got = cuda_extract.run_kernel(mode, *args, **kw)
+    want = cuda_extract.run_kernel(mode, *args, plain=True, **kw)
+    torch.cuda.synchronize()
+    assert cuda_extract.launches[f"extract_{mode}[int8-cosine]"] == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[1].max()) < n // blk * blk + offset
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("k", [28, 108, 112])
+def test_cuda_pingpong_matches_plain_across_tiles(rng, cuda_device, dtype,
+                                                  k):
+    """X3 (the gate of one tile under the wgmmas of the next, accumulators
+    alternating by tile) on every dtype at k 28, 108 and 112, dead slots,
+    300 queries, cosine, over 40,000 rows (tiles of odd and even count per
+    part): int8 EQUAL, the float rows within the bound."""
+    args = x_args(rng, 40000, 128, 300, cuda_device, dtype, 5)
+    kw = dict(k=k, metric="cosine", block_rows=1024, precision_name="fast")
+    got = cuda_extract.kexp3_call(*args, **kw)
+    want = cuda_extract.kexp3_plain(*args, **kw)
+    torch.cuda.synchronize()
+    x_agree(dtype, "cosine", args, got, want)
+
+
+@pytest.mark.cuda
 def test_cuda_extract_smem_is_the_kernels(cuda_device):
-    """The plans' shared memory (``carry_smem``, ``store_smem``: the ring,
-    the stages or the score tile, the carry or the lists, the static part)
-    is the kernels' own, as the library reports it from the built kernels
-    (their static size and ``narrow_smem``), on chip and off, at every k
-    to 256 and the capacities of both placements."""
+    """The plans' shared memory (``carry_smem``, ``store_smem``,
+    ``gate_smem``: the ring, the stages or the score tile, the carry or the
+    lists, the static part) is the kernels' own, as the library reports it
+    from the built kernels (their static size and ``narrow_smem``), on chip
+    and off, at every k to 256 and the capacities of both placements."""
     lib = _build.load()
     for k in range(1, 257):
         for stage in cuda_extract.CARRY_STAGES:
@@ -604,7 +649,11 @@ def test_cuda_extract_smem_is_the_kernels(cuda_device):
         cap, on_chip = cuda_extract.store_plan(k)
         assert lib.vrod_extract_store_smem(cap, int(on_chip)) \
             == cuda_extract.store_smem(cap, on_chip), k
+        cap, on_chip = cuda_extract.gate_plan(k)
+        assert lib.vrod_extract_gate_smem(cap, int(on_chip)) \
+            == cuda_extract.gate_smem(cap, on_chip), k
     assert lib.vrod_extract_store_smem(177, 1) > cuda_extract.SMEM_BYTES
+    assert lib.vrod_extract_gate_smem(243, 1) > cuda_extract.SMEM_BYTES
 
 
 @pytest.mark.cuda

@@ -5,10 +5,10 @@ shapes TMA cannot load (rows not a multiple of 16 bytes, unaligned bases)
 to the copying producer. A build with extra defines (the measurement
 scripts' variants) lives beside the default library, never in its place.
 (K3's segments are its clusters' blocks: ``submax_tiles``.) The
-extraction kernels' plans (``cuda_extract.extract_plan``): the gated
-kernels and the floor run K1's grid with each kernel's list capacity;
-the store and X2's carry take query groups of 64 whose lists and carry
-stay in shared memory to k 128, within a block's 227 KB."""
+extraction kernels' plans (``cuda_extract.extract_plan``): the floor
+runs K1's grid; the store, X2's carry and the gated kernels (X1's gate,
+X3, X4) take query groups of 64 whose lists and carry stay in shared
+memory to k 128 at least, within a block's 227 KB."""
 
 import pytest
 import torch
@@ -180,7 +180,12 @@ def test_new_plans_keep_carry_and_lists_on_chip_to_k_128(k):
     assert son_chip and cap >= k + cuda_extract.STORE_SLACK
     assert cuda_extract.store_smem(cap) <= cuda_extract.SMEM_BYTES
     assert cuda_extract.store_smem(cap + 1) > cuda_extract.SMEM_BYTES
-    for kernel in ("carry", "store"):
+    gcap, gon_chip = cuda_extract.gate_plan(k)
+    assert gon_chip and gcap >= k + cuda_extract.STORE_SLACK
+    assert cuda_extract.gate_smem(gcap) <= cuda_extract.SMEM_BYTES
+    assert cuda_extract.gate_smem(gcap + 1) > cuda_extract.SMEM_BYTES
+    for kernel in ("carry", "store", "gate", "unroll2", "unroll4",
+                   "pingpong"):
         plan = cuda_extract.extract_plan(kernel, 1 << 20, 256, k, 132)
         assert plan.on_chip
 
@@ -190,32 +195,41 @@ def test_new_plans_keep_carry_and_lists_on_chip_to_k_128(k):
     (128, True, True), (144, True, True), (145, True, False),
     (1280, False, False)])
 def test_new_plans_group_width_by_k(k, carry_on_chip, store_on_chip):
-    """The query group each new plan takes by k: 64 for both at every k
-    (n64 measured faster than n128 on the H100), X2's carry on chip to k
-    226 and the store's 176-entry lists to k 144, then in global memory at
-    the same group; the other kernels keep K1's 256."""
+    """The query group each plan takes by k: 64 for every kernel but the
+    floor at every k (n64 measured faster than n128 on the H100), X2's
+    carry on chip to k 226, the store's 176-entry lists to k 144 and the
+    gated kernels' 242-entry lists to k 210, then in global memory at the
+    same group; the floor keeps K1's 256."""
+    gate_on_chip = k <= 210
     for kernel, on_chip in (("carry", carry_on_chip),
-                            ("store", store_on_chip)):
+                            ("store", store_on_chip),
+                            ("gate", gate_on_chip),
+                            ("unroll2", gate_on_chip),
+                            ("unroll4", gate_on_chip),
+                            ("pingpong", gate_on_chip)):
         plan = cuda_extract.extract_plan(kernel, 1 << 20, 256, k, 132)
         assert (plan.width, plan.groups) == (64, 4)
         assert plan.on_chip == on_chip
     assert cuda_extract.store_plan(k)[0] == (
         176 if store_on_chip else K.topk_plan(1, 1, k, 1)[2])
-    assert cuda_extract.extract_plan("gate", 1 << 20, 256, k, 132).width \
+    assert cuda_extract.gate_plan(k)[0] == (
+        242 if gate_on_chip else K.topk_plan(1, 1, k, 1)[2])
+    assert cuda_extract.extract_plan("floor", 1 << 20, 256, k, 132).width \
         == 256
 
 
 @pytest.mark.parametrize("b", [1, 255, 256, 300])
 @pytest.mark.parametrize("k", [1, 28, 112])
-@pytest.mark.parametrize("kernel", ["carry", "store"])
+@pytest.mark.parametrize("kernel", ["carry", "store", "gate", "unroll2",
+                                    "unroll4", "pingpong"])
 @pytest.mark.parametrize("count", [False, True])
 def test_new_plans_launch_arguments(kernel, b, k, count):
-    """The launch of the store and the carry for batches of 1, 255, 256 and
-    300 on 132 SMs: groups of 64 cover every query once, the grid
+    """The launch of every kernel but the floor for batches of 1, 255, 256
+    and 300 on 132 SMs: groups of 64 cover every query once, the grid
     (groups x parts) is about one block per SM (X2 with ``count``: one part
     a group), and the scratch the wrapper allocates holds every (part,
-    query) list the kernel hands over, the merge's gather and the
-    per-block counts."""
+    query) list the kernel hands over (stride k where the lists stayed on
+    chip), the merge's gather and the per-block counts."""
     n, sms = 1 << 20, 132
     count = count and kernel == "carry"
     plan = cuda_extract.extract_plan(kernel, n, b, k, sms, count=count)
@@ -230,6 +244,7 @@ def test_new_plans_launch_arguments(kernel, b, k, count):
         assert plan.cap == k and 1 <= plan.stage <= 32
     else:
         assert plan.cap >= k + cuda_extract.STORE_SLACK and plan.stage == 0
+        assert plan.on_chip    # k <= 112: the lists on chip
     size = cuda_extract.scratch_sizes(kernel, plan, b, k, n // 2048, count)
     stride = k if kernel == "carry" or plan.on_chip else plan.cap
     assert size["cand_v"] == size["cand_i"] == plan.parts * b * stride
@@ -244,29 +259,76 @@ def test_new_plans_launch_arguments(kernel, b, k, count):
 @pytest.mark.parametrize("count", [False, True])
 def test_extract_plan_is_k1_grid_with_each_kernels_lists(kernel, n, b, k,
                                                          count):
-    """The gated kernels and the floor run K1's persistent grid (256-query
-    groups); their list capacity is K1's (cut every 4 tiles) and none for
-    the floor. The store and X2's carry take groups of 64 in as many
-    parts as keep about one block per SM: the store's lists of its
-    plan's capacity, the carry's k; X2 with ``count`` runs one part per
-    query group (rows in global order)."""
+    """The floor runs K1's persistent grid (256-query groups) with no
+    lists. Every other kernel takes groups of 64 in as many parts as keep
+    about one block per SM: the store's lists of its plan's capacity, the
+    gated kernels' (gate, unroll2/4, pingpong) of theirs, the carry's k;
+    X2 with ``count`` runs one part per query group (rows in global
+    order)."""
     plan = cuda_extract.extract_plan(kernel, n, b, k, 132,
                                      count=count and kernel == "carry")
-    g1, p1, cap1 = K.topk_plan(n, b, k, 132)
-    if kernel in ("store", "carry"):
-        assert plan.groups == -(-b // plan.width)
-        p1 = max(1, min(-(-n // 128), 132 // plan.groups))
-    else:
+    g1, p1, _ = K.topk_plan(n, b, k, 132)
+    if kernel == "floor":
         assert plan.groups == g1 and plan.width == 256
+    else:
+        assert plan.groups == -(-b // plan.width) and plan.width == 64
+        p1 = max(1, min(-(-n // 128), 132 // plan.groups))
     want_cap = {"floor": 0, "store": cuda_extract.store_plan(k)[0],
-                "carry": k}.get(kernel, cap1)
+                "carry": k}.get(kernel, cuda_extract.gate_plan(k)[0])
     assert plan.cap == want_cap
     assert plan.parts == (1 if count and kernel == "carry" else p1)
     if kernel == "carry":
         assert (plan.stage, plan.on_chip) == cuda_extract.carry_plan(k)
     elif kernel == "store":
         assert (plan.cap, plan.on_chip) == cuda_extract.store_plan(k)
-    else:
+    elif kernel == "floor":
         assert (plan.on_chip, plan.stage) == (False, 0)
+    else:
+        assert (plan.cap, plan.on_chip) == cuda_extract.gate_plan(k)
+        assert plan.stage == 0
     with pytest.raises(ValueError, match="kernel"):
         cuda_extract.extract_plan("unroll8", n, b, k, 132)
+
+
+@pytest.mark.parametrize("k,cap,on_chip", [
+    (1, 242, True), (28, 242, True), (108, 242, True), (112, 242, True),
+    (128, 242, True), (150, 242, True), (209, 242, True), (210, 242, True),
+    (211, 851, False), (230, 870, False), (256, 896, False),
+    (1280, 1920, False)])
+def test_gate_plan_keeps_lists_in_shared_memory_while_they_fit(k, cap,
+                                                               on_chip):
+    """The gated kernels (X1's gate, X3, X4) keep lists of 242 entries a
+    query in shared memory beside the 4-stage ring, with no score tile:
+    1024 + 4 x 24 KB + 64 x 242 x 8 + 8,768 static bytes, within a block's
+    227 KB, while that leaves k + 32 places (to k 210); past that, lists
+    of K1's capacity (k + 5 tiles of 128) in global memory."""
+    assert cuda_extract.gate_plan(k) == (cap, on_chip)
+    assert cuda_extract.gate_smem(0) == 1024 + 4 * (128 * 128 + 64 * 128) \
+        + 8768
+    assert cuda_extract.gate_smem(242) == cuda_extract.gate_smem(0) \
+        + 64 * 242 * 8 <= cuda_extract.SMEM_BYTES
+    assert cuda_extract.gate_smem(243) > cuda_extract.SMEM_BYTES
+    assert cuda_extract.gate_smem(cap, on_chip) <= cuda_extract.SMEM_BYTES
+    if not on_chip:
+        assert cap == K.topk_plan(1, 1, k, 1)[2] == k + 5 * 128
+        assert cuda_extract.gate_smem(cap, False) == cuda_extract.gate_smem(0)
+
+
+@pytest.mark.parametrize("kernel", ["gate", "unroll2", "unroll4",
+                                    "pingpong", "store", "carry"])
+@pytest.mark.parametrize("k", [28, 108, 112, 210, 211])
+def test_scratch_stride_follows_where_the_lists_live(kernel, k):
+    """The (part, query) lists handed to the merge: at stride k where a
+    kernel kept its lists (or X2 its carry) in shared memory and copied
+    them out cut to k, at stride cap where they lived in global memory in
+    place; the merge gathers every part's k a query either way."""
+    b, n = 256, 1 << 20
+    plan = cuda_extract.extract_plan(kernel, n, b, k, 132)
+    size = cuda_extract.scratch_sizes(kernel, plan, b, k, n // 2048)
+    on_chip = plan.on_chip
+    if kernel in ("gate", "unroll2", "unroll4", "pingpong"):
+        assert on_chip == (k <= 210)
+    stride = k if on_chip or kernel == "carry" else plan.cap
+    assert size["cand_v"] == size["cand_i"] == plan.parts * b * stride
+    assert size["merge"] == b * plan.parts * k
+    assert size["cand_n"] == plan.parts * b == 33 * 256

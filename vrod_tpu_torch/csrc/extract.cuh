@@ -1,9 +1,8 @@
-// The extraction experiments of the JAX package, X1-X4, as modes of K1's
-// machinery (score.cuh's producer, ring and wgmma consumers, m64n256 or,
-// for the store and the carry, m64n64; topk.cuh's radix select,
-// list cuts and merge). Each mode is built in a
-// .cu file of its own (extract_*.cu), one C entry point per file (the
-// store and the carry add their shared-memory account).
+// The extraction experiments of the JAX package, X1-X4, on K1's scoring
+// core (score.cuh's producer, ring and wgmma consumers; topk.cuh's radix
+// select and merge). Each mode is built in a .cu file of its own
+// (extract_*.cu), one C entry point per file (the gated modes, the store
+// and the carry add their shared-memory account).
 //
 // Replaces the Pallas kernels experiments/kexp.py: make_call -> build_kernel
 // (X1), kexp2.py: make_call (X2), kexp3.py: make_call (X3) and kexp5.py:
@@ -13,37 +12,41 @@
 // 2g - aux, dot g, for int8 rows (int8 query, exact int32 dots), bfloat16
 // and float32 rows (TF32), and returns the exact top-k by (value desc, slot
 // asc), slots col + offset[0], (-inf, -1) on empty ranks. All four ask what
-// the extraction of the top-k from a scored block costs; on the H100 that
-// cost is K1's gate. What each mode does about it:
+// the extraction of the top-k from a scored block costs. Every mode but the
+// floor runs query groups of 64 (wgmma m64n64, kNarrow: measured faster
+// than n128 for each), keeps its lists or carry in shared memory beside the
+// 4-stage ring where they fit (global memory past that), places passing
+// scores by warp-aggregated counts (one shared atomic a warp and query
+// column) and cuts or merges a query's list only when it is full, in the
+// warp that owns the query. What each mode does:
 //   kXFloor     X1 floor: the dots, the epilogue and a running max per
-//               query in registers; no lists, no cuts. Every rank holds the
-//               query's max, ids -1 (kexp.py's floor). The scan's floor.
-//   kXStore     X1 base/maxref ("store the block, then extract"), at a
-//               query group of 64 (wgmma n64, kNarrow): every
-//               score of a tile goes to a score tile in shared memory;
-//               then each consumer warp reads its queries' stored scores
-//               and appends those above the query's k-th (the value a cut
-//               last left, -inf before) to the query's list, in shared
-//               memory where it fits beside the ring and the store, else
-//               in global memory; a list is cut to k only when it fills.
-//   kXGate      X1 gate/nostore/argmax/subdot and X4 (kE = 1, 2, 4): K1's
-//               own consume_all and gate_tile (topk.cuh) from theta0 =
-//               -inf, with one divergent branch per kE query pairs (4 kE
-//               scores; the appends inside are predicated per score). kE =
-//               1 is K1's own form.
-//   kXPingPong  X3: K1's consume_all with the PingPong dots: the two
-//               consumer warpgroups staggered by half a tile through
-//               ordered named barriers, so one warpgroup's gate runs under
-//               the other's wgmmas.
+//               query in registers, at K1's 256-query groups; no lists, no
+//               cuts. Every rank holds the query's max, ids -1 (kexp.py's
+//               floor). The scan's floor.
+//   kXStore     X1 base/maxref ("store the block, then extract"): every
+//               score of a tile goes to a score tile in shared memory; then
+//               each consumer warp reads its queries' stored scores and
+//               appends those above the query's k-th (the value a cut last
+//               left, -inf before) to the query's list.
+//   kXGate      X1 gate/nostore/argmax/subdot and X4 (kE = 1, 2, 4): the
+//               scores stay in the registers that hold their dots; each is
+//               held against its query's k-th (kept in registers, reloaded
+//               after a cut) and the passing ones are appended, one
+//               warp-uniform branch per kE query pairs. One vote barrier a
+//               tile learns whether a score found its list full; if so the
+//               owning warps cut their full lists, and what waited is tested
+//               again at or above the new k-th (rounds: gate_round).
+//   kXPingPong  X3: kXGate's lists, test and cuts, with the gate of tile t
+//               under the wgmmas of tile t + 1: each consumer warpgroup
+//               issues the next tile's stages into a second set of
+//               accumulators and gates a share of this tile's scores
+//               between the issues.
 //   kXCarry     X2: a sorted running top-k of exactly k (value, slot) per
-//               query, in shared memory beside the ring (query groups of
-//               64, kNarrow; global memory only where it does not fit),
-//               with no candidate lists, no cuts and no locks. Per
+//               query, with no candidate lists, no cuts and no locks. Per
 //               tile each score above its query's carried k-th joins the
-//               query's stage in shared memory (places taken by
-//               warp-aggregated counts); after one consumer barrier the
-//               warp that owns a query whose stage is full sorts it in its
-//               lanes (bitonic) and merges it into the carry (binary
+//               query's stage in shared memory; after one consumer barrier
+//               the warp that owns a query whose stage is full sorts it in
+//               its lanes (bitonic) and merges it into the carry (binary
 //               search and a shift), keeping k. Stages alternate between
 //               two buffers a tile, so one barrier a tile; a stage that
 //               overflows is merged and refilled in rounds. With `count`,
@@ -52,7 +55,9 @@
 //               put there (kexp2's while-iterations follow from those
 //               counts).
 // What bounds every mode: K1's bound, the rows once (805 MB at the int8
-// main path, 0.24 ms at 3.35 TB/s) with the dots close behind.
+// main path, 0.24 ms at 3.35 TB/s) with the dots close behind; at n64 each
+// row tile is read by four blocks (one a query group), from L2 after the
+// first.
 
 #pragma once
 
@@ -71,6 +76,10 @@ enum XMode : int {
   kXCarry = 4
 };
 
+// The query group of every mode but the floor (wgmma n64): measured
+// faster than n128 for the store, the carry and the gate (PERF.md).
+constexpr int kNarrow = 64;
+
 // One launch's arguments (ops/cuda_extract.py: _launch).
 struct XArgs {
   const int8_t* x;      // (n, row_bytes): the whole blocks only
@@ -87,49 +96,6 @@ struct XArgs {
   int* cand_i;          // kXFloor: maxima (parts, b)
   int* cand_n;          // (parts, b)
   int* cnt;             // kXCarry with count: (n / block_rows, b)
-};
-
-// The ping-pong's ordered barriers (ids 0 and 1 are __syncthreads and
-// consumer_sync): kBarA completes when warpgroup 0 has taken the first
-// half of a tile's stages, kBarB when warpgroup 1 has.
-constexpr int kBarA = 2;
-constexpr int kBarB = 3;
-
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(kConsumers) : "memory");
-}
-
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "n"(kConsumers)
-               : "memory");
-}
-
-// X3's dots of a tile (consume_all's Dots): warpgroup 1 starts a tile once
-// warpgroup 0 has taken its first `half` stages; warpgroup 0 starts the
-// next once warpgroup 1 has taken half of this one. Between those points
-// each gates while the other's wgmmas run. half is at most the ring, so a
-// warpgroup never waits for stages the other has yet to release.
-struct PingPong {
-  int half;
-  template <class Kind>
-  __device__ __forceinline__ void tile(typename Kind::Acc (&acc)[kAcc],
-                                       const Geometry& geo, const Ring& ring,
-                                       int& stage, int& phase,
-                                       bool first) const {
-    const int wg = threadIdx.x / 128;
-    if (wg == 1) {
-      named_sync(kBarA);
-    } else if (!first) {
-      named_sync(kBarB);
-    }
-    consume_stages<Kind>(acc, geo, ring, stage, phase, 0, half);
-    named_arrive(wg == 0 ? kBarA : kBarB);
-    consume_stages<Kind>(acc, geo, ring, stage, phase, half, geo.nv);
-  }
-  // Warpgroup 0 meets warpgroup 1's arrival in the part's last tile.
-  __device__ __forceinline__ void done(bool any) const {
-    if (threadIdx.x / 128 == 0 && any) named_sync(kBarB);
-  }
 };
 
 // A consumer barrier that also votes (bar.red.or on its own id): true in
@@ -680,7 +646,480 @@ __global__ void __launch_bounds__(kThreads, 1) extract_store(
   }
 }
 
-// -- The modes on K1's 256-query groups (kXFloor, kXGate, kXPingPong) --------
+// -- X1's gate, X4 and X3: the gated extraction ----------------------------
+
+// A gated block's lists: per query q of the group, cap places (values v,
+// slots i) from q * cap, in shared memory beside the ring or, past the k
+// where they fit (ops/cuda_extract.py: gate_plan), in global memory;
+// len[q], its length, which a tile's appends may carry past cap (those
+// places are not written: their scores wait for a cut); gate[q], the k-th
+// value its last cut left (-inf before, +inf past the batch).
+struct GateLists {
+  float* v;
+  int* i;
+  int* len;
+  float* gate;
+  int cap, k;
+#ifdef VROD_PROBE_X_COUNT
+  int* probe;  // probe builds: event counters in global memory (a.cnt)
+#endif
+};
+
+// This thread's gates, one pair a query pair j (columns query_col(4j) and
+// query_col(4j) + 1): read after every cut, so never stale.
+template <int kP>
+__device__ __forceinline__ void load_gates(float2 (&gr)[kP],
+                                           const float* gate) {
+#pragma unroll
+  for (int j = 0; j < kP; ++j) {
+    const int c = query_col(4 * j);
+    gr[j] = make_float2(gate[c], gate[c + 1]);
+  }
+}
+
+// The scores of query pairs [kJ0, kJ1) of acc (one 64-row slab; this
+// thread's rows have slots slot0 and slot0 + 8, their aux and mask in
+// aux_r, mask_r) among the candidates `cand` (bit i: acc[i]) that pass,
+// above their query's gate (or with `ge` at or above it: the re-test after
+// a cut, when the list may hold this tile's higher slots at the new k-th),
+// join their queries' lists; one warp-uniform branch per kE query pairs,
+// the ballots inside predicated per score. The eight lanes 4g + t of a
+// warp hold the same two query columns, so lane t takes the places of all
+// eight with one shared atomic a column, and ballots place each lane's
+// scores after those of the lanes below it (carry_stage's scheme). A score
+// placed past its list's capacity is not written and waits: returns the
+// bits that wait. (Issuing every pair's atomics before any pair's stores
+// measured slower, and spilled in X3: PERF.md.)
+template <class Kind, int kEpi, int kE, int kJ0, int kJ1, int kA>
+__device__ __forceinline__ unsigned gate_append(
+    const typename Kind::Acc (&acc)[kA], const float (&aux_r)[2],
+    const float (&mask_r)[2], int slot0, const float2 (&gr)[kA / 4],
+    const GateLists& L, unsigned cand, bool ge) {
+  static_assert(kA <= 32 && (kJ1 - kJ0) % kE == 0,
+                "one 64-row slab; kE divides the pairs");
+  const int lane = threadIdx.x & 31;
+  const unsigned same = 0x11111111u << (lane & 3);
+  const unsigned lt = lanemask_lt();
+  unsigned wait = 0;
+#pragma unroll
+  for (int j0 = kJ0; j0 < kJ1; j0 += kE) {
+    float s[kE][4];
+    unsigned bits[kE];
+    bool any = false;
+#pragma unroll
+    for (int u = 0; u < kE; ++u) {
+      const int j = j0 + u;
+      bits[u] = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[u][e] = x_score<Kind, kEpi>(acc, 4 * j + e, aux_r, mask_r);
+        const float g = e & 1 ? gr[j].y : gr[j].x;
+        const bool pass = ((cand >> (4 * j + e)) & 1u) &&
+                          (ge ? s[u][e] >= g : s[u][e] > g);
+        bits[u] |= (unsigned)pass << e;
+      }
+      any |= bits[u] != 0;
+    }
+    if (!__any_sync(kFull, any)) continue;
+#ifdef VROD_PROBE_X_COUNT
+    if (lane == 0) atomicAdd(L.probe + 3, 1);
+#endif
+#ifdef VROD_PROBE_X_TEST_ONLY
+    continue;  // probe builds: the test without the appends
+#endif
+#pragma unroll
+    for (int u = 0; u < kE; ++u) {
+      const int col = query_col(4 * (j0 + u));  // columns col, col + 1
+      int at[2], base[2] = {0, 0};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const unsigned b0 = __ballot_sync(kFull, (bits[u] >> e) & 1u) & same;
+        const unsigned b1 =
+            __ballot_sync(kFull, (bits[u] >> (2 + e)) & 1u) & same;
+        const int cnt = __popc(b0) + __popc(b1);
+        at[e] = __popc(b0 & lt) + __popc(b1 & lt);
+        if (lane < 4 && cnt > 0) base[e] = atomicAdd(L.len + col + e, cnt);
+        at[e] += __shfl_sync(kFull, base[e], lane & 3);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if ((bits[u] >> e) & 1u) {
+          const int p = at[e & 1]++;
+          if (p < L.cap) {
+            const size_t w = (size_t)(col + (e & 1)) * L.cap + p;
+            L.v[w] = s[u][e];
+            L.i[w] = slot0 + 8 * (e >> 1);
+          } else {
+            wait |= 1u << (4 * (j0 + u) + e);
+          }
+        }
+      }
+    }
+  }
+  return wait;
+}
+
+// Whether (va, ia) ranks before (vb, ib): value desc, then slot asc.
+__device__ __forceinline__ bool ranks_before(float va, int ia, float vb,
+                                             int ib) {
+  return va > vb || (va == vb && ia < ib);
+}
+
+// A whole warp cuts the list (v, ix)[0, n), k <= n <= 256, to its k best
+// by (value desc, slot asc), written sorted to [0, k), and returns the k-th
+// value: a bitonic sort of the entries padded to 256 with (-inf, INT_MAX),
+// lane l holding entries 8l..8l+7 in registers (strides under 8 within a
+// lane, the others between lanes by shuffles). No shared atomics, unlike
+// warp_select's radix passes, whose histograms all lists' similar values
+// crowd into a few bins.
+__device__ float sort_cut(float* v, int* ix, int n, int k) {
+  const int lane = threadIdx.x & 31;
+  float a[8];
+  int b[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int e = 8 * lane + r;
+    a[r] = e < n ? v[e] : -INFINITY;
+    b[r] = e < n ? ix[e] : INT_MAX;
+  }
+#pragma unroll
+  for (int size = 2; size <= 256; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride >= 8) {
+        const bool lower = (lane & (stride >> 3)) == 0;
+        const bool asc = ((8 * lane) & size) == 0;
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float ov = __shfl_xor_sync(kFull, a[r], stride >> 3);
+          const int oi = __shfl_xor_sync(kFull, b[r], stride >> 3);
+          const bool other = ranks_before(ov, oi, a[r], b[r]);
+          if (other == (lower == asc)) {
+            a[r] = ov;
+            b[r] = oi;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          if (r & stride) continue;
+          const int q = r | stride;
+          const bool asc = ((8 * lane + r) & size) == 0;
+          if (ranks_before(a[q], b[q], a[r], b[r]) == asc) {
+            const float tv = a[r];
+            const int ti = b[r];
+            a[r] = a[q];
+            b[r] = b[q];
+            a[q] = tv;
+            b[q] = ti;
+          }
+        }
+      }
+    }
+  }
+  __syncwarp();  // every lane has read its entries
+  float kth = -INFINITY;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int e = 8 * lane + r;
+    if (e < k) {
+      v[e] = a[r];
+      ix[e] = b[r];
+    }
+    if (e == k - 1) kth = a[r];
+  }
+  __syncwarp();
+  return __shfl_sync(kFull, kth, (k - 1) >> 3);
+}
+
+// A cut of a list of n entries to its k best (k < n): sort_cut for the
+// lists on chip (n <= 256; measured 6-10% faster end to end than
+// warp_select, PERF.md), else warp_select; returns the new k-th value.
+__device__ __forceinline__ float cut_list(float* v, int* ix, int n, int k,
+                                          unsigned* hist) {
+  if (n <= 256) return sort_cut(v, ix, n, k);
+  return key_float(warp_select(v, ix, n, k, hist));
+}
+
+// A round, after a vote found a waiting score: each warp cuts every list
+// of the queries it owns [own0, own1) that holds more than k entries (the
+// full ones and the others alike: fewer rounds for the same cuts than
+// cutting only the full or the half-full ones, PERF.md) to its k best and
+// raises its gate to the new k-th value; then every consumer thread reads
+// its gates again.
+template <int kP>
+__device__ __forceinline__ void gate_round(const GateLists& L,
+                                           unsigned* hist, int own0,
+                                           int own1, float2 (&gr)[kP]) {
+#ifdef VROD_PROBE_X_COUNT
+  if (threadIdx.x == 0) atomicAdd(L.probe + 1, 1);
+#endif
+  for (int q = own0; q < own1; ++q) {
+    const int n = min(L.len[q], L.cap);
+    if (n <= L.k) continue;  // warp-uniform
+    const float kth = cut_list(L.v + (size_t)q * L.cap,
+                               L.i + (size_t)q * L.cap, n, L.k, hist);
+#ifdef VROD_PROBE_X_COUNT
+    if ((threadIdx.x & 31) == 0) {
+      atomicAdd(L.probe + 2, 1);
+      atomicAdd(L.probe + 4, n);
+    }
+#endif
+    if ((threadIdx.x & 31) == 0) {
+      L.len[q] = L.k;
+      L.gate[q] = fmaxf(L.gate[q], kth);
+    }
+  }
+  consumer_sync();  // the cut lists and raised gates are read again
+  load_gates(gr, L.gate);
+}
+
+// The hand-over at the part's end: each list the warp owns cut to its k
+// best, copied to the (part, query) lists at stride k when on chip (lists
+// in global memory are already there, at stride cap), its length to
+// cand_n.
+__device__ __forceinline__ void gate_handover(const GateLists& L,
+                                              const XArgs& a,
+                                              unsigned* hist, int part,
+                                              int q0, int own0, int own1) {
+  const int lane = threadIdx.x & 31;
+  const size_t list0 = ((size_t)part * a.b + q0) * a.k;
+  for (int q = own0; q < own1; ++q) {
+    __syncwarp();
+    int n = min(L.len[q], L.cap);
+    float* v = L.v + (size_t)q * L.cap;
+    int* ix = L.i + (size_t)q * L.cap;
+    if (n > a.k) {
+      cut_list(v, ix, n, a.k, hist);
+      n = a.k;
+    }
+    __syncwarp();
+    if (a.on_chip) {
+      for (int e = lane; e < n; e += 32) {
+        a.cand_v[list0 + (size_t)q * a.k + e] = v[e];
+        a.cand_i[list0 + (size_t)q * a.k + e] = ix[e];
+      }
+    }
+    if (lane == 0) a.cand_n[(size_t)part * a.b + q0 + q] = n;
+  }
+}
+
+// X1's gate and X4: each consumer warpgroup 64 rows of every tile (32
+// accumulators a thread at n64). Per tile: the dots; the test and appends
+// in the accumulators' registers; one vote barrier; rounds while a score
+// waits.
+template <class Kind, int kEpi, int kE>
+__device__ __forceinline__ void gate_consume(const Geometry& geo,
+                                             const Ring& ring,
+                                             const XArgs& a, int part,
+                                             int tiles, const GateLists& L,
+                                             unsigned* hist, int own0,
+                                             int own1) {
+  constexpr int kA = kNarrow / 2;
+  constexpr int kP = kA / 4;
+  using Acc = typename Kind::Acc;
+  const int offset = *a.offset;
+  Acc acc[kA];
+  float2 gr[kP];
+  load_gates(gr, L.gate);
+  int stage = 0, phase = 0;
+  for (int t = part; t < tiles; t += a.parts) {
+    const int row0 = t * kTileRows + tile_row(0);
+    float aux_r[2], mask_r[2];
+    x_rows(a, row0, aux_r, mask_r);
+    consume_tile<Kind>(acc, geo, ring, stage, phase);
+#ifdef VROD_PROBE_X_NO_GATE
+    // tools' probe builds: the scan without the gate (wrong results by
+    // design), to see where the time goes.
+    if (consumer_any(false)) break;
+    continue;
+#endif
+    unsigned wait = gate_append<Kind, kEpi, kE, 0, kP>(
+        acc, aux_r, mask_r, row0 + offset, gr, L, ~0u, false);
+    while (consumer_any(wait != 0)) {
+      gate_round(L, hist + (threadIdx.x >> 5) * 256, own0, own1, gr);
+      wait = gate_append<Kind, kEpi, kE, 0, kP>(acc, aux_r, mask_r,
+                                                row0 + offset, gr, L, wait,
+                                                true);
+    }
+  }
+}
+
+// X3: gate share `sh` of kShares (kP / kShares query pairs each) of a
+// tile's accumulators.
+constexpr int kShares = 4;
+
+template <class Kind, int kEpi, int kA>
+__device__ __forceinline__ unsigned gate_share(
+    const typename Kind::Acc (&acc)[kA], const float (&aux_r)[2],
+    const float (&mask_r)[2], int slot0, const float2 (&gr)[kA / 4],
+    const GateLists& L, int sh) {
+  constexpr int kS = kA / 4 / kShares;
+  static_assert(kS * kShares == kA / 4, "shares of whole query pairs");
+  switch (sh) {
+    case 0:
+      return gate_append<Kind, kEpi, 1, 0, kS>(acc, aux_r, mask_r, slot0,
+                                               gr, L, ~0u, false);
+    case 1:
+      return gate_append<Kind, kEpi, 1, kS, 2 * kS>(acc, aux_r, mask_r,
+                                                    slot0, gr, L, ~0u,
+                                                    false);
+    case 2:
+      return gate_append<Kind, kEpi, 1, 2 * kS, 3 * kS>(
+          acc, aux_r, mask_r, slot0, gr, L, ~0u, false);
+    default:
+      return gate_append<Kind, kEpi, 1, 3 * kS, 4 * kS>(
+          acc, aux_r, mask_r, slot0, gr, L, ~0u, false);
+  }
+}
+
+// One tile of X3 in one consumer warpgroup: tile i's scores
+// are in cur (rows from row slot0 - offset, aux and mask in cur_aux,
+// cur_mask); when tile i + 1 exists, its stages are issued into nxt one at
+// a time, and between an issue and the wait for its wgmmas a share of
+// tile i's gate runs (the shares spread over the stages); then the vote
+// and rounds of tile i.
+template <class Kind, int kEpi, int kA>
+__device__ __forceinline__ void overlap_tile(
+    typename Kind::Acc (&cur)[kA], const float (&cur_aux)[2],
+    const float (&cur_mask)[2], typename Kind::Acc (&nxt)[kA],
+    float (&nxt_aux)[2], float (&nxt_mask)[2], bool next, int row_next,
+    int slot0, const Geometry& geo, const Ring& ring, int& stage,
+    int& phase, const XArgs& a, const GateLists& L, unsigned* hist,
+    int own0, int own1, float2 (&gr)[kA / 4]) {
+  unsigned wait = 0;
+  int done = 0;
+  if (next) {
+    x_rows(a, row_next, nxt_aux, nxt_mask);
+    StageA<Kind> st;
+    for (int v = 0; v < geo.nv; ++v) {
+      issue_stage<Kind>(nxt, st, geo, ring, stage, phase, v);
+#ifndef VROD_PROBE_X_NO_GATE
+      for (const int upto = (v + 1) * kShares / geo.nv; done < upto; ++done) {
+        wait |= gate_share<Kind, kEpi>(cur, cur_aux, cur_mask, slot0, gr, L,
+                                       done);
+      }
+#endif
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      release_stage(ring, stage);
+      next_stage(ring, stage, phase);
+    }
+  }
+#ifdef VROD_PROBE_X_NO_GATE
+  done = kShares;
+#endif
+  for (; done < kShares; ++done) {
+    wait |= gate_share<Kind, kEpi>(cur, cur_aux, cur_mask, slot0, gr, L,
+                                   done);
+  }
+  while (consumer_any(wait != 0)) {
+    gate_round(L, hist + (threadIdx.x >> 5) * 256, own0, own1, gr);
+    wait = gate_append<Kind, kEpi, 1, 0, kA / 4>(cur, cur_aux, cur_mask,
+                                                 slot0, gr, L, wait, true);
+  }
+}
+
+// X3: each consumer warpgroup 64 rows of every tile, in two sets of
+// accumulators that alternate by tile, the gate of one tile under the
+// wgmmas of the next. (A second form, the two warpgroups on whole tiles in
+// turn, CUTLASS's ping-pong, measured slower at int8: one warpgroup's four
+// warps, one a scheduler, could not hide their own test's latency under
+// the other's wgmmas; PERF.md.)
+template <class Kind, int kEpi>
+__device__ __forceinline__ void overlap_consume(const Geometry& geo,
+                                                const Ring& ring,
+                                                const XArgs& a, int part,
+                                                int tiles, const GateLists& L,
+                                                unsigned* hist, int own0,
+                                                int own1) {
+  constexpr int kA = kNarrow / 2;
+  using Acc = typename Kind::Acc;
+  const int offset = *a.offset;
+  const int count = part < tiles ? (tiles - part + a.parts - 1) / a.parts : 0;
+  if (count == 0) return;
+  Acc a0[kA], a1[kA];
+  float aux0[2], mask0[2], aux1[2], mask1[2];
+  float2 gr[kA / 4];
+  load_gates(gr, L.gate);
+  int stage = 0, phase = 0;
+  int row = part * kTileRows + tile_row(0);
+  const int step = a.parts * kTileRows;
+  x_rows(a, row, aux0, mask0);
+  consume_tile<Kind>(a0, geo, ring, stage, phase);
+  for (int i = 0; i < count; i += 2) {
+    overlap_tile<Kind, kEpi>(a0, aux0, mask0, a1, aux1, mask1, i + 1 < count,
+                             row + step, row + offset, geo, ring, stage,
+                             phase, a, L, hist, own0, own1, gr);
+    row += step;
+    if (i + 1 == count) break;
+    overlap_tile<Kind, kEpi>(a1, aux1, mask1, a0, aux0, mask0, i + 2 < count,
+                             row + step, row + offset, geo, ring, stage,
+                             phase, a, L, hist, own0, own1, gr);
+    row += step;
+  }
+}
+
+// X1's gate and X4 (kOverlap false: gate_consume) and X3 (kOverlap true:
+// overlap_consume).
+template <class Kind, int kEpi, int kE, bool kOverlap>
+__global__ void __launch_bounds__(kThreads, 1) extract_gate(
+    const __grid_constant__ Maps maps, const __grid_constant__ XArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full[kRing], empty[kRing];
+  __shared__ float gate[kNarrow];  // each list's k-th after its last cut
+  __shared__ int len[kNarrow];     // list lengths
+  __shared__ __align__(16) unsigned hist[kConsumers / 32 * 256];
+  uint8_t* base = align1024(smem_raw);
+  const Ring ring{base, full, empty, kRing};
+  const Geometry geo = make_geometry<Kind>(a.row_bytes);
+  const int part = blockIdx.x / a.groups;
+  const int q0 = blockIdx.x % a.groups * kNarrow;
+  const int tiles = (a.n + kTileRows - 1) / kTileRows;
+  // Shared memory: the ring, then the lists (kNarrow x cap values, then slots)
+  // when on chip.
+  GateLists L{nullptr, nullptr, len, gate, a.cap, a.k};
+#ifdef VROD_PROBE_X_COUNT
+  L.probe = a.cnt;
+  if (threadIdx.x == 0) atomicAdd(a.cnt, (tiles - part + a.parts - 1) / a.parts);
+#endif
+  if (a.on_chip) {
+    L.v = reinterpret_cast<float*>(base + ring.n * stage_bytes(kNarrow));
+    L.i = reinterpret_cast<int*>(L.v + (size_t)kNarrow * a.cap);
+  } else {
+    const size_t list0 = ((size_t)part * a.b + q0) * a.cap;
+    L.v = a.cand_v + list0;
+    L.i = a.cand_i + list0;
+  }
+  for (int i = threadIdx.x; i < kNarrow; i += kThreads) {
+    gate[i] = q0 + i < a.b ? -INFINITY : INFINITY;
+    len[i] = 0;
+  }
+  ring_init(ring);
+  __syncthreads();
+  if (threadIdx.x >= kConsumers) {
+    producer_regs();
+    if (threadIdx.x < kConsumers + 32) {
+      produce<Kind, true, kNarrow>(maps, Loads{a.x, a.q, a.n, a.b}, geo, ring, q0,
+                              part, tiles, a.parts);
+    }
+  } else {
+    consumer_regs();
+    constexpr int kOwn = kNarrow / (kConsumers / 32);
+    const int own0 = (threadIdx.x >> 5) * kOwn;
+    const int own1 = min(own0 + kOwn, a.b - q0);
+    if constexpr (kOverlap) {
+      overlap_consume<Kind, kEpi>(geo, ring, a, part, tiles, L, hist, own0,
+                                  own1);
+    } else {
+      gate_consume<Kind, kEpi, kE>(geo, ring, a, part, tiles, L, hist, own0,
+                                   own1);
+    }
+    gate_handover(L, a, hist + (threadIdx.x >> 5) * 256, part, q0, own0,
+                  own1);
+  }
+}
+
+// -- X1's floor, on K1's 256-query groups -----------------------------------
 
 // kXFloor's consumer warpgroups: per row tile the dots and a running max
 // per query in registers; then the maxima to the second launch.
@@ -741,17 +1180,12 @@ __device__ __forceinline__ void floor_consume(const Geometry& geo,
   }
 }
 
-template <class Kind, int kEpi, int kMode, int kE>
+template <class Kind, int kEpi>
 __global__ void __launch_bounds__(kThreads, 1) extract_local(
     const __grid_constant__ Maps maps, const __grid_constant__ XArgs a) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t full[kRing], empty[kRing];
-  // K1's gate (max of -inf and the list's k-th), read as float2 pairs,
-  // +inf past the batch.
-  __shared__ __align__(16) float gate[kGroup];
-  __shared__ int len[kGroup];  // list lengths
-  // A select's counters per warp; kXFloor: the warps' maxima.
-  __shared__ __align__(16) unsigned hist[kConsumers / 32 * 256];
+  __shared__ __align__(16) unsigned hist[kConsumers / 32 * 256];  // maxima
   uint8_t* base = align1024(smem_raw);
   const Ring ring{base, full, empty, kRing};
   const Geometry geo = make_geometry<Kind>(a.row_bytes);
@@ -759,10 +1193,6 @@ __global__ void __launch_bounds__(kThreads, 1) extract_local(
   const int q0 = blockIdx.x % a.groups * kGroup;
   const int tiles = (a.n + kTileRows - 1) / kTileRows;
   ring_init(ring);
-  for (int i = threadIdx.x; i < kGroup; i += kThreads) {
-    gate[i] = q0 + i < a.b ? -INFINITY : INFINITY;
-    len[i] = 0;
-  }
   __syncthreads();
   if (threadIdx.x >= kConsumers) {
     producer_regs();
@@ -772,25 +1202,7 @@ __global__ void __launch_bounds__(kThreads, 1) extract_local(
     }
   } else {
     consumer_regs();
-    if constexpr (kMode == kXFloor) {
-      floor_consume<Kind, kEpi>(geo, ring, a, part, tiles, q0, hist);
-    } else {
-      int stage = 0, phase = 0;
-      const IntGate no_ig{nullptr, 0.0f, 0.0f};
-      const int offset = *a.offset;
-      const auto run = [&](const auto& dots) {
-        consume_all<Kind, kEpi, false, kE>(
-            geo, ring, stage, phase, a.aux, FloatMask{a.mask}, a.n, a.b, a.k,
-            offset, part, a.parts, tiles, q0, a.cap,
-            ((size_t)part * a.b + q0) * a.cap, gate, no_ig, nullptr, len,
-            hist, a.cand_v, a.cand_i, a.cand_n, NoSkip{}, dots);
-      };
-      if constexpr (kMode == kXGate) {
-        run(WholeTile{});
-      } else {
-        run(PingPong{max(1, min(geo.nv / 2, ring.n))});
-      }
-    }
+    floor_consume<Kind, kEpi>(geo, ring, a, part, tiles, q0, hist);
   }
 }
 
@@ -809,59 +1221,59 @@ __global__ void extract_floor_finish(const float* __restrict__ part_max,
   out_i[e] = -1;
 }
 
-// The query group of the store and the carry (wgmma n64): measured
-// faster than n128 for both at every k of the smoke (PERF.md).
-constexpr int kNarrow = 64;
-
-// The dynamic shared memory of a kXStore or kXCarry block, past the
-// 1024-byte alignment (ops/cuda_extract.py's plans follow it, and the
-// card tests hold them to vrod_extract_{store,carry}_smem).
+// The dynamic shared memory of a block of every mode but the floor, past
+// the 1024-byte alignment (ops/cuda_extract.py's plans follow it, and the
+// card tests hold them to vrod_extract_{store,carry,gate}_smem).
 template <int kMode>
 int narrow_smem(const XArgs& a) {
   int smem = 1024 + kRing * stage_bytes(kNarrow);
   if constexpr (kMode == kXStore) {
     smem += kNarrow * kStorePitch * 4;
     if (a.on_chip) smem += kNarrow * a.cap * 8;
-  } else {
+  } else if constexpr (kMode == kXCarry) {
     smem += 2 * kNarrow * a.stage * 8;
     if (a.on_chip) smem += kNarrow * a.k * 8;
+  } else {
+    if (a.on_chip) smem += kNarrow * a.cap * 8;
   }
   return smem;
 }
 
-// The store's or the carry's kernel of one leg.
-template <int kMode, class Kind, int kEpi>
+// The kernel of one leg of a mode; kV: X4's kE.
+template <int kMode, int kV, class Kind, int kEpi>
 constexpr auto narrow_kernel() {
   if constexpr (kMode == kXStore) {
     return extract_store<Kind, kEpi, kNarrow>;
-  } else {
+  } else if constexpr (kMode == kXCarry) {
     return extract_carry<Kind, kEpi, kNarrow>;
+  } else {
+    return extract_gate<Kind, kEpi, kV, kMode == kXPingPong>;
   }
 }
 
-// A kXStore or kXCarry block's whole shared memory: the kernel's static
-// part (the same in every leg) and narrow_smem; -1 if the card cannot say.
-template <int kMode>
+// A block's whole shared memory: the kernel's static part (the same in
+// every leg and variant) and narrow_smem; -1 if the card cannot say.
+template <int kMode, int kV = 1>
 int narrow_need(const XArgs& a) {
   cudaFuncAttributes attr{};
-  if (cudaFuncGetAttributes(&attr, narrow_kernel<kMode, I8, kScale>()) !=
+  if (cudaFuncGetAttributes(&attr, narrow_kernel<kMode, kV, I8, kScale>()) !=
       cudaSuccess) {
     return -1;
   }
   return (int)attr.sharedSizeBytes + narrow_smem<kMode>(a);
 }
 
-template <int kMode, int kE>
+template <int kMode, int kV>
 struct LaunchExtract {
-  // The store and the carry: a need above the card's limit fails
+  // Every mode but the floor: a need above the card's limit fails
   // ensure_smem.
   template <class Kind, int kEpi>
   static int narrow(const XArgs& a, const Maps& maps, cudaStream_t s) {
-    constexpr auto kern = narrow_kernel<kMode, Kind, kEpi>();
+    constexpr auto kern = narrow_kernel<kMode, kV, Kind, kEpi>();
     if (kMode == kXCarry && (a.stage < 1 || a.stage > 32)) {
       return (int)cudaErrorInvalidValue;
     }
-    if (kMode == kXStore && a.cap < a.k + 32) {
+    if (kMode != kXCarry && a.cap < a.k + 32) {
       return (int)cudaErrorInvalidValue;
     }
     const int smem = narrow_smem<kMode>(a);
@@ -874,12 +1286,11 @@ struct LaunchExtract {
   template <class Kind, int kEpi>
   static int run(const XArgs& a, void* merge_v, void* merge_i, void* out_v,
                  void* out_i, cudaStream_t s) {
-    constexpr bool kIsNarrow = kMode == kXStore || kMode == kXCarry;
     Maps maps{};
     int e = make_maps(&maps, false, a.x, a.q, a.n, a.b, a.row_bytes,
-                      kIsNarrow ? kNarrow : kGroup);
+                      kMode == kXFloor ? kGroup : kNarrow);
     if (e != 0) return e;
-    if constexpr (kIsNarrow) {
+    if constexpr (kMode != kXFloor) {
       e = narrow<Kind, kEpi>(a, maps, s);
       if (e != 0) return e;
       return launch_merge(a.cand_v, a.cand_i, a.cand_n, a.parts,
@@ -887,23 +1298,17 @@ struct LaunchExtract {
                           a.k, merge_v, merge_i, out_v, out_i, s);
     } else {
       const int smem = 1024 + kRing * kStageBytes;
-      auto* kern = extract_local<Kind, kEpi, kMode, kE>;
-      e = ensure_smem<extract_local<Kind, kEpi, kMode, kE>>(smem);
+      auto* kern = extract_local<Kind, kEpi>;
+      e = ensure_smem<extract_local<Kind, kEpi>>(smem);
       if (e != 0) return e;
       kern<<<a.groups * a.parts, kThreads, smem, s>>>(maps, a);
       cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
-      if constexpr (kMode == kXFloor) {
-        const long total = (long)a.b * a.k;
-        extract_floor_finish<<<(unsigned)((total + 255) / 256), 256, 0,
-                               s>>>(a.cand_v, a.parts, a.b, a.k,
-                                    static_cast<float*>(out_v),
-                                    static_cast<int*>(out_i));
-        return (int)cudaGetLastError();
-      } else {
-        return launch_merge(a.cand_v, a.cand_i, a.cand_n, a.parts, a.cap,
-                            a.b, a.k, merge_v, merge_i, out_v, out_i, s);
-      }
+      const long total = (long)a.b * a.k;
+      extract_floor_finish<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+          a.cand_v, a.parts, a.b, a.k, static_cast<float*>(out_v),
+          static_cast<int*>(out_i));
+      return (int)cudaGetLastError();
     }
   }
 };
@@ -935,11 +1340,11 @@ int dispatch_x(int elem, int epi, A... a) {
 }
 
 // The C entry point of one mode file: XArgs and the merge's scratch and
-// outputs; rc is cudaGetLastError() after the launches.
-template <int kMode, int kE, bool kCosineOnly>
+// outputs; rc is cudaGetLastError() after the launches. kV: X4's kE.
+template <int kMode, int kV, bool kCosineOnly>
 int run_extract(int elem, int epi, const XArgs& a, void* merge_v,
                 void* merge_i, void* out_v, void* out_i, void* stream) {
-  return dispatch_x<LaunchExtract<kMode, kE>, kCosineOnly>(
+  return dispatch_x<LaunchExtract<kMode, kV>, kCosineOnly>(
       elem, epi, a, merge_v, merge_i, out_v, out_i,
       static_cast<cudaStream_t>(stream));
 }

@@ -1,11 +1,16 @@
 // X1's gated variants, experiments/kexp.py make_call("gate", "nostore",
 // "argmax", "subdot") -> build_kernel, and X4's nostore,
-// experiments/kexp5.py make_call("nostore"): K1's gate from theta0 = -inf,
-// one divergent branch per query pair. On the TPU those names differ in
-// whether Mosaic stores the scores and how it finds the argmax; on the H100
-// every score stays in its register, so they share this build. The mode:
-// extract.cuh (kXGate, kE = 1): K1's own consume_all and gate_tile
-// (topk.cuh), compiled here for the experiments' epilogues. Bound: K1's.
+// experiments/kexp5.py make_call("nostore"). On the TPU those names differ
+// in whether Mosaic stores the scores and how it finds the argmax; on the
+// H100 every score stays in the register that holds its dot, so they share
+// this build. Query groups of 64 (wgmma n64); each score is held against
+// its query's k-th (the value the last cut of its list left, in
+// registers) and the passing ones are appended, by warp-aggregated counts,
+// to the query's list in shared memory beside the ring (ops/cuda_extract.py:
+// gate_plan; global memory past the k where the lists no longer fit). One
+// vote barrier a tile; a list is cut, by the warp that owns its query, only
+// when a tile's passing scores found it full. The mode: extract.cuh
+// (kXGate, kE = 1). Bound: K1's, the rows once.
 
 #include "extract.cuh"
 
@@ -15,4 +20,14 @@ extern "C" int vrod_extract_gate(VROD_EXTRACT_PARAMS) {
   return vrod::run_extract<vrod::kXGate, 1, false>(elem, epi, a, merge_v,
                                                     merge_i, out_v, out_i,
                                                     stream);
+}
+
+// The gated modes' whole shared memory a block with lists of `cap`, on
+// chip or not (bytes; -1 if the card cannot say). X3 and X4 declare the
+// same shared arrays.
+extern "C" int vrod_extract_gate_smem(int cap, int on_chip) {
+  vrod::XArgs a{};
+  a.cap = cap;
+  a.on_chip = on_chip;
+  return vrod::narrow_need<vrod::kXGate>(a);
 }

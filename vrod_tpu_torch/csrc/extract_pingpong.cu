@@ -1,12 +1,10 @@
 // X3: experiments/kexp3.py, make_call, which scores block j + 1 into the
 // other score buffer before it extracts block j, so the MXU and the VPU
-// overlap. Here the two consumer warpgroups (64 rows of each tile apiece)
-// stagger by half a tile through ordered named barriers, so one
-// warpgroup's gate runs while the other's wgmmas run; a stage is released
-// once both halves are consumed, and the list cuts every 4 tiles stay the
-// only points where both wait for each other. The mode: extract.cuh
-// (kXPingPong: K1's consume_all and gate_tile with the PingPong dots).
-// Bound: K1's.
+// overlap. Here: X1's gate (its lists, test, rounds and cuts: extract.cuh,
+// kXGate) with the gate of tile t under the wgmmas of tile t + 1: each
+// consumer warpgroup issues the next tile's stages into a second set of
+// accumulators and gates a share of this tile's scores between the
+// issues. The mode: extract.cuh (kXPingPong). Bound: K1's.
 
 #include "extract.cuh"
 

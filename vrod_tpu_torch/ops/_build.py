@@ -173,11 +173,13 @@ def load(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
         fn = getattr(lib, f"vrod_extract_{mode}")
         fn.restype = ci
         fn.argtypes = [ci] * 3 + [vp] * 5 + [ci] * 11 + [vp] * 9
-    # The store's and the carry's whole shared memory a block: (k, stage,
-    # on_chip) and (cap, on_chip)
+    # The carry's, the store's and the gated kernels' whole shared memory
+    # a block: (k, stage, on_chip), (cap, on_chip) and (cap, on_chip)
     lib.vrod_extract_carry_smem.restype = ci
     lib.vrod_extract_carry_smem.argtypes = [ci] * 3
     lib.vrod_extract_store_smem.restype = ci
     lib.vrod_extract_store_smem.argtypes = [ci] * 2
+    lib.vrod_extract_gate_smem.restype = ci
+    lib.vrod_extract_gate_smem.argtypes = [ci] * 2
     _libs[defines] = lib
     return lib

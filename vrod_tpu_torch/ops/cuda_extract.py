@@ -19,18 +19,19 @@ the exact int32 dot, not K1's scaled one), and returns the exact top-k by
   a top-k); ``base``/``maxref`` run the store mode (every score of a tile
   stored in shared memory, then only those above the query's running k-th
   appended to its list, which is cut when full); ``gate``, ``nostore``,
-  ``argmax`` and ``subdot`` run K1's gate, topk.cuh's own ``consume_all``
-  and ``gate_tile`` (on the TPU they differ in Mosaic's stores and argmax;
-  on the H100 every score stays in its register, so they share one build);
+  ``argmax`` and ``subdot`` run the gate mode (every score held in its
+  register against its query's running k-th, the passing ones appended to
+  its list, cut when full; on the TPU they differ in Mosaic's stores and
+  argmax, on the H100 they share one build);
 - ``kexp2_call(tiles, count)`` (X2): the running top-k carried sorted per
   query in shared memory and merged in place, a tile's passing scores at a
   time; also returns ``cnt`` (1,) int32, kexp2's
   while-iteration count under ``KEXP_COUNT=1`` when ``count``, else 0;
-- ``kexp3_call`` (X3): K1's ``consume_all`` with the consumer
-  warpgroups in ping-pong;
-- ``kexp5_call(variant)`` (X4, cosine only): ``nostore`` is K1's gate (the
-  X1 gate build), ``unroll2``/``unroll4`` K1's ``gate_tile`` with one
-  divergent branch per 2 or 4 query pairs.
+- ``kexp3_call`` (X3): the gate mode with the gate of one tile under the
+  tensor cores' work on the next;
+- ``kexp5_call(variant)`` (X4, cosine only): ``nostore`` is the gate mode
+  (the X1 gate build), ``unroll2``/``unroll4`` the same with one
+  warp-uniform branch per 2 or 4 query pairs.
 
 The query is read as the experiments cast it (``q.astype(x.dtype)``): int8
 rows need an int8 query (a float one raises); bfloat16 rows round it to
@@ -45,10 +46,9 @@ Each wrapper validates its inputs and dispatches on the device of the
 tensors: a CPU tensor goes to its ``*_plain`` twin, a CUDA tensor launches
 the hand-written CUDA kernel of its mode (``csrc/extract_<mode>.cu``, see
 ``csrc/extract.cuh``) or raises. No wrapper falls back, and no mode maps
-to K1's own build at run time: the gated modes compile K1's device code
-into their own builds, with the experiments' epilogues. ``launches`` counts kernel launches per kernel and leg
-(e.g. ``extract_carry[bf16-l2]``, ``extract_unroll4[int8-cosine]``); only
-a CUDA launch adds to it.
+to K1's build at run time. ``launches`` counts kernel launches per kernel
+and leg (e.g. ``extract_carry[bf16-l2]``, ``extract_unroll4[int8-cosine]``);
+only a CUDA launch adds to it.
 """
 
 from __future__ import annotations
@@ -104,23 +104,26 @@ def reset_launches() -> None:
 SMEM_BYTES = 232448         # a block's shared memory on the H100 (227 KB)
 ROW_BOX = 128 * 128         # a stage's row tile (score.cuh: kRowBox)
 RING = 4                    # stages of every kernel's ring (topk.cuh: kRing)
-# The store's and the carry's query group (wgmma n64; extract.cuh:
-# kNarrow): n64 measured faster than n128 for both at every k of the smoke
-# (PERF.md; each warp merges or extracts for 8 queries a tile, not 16),
-# though each block reads its rows for fewer queries. The carry's stage
-# sizes, largest first (places a query, each of two buffers).
+# The query group of every kernel but the floor (wgmma n64; extract.cuh:
+# kNarrow): n64 measured faster than n128 for the store, the carry and the
+# gate at every k of the smoke (PERF.md; each warp merges, extracts or cuts
+# for 8 queries a tile, not 16), though each block reads its rows for
+# fewer queries. The carry's stage sizes, largest first (places a query,
+# each of two buffers).
 NARROW = 64
 CARRY_STAGES = (32, 16)
 STORE_PITCH = 132           # floats a query row of the store's score tile
-# A store list holds k + 32 at least: after a cut, one more chunk of 32.
+# A store or gate list holds k + 32 at least: after a cut, one more chunk
+# of 32.
 STORE_SLACK = 32
 # Static shared memory of each kernel (extract.cuh's __shared__ arrays):
 # the ring's 8 barriers; X2's gates and two buffers' stage counts; the
-# store's gates, list lengths and its 8 warps' 256-bin select counters.
-# The card tests hold carry_smem/store_smem, these included, to the
-# library's vrod_extract_{carry,store}_smem.
+# store's and the gated kernels' gates, list lengths and 8 warps' 256-bin
+# select counters. The card tests hold carry_smem/store_smem/gate_smem,
+# these included, to the library's vrod_extract_{carry,store,gate}_smem.
 CARRY_STATIC_BYTES = 8 * 8 + 3 * NARROW * 4
 STORE_STATIC_BYTES = 8 * 8 + 2 * NARROW * 4 + 8 * 256 * 4
+GATE_STATIC_BYTES = STORE_STATIC_BYTES
 STAGE_BYTES = ROW_BOX + NARROW * 128  # one ring stage: rows' and queries'
 
 
@@ -129,8 +132,8 @@ class XPlan(NamedTuple):
     groups: int     # query groups of `width`
     parts: int      # row parts: block (part, group) walks tiles part, +parts
     cap: int        # a (part, query) list's capacity; X2: k, its carry
-    on_chip: bool   # the store's lists, X2's carry, in shared memory
-    width: int      # queries a block: NARROW, or K1's group
+    on_chip: bool   # the lists or X2's carry in shared memory
+    width: int      # queries a block: NARROW, or K1's group (the floor)
     stage: int      # X2: places of a query's stage (0 for the others)
 
 
@@ -172,47 +175,65 @@ def store_plan(k: int) -> tuple[int, bool]:
     return K.topk_plan(1, 1, k, 1)[2], False
 
 
+def gate_smem(cap: int, on_chip: bool = True) -> int:
+    """The gated kernels' shared memory a block (X1's gate, X3, X4; as
+    ``carry_smem``): the ring and the lists (NARROW x cap values and
+    slots) when on chip; no score tile."""
+    return (1024 + RING * STAGE_BYTES
+            + (NARROW * cap * 8 if on_chip else 0) + GATE_STATIC_BYTES)
+
+
+def gate_plan(k: int) -> tuple[int, bool]:
+    """The gated kernels' (cap, on_chip) for top-k: lists of as many
+    entries as fit in shared memory beside the ring (242), where that is k
+    + 32 at least (to k 210); else the lists in global memory with K1's
+    capacity."""
+    room = (SMEM_BYTES - gate_smem(0)) // (NARROW * 8)
+    if room >= k + STORE_SLACK:
+        return room, True
+    return K.topk_plan(1, 1, k, 1)[2], False
+
+
 def extract_plan(kernel: str, n: int, b: int, k: int, sms: int,
                  count: bool = False) -> XPlan:
     """A kernel's grid for n rows (whole blocks), b queries, top-k on
-    ``sms`` SMs. The gated kernels and the floor run K1's (``topk_plan``:
-    256-query groups, about one block per SM, K1's list capacity; the
-    floor keeps one max per part and query, cap 0). The store and the carry
-    take groups of NARROW (``store_plan``, ``carry_plan``) in as many
-    parts as leave about one block per SM. With ``count`` X2 runs one part
-    per query group, so that it walks the rows in global order."""
+    ``sms`` SMs. The floor runs K1's (``topk_plan``: 256-query groups,
+    about one block per SM), one max a part and query (cap 0). The others
+    take groups of NARROW in as many parts as leave about one block per
+    SM, with the lists of ``store_plan`` or of ``gate_plan`` (gate,
+    unroll2/4, pingpong), or X2's carry (``carry_plan``). With ``count``
+    X2 runs one part per query group, so that it walks the rows in global
+    order."""
     if kernel not in KERNELS:
         raise ValueError(f"kernel {kernel!r}: expected one of "
                          f"{tuple(KERNELS)}")
     mode = KERNELS[kernel][0]
-    groups, parts, cap = K.topk_plan(n, b, k, sms)
-    width, stage, on_chip = K.GROUP_QUERIES, 0, False
     if mode == "floor":
-        cap = 0
-    elif mode == "store":
-        width = NARROW
+        groups, parts, _ = K.topk_plan(n, b, k, sms)
+        return XPlan(groups, parts, 0, False, K.GROUP_QUERIES, 0)
+    stage = 0
+    if mode == "store":
         cap, on_chip = store_plan(k)
     elif mode == "carry":
-        width, cap = NARROW, k
+        cap = k
         stage, on_chip = carry_plan(k)
-    if width != K.GROUP_QUERIES:
-        groups = -(-b // width)
-        parts = max(1, min(-(-n // K.TILE_ROWS), sms // groups))
-    if count and mode == "carry":
-        parts = 1
-    return XPlan(groups, parts, cap, on_chip, width, stage)
+    else:
+        cap, on_chip = gate_plan(k)
+    groups = -(-b // NARROW)
+    parts = 1 if count and mode == "carry" else \
+        max(1, min(-(-n // K.TILE_ROWS), sms // groups))
+    return XPlan(groups, parts, cap, on_chip, NARROW, stage)
 
 
 def scratch_sizes(kernel: str, plan: XPlan, b: int, k: int, nblocks: int,
                   count: bool = False) -> dict[str, int]:
     """The elements of each scratch tensor of a launch: the (part, query)
-    lists handed to the merge (``cand``: stride k where the store's lists
-    or X2's carry stayed on chip, else the plan's capacity; the floor: one
-    max a part and query), their lengths, X2's per-block counts and the
-    merge's gather (``merge``: every part's k a query)."""
+    lists handed to the merge (``cand``: stride k where the lists or X2's
+    carry stayed on chip, else the plan's capacity; the floor: one max a
+    part and query), their lengths, X2's per-block counts and the merge's
+    gather (``merge``: every part's k a query)."""
     mode = KERNELS[kernel][0]
-    stride = k if mode == "carry" or (mode == "store" and plan.on_chip) \
-        else plan.cap
+    stride = k if mode == "carry" or plan.on_chip else plan.cap
     lists = plan.parts * b * stride
     return {"cand_v": plan.parts * b if mode == "floor" else lists,
             "cand_i": max(lists, 1), "cand_n": plan.parts * b,

@@ -15,8 +15,10 @@ nothing falls back to the CPU or to a plain version):
    CUDA tensors at 65,536 x 768, b256, with the floor on and off, dead
    rows, k 28, 112 and 1280, dims 96 and 30, tied rows (also spread over
    the row tiles of one persistent block, so that later copies meet a gate
-   that a list cut raised to their score), all rows dead and fewer live
-   rows than k. int8/int4 scores are exact integer dots
+   that a list cut raised to their score, with K1's lists on chip and in
+   global memory), all rows dead and fewer live rows than k; and (h) K1's
+   long scan at 69,632 rows, dims 768 and 30, at k 1, 16, 28, 112, 136 and
+   on both sides of its lists' on-chip edge. int8/int4 scores are exact integer dots
    followed by the same rounded float32 ops, so values and slots must be
    EXACTLY equal. bfloat16/float32 sums run in another order on the tensor
    cores: values must agree within ``cuda_topk.score_error_bound``
@@ -35,7 +37,7 @@ nothing falls back to the CPU or to a plain version):
    its bound and its library yardstick, by events and by device time.
    Edge shapes (g): K3 on one 16,384-row block at b1, b200 and b512, and
    K1 at 8,192 x 96 at b1, b200 and b512 and at 8,192 x 30 (no TMA) at
-   b200; every K1 call below CUT_TILES tiles a part must take the
+   b200; every K1 call below SMALL_TILES tiles a block must take the
    small-scan kernel (``cuda_topk.small_scans``), and ties across the
    small scan's list cuts must keep the lowest slots. K3 must make exactly
    one launch a call and K1's small scan one (int8 cosine at (d)), K1's
@@ -257,13 +259,16 @@ DB_DTYPE = {"int8": "int8", "int4": "int4", "bf16": "bfloat16",
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"int8": 1979e12, "int4": 1979e12, "bf16": 989e12,
             "f32": 495e12, "f32x3": 495e12 / 3}
-SOURCES = {"fused_topk": ("vrod_tpu_torch/csrc/fused_topk.cu",
+# K1's timed shapes (the phases' searches, theta0 from K3) take its scan
+# from a floor; without a floor it runs fused_topk.cu's gated core (the
+# kernels line's core_source), short scans fused_topk_small.cu.
+SOURCES = {"fused_topk": ("vrod_tpu_torch/csrc/fused_topk_floor.cu",
                           "vrod_tpu/ops/pallas_topk.py:251"),
            "sampled_submax": ("vrod_tpu_torch/csrc/sampled_submax.cu",
                               "vrod_tpu/ops/pallas_topk.py:468"),
            "fused_theta": ("vrod_tpu_torch/csrc/fused_theta.cu",
                            "experiments/kexp20.py:178"),
-           "fused_intgate": ("vrod_tpu_torch/csrc/fused_topk.cu",
+           "fused_intgate": ("vrod_tpu_torch/csrc/fused_topk_floor.cu",
                              "experiments/kexp22.py:127")}
 # The floor experiments' phases and k_scans (phase 4).
 FLOOR_KSCANS = {"main path": (28, 112), "(iii)": (108,)}
@@ -762,6 +767,33 @@ def truncated(t, drop):
     return (bits & -(1 << drop)).view(torch.float32)
 
 
+def tie_copies(sms, k, floor=False):
+    """(rows, copies) of the ties case across K1's list cuts at b256,
+    top-k: the long scan's part 0 walks tiles 0, parts, 2 parts, ...;
+    copies of row 7 fill rows 8..47 of its first tiles. Without a floor
+    (``cuda_topk.topk_plan``) ceil(k / 40) + ceil((cap - k) / 40) + 2 of
+    them: k copies are listed after the first ceil(k / 40), a list of cap
+    places is cut at least every ceil((cap - k) / 40) tiles while every
+    tile adds 40 copies, so a cut has raised the k-th to the copies' score
+    before the last two such tiles. From a floor below every score
+    (``floor_plan``: cuts every FLOOR_CUT_TILES tiles, each of which fills
+    a list past its limit) the cuts' interval times ceil(k / 40 / that) +
+    3: the first cut after k copies raises the gate to their score, and
+    the copies in the three tiles after meet a gate equal to theirs."""
+    from vrod_tpu_torch.ops import _build
+    from vrod_tpu_torch.ops import cuda_topk as K
+    if floor:
+        parts = K.floor_plan(1 << 30, BATCH, k, sms).parts
+        tiles = K.FLOOR_CUT_TILES * -(-k // (40 * K.FLOOR_CUT_TILES)) + 3
+    else:
+        plan = K.topk_plan(1 << 30, BATCH, k, sms, K.lib_ring(_build.load()))
+        parts = plan.parts
+        tiles = -(-k // 40) + -(-(plan.cap - k) // 40) + 2
+    copies = [t * parts * K.TILE_ROWS + r for t in range(tiles)
+              for r in range(8, 48)]
+    return (tiles + 1) * parts * K.TILE_ROWS, copies
+
+
 def tie_inputs(leg, dev, rng, n, copies):
     """Rows with copies of row 7 at the slots ``copies`` and of row 9000 at
     5000..5039, query 0 = row 7: exact ties inside query 0's top-k and
@@ -812,6 +844,31 @@ def kernel_cases(cmp, rng, dev, leg):
     cmp.topk(leg, args, kw, 112, f"{leg} (c) k 112, floor", 0, theta_c)
     cmp.floor_sound(leg, args, kw, 112, theta_c, f"{leg} (c)")
     cmp.topk(leg, args, kw, 1280, f"{leg} (c) k 1280")
+    # (h) K1's long scan at every k its lists take: 1, 16, 28, 112, 136,
+    # the largest k whose lists fit on chip and the next, at 69,632 rows
+    # (past the small scan at b256), dims 768 and 30 (the copying
+    # producer), no floor; and at k 28 from a floor below every score (the
+    # scan from a floor, whose lists then fill and are cut every few tiles).
+    from vrod_tpu_torch.ops import _build
+    ring = K.lib_ring(_build.load())
+    edge = max(k for k in range(1, 1281) if K.topk_layout(k, ring).on_chip)
+    for d in (DIM, 30):
+        xh = torch.from_numpy(rng.standard_normal((69632, d),
+                                                  dtype=np.float32))
+        qh = torch.from_numpy(rng.standard_normal((BATCH, d),
+                                                  dtype=np.float32))
+        ah, kh = kernel_inputs(xh, qh, leg, dev, dead_every=7)
+        low = torch.full((BATCH, 1), -1e30, device=dev)
+        for k, t0 in [(k, None) for k in (1, 16, 28, 112, 136, edge,
+                                          edge + 1)] + [(28, low)]:
+            small = K.small_scans[leg]
+            what = f"{leg} (h) dim {d} k {k}" + (", floor" if t0 is not None
+                                                  else "")
+            cmp.topk(leg, ah, kh, k, what, 0, t0)
+            if K.small_scans[leg] != small:
+                raise AssertionError(f"{what}: K1 took its small-scan "
+                                     "kernel")
+        del xh, ah
     # (g) K3 on one block at the batch's edges.
     for b in (1, 200, 512):
         qg = torch.from_numpy(rng.standard_normal((b, DIM),
@@ -861,22 +918,31 @@ def kernel_cases(cmp, rng, dev, leg):
         raise AssertionError(f"{leg} (e) ties: copies of row 7 not lowest "
                              "slot first")
     # Ties across K1's list cuts: 40 copies of row 7 in each of the first
-    # seven row tiles of part 0 (tiles 0, parts, 2 parts, ...). The first
-    # four tiles fill query 0's list past k, so the first cut raises its
-    # gate to the copies' score, and the copies in the later tiles meet a
-    # gate equal to their score (and lose the tie by slot).
+    # row tiles of part 0 (tiles 0, parts, 2 parts, ...: tie_copies). They
+    # fill query 0's list past k, so a cut raises its gate to the copies'
+    # score, and the copies in the later tiles meet a gate equal to their
+    # score (and lose the tie by slot): in the gated core (no floor) with
+    # the lists on chip (k 112) and in global memory (k 300), and in the
+    # scan from a floor (a floor below every score: every row passes).
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    _, parts, _ = K.topk_plan(8 * K.TILE_ROWS * sms, BATCH, 112, sms)
-    copies = [t * parts * K.TILE_ROWS + r for t in range(7)
-              for r in range(8, 48)]
-    at, kt = tie_inputs(leg, dev, rng, 8 * parts * K.TILE_ROWS, copies)
-    v, i = cmp.topk(leg, at, kt, 112, f"{leg} (e) ties across list cuts",
-                    bound=exact)
-    if i[0, :112].tolist() != [7] + copies[:111]:
-        raise AssertionError(f"{leg} (e) ties across list cuts: copies of "
-                             "row 7 not lowest slot first")
-    # The same across the small scan's cuts (after every tile): copies in
-    # the first seven tiles of part 0 at 16,384 rows, k 28.
+    for kt_, floor in ((112, False), (300, False), (112, True), (300, True)):
+        n_t, copies = tie_copies(sms, kt_, floor)
+        at, kt = tie_inputs(leg, dev, rng, n_t, copies)
+        low = torch.full((BATCH, 1), -1e30, device=dev) if floor else None
+        route = f"k {kt_}" + (", floor" if floor else "")
+        before = K.floor_scans[leg]
+        v, i = cmp.topk(leg, at, kt, kt_,
+                        f"{leg} (e) ties across list cuts {route}", 0, low,
+                        bound=exact)
+        if K.floor_scans[leg] - before != int(floor):
+            raise AssertionError(f"{leg} (e) ties across list cuts {route}:"
+                                 " K1 took the wrong scan")
+        if i[0, :kt_].tolist() != [7] + copies[:kt_ - 1]:
+            raise AssertionError(f"{leg} (e) ties across list cuts {route}:"
+                                 " copies of row 7 not lowest slot first")
+    # The same across the small scan's cuts (lists of SMALL_CAP, cut when
+    # full): copies in the first seven tiles of part 0 at 16,384 rows, k
+    # 28.
     _, parts, _ = K.small_plan(16384, BATCH, 28, sms)
     copies = [t * parts * K.TILE_ROWS + r for t in range(7)
               for r in range(8, 48)]
@@ -1558,6 +1624,10 @@ def db_phase(dev, card, cmp, *, name, leg, top_k, rows, searches, reopen,
                 "gone, every other result unchanged")
         torch.cuda.synchronize(dev)
         launches = dict(K.launches)
+        # K1's launches that took the kernel for a floor (the rest of the
+        # long scans took the gated core).
+        launches.update({f"fused_topk_floor[{lg}]": c
+                         for lg, c in K.floor_scans.items()})
         ran = {n: c for n, c in launches.items() if c}
         log(f"{name}: kernel launches {json.dumps(ran)}, "
             f"peak device memory {torch.cuda.max_memory_allocated(dev)} "
@@ -2445,6 +2515,7 @@ def main(argv=None) -> int:
             "quant" if leg.startswith(("int8", "int4")) else "float"]
         phases.append((f"leg {leg}", leg, top_k, rows, False))
     launches = dict.fromkeys(K.launches, 0)
+    launches.update({f"fused_topk_floor[{leg}]": 0 for leg in K.LEGS})
     times, floors, extracts, main_path = {}, [], [], {}
     for i, (name, leg, top_k, rows, reopen) in enumerate(phases):
         n, t, floor, extract, served = db_phase(
@@ -2480,6 +2551,9 @@ def main(argv=None) -> int:
     for n in [sharded] + ranks + [verbs]:
         for kname, c in n.items():
             launches[kname] += c
+    if not launches["fused_topk_floor[int8-cosine]"]:
+        raise AssertionError("the main path's K1 launches took no scan from "
+                             "a floor (csrc/fused_topk_floor.cu)")
     kernels = []
     for kern in ("fused_topk", "sampled_submax"):
         for leg in K.LEGS:
@@ -2506,11 +2580,21 @@ def main(argv=None) -> int:
                 "bound_by": bound_by,
                 "library_ms": t[kern + "_library"]}
             if kern == "fused_topk":
-                # The small-scan kernel at the K2 shapes (8,192 x 96, b256,
-                # k 28), and its launches in phase 9.
+                # Of its launches on the search paths, those that took the
+                # scan from a floor (csrc/fused_topk_floor.cu: the phases'
+                # timed shapes, theta0 from K3); the rest took the gated
+                # core or, in phase 9, the small scan. The small-scan kernel
+                # at the K2 shapes (8,192 x 96, b256, k 28), and its
+                # launches in phase 9.
+                fl_n = launches[f"fused_topk_floor[{leg}]"]
+                log(f"{kname}: {fl_n} of its launches took the scan from a "
+                    "floor (fused_topk_floor.cu), the others the gated core "
+                    "(fused_topk.cu) or the small scan")
                 k2 = k2_times[leg]
                 small_bound = k2["fused_topk_dim96_bound"][0]
                 entry.update(
+                    floor_launches=fl_n,
+                    core_source="vrod_tpu_torch/csrc/fused_topk.cu",
                     small_launches=small[leg],
                     small_ms=k2["fused_topk_dim96"],
                     small_device_ms=k2["fused_topk_dim96_device"],

@@ -260,25 +260,62 @@ def test_cuda_engine_float32_high_precision_runs_the_f32x3_leg(
         f"sampled_submax[f32x3-{metric}]": 2}
 
 
+def tie_tiles(k, cap):
+    """Row tiles of part 0 that hold copies of row 7 (40 each) in the ties
+    case across list cuts: every tile appends its copies while the k-th is
+    below their score, so after ceil(k / 40) tiles k copies are listed, and
+    a list of cap places is cut at least every ceil((cap - k) / 40) tiles;
+    by then a cut has raised the k-th to the copies' score, and the copies
+    in the two tiles after meet a k-th equal to theirs."""
+    return -(-k // 40) + -(-(cap - k) // 40) + 2
+
+
+def floor_tie_tiles(k):
+    """Row tiles of part 0 that hold copies of row 7 in the ties case
+    across the cuts of the scan from a floor below every score: every row
+    passes, so each FLOOR_CUT_TILES tiles fill a list past its limit and
+    are cut; the first cut after k copies raises the gate to their score,
+    and the copies in the three tiles after meet a gate equal to theirs."""
+    every = cuda_topk.FLOOR_CUT_TILES
+    return every * -(-k // (40 * every)) + 3
+
+
+def tie_rows(dev, b, k, floor=False):
+    """(n, copies) of the ties case across K1's list cuts for b queries at
+    top-k: part 0 walks tiles 0, parts, 2 parts, ... (``topk_plan``, or
+    ``floor_plan`` from a floor), its first ``tie_tiles`` (or
+    ``floor_tie_tiles``) hold the copies at rows 8..47."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if floor:
+        parts = cuda_topk.floor_plan(1 << 30, b, k, sms).parts
+        tiles = floor_tie_tiles(k)
+    else:
+        plan = cuda_topk.topk_plan(1 << 30, b, k, sms)
+        parts = plan.parts
+        tiles = tie_tiles(k, plan.cap)
+    copies = [t * parts * cuda_topk.TILE_ROWS + r for t in range(tiles)
+              for r in range(8, 48)]
+    return (tiles + 1) * parts * cuda_topk.TILE_ROWS, copies
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("leg", cuda_topk.LEGS)
-def test_cuda_k1_ties_across_list_cuts(leg, cuda_device):
-    """Copies of row 7, 40 in each of the first seven row tiles of K1's
-    part 0 (tiles 0, parts, 2 parts, ...), query 0 = row 7, no floor: the
-    first four tiles fill query 0's list past k, so the first cut raises
-    its gate to the copies' score, and the copies in the later tiles meet
-    a gate equal to their score (and lose the tie by slot). Rows of -1/0/1
-    and queries of four +-2 make every score exact in any summation order,
-    so K1 must EQUAL the plain version on every leg, ties throughout."""
+@pytest.mark.parametrize("k", [112, 300])
+@pytest.mark.parametrize("floor", [False, True])
+def test_cuda_k1_ties_across_list_cuts(leg, cuda_device, k, floor):
+    """Copies of row 7, 40 in each of the first row tiles of K1's part 0
+    (tiles 0, parts, 2 parts, ...: ``tie_rows``), query 0 = row 7: the
+    copies fill query 0's list past k, so a cut raises its gate to the
+    copies' score, and the copies in the later tiles meet a gate equal to
+    their score (and lose the tie by slot). No floor: the gated core, k 112
+    with the lists on chip, 300 in global memory; a floor of -1e30 (below
+    every score): the scan from a floor, at both k. Rows of -1/0/1 and
+    queries of four +-2 make every score exact in any summation order, so
+    K1 must EQUAL the plain version on every leg, ties throughout."""
     rng = np.random.default_rng(77)
-    b, d, k = 8, 128, 112
+    b, d = 8, 128
     dtype, metric = leg.split("-")
-    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    _, parts, _ = cuda_topk.topk_plan(8 * cuda_topk.TILE_ROWS * sms, b, k,
-                                      sms)
-    n = 8 * parts * cuda_topk.TILE_ROWS
-    copies = [t * parts * cuda_topk.TILE_ROWS + r for t in range(7)
-              for r in range(8, 48)]
+    n, copies = tie_rows(cuda_device, b, k, floor)
     x = rng.integers(-1, 2, (n, d)).astype(np.float32)
     x[7] = 0.0
     x[7, :4] = 2.0
@@ -303,11 +340,98 @@ def test_cuda_k1_ties_across_list_cuts(leg, cuda_device):
     args = [t.to(cuda_device) for t in (rows, aux, valid, qt)]
     kw = {key: v.to(cuda_device) if torch.is_tensor(v) else v
           for key, v in kw.items()}
+    if floor:
+        kw["theta0"] = torch.full((b,), -1e30, device=cuda_device)
+    before = cuda_topk.floor_scans[leg]
     v, i = cuda_topk.fused_topk(*args, k=k, metric=metric, **kw)
     vp, ip = cuda_topk.fused_topk_plain(*args, k=k, metric=metric, **kw)
     torch.cuda.synchronize()
+    assert cuda_topk.floor_scans[leg] - before == int(floor)
     assert torch.equal(v, vp) and torch.equal(i, ip)
     assert i[0].tolist() == [7] + copies[:k - 1]
+
+
+# K1 at every k the lists take: 1, 16, 28, 112, 136, the largest k whose
+# lists fit on chip (topk_layout: 258, beside a ring of 3) and the next.
+K1_EDGE = max(k for k in range(1, 1281)
+              if cuda_topk.topk_layout(k).on_chip)
+K1_KS = [1, 16, 28, 112, 136, K1_EDGE, K1_EDGE + 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leg", cuda_topk.LEGS)
+@pytest.mark.parametrize("floor", [False, True])
+@pytest.mark.parametrize("d", [768, 30])
+def test_cuda_k1_every_k_matches_plain(rng, cuda_device, leg, floor, d):
+    """K1's long scan at 69,632 rows (past the small scan's 67,456 at
+    b256), b256 (four query groups), dims 768 and 30 (the copying
+    producer), with dead slots, from K3's floor and with none, at every k
+    of K1_KS (both sides of the lists' on-chip edge), against the plain
+    version; and the default ring's edge is where the plan puts it."""
+    assert K1_EDGE == 258
+    metric = leg.split("-")[1]
+    args, kw = make_state(rng, 69632, d, 256, cuda_device, leg, 7)
+    bound = bound_of(args, kw, metric)
+    sample, skw = sample_of(args, kw, 8192)
+    sub = cuda_topk.sampled_submax(*sample, metric=metric, block_rows=2048,
+                                   **skw)
+    for k in K1_KS:
+        theta0 = TD.threshold_from_submax(sub, k, method="count") \
+            if floor else None
+        small = dict(cuda_topk.small_scans)
+        fl = cuda_topk.floor_scans[leg]
+        v, i = cuda_topk.fused_topk(*args, k=k, metric=metric,
+                                    theta0=theta0, **kw)
+        vp, ip = cuda_topk.fused_topk_plain(*args, k=k, metric=metric,
+                                            theta0=theta0, **kw)
+        torch.cuda.synchronize()
+        assert cuda_topk.small_scans == small, "took the small scan"
+        assert cuda_topk.floor_scans[leg] - fl == int(floor), "wrong scan"
+        msg = cuda_topk.topk_disagreement(v, i, vp, ip, bound)
+        assert msg is None, f"k {k}: {msg}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2, 8, 16, 64, 100, 128, 200, 256, 300,
+                               512, 1024])
+def test_cuda_k1_batch_sweep_matches_plain(rng, cuda_device, b):
+    """K1's long scan at every batch size of the bench's sweep and between
+    (one to 16 query groups of 64 without a floor, one to four of 256 from
+    one) at 69,632 x 128 (past the small scan's
+    67,456 rows), int8 cosine with dead slots, k 100 without a floor and
+    k 16 from K3's floor, EQUAL to the plain version; each call takes the
+    long scan."""
+    args, kw = make_state(rng, 69632, 128, b, cuda_device, "int8-cosine", 7)
+    sample, skw = sample_of(args, kw, 32768)
+    sub = cuda_topk.sampled_submax(*sample, metric="cosine",
+                                   block_rows=16384, **skw)
+    for k, floor in ((100, False), (16, True)):
+        theta0 = TD.threshold_from_submax(sub, k, method="count") \
+            if floor else None
+        small = dict(cuda_topk.small_scans)
+        fl = cuda_topk.floor_scans["int8-cosine"]
+        v, i = cuda_topk.fused_topk(*args, k=k, metric="cosine",
+                                    theta0=theta0)
+        vp, ip = cuda_topk.fused_topk_plain(*args, k=k, metric="cosine",
+                                            theta0=theta0)
+        torch.cuda.synchronize()
+        assert cuda_topk.small_scans == small
+        assert cuda_topk.floor_scans["int8-cosine"] - fl == int(floor)
+        assert torch.equal(v, vp) and torch.equal(i, ip), (b, k)
+
+
+@pytest.mark.cuda
+def test_cuda_topk_smem_is_within_the_plan(cuda_device):
+    """The long scan's whole shared memory (the library's account of the
+    built kernel, vrod_topk_smem) is at most the plan's ``topk_smem`` and
+    the card's limit at every k to 1280, the lists on chip or not."""
+    lib = _build.load()
+    ring = cuda_topk.lib_ring(lib)
+    for k in range(1, 1281):
+        lay = cuda_topk.topk_layout(k, ring)
+        need = lib.vrod_topk_smem(lay.ring, lay.cap, int(lay.on_chip))
+        assert 0 < need <= cuda_topk.topk_smem(lay) \
+            <= cuda_topk.SMEM_LIMIT, (k, lay)
 
 
 # -- The floor and gate kernels (ops/cuda_floor.py) -------------------------
@@ -380,12 +504,7 @@ def tie_state(leg, dev, b=8, d=128, k=112):
     as kernel inputs: (args, kw, copies)."""
     rng = np.random.default_rng(77)
     dtype, metric = leg.split("-")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    _, parts, _ = cuda_topk.topk_plan(8 * cuda_topk.TILE_ROWS * sms, b, k,
-                                      sms)
-    n = 8 * parts * cuda_topk.TILE_ROWS
-    copies = [t * parts * cuda_topk.TILE_ROWS + r for t in range(7)
-              for r in range(8, 48)]
+    n, copies = tie_rows(dev, b, k)
     x = rng.integers(-1, 2, (n, d)).astype(np.float32)
     x[7] = 0.0
     x[7, :4] = 2.0

@@ -62,42 +62,46 @@ def test_submax_width_follows_the_grid():
 @pytest.mark.parametrize("b", [1, 40, 256, 300, 512])
 @pytest.mark.parametrize("sms", SMS)
 def test_small_plan_takes_short_scans_and_covers_every_tile(n, b, sms):
-    """The small scan takes exactly the scans whose long plan would leave a
-    part fewer than CUT_TILES tiles (k up to SMALL_MAX_K); every query group
-    is one cluster whose parts walk every row tile once, in ascending
-    order, CUT_TILES or more each where there are that many; its lists (k
-    + 2 tiles, cut after every tile) and ring fit a block's shared
-    memory."""
+    """The small scan takes exactly the scans that would give each of sms
+    // ceil(b / SMALL_SPAN) blocks fewer than SMALL_TILES tiles (k up to
+    SMALL_MAX_K); every query group is one cluster whose parts walk every
+    row tile once, in ascending order, SMALL_TILES or more each where there
+    are that many; its lists (SMALL_CAP, cut only when full) and ring fit a
+    block's shared memory."""
     tiles = -(-n // K.TILE_ROWS)
-    long_parts = K.topk_plan(n, b, 28, sms)[1]
+    spread = max(1, sms // -(-b // K.SMALL_SPAN))
     plan = K.small_plan(n, b, 28, sms)
-    assert (plan is not None) == (tiles < long_parts * K.CUT_TILES)
+    assert (plan is not None) == (tiles < spread * K.SMALL_TILES)
     if plan is None:
         return
     groups, parts, cap = plan
     assert groups * K.SMALL_GROUP >= b > (groups - 1) * K.SMALL_GROUP
     assert 1 <= parts <= K.MAX_CLUSTER
-    assert cap == 28 + 2 * K.TILE_ROWS
-    # consume_all cuts every (cap - k) / 128 - 1 tiles: after every tile.
-    assert (cap - 28) // K.TILE_ROWS - 1 == 1
+    # A list of SMALL_CAP takes a warp's worth past any k it serves, and
+    # a cut of it is the warp bitonic sort (at most 256 entries).
+    assert cap == K.SMALL_CAP <= 256
+    assert cap >= K.SMALL_MAX_K + K.LIST_SLACK
     hits = np.zeros(tiles, dtype=np.int64)
     for p in range(parts):
         walk = list(K.part_tiles(p, parts, n))
         assert walk == sorted(walk)
-        assert len(walk) >= min(K.CUT_TILES, tiles // parts)
+        assert len(walk) >= min(K.SMALL_TILES, tiles // parts)
         hits[walk] += 1
     assert (hits == 1).all()
     assert K.small_smem(28) <= K.SMEM_LIMIT
 
 
-def test_small_plan_switch_point_and_k():
-    """At 132 SMs and b256 the long plan has 132 parts, so the small scan
-    takes up to 527 tiles (67,456 rows) and k up to SMALL_MAX_K, whose
-    lists still fit."""
-    assert K.small_plan(67456, 256, 28, 132) is not None
-    assert K.small_plan(67457, 256, 28, 132) is None
-    assert K.small_plan(8192, 256, 28, 132) == (16, 8, 28 + 256)
-    assert K.small_plan(8192, 1, 28, 132) == (1, 8, 28 + 256)
+@pytest.mark.parametrize("b,last", [(256, 67456), (1, 67456),
+                                    (300, 33664), (512, 33664),
+                                    (1024, 16768)])
+def test_small_plan_switch_point_and_k(b, last):
+    """At 132 SMs the small scan takes scans up to 132 // ceil(b / 256) x
+    SMALL_TILES - 1 tiles (b1 to b256: 527 tiles, 67,456 rows; b512: 263
+    tiles; b1024: 131) and k up to SMALL_MAX_K, whose lists still fit; the
+    K2 shapes (8,192 rows) take it at every batch."""
+    assert K.small_plan(last, b, 28, 132) is not None
+    assert K.small_plan(last + 1, b, 28, 132) is None
+    assert K.small_plan(8192, b, 28, 132) == (-(-b // 16), 8, K.SMALL_CAP)
     assert K.small_plan(8192, 256, K.SMALL_MAX_K, 132) is not None
     assert K.small_plan(8192, 256, K.SMALL_MAX_K + 1, 132) is None
     assert K.small_smem(K.SMALL_MAX_K) <= K.SMEM_LIMIT
@@ -152,7 +156,7 @@ def test_call_maps_follow_the_query_layout():
         call = K._Call(xf, torch.ones(256), torch.ones(256, dtype=torch.bool),
                        torch.zeros((40, 96)), "dot", None, None, False)
         assert call.maps(K.GROUP_QUERIES)[2] is None
-        assert seen[-1][1:] == (384, 40, 384, 256)
+        assert seen[-1][1:] == (384, 40, 384, 64)
         x30 = torch.zeros((256, 30), dtype=torch.int8)   # no TMA
         call = K._Call(x30, torch.ones(256),
                        torch.ones(256, dtype=torch.bool),

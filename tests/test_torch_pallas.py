@@ -253,11 +253,12 @@ def test_pick_block_rows(rows, dim, itemsize):
     # K1's launch plan walks every 128-row tile exactly once (any row
     # count: the last tile may be partial), at one and at two query groups.
     for b in (8, 300):
-        groups, parts, cap = cuda_topk.topk_plan(rows, b, 28, 132)
+        plan = cuda_topk.topk_plan(rows, b, 28, 132)
+        parts = plan.parts
         walked = sorted(tile for p in range(parts)
                         for tile in cuda_topk.part_tiles(p, parts, rows))
         assert walked == list(range(-(-rows // 128)))
-        assert groups == -(-b // 256) and cap >= 28
+        assert plan.groups == -(-b // 64) and plan.cap >= 28
     # K3's pre-pass block, wherever the gate opens at these rows: within
     # the tile budget, a multiple of 128 rows, whole blocks in the sample.
     for k_scan, quant in ((28, True), (72, False)):

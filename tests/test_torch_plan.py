@@ -1,6 +1,10 @@
 """The Python-side arithmetic of the CUDA kernels' launches, on the CPU:
-K1's persistent plan and K3's segments must cover every slot exactly once,
-as the chunked plan they replace did, and the TMA dispatch must send the
+K1's persistent plans and K3's segments must cover every slot exactly
+once, as the chunked plan they replace did; K1's gated core (no floor)
+takes query groups of 64 with lists on chip while they fit within a
+block's shared memory, its scan from a floor groups of 256 with lists of k
++ 5 tiles in scratch, and ``scan_route`` picks between them and the small
+scan by the call's floor and shapes; and the TMA dispatch must send the
 shapes TMA cannot load (rows not a multiple of 16 bytes, unaligned bases)
 to the copying producer. A build with extra defines (the measurement
 scripts' variants) lives beside the default library, never in its place.
@@ -36,14 +40,12 @@ def old_plan(n, b, k, sms, q_tile=32, sub=512, tile=64):
 @pytest.mark.parametrize("n,b", SHAPES)
 @pytest.mark.parametrize("sms", [132, 7, 1])
 def test_topk_plan_covers_every_slot_once(n, b, sms):
-    groups, parts, cap = K.topk_plan(n, b, 28, sms)
+    groups, parts, cap, on_chip, _ = K.topk_plan(n, b, 28, sms)
     assert groups * K.GROUP_QUERIES >= b > (groups - 1) * K.GROUP_QUERIES
     assert 1 <= parts and groups * parts <= max(sms, groups)
-    # The kernel cuts every (cap - k) / 128 - 1 tiles, and a list cut to k
-    # still takes every candidate of the tiles until the next cut.
-    cut_every = (cap - 28) // K.TILE_ROWS - 1
-    assert cut_every == K.CUT_TILES
-    assert cap - cut_every * K.TILE_ROWS > 28
+    # No cut cadence: a list cut to k (when full) has room for a warp's
+    # worth more, on chip at k 28.
+    assert on_chip and cap >= 28 + K.LIST_SLACK
     hits = torch.zeros(n, dtype=torch.int32)
     for p in range(parts):
         tiles = list(K.part_tiles(p, parts, n))
@@ -56,6 +58,65 @@ def test_topk_plan_covers_every_slot_once(n, b, sms):
     for c in range(nchunks):
         old[c * rows:(c + 1) * rows] += 1
     assert torch.equal(hits, old)
+
+
+@pytest.mark.parametrize("n,b", SHAPES)
+@pytest.mark.parametrize("sms", [132, 7, 1])
+def test_floor_plan_covers_every_slot_once(n, b, sms):
+    """The scan from a floor: query groups of 256, about one block per SM,
+    lists of k + (FLOOR_CUT_TILES + 1) tiles, and its parts' tiles cover
+    every slot once, in ascending order within a part, as the chunked plan
+    did."""
+    groups, parts, cap = K.floor_plan(n, b, 28, sms)
+    assert K.FLOOR_GROUP == 256 and K.FLOOR_CUT_TILES == 4
+    assert groups * 256 >= b > (groups - 1) * 256
+    assert 1 <= parts and groups * parts <= max(sms, groups)
+    assert cap == 28 + 5 * K.TILE_ROWS
+    hits = torch.zeros(n, dtype=torch.int32)
+    for p in range(parts):
+        tiles = list(K.part_tiles(p, parts, n))
+        assert tiles == sorted(tiles)
+        for t in tiles:
+            hits[t * K.TILE_ROWS:(t + 1) * K.TILE_ROWS] += 1
+    assert bool((hits == 1).all())
+    nchunks, rows = old_plan(n, b, 28, sms)
+    old = torch.zeros(n, dtype=torch.int32)
+    for c in range(nchunks):
+        old[c * rows:(c + 1) * rows] += 1
+    assert torch.equal(hits, old)
+
+
+@pytest.mark.parametrize("n,b,k", [(8192, 256, 28), (67456, 256, 28),
+                                   (67457, 256, 28), (1 << 20, 256, 28),
+                                   (1 << 20, 1, 112), (8192, 256, 65),
+                                   (131072, 1024, 16), (69632, 300, 1280)])
+@pytest.mark.parametrize("floor", [False, True])
+def test_scan_route_by_floor_and_shape(n, b, k, floor):
+    """Which K1 kernel takes a scan: the small scan wherever ``small_plan``
+    takes the shapes, floor or none; else the scan from a floor when the
+    call has theta0 and the gated core when it has none."""
+    route = K.scan_route(n, b, k, 132, floor)
+    if K.small_plan(n, b, k, 132) is not None:
+        assert route == "small"
+    else:
+        assert route == ("floor" if floor else "core")
+    if (n, k) == (8192, 28):
+        assert route == "small"
+    if n == 1 << 20:
+        assert route != "small"
+
+
+@pytest.mark.parametrize("b,k", [(1, 1), (256, 28), (256, 112), (300, 211),
+                                 (1024, 1280)])
+def test_floor_scratch_holds_the_lists_and_gather(b, k):
+    """The scan from a floor's scratch: lists of cap a (part, query) and
+    their lengths, and the merge's gather of every part's k a query, 4
+    bytes each."""
+    plan = K.floor_plan(1 << 20, b, k, 132)
+    assert plan.cap == k + 640
+    assert K.floor_scratch_bytes(plan, b, k) == 4 * (
+        2 * plan.parts * b * plan.cap + plan.parts * b
+        + 2 * b * plan.parts * k)
 
 
 @pytest.mark.parametrize("n,blk", [(32768, 16384), (131072, 16384),
@@ -121,16 +182,18 @@ def test_theta_plan_is_k1_grid_and_whole_sample_blocks(n, b, k, blk,
         with pytest.raises(ValueError, match="2k sub-maxima"):
             F.theta_plan(n, b, k, blk, s_blocks, sms)
         return
-    groups, parts, cap, sample_tiles, blk_tiles = F.theta_plan(
-        n, b, k, blk, s_blocks, sms)
-    assert (groups, parts, cap) == K.topk_plan(n, b, k, sms)
+    plan = F.theta_plan(n, b, k, blk, s_blocks, sms)
+    groups, parts, *_, sample_tiles, blk_tiles = plan
+    assert tuple(plan[:5]) == K.topk_plan(n, b, k, sms)
     assert groups * parts <= max(sms, groups)
     assert sample_tiles * K.TILE_ROWS == s_blocks * blk <= n
     assert blk_tiles * K.TILE_ROWS == blk
-    # Every sample tile lies in one part's walk and one sample block.
-    seen = sorted(t for p in range(parts)
-                  for t in K.part_tiles(p, parts, n) if t < sample_tiles)
+    # Every sample tile lies in one part's run, each run consecutive
+    # tiles, and in one sample block.
+    runs = [F.sample_run(p, parts, sample_tiles) for p in range(parts)]
+    seen = [t for r in runs for t in r]
     assert seen == list(range(sample_tiles))
+    assert all(r.step == 1 for r in runs)
     assert {t // blk_tiles for t in seen} == set(range(s_blocks))
 
 
@@ -211,9 +274,9 @@ def test_new_plans_group_width_by_k(k, carry_on_chip, store_on_chip):
         assert (plan.width, plan.groups) == (64, 4)
         assert plan.on_chip == on_chip
     assert cuda_extract.store_plan(k)[0] == (
-        176 if store_on_chip else K.topk_plan(1, 1, k, 1)[2])
+        176 if store_on_chip else k + K.GLOBAL_SLACK)
     assert cuda_extract.gate_plan(k)[0] == (
-        242 if gate_on_chip else K.topk_plan(1, 1, k, 1)[2])
+        242 if gate_on_chip else k + K.GLOBAL_SLACK)
     assert cuda_extract.extract_plan("floor", 1 << 20, 256, k, 132).width \
         == 256
 
@@ -259,15 +322,15 @@ def test_new_plans_launch_arguments(kernel, b, k, count):
 @pytest.mark.parametrize("count", [False, True])
 def test_extract_plan_is_k1_grid_with_each_kernels_lists(kernel, n, b, k,
                                                          count):
-    """The floor runs K1's persistent grid (256-query groups) with no
-    lists. Every other kernel takes groups of 64 in as many parts as keep
-    about one block per SM: the store's lists of its plan's capacity, the
-    gated kernels' (gate, unroll2/4, pingpong) of theirs, the carry's k;
-    X2 with ``count`` runs one part per query group (rows in global
-    order)."""
+    """The floor runs a persistent grid of 256-query groups with no lists.
+    Every other kernel takes groups of 64 in as many parts as keep about
+    one block per SM: the store's lists of its plan's capacity, the gated
+    kernels' (gate, unroll2/4, pingpong) of theirs, the carry's k; X2 with
+    ``count`` runs one part per query group (rows in global order)."""
     plan = cuda_extract.extract_plan(kernel, n, b, k, 132,
                                      count=count and kernel == "carry")
-    g1, p1, _ = K.topk_plan(n, b, k, 132)
+    g1 = -(-b // 256)
+    p1 = max(1, min(-(-n // 128), 132 // g1))
     if kernel == "floor":
         assert plan.groups == g1 and plan.width == 256
     else:
@@ -301,7 +364,7 @@ def test_gate_plan_keeps_lists_in_shared_memory_while_they_fit(k, cap,
     query in shared memory beside the 4-stage ring, with no score tile:
     1024 + 4 x 24 KB + 64 x 242 x 8 + 8,768 static bytes, within a block's
     227 KB, while that leaves k + 32 places (to k 210); past that, lists
-    of K1's capacity (k + 5 tiles of 128) in global memory."""
+    of K1's capacity there (k + 5 tiles of 128) in global memory."""
     assert cuda_extract.gate_plan(k) == (cap, on_chip)
     assert cuda_extract.gate_smem(0) == 1024 + 4 * (128 * 128 + 64 * 128) \
         + 8768
@@ -310,7 +373,7 @@ def test_gate_plan_keeps_lists_in_shared_memory_while_they_fit(k, cap,
     assert cuda_extract.gate_smem(243) > cuda_extract.SMEM_BYTES
     assert cuda_extract.gate_smem(cap, on_chip) <= cuda_extract.SMEM_BYTES
     if not on_chip:
-        assert cap == K.topk_plan(1, 1, k, 1)[2] == k + 5 * 128
+        assert cap == k + K.GLOBAL_SLACK == k + 5 * 128
         assert cuda_extract.gate_smem(cap, False) == cuda_extract.gate_smem(0)
 
 
@@ -332,3 +395,75 @@ def test_scratch_stride_follows_where_the_lists_live(kernel, k):
     assert size["cand_v"] == size["cand_i"] == plan.parts * b * stride
     assert size["merge"] == b * plan.parts * k
     assert size["cand_n"] == plan.parts * b == 33 * 256
+
+
+@pytest.mark.parametrize("b", [1, 2, 8, 16, 64, 65, 100, 128, 129, 192,
+                               200, 256, 300, 320, 384, 512, 1024])
+@pytest.mark.parametrize("sms", [132, 7])
+def test_topk_plan_width_and_parts(b, sms):
+    """K1's long scan for the batch sweep's sizes and between: query groups
+    of 64 cover every query once, as many parts as leave about one block
+    per SM (at least one), and the shared memory ``topk_layout`` gives."""
+    n = 1 << 20
+    plan = K.topk_plan(n, b, 28, sms)
+    groups = -(-b // 64)
+    assert plan.groups == groups
+    assert (plan.groups - 1) * 64 < b <= plan.groups * 64
+    assert plan.parts == max(1, sms // groups)
+    assert (plan.ring, plan.cap, plan.on_chip) == tuple(K.topk_layout(28))
+
+
+@pytest.mark.parametrize("ring,edge", [(8, 258), (6, 258), (4, 258),
+                                       (3, 258)])
+def test_topk_lists_on_chip_to_the_edge(ring, edge):
+    """K1's lists stay in shared memory beside a ring of the most stages up
+    to ``ring`` (down to 3) that leaves them k + 32 places
+    (``topk_layout``), with as many places as fit; past the edge that a
+    ring of 3 sets (290 places, to k 258) they hold k + 640 in global
+    memory beside a ring of ``ring``. The block's shared memory (the ring
+    of 24 KB stages: a k-block of 128 bytes of the row tile and 64
+    queries; the lists; the static part) stays within the card's 227 KB at
+    every k, on chip or not."""
+    for k in (1, 16, 28, 60, 112, 136, 210, 211, 258, 259, 1280):
+        lay = K.topk_layout(k, ring)
+        assert 3 <= lay.ring <= ring
+        assert lay.on_chip == (k <= edge)
+        assert K.topk_smem(lay) <= K.SMEM_LIMIT
+        if not lay.on_chip:
+            assert (lay.ring, lay.cap) == (ring, k + K.GLOBAL_SLACK)
+            continue
+        assert lay.cap >= k + K.LIST_SLACK
+        assert K.topk_smem(lay._replace(cap=lay.cap + 1)) > K.SMEM_LIMIT
+        if lay.ring < ring:   # the next deeper ring leaves too few places
+            deeper = K.Layout(lay.ring + 1, k + K.LIST_SLACK, True)
+            assert K.topk_smem(deeper) > K.SMEM_LIMIT
+        plan = K.topk_plan(1 << 20, 256, k, 132, ring)
+        assert (plan.ring, plan.cap, plan.on_chip) == tuple(lay)
+
+
+@pytest.mark.parametrize("k,want", [
+    (1, (4, 242, True)), (28, (4, 242, True)), (112, (4, 242, True)),
+    (136, (4, 242, True)), (210, (4, 242, True)), (211, (3, 290, True)),
+    (258, (3, 290, True)), (259, (4, 899, False)),
+    (1280, (4, 1920, False))])
+def test_topk_layout_at_the_default_ring(k, want):
+    """At the library's default ring of 4 stages: lists of 242 places on
+    chip to k 210, of 290 beside 3 stages to k 258, then k + 640 in global
+    memory."""
+    assert tuple(K.topk_layout(k)) == want
+    assert K.RING == 4
+
+
+@pytest.mark.parametrize("b,k", [(1, 1), (256, 28), (256, 112), (300, 211),
+                                 (1024, 1280)])
+def test_topk_scratch_holds_the_handed_over_lists(b, k):
+    """The long scan's one scratch buffer: the (part, query) lists the
+    kernel hands to the merge (stride k where the lists were on chip, cap
+    where they lived in global memory), their lengths and the merge's
+    gather of every part's k a query, 4 bytes each."""
+    plan = K.topk_plan(1 << 20, b, k, 132)
+    stride = k if plan.on_chip else plan.cap
+    assert plan.on_chip == K.topk_layout(k).on_chip == (k <= 258)
+    assert K.scratch_bytes(plan, b, k) == 4 * (
+        2 * plan.parts * b * stride + plan.parts * b
+        + 2 * b * plan.parts * k)

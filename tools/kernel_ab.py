@@ -14,7 +14,9 @@ to whole 65,536-row segments, as a collection's is), then times, with CUDA
 events after a warm-up, K1 (``fused_topk``) and K3 (``sampled_submax``) on
 exactly the inputs a search gives them (mean of 20 launches), their
 device time per call (torch.profiler's CUDA kernel time over 5 calls:
-what the card spends, without the wrapper's host work), and
+what the card spends, without the wrapper's host work), K1's host time
+per call (``launch_cost.host_ms``: the enqueue time of 20 calls, the card
+not waited for), and
 ``engine.search`` (host clock, median of 20 batches of 256 queries).
 
 At the main path's shapes it also times K1 without the floor (theta0
@@ -204,6 +206,7 @@ def smoke_module():
 
 def run_tree(tree: str, rings, profile: bool, library: bool,
              phases=()) -> list[dict]:
+    from launch_cost import host_ms
     smoke = smoke_module() if library else None
     sys.path.insert(0, str(Path(tree).resolve()))
     import numpy as np
@@ -236,7 +239,8 @@ def run_tree(tree: str, rings, profile: bool, library: bool,
                "k1_device_ms": device_ms(
                    lambda: K.fused_topk(*a1, **kw1))[0],
                "k3_device_ms": device_ms(
-                   lambda: K.sampled_submax(*a3, **kw3))[0]}
+                   lambda: K.sampled_submax(*a3, **kw3))[0],
+               "k1_host_ms": host_ms(lambda: K.fused_topk(*a1, **kw1))}
         if name == "main path":  # K1 as a search with the floor closed
             kw0 = dict(kw1, theta0=None)
             rec["k1_nofloor_ms"] = events_ms(

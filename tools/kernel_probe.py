@@ -1,20 +1,37 @@
 #!/usr/bin/env python3
-"""Where K1's time goes: K1 at the 1M-row phases' shapes built whole, without
-its gate, and with the ring alone, on one GPU.
+"""Where K1's time goes: K1 at the 1M-row phases' shapes built whole and
+with parts of its scan switched off, on one GPU.
 
     python tools/kernel_probe.py [--small] [--out FILE]
 
-Builds the kernels three times (compile-time switches of csrc/; the builds
-live beside the normal one under csrc/build/, and the port never loads
-them): whole; ``VROD_PROBE_NO_GATE`` (the dots but no gate, appends or list
-traffic); and ``VROD_PROBE_NO_GATE`` with ``VROD_PROBE_NO_MMA`` (the TMA
-ring and ldmatrix only). Then times
-``fused_topk`` with CUDA events (mean of 20 after a warm-up) on the main
-path's inputs (int8 cosine), (iii)'s (bf16 cosine) and (iv)'s (f32 dot) at
-1M x 768, b256, with the floor from K3 as a search gives it, in turns:
-whole, no gate, ring alone, ring alone, no gate, whole. The switched builds
-return meaningless results; only their times are printed. Prints one JSON
-object per line and writes them to ``--out``.
+Builds the kernels once per variant (compile-time switches of csrc/; the
+builds live beside the normal one under csrc/build/, and the port never
+loads them):
+- ``whole``;
+- ``test_only`` (``VROD_PROBE_TEST_ONLY``): the dots and each score's
+  test, no appends and so no cuts;
+- ``no_gate`` (``VROD_PROBE_NO_GATE``): the dots and the scan's barriers,
+  no test;
+- ``no_barriers`` (``VROD_PROBE_NO_GATE`` with
+  ``VROD_PROBE_NO_CUT_BARRIERS``): the dots alone, without the barriers
+  that the scan's list cuts (or its vote) hold both warpgroups at;
+- ``ring_alone`` (``VROD_PROBE_NO_GATE`` with ``VROD_PROBE_NO_MMA``): the
+  TMA ring and ldmatrix only.
+Then times ``fused_topk`` with CUDA events (mean of 20 after a warm-up) on
+the main path's inputs (int8 cosine, k_scan 28) and (iii)'s (bf16 cosine,
+k_scan 108) at 1M x 768, b256, with the floor from K3 as a search gives
+it, and with no floor (theta0 None), in turns: the variants in order, then
+in reverse. With the floor the calls take K1's scan from a floor
+(``csrc/fused_topk_floor.cu``), which knows ``VROD_PROBE_NO_GATE``,
+``VROD_PROBE_NO_CUT_BARRIERS`` and ``VROD_PROBE_NO_MMA`` (its
+``test_only`` build is its whole scan); without, the gated core
+(``csrc/fused_topk.cu``), which knows them all. The switched builds return
+meaningless results; only their times are printed. Last, a
+``VROD_PROBE_COUNT`` build counts per call the scores appended, the lists
+cut, the cut rounds (a block's vote rounds) and the tiles walked
+(``vrod_probe_counts``: the gated core's; the scan from a floor counts
+nothing), at the same inputs. Prints one JSON object per line and writes
+them to ``--out``.
 
 ``--small``: instead, K3 on the int8 headline's sample (32,768 x 768 in
 blocks of 16,384, b256) and on a bf16 sample (131,072 x 768), and K1's
@@ -33,13 +50,18 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-VARIANTS = {"whole": (), "no_gate": ("VROD_PROBE_NO_GATE",),
+VARIANTS = {"whole": (), "test_only": ("VROD_PROBE_TEST_ONLY",),
+            "no_gate": ("VROD_PROBE_NO_GATE",),
+            "no_barriers": ("VROD_PROBE_NO_GATE",
+                            "VROD_PROBE_NO_CUT_BARRIERS"),
             "ring_alone": ("VROD_PROBE_NO_GATE", "VROD_PROBE_NO_MMA")}
-CASES = (("main path", "int8-cosine", 16), ("(iii)", "bf16-cosine", 100),
-         ("(iv)", "f32-dot", 100))
+CASES = (("main path", "int8-cosine", 16), ("(iii)", "bf16-cosine", 100))
+COUNTS = ("appends", "cuts", "cut_rounds", "tiles")
 
 
-SMALL_VARIANTS = dict(VARIANTS, no_mma=("VROD_PROBE_NO_MMA",))
+SMALL_VARIANTS = {v: VARIANTS[v] for v in ("whole", "no_gate",
+                                           "ring_alone")}
+SMALL_VARIANTS["no_mma"] = ("VROD_PROBE_NO_MMA",)
 SMALL_CASES = (("K3", "int8-cosine", 32768, 768, 16384),
                ("K3", "bf16-cosine", 131072, 768, 16384),
                ("K1", "int8-cosine", 8192, 96, 0),
@@ -102,6 +124,11 @@ def main(argv=None) -> int:
     kab = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(kab)
     torch.backends.cuda.matmul.allow_tf32 = False
+    # Every variant's build at once (each runs one nvcc a source).
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor() as ex:
+        list(ex.map(_build.build, list(VARIANTS.values())
+                    + [("VROD_PROBE_COUNT",)]))
     dev = torch.device("cuda", 0)
     card = kab.card_line()
     inputs = {}
@@ -120,10 +147,26 @@ def main(argv=None) -> int:
         lib = _build.load(VARIANTS[variant])
         rec = {"variant": variant, "card": card}
         for name, (_, call, k, theta0) in inputs.items():
-            rec[name] = kab.events_ms(
-                lambda: K._topk_cuda(lib, call, k, 0, theta0))
+            for floor, t0 in (("", theta0), (" no floor", None)):
+                rec[name + floor] = kab.events_ms(
+                    lambda: K._topk_cuda(lib, call, k, 0, t0))
         lines.append(json.dumps(rec))
         print(lines[-1], flush=True)
+    import ctypes
+    lib = _build.load(("VROD_PROBE_COUNT",))
+    lib.vrod_probe_counts.restype = ctypes.c_int
+    lib.vrod_probe_counts.argtypes = [ctypes.c_void_p]
+    buf = (ctypes.c_int * 8)()
+    for name, (_, call, k, theta0) in inputs.items():
+        for floor, t0 in (("", theta0), (" no floor", None)):
+            K._ok(lib.vrod_probe_counts(buf), "probe counts")  # zero them
+            K._topk_cuda(lib, call, k, 0, t0)
+            torch.cuda.synchronize()
+            K._ok(lib.vrod_probe_counts(buf), "probe counts")
+            rec = {"variant": "counts", "case": name + floor, "k_scan": k,
+                   "card": card, **dict(zip(COUNTS, list(buf)))}
+            lines.append(json.dumps(rec))
+            print(lines[-1], flush=True)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text("\n".join(lines) + "\n")
     return 0

@@ -22,8 +22,9 @@ The variants' sample is the engine gate's (its rows and block) unless
 ``--frac``/``--block-rows`` give kexp20's (rows / frac in blocks of
 block-rows, at least 2 k_scan sub-maxima). Each pair must return equal
 (values, slots); then both are timed warm: CUDA events (mean of
-``--iters`` calls) and the card's kernel time and kernel count per call
-(torch.profiler over 5 calls). One JSON record per (dtype, k_scan, leg,
+``--iters`` calls), the card's kernel time and kernel count per call
+(torch.profiler over 5 calls) and the host's enqueue time per call
+(``launch_cost.host_ms``). One JSON record per (dtype, k_scan, leg,
 variant) is printed and written to ``--out``; a k_scan at which the
 engine's floor gate is closed (float rows below 64) is reported and
 skipped. Needs one CUDA device; there is no CPU mode.
@@ -40,6 +41,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from kernel_ab import card_line, device_ms, events_ms  # noqa: E402
+from launch_cost import host_ms  # noqa: E402
 
 DTYPES = {"int8": "int8", "bf16": "bf16", "bfloat16": "bf16"}
 LEGS = ("x6", "x7", "x8", "x9")
@@ -169,7 +171,9 @@ def run_pairs(args, dtype, k_scans, legs, *, frac=0, block_rows=0, iters=20,
                    "variant_ms": events_ms(fn, iters),
                    "stock_device_ms": s_dev, "variant_device_ms": v_dev,
                    "stock_kernels_per_call": s_n,
-                   "variant_kernels_per_call": v_n, "equal": True,
+                   "variant_kernels_per_call": v_n,
+                   "stock_host_ms": host_ms(stock, iters),
+                   "variant_host_ms": host_ms(fn, iters), "equal": True,
                    "card": card}
             recs.append(rec)
             print(json.dumps(rec), flush=True)

@@ -10,15 +10,16 @@ queries from ``tools/kexp_extract.py``'s ``make_state``, blocks of 2048),
 the gate and X3 by CUDA events (mean of ``--iters`` calls back to back),
 from the library
 built with ``--defines`` (``-D`` each):
-- ``VROD_PROBE_X_NO_GATE``: the n64 scan, its vote barrier a tile, no
+- ``VROD_PROBE_NO_GATE``: the n64 scan, its vote barrier a tile, no
   test, no lists;
-- ``VROD_PROBE_X_TEST_ONLY``: the test and its warp vote, no appends;
-these builds return wrong results by design and are timed only. With
-``--counts`` (which adds ``VROD_PROBE_X_COUNT``) each kernel instead
-counts, per call: its blocks' tiles, rounds, cuts, the entries those cuts
-selected from and the warp-level appends (a warp's query pair or group of
-kE pairs with a passing score), and the int8 results are held EQUAL to the
-plain twin. One JSON line per (dtype, k_scan, kernel), with the card.
+- ``VROD_PROBE_TEST_ONLY``: the test and its warp vote, no appends;
+these builds (the switches of topk.cuh's gated core, K1's too) return
+wrong results by design and are timed only. With ``--counts`` (which adds
+``VROD_PROBE_COUNT``) each kernel instead counts, per call: the warp-level
+appends (a warp's query pair or group of kE pairs with a passing score),
+cuts, rounds and its blocks' tiles, and the int8 results are held EQUAL
+to the plain twin. One JSON line per (dtype, k_scan, kernel), with the
+card.
 Needs one CUDA device.
 """
 
@@ -36,7 +37,7 @@ from kernel_ab import card_line, events_ms  # noqa: E402
 import kexp_extract as ke  # noqa: E402
 
 SHAPES = (("int8", (28, 112)), ("bf16", (108,)))
-COUNTS = ("tiles", "rounds", "cuts", "warp_appends", "cut_entries")
+COUNTS = ("warp_appends", "cuts", "rounds", "tiles")
 
 
 def launch(lib, kernel, call, k, cnt):
@@ -85,7 +86,7 @@ def main(argv=None) -> int:
     from vrod_tpu_torch.ops import cuda_extract as X
     defines = tuple(d for d in args.defines.split(",") if d)
     if args.counts:
-        defines += ("VROD_PROBE_X_COUNT",)
+        defines += ("VROD_PROBE_COUNT",)
     lib = _build.load(defines)
     dev = torch.device("cuda", 0)
     card = card_line()

@@ -28,14 +28,15 @@
 //               each consumer warp reads its queries' stored scores and
 //               appends those above the query's k-th (the value a cut last
 //               left, -inf before) to the query's list.
-//   kXGate      X1 gate/nostore/argmax/subdot and X4 (kE = 1, 2, 4): the
-//               scores stay in the registers that hold their dots; each is
-//               held against its query's k-th (kept in registers, reloaded
-//               after a cut) and the passing ones are appended, one
-//               warp-uniform branch per kE query pairs. One vote barrier a
-//               tile learns whether a score found its list full; if so the
-//               owning warps cut their full lists, and what waited is tested
-//               again at or above the new k-th (rounds: gate_round).
+//   kXGate      X1 gate/nostore/argmax/subdot and X4 (kE = 1, 2, 4):
+//               topk.cuh's gated core, K1's own: the scores stay in the
+//               registers that hold their dots; each is held against its
+//               query's k-th (kept in registers, reloaded after a cut) and
+//               the passing ones are appended, one warp-uniform branch per
+//               kE query pairs. One vote barrier a tile learns whether a
+//               score found its list full; if so the owning warps cut their
+//               full lists, and what waited is tested again at or above the
+//               new k-th (rounds: gate_round).
 //   kXPingPong  X3: kXGate's lists, test and cuts, with the gate of tile t
 //               under the wgmmas of tile t + 1: each consumer warpgroup
 //               issues the next tile's stages into a second set of
@@ -76,9 +77,10 @@ enum XMode : int {
   kXCarry = 4
 };
 
-// The query group of every mode but the floor (wgmma n64): measured
-// faster than n128 for the store, the carry and the gate (PERF.md).
-constexpr int kNarrow = 64;
+// The query group of every mode but the floor (wgmma n64, K1's kWidth):
+// measured faster than n128 for the store, the carry and the gate
+// (PERF.md).
+constexpr int kNarrow = kWidth;
 
 // One launch's arguments (ops/cuda_extract.py: _launch).
 struct XArgs {
@@ -97,21 +99,6 @@ struct XArgs {
   int* cand_n;          // (parts, b)
   int* cnt;             // kXCarry with count: (n / block_rows, b)
 };
-
-// A consumer barrier that also votes (bar.red.or on its own id): true in
-// every consumer thread when `v` holds in any of them.
-constexpr int kBarVote = 4;
-
-__device__ __forceinline__ bool consumer_any(bool v) {
-  int r;
-  asm volatile(
-      "{\n .reg .pred p, q;\n setp.ne.b32 q, %1, 0;\n"
-      " bar.red.or.pred p, %2, %3, q;\n selp.b32 %0, 1, 0, p;\n}\n"
-      : "=r"(r)
-      : "r"((int)v), "n"(kBarVote), "n"(kConsumers)
-      : "memory");
-  return r != 0;
-}
 
 // The experiments' score of acc[i] (its row's aux and mask in aux_r[h],
 // mask_r[h], h = (i >> 1) & 1).
@@ -648,327 +635,33 @@ __global__ void __launch_bounds__(kThreads, 1) extract_store(
 
 // -- X1's gate, X4 and X3: the gated extraction ----------------------------
 
-// A gated block's lists: per query q of the group, cap places (values v,
-// slots i) from q * cap, in shared memory beside the ring or, past the k
-// where they fit (ops/cuda_extract.py: gate_plan), in global memory;
-// len[q], its length, which a tile's appends may carry past cap (those
-// places are not written: their scores wait for a cut); gate[q], the k-th
-// value its last cut left (-inf before, +inf past the batch).
-struct GateLists {
-  float* v;
-  int* i;
-  int* len;
-  float* gate;
-  int cap, k;
-#ifdef VROD_PROBE_X_COUNT
-  int* probe;  // probe builds: event counters in global memory (a.cnt)
-#endif
-};
-
-// This thread's gates, one pair a query pair j (columns query_col(4j) and
-// query_col(4j) + 1): read after every cut, so never stale.
-template <int kP>
-__device__ __forceinline__ void load_gates(float2 (&gr)[kP],
-                                           const float* gate) {
-#pragma unroll
-  for (int j = 0; j < kP; ++j) {
-    const int c = query_col(4 * j);
-    gr[j] = make_float2(gate[c], gate[c + 1]);
-  }
-}
-
-// The scores of query pairs [kJ0, kJ1) of acc (one 64-row slab; this
-// thread's rows have slots slot0 and slot0 + 8, their aux and mask in
-// aux_r, mask_r) among the candidates `cand` (bit i: acc[i]) that pass,
-// above their query's gate (or with `ge` at or above it: the re-test after
-// a cut, when the list may hold this tile's higher slots at the new k-th),
-// join their queries' lists; one warp-uniform branch per kE query pairs,
-// the ballots inside predicated per score. The eight lanes 4g + t of a
-// warp hold the same two query columns, so lane t takes the places of all
-// eight with one shared atomic a column, and ballots place each lane's
-// scores after those of the lanes below it (carry_stage's scheme). A score
-// placed past its list's capacity is not written and waits: returns the
-// bits that wait. (Issuing every pair's atomics before any pair's stores
-// measured slower, and spilled in X3: PERF.md.)
-template <class Kind, int kEpi, int kE, int kJ0, int kJ1, int kA>
-__device__ __forceinline__ unsigned gate_append(
-    const typename Kind::Acc (&acc)[kA], const float (&aux_r)[2],
-    const float (&mask_r)[2], int slot0, const float2 (&gr)[kA / 4],
-    const GateLists& L, unsigned cand, bool ge) {
-  static_assert(kA <= 32 && (kJ1 - kJ0) % kE == 0,
-                "one 64-row slab; kE divides the pairs");
-  const int lane = threadIdx.x & 31;
-  const unsigned same = 0x11111111u << (lane & 3);
-  const unsigned lt = lanemask_lt();
-  unsigned wait = 0;
-#pragma unroll
-  for (int j0 = kJ0; j0 < kJ1; j0 += kE) {
-    float s[kE][4];
-    unsigned bits[kE];
-    bool any = false;
-#pragma unroll
-    for (int u = 0; u < kE; ++u) {
-      const int j = j0 + u;
-      bits[u] = 0;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[u][e] = x_score<Kind, kEpi>(acc, 4 * j + e, aux_r, mask_r);
-        const float g = e & 1 ? gr[j].y : gr[j].x;
-        const bool pass = ((cand >> (4 * j + e)) & 1u) &&
-                          (ge ? s[u][e] >= g : s[u][e] > g);
-        bits[u] |= (unsigned)pass << e;
-      }
-      any |= bits[u] != 0;
-    }
-    if (!__any_sync(kFull, any)) continue;
-#ifdef VROD_PROBE_X_COUNT
-    if (lane == 0) atomicAdd(L.probe + 3, 1);
-#endif
-#ifdef VROD_PROBE_X_TEST_ONLY
-    continue;  // probe builds: the test without the appends
-#endif
-#pragma unroll
-    for (int u = 0; u < kE; ++u) {
-      const int col = query_col(4 * (j0 + u));  // columns col, col + 1
-      int at[2], base[2] = {0, 0};
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const unsigned b0 = __ballot_sync(kFull, (bits[u] >> e) & 1u) & same;
-        const unsigned b1 =
-            __ballot_sync(kFull, (bits[u] >> (2 + e)) & 1u) & same;
-        const int cnt = __popc(b0) + __popc(b1);
-        at[e] = __popc(b0 & lt) + __popc(b1 & lt);
-        if (lane < 4 && cnt > 0) base[e] = atomicAdd(L.len + col + e, cnt);
-        at[e] += __shfl_sync(kFull, base[e], lane & 3);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if ((bits[u] >> e) & 1u) {
-          const int p = at[e & 1]++;
-          if (p < L.cap) {
-            const size_t w = (size_t)(col + (e & 1)) * L.cap + p;
-            L.v[w] = s[u][e];
-            L.i[w] = slot0 + 8 * (e >> 1);
-          } else {
-            wait |= 1u << (4 * (j0 + u) + e);
-          }
-        }
-      }
-    }
-  }
-  return wait;
-}
-
-// Whether (va, ia) ranks before (vb, ib): value desc, then slot asc.
-__device__ __forceinline__ bool ranks_before(float va, int ia, float vb,
-                                             int ib) {
-  return va > vb || (va == vb && ia < ib);
-}
-
-// A whole warp cuts the list (v, ix)[0, n), k <= n <= 256, to its k best
-// by (value desc, slot asc), written sorted to [0, k), and returns the k-th
-// value: a bitonic sort of the entries padded to 256 with (-inf, INT_MAX),
-// lane l holding entries 8l..8l+7 in registers (strides under 8 within a
-// lane, the others between lanes by shuffles). No shared atomics, unlike
-// warp_select's radix passes, whose histograms all lists' similar values
-// crowd into a few bins.
-__device__ float sort_cut(float* v, int* ix, int n, int k) {
-  const int lane = threadIdx.x & 31;
-  float a[8];
-  int b[8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int e = 8 * lane + r;
-    a[r] = e < n ? v[e] : -INFINITY;
-    b[r] = e < n ? ix[e] : INT_MAX;
-  }
-#pragma unroll
-  for (int size = 2; size <= 256; size <<= 1) {
-#pragma unroll
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      if (stride >= 8) {
-        const bool lower = (lane & (stride >> 3)) == 0;
-        const bool asc = ((8 * lane) & size) == 0;
-#pragma unroll
-        for (int r = 0; r < 8; ++r) {
-          const float ov = __shfl_xor_sync(kFull, a[r], stride >> 3);
-          const int oi = __shfl_xor_sync(kFull, b[r], stride >> 3);
-          const bool other = ranks_before(ov, oi, a[r], b[r]);
-          if (other == (lower == asc)) {
-            a[r] = ov;
-            b[r] = oi;
-          }
-        }
-      } else {
-#pragma unroll
-        for (int r = 0; r < 8; ++r) {
-          if (r & stride) continue;
-          const int q = r | stride;
-          const bool asc = ((8 * lane + r) & size) == 0;
-          if (ranks_before(a[q], b[q], a[r], b[r]) == asc) {
-            const float tv = a[r];
-            const int ti = b[r];
-            a[r] = a[q];
-            b[r] = b[q];
-            a[q] = tv;
-            b[q] = ti;
-          }
-        }
-      }
-    }
-  }
-  __syncwarp();  // every lane has read its entries
-  float kth = -INFINITY;
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int e = 8 * lane + r;
-    if (e < k) {
-      v[e] = a[r];
-      ix[e] = b[r];
-    }
-    if (e == k - 1) kth = a[r];
-  }
-  __syncwarp();
-  return __shfl_sync(kFull, kth, (k - 1) >> 3);
-}
-
-// A cut of a list of n entries to its k best (k < n): sort_cut for the
-// lists on chip (n <= 256; measured 6-10% faster end to end than
-// warp_select, PERF.md), else warp_select; returns the new k-th value.
-__device__ __forceinline__ float cut_list(float* v, int* ix, int n, int k,
-                                          unsigned* hist) {
-  if (n <= 256) return sort_cut(v, ix, n, k);
-  return key_float(warp_select(v, ix, n, k, hist));
-}
-
-// A round, after a vote found a waiting score: each warp cuts every list
-// of the queries it owns [own0, own1) that holds more than k entries (the
-// full ones and the others alike: fewer rounds for the same cuts than
-// cutting only the full or the half-full ones, PERF.md) to its k best and
-// raises its gate to the new k-th value; then every consumer thread reads
-// its gates again.
-template <int kP>
-__device__ __forceinline__ void gate_round(const GateLists& L,
-                                           unsigned* hist, int own0,
-                                           int own1, float2 (&gr)[kP]) {
-#ifdef VROD_PROBE_X_COUNT
-  if (threadIdx.x == 0) atomicAdd(L.probe + 1, 1);
-#endif
-  for (int q = own0; q < own1; ++q) {
-    const int n = min(L.len[q], L.cap);
-    if (n <= L.k) continue;  // warp-uniform
-    const float kth = cut_list(L.v + (size_t)q * L.cap,
-                               L.i + (size_t)q * L.cap, n, L.k, hist);
-#ifdef VROD_PROBE_X_COUNT
-    if ((threadIdx.x & 31) == 0) {
-      atomicAdd(L.probe + 2, 1);
-      atomicAdd(L.probe + 4, n);
-    }
-#endif
-    if ((threadIdx.x & 31) == 0) {
-      L.len[q] = L.k;
-      L.gate[q] = fmaxf(L.gate[q], kth);
-    }
-  }
-  consumer_sync();  // the cut lists and raised gates are read again
-  load_gates(gr, L.gate);
-}
-
-// The hand-over at the part's end: each list the warp owns cut to its k
-// best, copied to the (part, query) lists at stride k when on chip (lists
-// in global memory are already there, at stride cap), its length to
-// cand_n.
-__device__ __forceinline__ void gate_handover(const GateLists& L,
-                                              const XArgs& a,
-                                              unsigned* hist, int part,
-                                              int q0, int own0, int own1) {
-  const int lane = threadIdx.x & 31;
-  const size_t list0 = ((size_t)part * a.b + q0) * a.k;
-  for (int q = own0; q < own1; ++q) {
-    __syncwarp();
-    int n = min(L.len[q], L.cap);
-    float* v = L.v + (size_t)q * L.cap;
-    int* ix = L.i + (size_t)q * L.cap;
-    if (n > a.k) {
-      cut_list(v, ix, n, a.k, hist);
-      n = a.k;
-    }
-    __syncwarp();
-    if (a.on_chip) {
-      for (int e = lane; e < n; e += 32) {
-        a.cand_v[list0 + (size_t)q * a.k + e] = v[e];
-        a.cand_i[list0 + (size_t)q * a.k + e] = ix[e];
-      }
-    }
-    if (lane == 0) a.cand_n[(size_t)part * a.b + q0 + q] = n;
-  }
-}
-
-// X1's gate and X4: each consumer warpgroup 64 rows of every tile (32
-// accumulators a thread at n64). Per tile: the dots; the test and appends
-// in the accumulators' registers; one vote barrier; rounds while a score
-// waits.
-template <class Kind, int kEpi, int kE>
-__device__ __forceinline__ void gate_consume(const Geometry& geo,
-                                             const Ring& ring,
-                                             const XArgs& a, int part,
-                                             int tiles, const GateLists& L,
-                                             unsigned* hist, int own0,
-                                             int own1) {
-  constexpr int kA = kNarrow / 2;
-  constexpr int kP = kA / 4;
-  using Acc = typename Kind::Acc;
-  const int offset = *a.offset;
-  Acc acc[kA];
-  float2 gr[kP];
-  load_gates(gr, L.gate);
-  int stage = 0, phase = 0;
-  for (int t = part; t < tiles; t += a.parts) {
-    const int row0 = t * kTileRows + tile_row(0);
-    float aux_r[2], mask_r[2];
-    x_rows(a, row0, aux_r, mask_r);
-    consume_tile<Kind>(acc, geo, ring, stage, phase);
-#ifdef VROD_PROBE_X_NO_GATE
-    // tools' probe builds: the scan without the gate (wrong results by
-    // design), to see where the time goes.
-    if (consumer_any(false)) break;
-    continue;
-#endif
-    unsigned wait = gate_append<Kind, kEpi, kE, 0, kP>(
-        acc, aux_r, mask_r, row0 + offset, gr, L, ~0u, false);
-    while (consumer_any(wait != 0)) {
-      gate_round(L, hist + (threadIdx.x >> 5) * 256, own0, own1, gr);
-      wait = gate_append<Kind, kEpi, kE, 0, kP>(acc, aux_r, mask_r,
-                                                row0 + offset, gr, L, wait,
-                                                true);
-    }
-  }
-}
-
 // X3: gate share `sh` of kShares (kP / kShares query pairs each) of a
 // tile's accumulators.
 constexpr int kShares = 4;
 
+// A gated experiment's gates in registers (no int gate, no query scale).
+template <int kP, int kEpi>
+using XGates = Gates<kP, kEpi, false>;
+
 template <class Kind, int kEpi, int kA>
 __device__ __forceinline__ unsigned gate_share(
     const typename Kind::Acc (&acc)[kA], const float (&aux_r)[2],
-    const float (&mask_r)[2], int slot0, const float2 (&gr)[kA / 4],
+    const float (&mask_r)[2], int slot0, const XGates<kA / 4, kEpi>& gr,
     const GateLists& L, int sh) {
   constexpr int kS = kA / 4 / kShares;
   static_assert(kS * kShares == kA / 4, "shares of whole query pairs");
   switch (sh) {
     case 0:
-      return gate_append<Kind, kEpi, 1, 0, kS>(acc, aux_r, mask_r, slot0,
-                                               gr, L, ~0u, false);
+      return gate_append<Kind, kEpi, false, 1, 0, kS>(
+          acc, aux_r, mask_r, slot0, gr, L, ~0u, false);
     case 1:
-      return gate_append<Kind, kEpi, 1, kS, 2 * kS>(acc, aux_r, mask_r,
-                                                    slot0, gr, L, ~0u,
-                                                    false);
+      return gate_append<Kind, kEpi, false, 1, kS, 2 * kS>(
+          acc, aux_r, mask_r, slot0, gr, L, ~0u, false);
     case 2:
-      return gate_append<Kind, kEpi, 1, 2 * kS, 3 * kS>(
+      return gate_append<Kind, kEpi, false, 1, 2 * kS, 3 * kS>(
           acc, aux_r, mask_r, slot0, gr, L, ~0u, false);
     default:
-      return gate_append<Kind, kEpi, 1, 3 * kS, 4 * kS>(
+      return gate_append<Kind, kEpi, false, 1, 3 * kS, 4 * kS>(
           acc, aux_r, mask_r, slot0, gr, L, ~0u, false);
   }
 }
@@ -986,7 +679,7 @@ __device__ __forceinline__ void overlap_tile(
     float (&nxt_aux)[2], float (&nxt_mask)[2], bool next, int row_next,
     int slot0, const Geometry& geo, const Ring& ring, int& stage,
     int& phase, const XArgs& a, const GateLists& L, unsigned* hist,
-    int own0, int own1, float2 (&gr)[kA / 4]) {
+    int own0, int own1, XGates<kA / 4, kEpi>& gr) {
   unsigned wait = 0;
   int done = 0;
   if (next) {
@@ -994,7 +687,7 @@ __device__ __forceinline__ void overlap_tile(
     StageA<Kind> st;
     for (int v = 0; v < geo.nv; ++v) {
       issue_stage<Kind>(nxt, st, geo, ring, stage, phase, v);
-#ifndef VROD_PROBE_X_NO_GATE
+#ifndef VROD_PROBE_NO_GATE
       for (const int upto = (v + 1) * kShares / geo.nv; done < upto; ++done) {
         wait |= gate_share<Kind, kEpi>(cur, cur_aux, cur_mask, slot0, gr, L,
                                        done);
@@ -1005,7 +698,7 @@ __device__ __forceinline__ void overlap_tile(
       next_stage(ring, stage, phase);
     }
   }
-#ifdef VROD_PROBE_X_NO_GATE
+#ifdef VROD_PROBE_NO_GATE
   done = kShares;
 #endif
   for (; done < kShares; ++done) {
@@ -1014,8 +707,8 @@ __device__ __forceinline__ void overlap_tile(
   }
   while (consumer_any(wait != 0)) {
     gate_round(L, hist + (threadIdx.x >> 5) * 256, own0, own1, gr);
-    wait = gate_append<Kind, kEpi, 1, 0, kA / 4>(cur, cur_aux, cur_mask,
-                                                 slot0, gr, L, wait, true);
+    wait = gate_append<Kind, kEpi, false, 1, 0, kA / 4>(
+        cur, cur_aux, cur_mask, slot0, gr, L, wait, true);
   }
 }
 
@@ -1039,8 +732,8 @@ __device__ __forceinline__ void overlap_consume(const Geometry& geo,
   if (count == 0) return;
   Acc a0[kA], a1[kA];
   float aux0[2], mask0[2], aux1[2], mask1[2];
-  float2 gr[kA / 4];
-  load_gates(gr, L.gate);
+  XGates<kA / 4, kEpi> gr;
+  load_gates(gr, L);
   int stage = 0, phase = 0;
   int row = part * kTileRows + tile_row(0);
   const int step = a.parts * kTileRows;
@@ -1075,12 +768,14 @@ __global__ void __launch_bounds__(kThreads, 1) extract_gate(
   const int part = blockIdx.x / a.groups;
   const int q0 = blockIdx.x % a.groups * kNarrow;
   const int tiles = (a.n + kTileRows - 1) / kTileRows;
-  // Shared memory: the ring, then the lists (kNarrow x cap values, then slots)
-  // when on chip.
-  GateLists L{nullptr, nullptr, len, gate, a.cap, a.k};
-#ifdef VROD_PROBE_X_COUNT
+  // Shared memory: the ring, then the lists (kNarrow x cap values, then
+  // slots) when on chip.
+  GateLists L{nullptr, nullptr, len, gate, nullptr, 0.0f, 0.0f, a.cap, a.k};
+#ifdef VROD_PROBE_COUNT
   L.probe = a.cnt;
-  if (threadIdx.x == 0) atomicAdd(a.cnt, (tiles - part + a.parts - 1) / a.parts);
+  if (kOverlap && threadIdx.x == 0) {
+    atomicAdd(a.cnt + 3, (tiles - part + a.parts - 1) / a.parts);
+  }
 #endif
   if (a.on_chip) {
     L.v = reinterpret_cast<float*>(base + ring.n * stage_bytes(kNarrow));
@@ -1111,11 +806,16 @@ __global__ void __launch_bounds__(kThreads, 1) extract_gate(
       overlap_consume<Kind, kEpi>(geo, ring, a, part, tiles, L, hist, own0,
                                   own1);
     } else {
-      gate_consume<Kind, kEpi, kE>(geo, ring, a, part, tiles, L, hist, own0,
-                                   own1);
+      XGates<kNarrow / 8, kEpi> gr;
+      load_gates(gr, L);
+      int stage = 0, phase = 0;
+      gate_consume<Kind, kEpi, false, kE, kNarrow>(
+          geo, ring, stage, phase, a.aux, FloatMask{a.mask}, a.n, *a.offset,
+          part, a.parts, tiles, L, gr, hist, own0, own1);
     }
-    gate_handover(L, a, hist + (threadIdx.x >> 5) * 256, part, q0, own0,
-                  own1);
+    gate_handover(L, hist + (threadIdx.x >> 5) * 256, own0, own1,
+                  a.on_chip != 0, a.cand_v, a.cand_i, a.cand_n,
+                  ((size_t)part * a.b + q0) * a.k, (size_t)part * a.b + q0);
   }
 }
 

@@ -10,31 +10,32 @@
 // sample's scores are its scan's.
 //
 // The product. Rows are the wgmma M side, in 64-row warpgroup tiles; the
-// queries are the N side, 256 of them per block (kGroup), so at batch 256
-// every row tile is multiplied with the whole batch in one pass and each
-// row byte leaves device memory once. A block has two consumer warpgroups
+// queries are the N side, a group of kN of them per block (K1's long
+// scans and X6/X8: 64, topk.cuh's kWidth; the blocks of a part read each
+// row tile from L2 once per group). A block has two consumer warpgroups
 // and a producer warpgroup, of which one warp loads and the other three only
 // hand their registers to the consumers (setmaxnreg). The producer warp
 // walks the block's row tiles (128 rows, kTileRows) in k-blocks of 128
 // bytes of dim; per k-block it loads the row tile's slice (16 KB) and the
-// query group's slice (32 KB) into one stage of a ring in shared memory, by
+// query group's slice (kN x 128 bytes) into one stage of a ring in shared
+// memory, by
 // TMA with the 128-byte swizzle, and signals the stage's full barrier
 // (mbarrier, transaction bytes). Each consumer
 // warpgroup takes its 64 rows of the stage into registers (ldmatrix: the
 // swizzle makes the eight rows of each 8x16-byte matrix hit distinct banks),
-// applies its kind's transform, and issues wgmma m64n256 with A from
+// applies its kind's transform, and issues wgmma m64nN with A from
 // registers and B (the queries) from shared memory, then releases the stage
 // (empty barrier) once its wgmmas have completed. The queries stream with
-// the rows, so any dim fits the same 48 KB stage. A from registers is what
+// the rows, so any dim fits the same stage. A from registers is what
 // lets one core serve every kind:
 //   kind  rows          query          transform in registers  wgmma
-//   I8    int8          int8           none                    m64n256k32 s8
-//   I4    packed int4   int8 (full D)  nibbles -> s8 (lo or hi  m64n256k32 s8
+//   I8    int8          int8           none                    m64nNk32 s8
+//   I4    packed int4   int8 (full D)  nibbles -> s8 (lo or hi  m64nNk32 s8
 //                                      half of each k-block)
-//   BF16  bfloat16      bfloat16       none                    m64n256k16 bf16
-//   TF32  float32       float32, TF32  cvt.rna to TF32         m64n256k8 tf32
+//   BF16  bfloat16      bfloat16       none                    m64nNk16 bf16
+//   TF32  float32       float32, TF32  cvt.rna to TF32         m64nNk8 tf32
 //                       (the wrapper)
-//   F32X3 float32       its TF32 big   split into TF32 big     m64n256k8 tf32,
+//   F32X3 float32       its TF32 big   split into TF32 big     m64nNk8 tf32,
 //                       and small      and small parts         three products
 //                       parts (the
 //                       wrapper)
@@ -55,12 +56,13 @@
 // zeros (TMA's out-of-bounds fill), which add nothing to a dot: 0 as int8,
 // an int4 nibble pair, bf16 and float32.
 //
-// The query group is 256 wide for K1's long scans (kGroup); the sampled
-// sub-max pre-pass (K3) takes groups of 64 and K1's small scans groups of
-// 16 (wgmma m64n64, m64n16: the same instructions at a narrower N, over
-// the same k-steps in the same order; chip_smoke.py holds K3's maxima to
-// both K1 paths' scores bit for bit on every leg). Every function of the
-// core takes the width kN as a template parameter, 256 by default.
+// The query group is 64 wide for K1's long scans and X6/X8 (topk.cuh's
+// kWidth); the sampled sub-max pre-pass (K3) takes groups of 64 or 128,
+// K1's small scans groups of 16 and X1's floor 256 (kGroup): the same
+// instructions at another N, over the same k-steps in the same order
+// (chip_smoke.py holds K3's maxima to both K1 paths' scores bit for bit on
+// every leg). Every function of the core takes the width kN as a template
+// parameter, 256 by default.
 //
 // The mask of a row comes from the row's live bit and bias (RowMask: -inf
 // on a dead slot, else the bias, int8/int4 + l2's -|x_hat|^2, else 0),
@@ -98,18 +100,28 @@
 namespace vrod {
 
 constexpr int kTileRows = 128;                 // rows per tile (2 x m64)
-constexpr int kGroup = 256;                    // queries per block (wgmma N)
+constexpr int kGroup = 256;                    // queries per block: X1 floor, default kN
 constexpr int kKBlock = 128;                   // dim bytes per stage
 constexpr int kKSteps = kKBlock / 32;          // wgmma k-steps per stage
 constexpr int kConsumers = 256;                // two consumer warpgroups
 constexpr int kThreads = kConsumers + 128;     // and a producer warpgroup
 // Registers per thread after setmaxnreg: the producer warpgroup gives its
-// registers to the consumers, whose 128 accumulators need them (at the
-// launch's even split of 168 ptxas serializes the wgmmas).
+// registers to the consumers, whose accumulators need them (at the
+// launch's even split of 168 ptxas serializes the wgmmas of 128).
+// setmaxnreg.inc takes only what other warps of the block released: the
+// split keeps the launch's 168 a thread in all (kThreads x 168). K1's
+// kernels and X6/X8 (topk.cuh's gated core, whose copying producer needs
+// more than 40 registers and whose consumers fewer than 232) take
+// kGateProducerRegs / kGateConsumerRegs.
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
-static_assert(kConsumers * kConsumerRegs + 128 * kProducerRegs <= 65536,
-              "register file");
+constexpr int kGateProducerRegs = 56;
+constexpr int kGateConsumerRegs = 224;
+static_assert(kConsumers * kConsumerRegs + 128 * kProducerRegs ==
+                  kThreads * 168 &&
+              kConsumers * kGateConsumerRegs + 128 * kGateProducerRegs ==
+                  kThreads * 168,
+              "register file: the launch's share");
 constexpr int kAcc = kGroup / 2;               // accumulators per thread
 constexpr int kRowBox = kTileRows * kKBlock;   // 16 KB
 constexpr int kQueryBox = kGroup * kKBlock;    // 32 KB
@@ -578,12 +590,14 @@ __device__ void copy_stage(const Loads& ld, const Geometry& geo, int t,
 }
 
 // The roles' register budgets (setmaxnreg: every warp of the warpgroup).
+template <int kRegs = kProducerRegs>
 __device__ __forceinline__ void producer_regs() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kRegs));
 }
 
+template <int kRegs = kConsumerRegs>
 __device__ __forceinline__ void consumer_regs() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kRegs));
 }
 
 // The producer warp: fills the ring with the stages of row tiles t0, t0 +
@@ -632,6 +646,12 @@ __device__ void produce(const Maps& maps, const Loads& ld,
                                 stage, phase);
 }
 
+// Hand a consumed stage back to the producer (one arrival a warp).
+__device__ __forceinline__ void release_stage(const Ring& ring, int stage) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(&ring.empty[stage]);
+}
+
 // A consumer warp's pass over one row tile's stages without the dots (a
 // tile no score of which can count): the producer's stream keeps its shape.
 __device__ __forceinline__ void pass_tile(const Geometry& geo,
@@ -639,8 +659,7 @@ __device__ __forceinline__ void pass_tile(const Geometry& geo,
                                           int& phase) {
   for (int v = 0; v < geo.nv; ++v) {
     mbar_wait(&ring.full[stage], phase);
-    __syncwarp();
-    if ((threadIdx.x & 31) == 0) mbar_arrive(&ring.empty[stage]);
+    release_stage(ring, stage);
     if (++stage == ring.n) {
       stage = 0;
       phase ^= 1;
@@ -713,11 +732,6 @@ __device__ __forceinline__ void issue_stage(typename Kind::Acc (&acc)[kA],
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-// Hand a consumed stage back to the producer (one arrival a warp).
-__device__ __forceinline__ void release_stage(const Ring& ring, int stage) {
-  __syncwarp();
-  if ((threadIdx.x & 31) == 0) mbar_arrive(&ring.empty[stage]);
-}
 
 __device__ __forceinline__ void next_stage(const Ring& ring, int& stage,
                                            int& phase) {
@@ -904,5 +918,6 @@ int launch_clusters(void (*kern)(P...), dim3 grid, int cluster, int smem,
   cfg.numAttrs = 1;
   return (int)cudaLaunchKernelEx(&cfg, kern, std::forward<A>(args)...);
 }
+
 
 }  // namespace vrod

@@ -141,11 +141,29 @@ def load(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
         return _libs[defines]
     lib = ctypes.CDLL(str(build(defines)))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    # (elem, epi, tma, small, x, aux, valid, bias, q, q_scale, theta0, n,
-    #  row_bytes, b, k, offset, groups, parts, cap, scratch, out_v, out_i,
-    #  x_map, q_map, q_hi_map, stream)
+    # (elem, epi, tma, x, aux, valid, bias, q, q_scale, theta0, n,
+    #  row_bytes, b, k, offset, groups, parts, cap, on_chip, ring, scratch,
+    #  out_v, out_i, x_map, q_map, q_hi_map, stream)
     lib.vrod_fused_topk.restype = ci
-    lib.vrod_fused_topk.argtypes = [ci] * 4 + [vp] * 7 + [ci] * 8 + [vp] * 7
+    lib.vrod_fused_topk.argtypes = [ci] * 3 + [vp] * 7 + [ci] * 10 \
+        + [vp] * 7
+    # The small scan: (elem, epi, tma, x, aux, valid, bias, q, q_scale,
+    #  theta0, n, row_bytes, b, k, offset, groups, parts, cap, out_v,
+    #  out_i, x_map, q_map, q_hi_map, stream)
+    lib.vrod_fused_topk_small.restype = ci
+    lib.vrod_fused_topk_small.argtypes = [ci] * 3 + [vp] * 7 + [ci] * 8 \
+        + [vp] * 6
+    # The scan from a floor: vrod_fused_topk's arguments without on_chip
+    # and ring.
+    lib.vrod_fused_topk_floor.restype = ci
+    lib.vrod_fused_topk_floor.argtypes = [ci] * 3 + [vp] * 7 + [ci] * 8 \
+        + [vp] * 7
+    # K1's ring depth; a long-scan block's shared memory (ring, cap,
+    # on_chip)
+    lib.vrod_k1_ring.restype = ci
+    lib.vrod_k1_ring.argtypes = []
+    lib.vrod_topk_smem.restype = ci
+    lib.vrod_topk_smem.argtypes = [ci] * 3
     # (elem, epi, tma, x, aux, valid, bias, q, q_scale, n, row_bytes, b,
     #  blk, width, spb, groups, out, x_map, q_map, q_hi_map, stream)
     lib.vrod_sampled_submax.restype = ci
@@ -156,15 +174,20 @@ def load(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.vrod_encode_map.argtypes = [vp, vp, ci, ctypes.c_long,
                                     ctypes.c_long, ci]
     # (elem, epi, tma, x, aux, mask, q, qs2, margin, n, row_bytes, b, k,
-    #  offset, groups, parts, cap, sample_tiles, blk_tiles, iters, skip,
-    #  10 scratch/output pointers, stream)
+    #  offset, groups, parts, cap, on_chip, ring, sample_tiles, blk_tiles,
+    #  iters, skip, 10 scratch/output pointers, stream)
     lib.vrod_fused_theta.restype = ci
-    lib.vrod_fused_theta.argtypes = [ci] * 3 + [vp] * 6 + [ci] * 12 \
+    lib.vrod_fused_theta.argtypes = [ci] * 3 + [vp] * 6 + [ci] * 14 \
         + [vp] * 11
     # (tma, x, aux, valid, q, theta0, n, row_bytes, b, k, offset, groups,
-    #  parts, cap, scratch, out_v, out_i, stream)
+    #  parts, cap, on_chip, ring, scratch, out_v, out_i, stream)
     lib.vrod_fused_intgate.restype = ci
-    lib.vrod_fused_intgate.argtypes = [ci] + [vp] * 5 + [ci] * 8 + [vp] * 4
+    lib.vrod_fused_intgate.argtypes = [ci] + [vp] * 5 + [ci] * 10 \
+        + [vp] * 4
+    # X9 from a floor: the same without on_chip and ring.
+    lib.vrod_fused_intgate_floor.restype = ci
+    lib.vrod_fused_intgate_floor.argtypes = [ci] + [vp] * 5 + [ci] * 8 \
+        + [vp] * 4
     # The extraction experiments X1-X4, one entry point per mode file
     # (csrc/extract.cuh: VROD_EXTRACT_PARAMS): (elem, epi, variant, x, aux,
     # mask, q, offset, n, row_bytes, b, k, groups, parts, cap, block_rows,

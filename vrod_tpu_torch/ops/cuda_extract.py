@@ -112,6 +112,8 @@ RING = 4                    # stages of every kernel's ring (topk.cuh: kRing)
 # each of two buffers).
 NARROW = 64
 CARRY_STAGES = (32, 16)
+# X1's floor: queries per block (wgmma n256, score.cuh's kGroup).
+FLOOR_GROUP = 256
 STORE_PITCH = 132           # floats a query row of the store's score tile
 # A store or gate list holds k + 32 at least: after a cut, one more chunk
 # of 32.
@@ -168,11 +170,11 @@ def store_plan(k: int) -> tuple[int, bool]:
     """The store's (cap, on_chip) for top-k: lists of as many entries as
     fit in shared memory beside the ring and the score tile (176), where
     that is k + 32 at least (to k 144); else the lists in global memory
-    with K1's capacity."""
+    with K1's capacity there (k + ``cuda_topk.GLOBAL_SLACK``)."""
     room = (SMEM_BYTES - store_smem(0)) // (NARROW * 8)
     if room >= k + STORE_SLACK:
         return room, True
-    return K.topk_plan(1, 1, k, 1)[2], False
+    return k + K.GLOBAL_SLACK, False
 
 
 def gate_smem(cap: int, on_chip: bool = True) -> int:
@@ -187,18 +189,18 @@ def gate_plan(k: int) -> tuple[int, bool]:
     """The gated kernels' (cap, on_chip) for top-k: lists of as many
     entries as fit in shared memory beside the ring (242), where that is k
     + 32 at least (to k 210); else the lists in global memory with K1's
-    capacity."""
+    capacity there (k + ``cuda_topk.GLOBAL_SLACK``)."""
     room = (SMEM_BYTES - gate_smem(0)) // (NARROW * 8)
     if room >= k + STORE_SLACK:
         return room, True
-    return K.topk_plan(1, 1, k, 1)[2], False
+    return k + K.GLOBAL_SLACK, False
 
 
 def extract_plan(kernel: str, n: int, b: int, k: int, sms: int,
                  count: bool = False) -> XPlan:
     """A kernel's grid for n rows (whole blocks), b queries, top-k on
-    ``sms`` SMs. The floor runs K1's (``topk_plan``: 256-query groups,
-    about one block per SM), one max a part and query (cap 0). The others
+    ``sms`` SMs. The floor runs groups of FLOOR_GROUP queries in about one
+    block per SM, one max a part and query (cap 0). The others
     take groups of NARROW in as many parts as leave about one block per
     SM, with the lists of ``store_plan`` or of ``gate_plan`` (gate,
     unroll2/4, pingpong), or X2's carry (``carry_plan``). With ``count``
@@ -209,8 +211,9 @@ def extract_plan(kernel: str, n: int, b: int, k: int, sms: int,
                          f"{tuple(KERNELS)}")
     mode = KERNELS[kernel][0]
     if mode == "floor":
-        groups, parts, _ = K.topk_plan(n, b, k, sms)
-        return XPlan(groups, parts, 0, False, K.GROUP_QUERIES, 0)
+        groups = -(-b // FLOOR_GROUP)
+        parts = max(1, min(-(-n // K.TILE_ROWS), sms // groups))
+        return XPlan(groups, parts, 0, False, FLOOR_GROUP, 0)
     stage = 0
     if mode == "store":
         cap, on_chip = store_plan(k)

@@ -15,7 +15,9 @@ to the plain version.
   ``floor - margin`` (X6's margin; X8 is margin 0, which the shared scoring
   core makes sound), then K1's merge. ``skip_sample_dots`` lets a sample
   tile whose block maxima beat no gate pass without its dots. Stock, the
-  engine runs K3, the count threshold and K1 for the same result.
+  engine runs K3, the count threshold and K1 for the same result. Its
+  grid and shared memory are K1's (``cuda_topk.topk_plan``: query groups
+  of 64, lists on chip where they fit).
 - ``fused_intgate`` (X9, ``csrc/fused_topk.cu`` with the int gate) replaces
   the Pallas kernel ``kexp22.fused_intgate``: K1 for int8 rows under cosine
   or dot that holds each int32 dot against an integer bound derived from
@@ -32,6 +34,7 @@ sound and the bound only skips scores that cannot pass.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -71,14 +74,26 @@ def _ok(rc: int, what: str) -> None:
 # -- X6/X8 -----------------------------------------------------------------
 
 
+class ThetaPlan(NamedTuple):
+    """fused_theta's grid (``theta_plan``): K1's and the sample's."""
+    groups: int
+    parts: int
+    cap: int
+    on_chip: bool
+    ring: int
+    sample_tiles: int   # the sample: rows [0, 128 * sample_tiles)
+    blk_tiles: int      # tiles of a sample block
+
+
 def theta_plan(n: int, b: int, k: int, block_rows: int, s_blocks: int,
-               sms: int) -> tuple[int, int, int, int, int]:
+               sms: int, ring: int = K.RING) -> ThetaPlan:
     """fused_theta's grid for n rows, b queries, top-k and a sample of
-    ``s_blocks`` blocks of ``block_rows`` rows on ``sms`` SMs: (groups,
-    parts, cap, sample_tiles, blk_tiles). The grid is K1's persistent one
-    (``topk_plan``), which must be co-resident for the kernel's barriers;
-    the sample is rows [0, 128 * sample_tiles), block j its tiles [j *
-    blk_tiles, (j + 1) * blk_tiles)."""
+    ``s_blocks`` blocks of ``block_rows`` rows on ``sms`` SMs. The grid is
+    K1's persistent one (``topk_plan`` at ``ring``), which must be
+    co-resident for the kernel's
+    barriers; the sample is rows [0, 128 * sample_tiles), block j its tiles
+    [j * blk_tiles, (j + 1) * blk_tiles), and part p scores the p-th of
+    ``parts`` equal runs of its tiles (``sample_run``)."""
     if block_rows % K.TILE_ROWS or block_rows <= 0 or s_blocks < 1:
         raise ValueError(f"block_rows ({block_rows}) must be a positive "
                          f"multiple of 128 and s_blocks ({s_blocks}) >= 1")
@@ -88,9 +103,15 @@ def theta_plan(n: int, b: int, k: int, block_rows: int, s_blocks: int,
     if s_blocks * K.TILE_ROWS < 2 * k:
         raise ValueError(f"the floor needs >= 2k sub-maxima: {s_blocks} "
                          f"blocks give {s_blocks * K.TILE_ROWS} for k {k}")
-    groups, parts, cap = K.topk_plan(n, b, k, sms)
-    return (groups, parts, cap, s_blocks * block_rows // K.TILE_ROWS,
-            block_rows // K.TILE_ROWS)
+    plan = K.topk_plan(n, b, k, sms, ring)
+    return ThetaPlan(*plan, s_blocks * block_rows // K.TILE_ROWS,
+                     block_rows // K.TILE_ROWS)
+
+
+def sample_run(part: int, parts: int, sample_tiles: int) -> range:
+    """The sample tiles that fused_theta's blocks of one part score."""
+    return range(part * sample_tiles // parts,
+                 (part + 1) * sample_tiles // parts)
 
 
 def _margin(margin, b, device):
@@ -141,20 +162,23 @@ def fused_theta(x, aux, valid, q, *, k, metric, block_rows, s_blocks,
     if call.device.type == "cpu":
         return fused_theta_plain(x, aux, valid, q, **kw)
     n, b, dev = call.n, call.b, call.device
-    groups, parts, cap, sample_tiles, blk_tiles = theta_plan(
-        n, b, k, block_rows, s_blocks, K._sms(dev))
     lib = _build.load()
+    plan = theta_plan(n, b, k, block_rows, s_blocks, K._sms(dev),
+                      K.lib_ring(lib))
+    parts = plan.parts
     out_v = torch.full((b, k), K.NEG_INF, dtype=torch.float32, device=dev)
     out_i = torch.full((b, k), -1, dtype=torch.int32, device=dev)
     m = _margin(margin, b, dev)
+    stride = k if plan.on_chip else plan.cap
     with torch.cuda.device(dev):
         sub_keys = torch.empty(b * K.TILE_ROWS * s_blocks, dtype=torch.int32,
                                device=dev)
         bmax = torch.empty(b * s_blocks, dtype=torch.float32, device=dev)
         theta0 = torch.empty(b, dtype=torch.float32, device=dev)
-        cand_v = torch.empty(parts * b * cap, dtype=torch.float32,
+        cand_v = torch.empty(parts * b * stride, dtype=torch.float32,
                              device=dev)
-        cand_i = torch.empty(parts * b * cap, dtype=torch.int32, device=dev)
+        cand_i = torch.empty(parts * b * stride, dtype=torch.int32,
+                             device=dev)
         cand_n = torch.empty(parts * b, dtype=torch.int32, device=dev)
         merge_v = torch.empty(b * parts * k, dtype=torch.float32, device=dev)
         merge_i = torch.empty(b * parts * k, dtype=torch.int32, device=dev)
@@ -162,7 +186,8 @@ def fused_theta(x, aux, valid, q, *, k, metric, block_rows, s_blocks,
             call.elem, call.epi, int(call.tma), call.x.data_ptr(),
             call.aux.data_ptr(), call.mask.data_ptr(), call.q.data_ptr(),
             K._ptr(call.qs2), m.data_ptr(), n, call.row_bytes, b, k, 0,
-            groups, parts, cap, sample_tiles, blk_tiles,
+            plan.groups, parts, plan.cap, int(plan.on_chip), plan.ring,
+            plan.sample_tiles, plan.blk_tiles,
             BISECT_ITERS, int(bool(skip_sample_dots)), sub_keys.data_ptr(),
             bmax.data_ptr(), theta0.data_ptr(), cand_v.data_ptr(),
             cand_i.data_ptr(), cand_n.data_ptr(), merge_v.data_ptr(),
@@ -274,7 +299,10 @@ def fused_intgate_plain(x, aux, valid, q, *, k, metric, theta0=None):
 
 def fused_intgate(x, aux, valid, q, *, k, metric, theta0=None):
     """K1 with the int32 gate bound: the contract of ``fused_topk`` for int8
-    rows under cosine or dot (the contract of ``kexp22.fused_intgate``)."""
+    rows under cosine or dot (the contract of ``kexp22.fused_intgate``).
+    On the card it takes K1's long-scan kernel that ``cuda_topk.scan_route``
+    gives a call with or without theta0 (the floor's n256 scan or the
+    gated core), built with the bound."""
     call = _intgate_call(x, aux, valid, q, metric, k)
     if call.device.type == "cpu":
         return fused_intgate_plain(x, aux, valid, q, k=k, metric=metric,
@@ -285,17 +313,26 @@ def fused_intgate(x, aux, valid, q, *, k, metric, theta0=None):
     if n == 0:
         return out_v, out_i
     t0 = K._theta(theta0, b, dev)
-    sms = K._sms(dev)
-    groups, parts, cap = K.topk_plan(n, b, k, sms)
     lib = _build.load()
-    with torch.cuda.device(dev):
-        scratch = torch.empty(K.scratch_bytes(n, b, k, sms),
-                              dtype=torch.uint8, device=dev)
-        rc = lib.vrod_fused_intgate(
-            int(call.tma), call.x.data_ptr(), call.aux.data_ptr(),
+    head = (int(call.tma), call.x.data_ptr(), call.aux.data_ptr(),
             call.valid.data_ptr(), call.q.data_ptr(), t0.data_ptr(), n,
-            call.row_bytes, b, k, 0, groups, parts, cap, scratch.data_ptr(),
-            out_v.data_ptr(), out_i.data_ptr(), K._stream(dev))
+            call.row_bytes, b, k, 0)
+    with torch.cuda.device(dev):
+        if theta0 is not None:
+            fplan = K.floor_plan(n, b, k, K._sms(dev))
+            scratch = torch.empty(K.floor_scratch_bytes(fplan, b, k),
+                                  dtype=torch.uint8, device=dev)
+            rc = lib.vrod_fused_intgate_floor(
+                *head, *fplan, scratch.data_ptr(), out_v.data_ptr(),
+                out_i.data_ptr(), K._stream(dev))
+        else:
+            plan = K.card_plan(lib, call, k)
+            scratch = torch.empty(K.scratch_bytes(plan, b, k),
+                                  dtype=torch.uint8, device=dev)
+            rc = lib.vrod_fused_intgate(
+                *head, plan.groups, plan.parts, plan.cap, int(plan.on_chip),
+                plan.ring, scratch.data_ptr(), out_v.data_ptr(),
+                out_i.data_ptr(), K._stream(dev))
     _ok(rc, "fused_intgate launch")
     launches[f"fused_intgate[{call.leg}]"] += 1
     return out_v, out_i

@@ -13,11 +13,16 @@ wrapper falls back from the kernel to the plain version.
   auto-pipelined ``_fused_call``/``_kernel``, the TPU's K2: any dim).
   Bound on the H100 by bytes: one search streams every stored row, 805 MB
   of int8 at 1M x 768, with the dots (on the tensor cores) close behind. A
-  persistent grid (``topk_plan``) streams each row tile once per group of
-  256 queries through a TMA ring into wgmma, gates every score in its
-  register against max(theta0, the query's running k-th), and writes only
-  the candidates that pass; see the source for the exact select and merge
-  that replace the TPU's sequential carry. Scans too short for that grid
+  persistent grid streams each row tile through a TMA ring into wgmma and
+  tests every score in its register against max(theta0, the query's
+  running k-th); see the sources for the exact select and merge that
+  replace the TPU's sequential carry. ``scan_route`` picks one of three
+  kernels from the call's shapes and whether it has a floor: with theta0
+  (the engine's main path) ``floor_plan``'s query groups of 256, each row
+  tile crossing L2 once, with lists in scratch cut every FLOOR_CUT_TILES
+  tiles (``csrc/fused_topk_floor.cu``); without, ``topk_plan``'s groups of
+  64 with the k-ths in registers and lists in shared memory, cut only
+  when full (``csrc/fused_topk.cu``); scans too short for either grid
   (``small_plan``: the K2 shapes) take one cluster launch over query
   groups of 16 with the candidate lists and the merge on the chip.
 - ``sampled_submax`` (K3, ``csrc/sampled_submax.cu``) replaces
@@ -56,7 +61,8 @@ dead ones and every float op rounded once:
 
 ``launches`` counts kernel launches per kernel and leg (e.g.
 ``fused_topk[int8-l2]``); only a CUDA launch adds to it. ``small_scans``
-counts, per leg, the K1 launches that took the small-scan kernel.
+and ``floor_scans`` count, per leg, the K1 launches that took the
+small-scan kernel and the floor's kernel.
 """
 
 from __future__ import annotations
@@ -66,6 +72,7 @@ import ctypes
 import math
 import threading
 from collections import OrderedDict
+from typing import NamedTuple
 
 import torch
 
@@ -86,18 +93,28 @@ LEGS = tuple(f"{d}-{m}" for d in LEG_DTYPES for m in LEG_METRICS)
 _ELEM = {"int8": 0, "int4": 1, "bf16": 2, "f32": 3, "f32x3": 4}
 _EPI_SCALE, _EPI_SCALE_QS, _EPI_L2, _EPI_DOT = range(4)
 
-# The kernels' geometry (csrc/score.cuh): rows per tile, queries per block
-# (the wgmma N side). K1 cuts its candidate lists every CUT_TILES tiles,
-# so a list holds one tile more than that (the kernel derives the interval
-# from the capacity).
+# The kernels' geometry (csrc/score.cuh, topk.cuh): rows per tile, the
+# gated core's queries per block (the wgmma N side: K1 without a floor,
+# X8), the ring's default depth (the
+# library says its own: vrod_k1_ring) and the least slack of a list past k
+# (a list of k + 32 places takes one more warp's worth after a cut).
+# Lists in global memory (past the k where they fit on chip) hold k +
+# GLOBAL_SLACK. A scan takes the small-scan kernel where it would give
+# each of sms // ceil(b / SMALL_SPAN) blocks fewer than SMALL_TILES row
+# tiles.
 TILE_ROWS = 128
-GROUP_QUERIES = 256
-CUT_TILES = 4
+GROUP_QUERIES = 64
+RING = 4
+LIST_SLACK = 32
+GLOBAL_SLACK = 5 * TILE_ROWS
+SMALL_TILES = 4
+SMALL_SPAN = 256
 # K3: queries per block (wgmma n64 or n128) and its ring (192 KB of
 # stages of the 16 KB row box and the query box). K1's small scans:
-# queries per block (wgmma n16), their ring, and the largest k whose merge
-# (parts x k candidates a warp) fits the ring it reuses. Clusters: at most
-# MAX_CLUSTER blocks (portable).
+# queries per block (wgmma n16), their ring, the largest k whose merge
+# (parts x k candidates a warp) fits the ring it reuses, and their lists'
+# capacity (cut by the warp bitonic sort). Clusters: at most MAX_CLUSTER
+# blocks (portable).
 SUBMAX_GROUPS = (128, 64)
 SUBMAX_RING_BYTES = 192 * 1024
 SMALL_GROUP = 16
@@ -105,21 +122,32 @@ MAX_CLUSTER = 8
 SMALL_RING = 4
 _SMALL_STAGE = TILE_ROWS * 128 + SMALL_GROUP * 128
 SMALL_MAX_K = 64
-# Shared memory a block may use, and the small-scan kernel's static part
-# (gate, qsv, len, the selects' histograms, barriers).
+SMALL_CAP = 256
+# Shared memory a block may use; the small-scan kernel's static part
+# (gates, lengths, the selects' histograms, barriers); and a bound on the
+# long scan's (the same and X9's G and aux range: at most this in every
+# build, which the card checks against vrod_topk_smem).
 SMEM_LIMIT = 232448
-SMALL_STATIC_SMEM = 3 * SMALL_GROUP * 4 + 8 * 256 * 4 + 2 * SMALL_RING * 8
+SMALL_STATIC_SMEM = 2 * SMALL_GROUP * 4 + 8 * 256 * 4 + 2 * SMALL_RING * 8
+TOPK_STATIC_SMEM = 9 * 1024
+# K1's long scan from a floor (csrc/fused_topk_floor.cu): queries per block
+# (wgmma n256) and the tiles between two cuts of its lists, which hold k +
+# FLOOR_CUT_TILES + 1 tiles of candidates in scratch.
+FLOOR_GROUP = 256
+FLOOR_CUT_TILES = 4
 
 launches = {f"{kern}[{leg}]": 0 for kern in ("fused_topk", "sampled_submax")
             for leg in LEGS}
 small_scans = dict.fromkeys(LEGS, 0)
+floor_scans = dict.fromkeys(LEGS, 0)
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
-    for leg in small_scans:
+    for leg in LEGS:
         small_scans[leg] = 0
+        floor_scans[leg] = 0
 
 
 def _row_kind(x: torch.Tensor, packed: bool, precision: str) -> str:
@@ -453,48 +481,131 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def scratch_bytes(n: int, b: int, k: int, sms: int) -> int:
+class TopkPlan(NamedTuple):
+    """K1's long-scan grid (``topk_plan``)."""
+    groups: int     # query groups of GROUP_QUERIES
+    parts: int      # row parts: block (part, group) walks tiles part, +parts
+    cap: int        # a (part, query) list's capacity
+    on_chip: bool   # the lists in shared memory (else global scratch)
+    ring: int       # stages of the ring
+
+
+class Layout(NamedTuple):
+    """A long-scan block's shared memory (csrc/topk.cuh: Layout)."""
+    ring: int
+    cap: int
+    on_chip: bool
+
+
+def topk_smem(layout: Layout) -> int:
+    """Shared memory of a long-scan block (at most; csrc/fused_topk.cu):
+    the ring's 24 KB stages (the 16 KB row box and the 8 KB box of 64
+    queries), the lists (64 x cap values and slots) when on chip, and
+    TOPK_STATIC_SMEM."""
+    ring, cap, on_chip = layout
+    return (1024 + ring * (TILE_ROWS * 128 + GROUP_QUERIES * 128)
+            + (GROUP_QUERIES * cap * 8 if on_chip else 0) + TOPK_STATIC_SMEM)
+
+
+def topk_layout(k: int, ring: int = RING) -> Layout:
+    """K1's shared memory for top-k: the deepest ring of ``ring`` stages
+    down to 3 that leaves lists of k + LIST_SLACK places or more on chip,
+    with as many places as fit (at 4 stages 242, to k 210; at 3, 290, to k
+    258); past that, lists of k + GLOBAL_SLACK in global memory beside a
+    ring of ``ring``."""
+    for r in range(ring, 2, -1):
+        cap = (SMEM_LIMIT - topk_smem(Layout(r, 0, False))) \
+            // (GROUP_QUERIES * 8)
+        if cap >= k + LIST_SLACK:
+            return Layout(r, cap, True)
+    return Layout(ring, k + GLOBAL_SLACK, False)
+
+
+def topk_plan(n: int, b: int, k: int, sms: int,
+              ring: int = RING) -> TopkPlan:
+    """K1's persistent grid for n rows, b queries, top-k on ``sms`` SMs.
+    Block (part p, group g) scores query group g (queries [64 g, 64 g +
+    64)) against row tiles p, p + parts, ... (128 rows each;
+    ``part_tiles``), about one block per SM. The shared memory:
+    ``topk_layout``."""
+    groups = _cdiv(b, GROUP_QUERIES)
+    parts = max(1, min(_cdiv(n, TILE_ROWS), sms // groups))
+    lay = topk_layout(k, ring)
+    return TopkPlan(groups, parts, lay.cap, lay.on_chip, lay.ring)
+
+
+def scratch_bytes(plan: TopkPlan, b: int, k: int) -> int:
     """Bytes of a long scan's one scratch buffer (csrc/fused_topk.cu:
-    Scratch): the part lists of values and slots, their lengths, and the
-    merge's gather of values and slots."""
-    _, parts, cap = topk_plan(n, b, k, sms)
-    return 4 * (2 * parts * b * cap + parts * b + 2 * b * parts * k)
+    Scratch): the part lists of values and slots (stride k where the lists
+    were on chip, else cap), their lengths, and the merge's gather of values
+    and slots."""
+    stride = k if plan.on_chip else plan.cap
+    return 4 * (2 * plan.parts * b * stride + plan.parts * b
+                + 2 * b * plan.parts * k)
+
+
+class FloorPlan(NamedTuple):
+    """K1's grid from a floor (``floor_plan``)."""
+    groups: int     # query groups of FLOOR_GROUP
+    parts: int      # row parts: block (part, group) walks tiles part, +parts
+    cap: int        # a (part, query) list's capacity, in scratch
+
+
+def floor_plan(n: int, b: int, k: int, sms: int) -> FloorPlan:
+    """K1's persistent grid from a floor for n rows, b queries, top-k on
+    ``sms`` SMs. Block (part p, group g) scores query group g (queries
+    [256 g, 256 g + 256)) against row tiles p, p + parts, ... (128 rows
+    each; ``part_tiles``), about one block per SM; cap is the capacity of a
+    (part, query) candidate list: k plus the slack of the tiles between two
+    cuts and one more."""
+    groups = _cdiv(b, FLOOR_GROUP)
+    parts = max(1, min(_cdiv(n, TILE_ROWS), sms // groups))
+    return FloorPlan(groups, parts, k + (FLOOR_CUT_TILES + 1) * TILE_ROWS)
+
+
+def floor_scratch_bytes(plan: FloorPlan, b: int, k: int) -> int:
+    """Bytes of a scan from a floor's one scratch buffer: ``scratch_bytes``
+    with the lists at stride cap."""
+    return 4 * (2 * plan.parts * b * plan.cap + plan.parts * b
+                + 2 * b * plan.parts * k)
+
+
+def scan_route(n: int, b: int, k: int, sms: int, floor: bool) -> str:
+    """The kernel that takes a K1 scan: ``"small"`` where ``small_plan``
+    takes it, else ``"floor"`` when the call has a theta0 (few scores pass:
+    the n256 scan, whose row tiles cross L2 once, is the faster) and
+    ``"core"`` when it has none (the lists fill: the n64 gated core, whose
+    cuts wait for full lists on chip, is). PERF.md has the A/B."""
+    if small_plan(n, b, k, sms) is not None:
+        return "small"
+    return "floor" if floor else "core"
 
 
 def small_plan(n: int, b: int, k: int, sms: int):
     """K1's small-scan grid, or None where the long scan takes the call:
-    (groups, parts, cap). It takes a scan whose ``topk_plan`` would leave a
-    part fewer than CUT_TILES row tiles, at k up to SMALL_MAX_K. Query
-    group g (queries [16 g, 16 g + 16)) is one cluster of ``parts``
-    blocks; block p walks row tiles p, p + parts, ... (``part_tiles``), at
-    least CUT_TILES of them where there are that many, with its lists of
-    cap = k + 2 tiles (cut after every tile) in shared memory."""
+    (groups, parts, cap). It takes a scan that would give each of sms //
+    ceil(b / SMALL_SPAN) blocks fewer than SMALL_TILES row tiles (at b256
+    on 132 SMs: up to 527 tiles, 67,456 rows), at k up to SMALL_MAX_K: an
+    explicit condition of the shapes, so the K2 shapes (8,192 rows) take it
+    at every batch to 1024. Query group g (queries [16 g, 16 g + 16)) is
+    one cluster of ``parts`` blocks; block p walks row tiles p, p + parts,
+    ... (``part_tiles``), at least SMALL_TILES of them where there are that
+    many, with its lists of SMALL_CAP in shared memory."""
     tiles = _cdiv(n, TILE_ROWS)
-    long_parts = topk_plan(n, b, k, sms)[1]
-    if k > SMALL_MAX_K or tiles >= long_parts * CUT_TILES:
+    spread = max(1, sms // _cdiv(b, SMALL_SPAN))
+    if k > SMALL_MAX_K or tiles >= spread * SMALL_TILES:
         return None
-    parts = max(1, min(MAX_CLUSTER, tiles // CUT_TILES))
-    return _cdiv(b, SMALL_GROUP), parts, k + 2 * TILE_ROWS
+    parts = max(1, min(MAX_CLUSTER, tiles // SMALL_TILES))
+    return _cdiv(b, SMALL_GROUP), parts, SMALL_CAP
 
 
 def small_smem(k: int) -> int:
     """Shared memory of a small-scan block at top-k: the dynamic part (the
-    ring and the 16 queries' lists) and the static part."""
-    cap = k + 2 * TILE_ROWS
-    return 1024 + SMALL_RING * _SMALL_STAGE + SMALL_GROUP * cap * 8 \
+    ring and the 16 queries' lists of SMALL_CAP) and the static part; the
+    same at every k to SMALL_MAX_K."""
+    del k
+    return 1024 + SMALL_RING * _SMALL_STAGE + SMALL_GROUP * SMALL_CAP * 8 \
         + SMALL_STATIC_SMEM
-
-
-def topk_plan(n: int, b: int, k: int, sms: int) -> tuple[int, int, int]:
-    """K1's persistent grid for n rows, b queries, top-k on ``sms`` SMs:
-    (groups, parts, cap). Block (part p, group g) scores query group g
-    (queries [256 g, 256 g + 256)) against row tiles p, p + parts, ... (128
-    rows each; ``part_tiles``), about one block per SM; cap is the capacity
-    of a (part, query) candidate list: k plus the slack of the tiles between
-    two cuts and one more."""
-    groups = _cdiv(b, GROUP_QUERIES)
-    parts = max(1, min(_cdiv(n, TILE_ROWS), sms // groups))
-    return groups, parts, k + (CUT_TILES + 1) * TILE_ROWS
 
 
 def part_tiles(part: int, parts: int, n: int) -> range:
@@ -626,11 +737,27 @@ def fused_topk(x, aux, valid, q, *, k, metric, index_offset=0,
     return _topk_cuda(_build.load(), call, k, index_offset, theta0)
 
 
+_RINGS: dict = {}
+
+
+def lib_ring(lib) -> int:
+    """The ring depth kernel library ``lib`` was built with."""
+    if id(lib) not in _RINGS:
+        _RINGS[id(lib)] = int(lib.vrod_k1_ring())
+    return _RINGS[id(lib)]
+
+
+def card_plan(lib, call, k) -> TopkPlan:
+    """``topk_plan`` of a launch of ``call`` from ``lib`` on its card, at
+    the library's ring depth."""
+    return topk_plan(call.n, call.b, k, _sms(call.device), lib_ring(lib))
+
+
 def _topk_cuda(lib, call, k, index_offset, theta0):
     """K1's launch on the card from kernel library ``lib`` (the default
     build; ``tools/`` passes variants built with other defines): the
-    small-scan kernel where ``small_plan`` takes the call, else the long
-    scan and its merge. Either writes every rank of the outputs."""
+    kernel ``scan_route`` picks, and the long scans' merge. Each writes
+    every rank of the outputs."""
     n, b, dev = call.n, call.b, call.device
     if n == 0:
         return (torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev),
@@ -638,25 +765,37 @@ def _topk_cuda(lib, call, k, index_offset, theta0):
     out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     t0 = None if theta0 is None else _theta(theta0, b, dev)
+    head = (call.elem, call.epi, int(call.tma), *call.pointers(), _ptr(t0),
+            n, call.row_bytes, b, k, int(index_offset))
     sms = _sms(dev)
-    plan = small_plan(n, b, k, sms)
-    scratch = None
-    if plan is None:
-        plan = topk_plan(n, b, k, sms)
-        scratch = torch.empty(scratch_bytes(n, b, k, sms), dtype=torch.uint8,
-                              device=dev)
-    small = scratch is None
-    maps = call.maps(SMALL_GROUP if small else GROUP_QUERIES)
+    route = scan_route(n, b, k, sms, t0 is not None)
     with _on(dev):
-        rc = lib.vrod_fused_topk(
-            call.elem, call.epi, int(call.tma), int(small), *call.pointers(),
-            _ptr(t0), n, call.row_bytes, b, k,
-            int(index_offset), *plan, _ptr(scratch), out_v.data_ptr(),
-            out_i.data_ptr(), *maps, _stream(dev))
+        if route == "small":
+            rc = lib.vrod_fused_topk_small(
+                *head, *small_plan(n, b, k, sms), out_v.data_ptr(),
+                out_i.data_ptr(), *call.maps(SMALL_GROUP), _stream(dev))
+        elif route == "floor":
+            plan = floor_plan(n, b, k, sms)
+            scratch = torch.empty(floor_scratch_bytes(plan, b, k),
+                                  dtype=torch.uint8, device=dev)
+            rc = lib.vrod_fused_topk_floor(
+                *head, *plan, scratch.data_ptr(), out_v.data_ptr(),
+                out_i.data_ptr(), *call.maps(FLOOR_GROUP), _stream(dev))
+        else:
+            plan = card_plan(lib, call, k)
+            scratch = torch.empty(scratch_bytes(plan, b, k),
+                                  dtype=torch.uint8, device=dev)
+            rc = lib.vrod_fused_topk(
+                *head, plan.groups, plan.parts, plan.cap, int(plan.on_chip),
+                plan.ring, scratch.data_ptr(),
+                out_v.data_ptr(), out_i.data_ptr(),
+                *call.maps(GROUP_QUERIES), _stream(dev))
     _ok(rc, "fused_topk launch")
     launches[f"fused_topk[{call.leg}]"] += 1
-    if small:
+    if route == "small":
         small_scans[call.leg] += 1
+    elif route == "floor":
+        floor_scans[call.leg] += 1
     return out_v, out_i
 
 

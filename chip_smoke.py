@@ -57,17 +57,20 @@ nothing falls back to the CPU or to a plain version):
      delete 1,000 ids, close, ``Database.load`` (snapshot restore + WAL
      replay) and the same queries again: deleted ids are gone and every
      other result is unchanged;
-   - (i) int8 l2, top-16, ``--rows`` rows, with the same reopen (the norms
-     lane is rebuilt from the restored rows);
-   - (ii) int4 l2, top-16; (iii) bfloat16 cosine, top-100, with the same
-     reopen (the bfloat16 snapshot path, which needs no ml_dtypes); (iv)
-     float32 dot, top-100 (with the float control): ``--rows`` rows each;
-   - every leg (15 collections), 3 searches each: int8/int4 at top-16 on
+   - (i) int8 l2, top-16, with the same reopen (the norms lane is rebuilt
+     from the restored rows), and (ii) int4 l2, top-16: CUT_ROWS rows each
+     (the depth cut for the time limit: the least rows at which their
+     floor opens);
+   - (iii) bfloat16 cosine, top-100, with the same reopen (the bfloat16
+     snapshot path, which needs no ml_dtypes); (iv) float32 dot, top-100
+     (with the float control): ``--rows`` rows each;
+   - every leg (15 collections), 2 searches each: int8/int4 at top-16 on
      262,144 rows, bfloat16/float32 at top-100 on 131,072 rows (f32x3: a
      float32 collection searched at precision "exact").
 4. Floor experiments, on the main path's reopened state (k_scan 28 and
-   112) and on phase (iii)'s (k_scan 108, the JAX engine's bf16 top-100
-   width), before those collections close:
+   112), on phase (iii)'s (k_scan 108, the JAX engine's bf16 top-100
+   width) and on phase (iv)'s float32 rows at precision "exact" (leg
+   f32x3-dot, k_scan 108), before those collections close:
    the A/B pairs of ``tools/kexp_floor.py`` (the port's kexp17/18/20/22)
    with the launch counters set to 0 before and read after: X8 and X6
    (``cuda_floor.fused_theta``, margin 0 and the engine's margin, sample
@@ -75,11 +78,12 @@ nothing falls back to the CPU or to a plain version):
    (``cuda_floor.fused_intgate``, int8), each EQUAL to the stock
    composition (K3 -> count threshold -> K1); ``fused_theta`` and
    ``fused_intgate`` must have launched. Then, not counted, each against
-   its plain version: int8 EXACT, theta0 too; bfloat16 within the bound;
-   on every leg theta0 bit-equal to ``bisect_floor`` of K3's sub-maxima
-   less the margin.
+   its plain version: int8 EXACT, theta0 too; bfloat16 and f32x3 within
+   the bound; on every leg theta0 bit-equal to ``bisect_floor`` of K3's
+   sub-maxima less the margin.
 5. Extraction experiments, on the same states (main path: k_scan 28 and
-   112; (iii): 108): the A/B pairs of ``tools/kexp_extract.py`` (the port's
+   112; (iii) and (iv) at f32x3: 108; X4, cosine only, under cosine on
+   (iv)'s rows): the A/B pairs of ``tools/kexp_extract.py`` (the port's
    kexp/kexp2/kexp3/kexp5, X1-X4: ``cuda_extract``'s seven kernels, floor,
    store, gate, unroll2, unroll4, pingpong and carry) against K1 with no
    floor over the whole 2048-row blocks, each agreeing with it (int8
@@ -95,8 +99,9 @@ nothing falls back to the CPU or to a plain version):
    edge cases of every kernel but the floor at 65,536 x 768
    (``extract_edges``): int8 at k 1, 33, 34, 112, 128, 150, 210, 211 and
    230 (past the store's lists', the gated kernels' lists' and then the
-   carry's on-chip limit) for 1, 200 and 300 queries, every leg each
-   takes (int8, bf16, f32 x cosine, l2, dot; X4 cosine) at b256 k 28, and
+   carry's on-chip limit) and f32x3 at k 150 and 211 for 1, 200 and 300
+   queries, every leg each takes (int8, bf16, f32, f32x3 x cosine, l2,
+   dot; X4 cosine) at b256 k 28, and
    X2's count at tiles 1, 2 and 4, each against its plain twin or closed
    form; and the plans' shared memory equal to the built kernels' own, k
    1 to 256.
@@ -250,7 +255,10 @@ RECALL_EPS = 1e-5  # tie tolerance of the recall check (bench.py's)
 # rows: the least at which that floor opens), float legs at top-100
 # (131,072 rows; their floor opens from k_scan 64).
 LEG_SHAPES = {"quant": (262144, 16), "float": (131072, 100)}
-LEG_SEARCHES = 3
+LEG_SEARCHES = 2
+# Phases (i) and (ii): their rows (the depth cut of ``--rows``, for the
+# time limit; the least at which int8/int4 top-16's floor opens).
+CUT_ROWS = 262144
 DB_DTYPE = {"int8": "int8", "int4": "int4", "bf16": "bfloat16",
             "f32": "float32", "f32x3": "float32"}
 # The H100 SXM's datasheet rates (dense): HBM bytes/s, and tensor-core
@@ -268,14 +276,20 @@ SOURCES = {"fused_topk": ("vrod_tpu_torch/csrc/fused_topk_floor.cu",
                               "vrod_tpu/ops/pallas_topk.py:468"),
            "fused_theta": ("vrod_tpu_torch/csrc/fused_theta.cu",
                            "experiments/kexp20.py:178"),
+           # X6/X8's f32x3 legs, built apart (the kernel: fused_theta.cuh).
+           "fused_theta_f32x3": ("vrod_tpu_torch/csrc/fused_theta_f32x3.cu",
+                                 "experiments/kexp20.py:178"),
            "fused_intgate": ("vrod_tpu_torch/csrc/fused_topk_floor.cu",
                              "experiments/kexp22.py:127")}
 # The floor experiments' phases and k_scans (phase 4).
-FLOOR_KSCANS = {"main path": (28, 112), "(iii)": (108,)}
+FLOOR_KSCANS = {"main path": (28, 112), "(iii)": (108,), "(iv)": (108,)}
 # The extraction experiments' phases and k_scans (phase 5), their block, and
 # the line of each experiment's pallas_call (a kernel's experiment:
 # cuda_extract.KERNEL_CALLS).
-EXTRACT_KSCANS = {"main path": (28, 112), "(iii)": (108,)}
+EXTRACT_KSCANS = {"main path": (28, 112), "(iii)": (108,), "(iv)": (108,)}
+# The leg of phases 4 and 5 where it is not the Database phase's own: (iv)'s
+# float32 rows at precision "exact" (f32x3, the experiments' HIGHEST).
+EXPERIMENT_LEGS = {"(iv)": "f32x3-dot"}
 EXTRACT_BLOCK = 2048
 # Phase 5's edge cases of every kernel but the floor: rows, k (33/34: where
 # X2's carry once left shared memory; 112 and 128; 150: the store's lists
@@ -285,6 +299,9 @@ EXTRACT_BLOCK = 2048
 # five groups of 64).
 EDGE_ROWS = 65536
 EDGE_KS = (1, 33, 34, 112, 128, 150, 210, 211, 230)
+# The f32x3 builds' edges: the store's lists past their on-chip limit
+# (150) and the gated lists past theirs (211).
+EDGE_KS_F32X3 = (150, 211)
 EDGE_KERNELS = ("carry", "store", "gate", "unroll2", "unroll4", "pingpong")
 EDGE_BATCHES = (1, 200, 300)
 # The serve phase (6): client processes and connections in each (256 in
@@ -686,15 +703,17 @@ class Compare:
         from vrod_tpu_torch.ops import cuda_floor as F
         from vrod_tpu_torch.ops import cuda_topk as K
         from vrod_tpu_torch.ops import distances as D
-        metric = leg.split("-")[1]
+        metric, precision = leg.split("-")[1], leg_precision(leg)
         kw = dict(k=k, metric=metric, block_rows=blk, s_blocks=s_blocks,
-                  margin=margin, skip_sample_dots=skip, return_theta=True)
+                  margin=margin, skip_sample_dots=skip, return_theta=True,
+                  precision=precision)
         got = F.fused_theta(*args, **kw)
         want = F.fused_theta_plain(*args, **kw)
         ns = blk * s_blocks
         sub = K.sampled_submax(*[a[:ns] for a in args[:3]], args[3],
-                               metric=metric, block_rows=blk)
-        bound = K.score_error_bound(*args, metric=metric)
+                               metric=metric, block_rows=blk,
+                               precision=precision)
+        bound = error_bound(args, leg)
         torch.cuda.synchronize()
         self._same_form(got, want, f"{what}: fused_theta")
         msg = K.topk_disagreement(*got[:2], *want[:2], bound)
@@ -733,7 +752,8 @@ class Compare:
         from vrod_tpu_torch.ops import cuda_extract as X
         from vrod_tpu_torch.ops import cuda_topk as K
         metric = leg.split("-")[1]
-        kw = dict(k=k, metric=metric, block_rows=block_rows)
+        kw = dict(k=k, metric=metric, block_rows=block_rows,
+                  precision_name=leg_precision(leg))
         got = X.run_kernel(kern, *xargs, **kw)
         want = X.run_kernel(kern, *xargs, plain=True, **kw)
         n = xargs[0].shape[0]
@@ -742,7 +762,8 @@ class Compare:
         else:
             bound = K.score_error_bound(
                 xargs[0], xargs[1].reshape(n),
-                torch.isfinite(xargs[2].reshape(n)), xargs[3], metric=metric)
+                torch.isfinite(xargs[2].reshape(n)), xargs[3], metric=metric,
+                precision=leg_precision(leg))
         torch.cuda.synchronize()
         self._same_form(got, want, f"{what}: extract_{kern}")
         msg = K.topk_disagreement(*got, *want, bound)
@@ -999,9 +1020,11 @@ def floor_phase(cmp, card, name, leg, args, k_scans):
     from vrod_tpu_torch import engine
     from vrod_tpu_torch.ops import cuda_floor as F
     kf = tool_module("kexp_floor")
-    dtype = leg.split("-")[0]
+    dtype, metric = leg.split("-")
+    precision = leg_precision(leg)
     F.reset_launches()
-    recs = kf.run_pairs(args, dtype, k_scans, kf.LEGS, iters=10, card=card)
+    recs = kf.run_pairs(args, dtype, k_scans, kf.LEGS, iters=10, card=card,
+                        metric=metric, precision=precision)
     torch.cuda.synchronize()
     launches = dict(F.launches)
     need = [f"fused_theta[{leg}]"] + (
@@ -1017,11 +1040,12 @@ def floor_phase(cmp, card, name, leg, args, k_scans):
             f"{r['stock_ms']:.4f} ms (device {r['stock_device_ms']:.4f}, "
             f"{r['stock_kernels_per_call']:g} kernels), variant "
             f"{r['variant_ms']:.4f} ms (device {r['variant_device_ms']:.4f}, "
+            f"graph replay {r['variant_graph_ms']:.4f}, "
             f"{r['variant_kernels_per_call']:g} kernels), sample "
             f"{r['sample_rows']} in blocks of {r['block_rows']} [{card}]")
     times = {}
     for k in k_scans:
-        theta0, (ns, blk) = kf.stock_floor(args, k)
+        theta0, (ns, blk) = kf.stock_floor(args, k, metric, precision)
         for margin in (None, engine.THETA0_MARGIN):
             for skip in (False, True):
                 cmp.theta(leg, args, k, blk, ns // blk, margin, skip,
@@ -1033,8 +1057,8 @@ def floor_phase(cmp, card, name, leg, args, k_scans):
             continue
         first = {(r["leg"], r["variant"]): r for r in recs
                  if r["k_scan"] == k}
-        kw = dict(k=k, metric=leg.split("-")[1], block_rows=blk,
-                  s_blocks=ns // blk)
+        kw = dict(k=k, metric=metric, block_rows=blk, s_blocks=ns // blk,
+                  precision=precision)
         x8 = first[("x8", "plain")]
         n, d = args[0].shape
         bound = bound_of(args, BATCH * k * 8, 2 * BATCH * n * d, dtype)
@@ -1042,6 +1066,7 @@ def floor_phase(cmp, card, name, leg, args, k_scans):
         library = cuda_time_ms(lambda: gemm().topk(k, dim=1), iters=5)
         times["fused_theta"] = dict(
             ms=x8["variant_ms"], device_ms=x8["variant_device_ms"],
+            graph_ms=x8["variant_graph_ms"],
             kernels=x8["variant_kernels_per_call"],
             stock_ms=x8["stock_ms"], stock_device_ms=x8["stock_device_ms"],
             plain_ms=cuda_time_ms(
@@ -1051,6 +1076,7 @@ def floor_phase(cmp, card, name, leg, args, k_scans):
             x9 = first[("x9", "intgate")]
             times["fused_intgate"] = dict(
                 ms=x9["variant_ms"], device_ms=x9["variant_device_ms"],
+                graph_ms=x9["variant_graph_ms"],
                 kernels=x9["variant_kernels_per_call"],
                 stock_ms=x9["stock_ms"],
                 stock_device_ms=x9["stock_device_ms"],
@@ -1095,33 +1121,51 @@ def tie_extract_inputs(leg, dev, rng):
             .to(dev), torch.zeros(1, dtype=torch.int32, device=dev)], copies
 
 
+def kernel_leg(kern, leg):
+    """The leg an extraction kernel takes on a phase of ``leg``: the leg
+    itself, or for X4 (cosine only) the same rows under cosine."""
+    from vrod_tpu_torch.ops import cuda_extract as X
+    if leg in X.kernel_legs(kern):
+        return leg
+    return f"{leg.split('-')[0]}-cosine"
+
+
 def extract_phase(cmp, card, name, leg, args, k_scans):
     """Phase 5 on one Database phase's kernel inputs ``args`` (x, aux,
-    valid, q_scan): the extraction experiments' A/B pairs with the
-    extraction counters set to 0 before and read after (every kernel must
-    have launched), then, not counted, each kernel against its plain twin
-    on this state and on the ties across list cuts, and X2's count against
-    its closed form. Returns (launches, records, times at the first
-    k_scan)."""
+    valid, q_scan) under ``leg`` (f32x3: float32 rows at "exact"): the
+    extraction experiments' A/B pairs with the extraction counters set to
+    0 before and read after (every kernel must have launched; X4, cosine
+    only, runs the same rows under cosine where the leg's metric is
+    another), then, not counted, each kernel against its plain twin on this
+    state and on the ties across list cuts, and X2's count against its
+    closed form. Returns (launches, records, times at the first k_scan,
+    each with the leg its kernel took)."""
     import torch
     from vrod_tpu_torch.ops import cuda_extract as X
     ke = tool_module("kexp_extract")
     dtype, metric = leg.split("-")
+    precision = leg_precision(leg)
     wall0 = time.perf_counter()
     X.reset_launches()
-    recs = ke.run_pairs(args, dtype, k_scans, ke.EXPERIMENTS,
-                        block_rows=EXTRACT_BLOCK, iters=10, card=card)
+    kw_pairs = dict(block_rows=EXTRACT_BLOCK, iters=10, card=card,
+                    precision=precision)
+    recs = ke.run_pairs(args, dtype, k_scans, ke.EXPERIMENTS, metric=metric,
+                        **kw_pairs)
+    if metric != "cosine":
+        recs += ke.run_pairs(args, dtype, k_scans, ("x4",), metric="cosine",
+                             **kw_pairs)
     torch.cuda.synchronize()
     launches = dict(X.launches)
     for kern in X.KERNELS:
-        if launches[f"extract_{kern}[{leg}]"] == 0:
+        kname = f"extract_{kern}[{kernel_leg(kern, leg)}]"
+        if launches[kname] == 0:
             raise AssertionError(f"{name} extraction experiments: launched "
-                                 f"no extract_{kern}[{leg}]")
+                                 f"no {kname}")
     log(f"{name} extraction experiments: {len(recs)} pairs agree with K1 "
         f"(no floor) or the plain floor; launches "
         f"{json.dumps({n: c for n, c in launches.items() if c})}")
     for r in recs:
-        what = f"  {leg} k_scan {r['k_scan']} {r['experiment']} " \
+        what = f"  {r['leg']} k_scan {r['k_scan']} {r['experiment']} " \
             f"{r['variant']} ({r['kernel']}):"
         if "timed_as" in r:
             log(f"{what} agrees; same build as {r['timed_as']}")
@@ -1130,40 +1174,56 @@ def extract_phase(cmp, card, name, leg, args, k_scans):
             f"(device {r['reference_device_ms']:.4f}, "
             f"{r['reference_kernels_per_call']:g} kernels), variant "
             f"{r['variant_ms']:.4f} ms (device {r['variant_device_ms']:.4f}, "
+            f"graph replay {r['variant_graph_ms']:.4f}, "
             f"{r['variant_kernels_per_call']:g} kernels) [{card}]")
     xargs = ke.experiment_args(args)
     k = k_scans[0]
     for kern in X.KERNELS:
-        cmp.extract(kern, leg, xargs, k, f"{name} k {k} dead slots")
-    cnt = ke.count_of(args, k, EXTRACT_BLOCK, tiles=2)[2]
-    log(f"{name} X2 count (tiles 2, k_scan {k}): {int(cnt[0])}, equal to "
-        "the closed form")
+        cmp.extract(kern, kernel_leg(kern, leg), xargs, k,
+                    f"{name} k {k} dead slots")
     targs, copies = tie_extract_inputs(leg, args[0].device,
                                        np.random.default_rng(7))
+    # X2's count has no tolerance. On the f32x3 leg the kernel's sums
+    # differ from the plain version's within the bound, so a near-tie at
+    # a block's k-th can move one carry entry (seen at (iv): 4341 against
+    # 4342); there it counts on case (e)'s rows, whose scores are exact.
+    if leg.startswith("f32x3"):
+        n_tie = targs[0].shape[0]
+        cargs = [targs[0], targs[1].reshape(n_tie),
+                 torch.isfinite(targs[2].reshape(n_tie)), targs[3]]
+        what = "case (e)'s exact scores"
+    else:
+        cargs, what = args, "the state"
+    cnt = ke.count_of(cargs, k, EXTRACT_BLOCK, 2, metric, precision)[2]
+    log(f"{name} X2 count (tiles 2, k_scan {k}, on {what}): {int(cnt[0])}, "
+        "equal to the closed form")
     # At the phase's first k_scan and at 112 (X2's carry and every list on
     # chip at both, in query groups of 64).
     for kt in dict.fromkeys((k, 112)):
         for kern in X.KERNELS:
-            _, i = cmp.extract(kern, leg, targs, kt,
+            _, i = cmp.extract(kern, kernel_leg(kern, leg), targs, kt,
                                f"{name} (e) ties across list cuts, k {kt}",
                                block_rows=2 * 128, exact=True)
             if kern != "floor" and i[0].tolist() != [7] + copies[:kt - 1]:
                 raise AssertionError(
                     f"{name} (e) ties across list cuts, k {kt}: "
                     f"extract_{kern} not lowest slot first")
-    first = {r["kernel"]: r for r in recs
+    first = {(r["kernel"], r["leg"]): r for r in recs
              if r["k_scan"] == k and "variant_ms" in r}
-    k1 = first["gate"]
     n, d = args[0].shape
     bound = bound_of(xargs, BATCH * k * 8, 2 * BATCH * n * d, dtype)
-    kw = dict(k=k, metric=metric, block_rows=EXTRACT_BLOCK)
     times = {}
-    for kern, r in first.items():
+    for kern in X.KERNELS:
+        r = first[(kern, kernel_leg(kern, leg))]
+        k1 = first[("gate", r["leg"])]  # its run's K1, timed once
+        kw = dict(k=k, metric=r["leg"].split("-")[1],
+                  block_rows=EXTRACT_BLOCK, precision_name=precision)
         times[kern] = dict(
-            ms=r["variant_ms"], device_ms=r["variant_device_ms"],
+            leg=r["leg"], ms=r["variant_ms"],
+            device_ms=r["variant_device_ms"], graph_ms=r["variant_graph_ms"],
             kernels=r["variant_kernels_per_call"], k1_ms=k1["reference_ms"],
             k1_device_ms=k1["reference_device_ms"],
-            plain_ms=cuda_time_ms(lambda kern=kern: X.run_kernel(
+            plain_ms=cuda_time_ms(lambda kern=kern, kw=kw: X.run_kernel(
                 kern, *xargs, plain=True, **kw), iters=2, warmup=1),
             bound=bound, library_ms=r["library_ms"], k_scan=k, rows=n)
     if leg == "int8-cosine":
@@ -1175,10 +1235,12 @@ def extract_phase(cmp, card, name, leg, args, k_scans):
 def extract_edges(cmp, card, dev):
     """Phase 5's edge cases of EDGE_KERNELS, not counted, each against its
     plain twin on EDGE_ROWS x 768 seeded cosine rows: int8 at each of
-    EDGE_KS for 1, 200 (no multiple of a query group) and 300 queries;
-    every leg a kernel takes (int8, bfloat16, float32 x cosine, l2, dot;
-    X4 cosine) at b256, k 28; X2's count at tiles 1, 2 and 4 EQUAL to its
-    closed form. int8 EXACT, the float legs within the bound. First, the
+    EDGE_KS for 1, 200 (no multiple of a query group) and 300 queries, and
+    f32x3 (float32 at "exact") at each of EDGE_KS_F32X3 for the same
+    batches; every leg a kernel takes (int8, bfloat16, float32 and f32x3 x
+    cosine, l2, dot; X4 cosine) at b256, k 28; X2's count at tiles 1, 2
+    and 4 EQUAL to its closed form. int8 EXACT, the float legs within the
+    bound. First, the
     plans' shared memory (``carry_smem``, ``store_smem``, ``gate_smem``)
     EQUAL to the library's account of the built kernels at every k to 256,
     and EDGE_KS reaching past every on-chip limit. Prints each kernel's
@@ -1225,17 +1287,17 @@ def extract_edges(cmp, card, dev):
     calls = dict.fromkeys(kerns, 0)
     X.reset_launches()
     for i, dtype in enumerate(X.X_DTYPES):
-        state = ke.make_state(dtype, EDGE_ROWS, DIM, max(EDGE_BATCHES), 50 + i,
-                              dev)
+        state = ke.make_state("f32" if dtype == "f32x3" else dtype, EDGE_ROWS,
+                              DIM, max(EDGE_BATCHES), 50 + i, dev)
         xargs = ke.experiment_args(state)
+        for k in {"int8": EDGE_KS, "f32x3": EDGE_KS_F32X3}.get(dtype, ()):
+            for b in EDGE_BATCHES:
+                sub = xargs[:3] + [xargs[3][:b].contiguous(), xargs[4]]
+                for kern in kerns:
+                    cmp.extract(kern, f"{dtype}-cosine", sub, k,
+                                f"edge {dtype} k {k} b {b}")
+                    calls[kern] += 1
         if dtype == "int8":
-            for k in EDGE_KS:
-                for b in EDGE_BATCHES:
-                    sub = xargs[:3] + [xargs[3][:b].contiguous(), xargs[4]]
-                    for kern in kerns:
-                        cmp.extract(kern, "int8-cosine", sub, k,
-                                    f"edge int8 k {k} b {b}")
-                        calls[kern] += 1
             for tiles in (1, 2, 4):
                 cnt = ke.count_of(state[:3] + [state[3][:BATCH].contiguous()],
                                   28, EXTRACT_BLOCK, tiles)[2]
@@ -1697,9 +1759,10 @@ def db_phase(dev, card, cmp, *, name, leg, top_k, rows, searches, reopen,
             f"at its shapes ({eng.capacity} rows, sample {ns} in blocks of "
             f"{blk}, b{BATCH}, k_scan {k_scan}), ms: {json.dumps(times)} "
             f"[{card}]")
-        floor = floor_phase(cmp, card, name, leg, a1, floor_kscans) \
+        xleg = EXPERIMENT_LEGS.get(name, leg)
+        floor = floor_phase(cmp, card, name, xleg, a1, floor_kscans) \
             if floor_kscans else None
-        extract = extract_phase(cmp, card, name, leg, a1, extract_kscans) \
+        extract = extract_phase(cmp, card, name, xleg, a1, extract_kscans) \
             if extract_kscans else None
         served = serve_phase(card, db, col, queries, top_k, set(gone),
                              seed + 1) if serve else None
@@ -2492,6 +2555,11 @@ def main(argv=None) -> int:
                                    "arning", "wgmma", "nvcc ")):
             log("  ptxas:", line.strip())
 
+    def mark(what):
+        # Where the wall time goes, against the 1200 s limit.
+        log(f"{what}: done at {time.perf_counter() - wall0:.1f} s")
+
+    mark("phase 1, the build")
     cmp = Compare()
     rng = np.random.default_rng(args.seed + 1)
     k2_times = {}
@@ -2502,11 +2570,12 @@ def main(argv=None) -> int:
             f"{cmp.max_err[f'fused_topk[{leg}]']:.6g}, K3 max err "
             f"{cmp.max_err[f'sampled_submax[{leg}]']:.6g}; shape (a) 65536 x "
             f"{DIM}, b{BATCH}, k 28, ms: {json.dumps(times)} [{card}]")
+    mark("phase 2, the kernel cases")
 
     phases = [
         ("main path", "int8-cosine", 16, args.rows, True),
-        ("(i)", "int8-l2", 16, args.rows, True),
-        ("(ii)", "int4-l2", 16, args.rows, False),
+        ("(i)", "int8-l2", 16, min(args.rows, CUT_ROWS), True),
+        ("(ii)", "int4-l2", 16, min(args.rows, CUT_ROWS), False),
         ("(iii)", "bf16-cosine", 100, args.rows, True),
         ("(iv)", "f32-dot", 100, args.rows, False),
     ]
@@ -2530,9 +2599,10 @@ def main(argv=None) -> int:
             launches[kname] += c
         times.setdefault(leg, (name, rows, t))  # the first, largest phase
         if floor:
-            floors.append((name, leg, floor))
+            floors.append((name, EXPERIMENT_LEGS.get(name, leg), floor))
         if extract:
-            extracts.append((name, leg, extract))
+            extracts.append((name, extract))
+        mark(f"phase {name}")
     # Phases 7 and 8: their launches join the totals, each path's read in
     # its own run (phase 8's in each rank's process).
     try:
@@ -2540,6 +2610,7 @@ def main(argv=None) -> int:
                               seed=args.seed + 10)
         ranks = mh_phase(card, args.seed + 30)
         verbs = verbs_phase(card, main_path, args.seed + 40)
+        mark("phases 7-9")
         # Phase 9's K1 launches that took the small-scan kernel (its fuzz
         # streams' small collections; the counters were last set to 0 at
         # its start).
@@ -2547,7 +2618,9 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(main_path["dir"], ignore_errors=True)
     tools_phase(card)
+    mark("phase 10")
     bench_phase(card)
+    mark("phase 11")
     for n in [sharded] + ranks + [verbs]:
         for kname, c in n.items():
             launches[kname] += c
@@ -2617,7 +2690,8 @@ def main(argv=None) -> int:
             log(f"{kname}: {fl[kname]} launches in {name}'s floor "
                 f"experiments; at its shapes ({t['rows']} rows, k_scan "
                 f"{t['k_scan']}) {t['ms']:.4f} ms (device "
-                f"{t['device_ms']:.4f} ms, {t['kernels']:g} kernels a call) "
+                f"{t['device_ms']:.4f} ms, graph replay {t['graph_ms']:.4f} "
+                f"ms, {t['kernels']:g} kernels a call) "
                 f"vs plain {t['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
                 f"({bound_by}; {reached(bound_ms, t)}); stock composition "
                 f"{t['stock_ms']:.4f} ms "
@@ -2625,17 +2699,19 @@ def main(argv=None) -> int:
                 f"{cmp.max_err[kname]:.6g}, at most "
                 f"{cmp.max_share[kname]:.4g} of the score bound; library "
                 f"(GEMM + topk) {t['library_ms']:.4f} ms [{card}]")
+            src = SOURCES[f"{kern}_f32x3" if leg.startswith("f32x3") and
+                          f"{kern}_f32x3" in SOURCES else kern]
             kernels.append({
-                "name": kname, "route": "cuda", "source": SOURCES[kern][0],
-                "replaces": SOURCES[kern][1], "launches": fl[kname],
+                "name": kname, "route": "cuda", "source": src[0],
+                "replaces": src[1], "launches": fl[kname],
                 "max_abs_err": cmp.max_err[kname], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": t["library_ms"],
                 "stock_ms": t["stock_ms"]})
     from vrod_tpu_torch.ops import cuda_extract as X
-    for name, leg, (xl, _, xtimes) in extracts:
+    for name, (xl, _, xtimes) in extracts:
         for kern, t in xtimes.items():
-            kname = f"extract_{kern}[{leg}]"
+            kname = f"extract_{kern}[{t['leg']}]"
             fn = X.KERNEL_CALLS[kern][0]
             bound_ms, bound_by = t["bound"]
             # By events: the profiler of a long process keeps only part of
@@ -2645,7 +2721,8 @@ def main(argv=None) -> int:
                 f"experiments; at its shapes ({t['rows']} rows, k_scan "
                 f"{t['k_scan']}, blocks of {EXTRACT_BLOCK}) {t['ms']:.4f} ms "
                 f"(profiler: device {t['device_ms']:.4f} ms, "
-                f"{t['kernels']:g} kernels a call) vs plain "
+                f"{t['kernels']:g} kernels a call; graph replay "
+                f"{t['graph_ms']:.4f} ms) vs plain "
                 f"{t['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
                 f"({bound_by}; {bound_ms / t['ms']:.1%} of it reached by "
                 f"events); K1 with no floor {t['k1_ms']:.4f} ms (device "

@@ -17,10 +17,12 @@ l2):
   values agree within ``cuda_topk.score_error_bound`` and slots are equal
   outside near-ties (``cuda_topk.topk_disagreement``).
 
-The floor and gate kernels (``cuda_floor``) and the extraction kernels
-(``cuda_extract``: X1-X4, on int8, bfloat16 and float32 rows with the
-experiments' epilogues) are held to their plain versions by the same
-rules, ties across list cuts EXACTLY.
+The floor and gate kernels (``cuda_floor``: X6/X8 on every leg of K1,
+f32x3 included) and the extraction kernels (``cuda_extract``: X1-X4, on
+int8, bfloat16 and float32 rows with the experiments' epilogues, float32
+in TF32 at precision "fast" and as leg f32x3 at "high" and "exact") are
+held to their plain versions by the same rules, ties across list cuts
+EXACTLY.
 """
 
 import numpy as np
@@ -465,7 +467,7 @@ def test_cuda_fused_theta_matches_plain(rng, cuda_device, leg, k, skip,
                                    **skw)
     v0, i0 = cuda_topk.fused_topk(*args, k=k, metric=metric, **kw)
     torch.cuda.synchronize()
-    bound = cuda_topk.score_error_bound(*args, metric=metric)
+    bound = bound_of(args, kw, metric)
     msg = cuda_topk.topk_disagreement(v, i, vp, ip, bound)
     assert msg is None, msg
     if leg.split("-")[0] in ("int8", "int4"):
@@ -517,7 +519,7 @@ def tie_state(leg, dev, b=8, d=128, k=112):
                                 dtype=_ROW_DTYPE[dtype])
     qt = TD.prepare_queries(torch.from_numpy(q), metric=metric,
                             quantize=dtype in ("int8", "int4"))
-    kw = dict(packed=dtype == "int4")
+    kw = leg_keywords(dtype)
     if dtype in ("int8", "int4") and metric == "l2":
         qt, qs = TD.prepare_queries(torch.from_numpy(q), metric=metric,
                                     quantize=True, return_scale=True)
@@ -573,7 +575,14 @@ X_CASES = [("small", 8492, 128, 40, 28, 1024, 1000),
            ("b264_k112", 65636, 96, 264, 112, 2048, 7),
            ("b256_k108", 131172, 128, 256, 108, 2048, 11)]
 GATED = ["gate", "unroll2", "unroll4", "pingpong"]
-_X_ROW = {"int8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32}
+_X_ROW = {"int8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32,
+          "f32x3": torch.float32}
+
+
+def x_precision(dtype):
+    """The experiments' precision_name of a row kind: f32x3 is float32 at
+    "exact" (and "high", the same leg), the others "fast"."""
+    return "exact" if dtype == "f32x3" else "fast"
 
 
 def x_args(rng, n, d, b, dev, dtype, offset, dead_every=5, x=None, q=None):
@@ -606,7 +615,7 @@ def x_agree(dtype, metric, args, got, want):
     n = args[0].shape[0]
     bound = cuda_topk.score_error_bound(
         args[0], args[1].reshape(n), torch.isfinite(args[2].reshape(n)),
-        args[3], metric=metric)
+        args[3], metric=metric, precision=x_precision(dtype))
     msg = cuda_topk.topk_disagreement(*got, *want, bound)
     assert msg is None, msg
 
@@ -619,11 +628,12 @@ def x_agree(dtype, metric, args, got, want):
 def test_cuda_extract_matches_plain(rng, cuda_device, case, mode, leg):
     """Every kernel on every leg it takes, against its plain twin, at k 28,
     112 and 108 with dead slots: int8 EQUAL, bfloat16/float32 within the
-    score bound; the floor's ids -1."""
+    score bound (f32x3: float32 at "exact"); the floor's ids -1."""
     _, n, d, b, k, blk, offset = case
     dtype, metric = leg.split("-")
     args = x_args(rng, n, d, b, cuda_device, dtype, offset)
-    kw = dict(k=k, metric=metric, block_rows=blk, precision_name="fast")
+    kw = dict(k=k, metric=metric, block_rows=blk,
+              precision_name=x_precision(dtype))
     cuda_extract.reset_launches()
     got = cuda_extract.run_kernel(mode, *args, **kw)
     want = cuda_extract.run_kernel(mode, *args, plain=True, **kw)
@@ -640,7 +650,7 @@ def test_cuda_extract_matches_plain(rng, cuda_device, case, mode, leg):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [28, 112])
 @pytest.mark.parametrize("mode", [k for k in X_KERNELS if k != "floor"])
-@pytest.mark.parametrize("dtype", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("dtype", ["int8", "bf16", "f32", "f32x3"])
 def test_cuda_extract_ties_across_list_cuts(cuda_device, mode, dtype, k):
     """Copies of row 7, 40 in each of the first seven row tiles of part 0,
     query 0 = row 7 (K1's tie case, test_cuda_k1_ties_across_list_cuts):
@@ -676,7 +686,7 @@ def test_cuda_extract_ties_across_list_cuts(cuda_device, mode, dtype, k):
     if metric == "cosine":
         args[1] = torch.ones_like(args[1])
     kw = dict(k=k, metric=metric, block_rows=2 * cuda_topk.TILE_ROWS,
-              precision_name="fast")
+              precision_name=x_precision(dtype))
     got = cuda_extract.run_kernel(mode, *args, **kw)
     want = cuda_extract.run_kernel(mode, *args, plain=True, **kw)
     torch.cuda.synchronize()
@@ -736,7 +746,7 @@ def test_cuda_gated_edges(rng, cuda_device, mode, b, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("dtype", ["int8", "bf16", "f32", "f32x3"])
 @pytest.mark.parametrize("k", [28, 108, 112])
 def test_cuda_pingpong_matches_plain_across_tiles(rng, cuda_device, dtype,
                                                   k):
@@ -745,11 +755,87 @@ def test_cuda_pingpong_matches_plain_across_tiles(rng, cuda_device, dtype,
     300 queries, cosine, over 40,000 rows (tiles of odd and even count per
     part): int8 EQUAL, the float rows within the bound."""
     args = x_args(rng, 40000, 128, 300, cuda_device, dtype, 5)
-    kw = dict(k=k, metric="cosine", block_rows=1024, precision_name="fast")
+    kw = dict(k=k, metric="cosine", block_rows=1024,
+              precision_name=x_precision(dtype))
     got = cuda_extract.kexp3_call(*args, **kw)
     want = cuda_extract.kexp3_plain(*args, **kw)
     torch.cuda.synchronize()
     x_agree(dtype, "cosine", args, got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 112, 150, 210, 211, 230])
+@pytest.mark.parametrize("b", [1, 200, 300])
+@pytest.mark.parametrize("mode", X_KERNELS)
+def test_cuda_f32x3_extract_edges(rng, cuda_device, mode, b, k):
+    """The f32x3 builds (float32 rows at "exact", cosine) at the plans'
+    edges: k 1, 112, past the store's lists' on-chip limit (150), the gated
+    lists' last on-chip k and the first past it (210, 211) and the carry in
+    global memory (230); one query, 200 and 300: within the bound of the
+    plain twin, one launch a call, every slot of a whole block."""
+    n, blk, offset = 16384 + 77, 1024, 3
+    args = x_args(rng, n, 128, b, cuda_device, "f32x3", offset)
+    kw = dict(k=k, metric="cosine", block_rows=blk, precision_name="exact")
+    cuda_extract.reset_launches()
+    got = cuda_extract.run_kernel(mode, *args, **kw)
+    want = cuda_extract.run_kernel(mode, *args, plain=True, **kw)
+    torch.cuda.synchronize()
+    assert cuda_extract.launches[f"extract_{mode}[f32x3-cosine]"] == 1
+    x_agree("f32x3", "cosine", args, got, want)
+    if mode != "floor":
+        assert int(got[1].max()) < n // blk * blk + offset
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["high", "exact"])
+def test_cuda_f32x3_precisions_launch_the_split_builds(rng, cuda_device,
+                                                       precision):
+    """float32 rows at "high" and at "exact" launch the f32x3 build of
+    every extraction kernel and of X6/X8 (counted under leg f32x3, never
+    under f32), each within the bound of its plain version at b256."""
+    metric = "l2"
+    args = x_args(rng, 65536, 768, 256, cuda_device, "f32", 0)
+    cuda_extract.reset_launches()
+    cuda_floor.reset_launches()
+    for mode in X_KERNELS:
+        m = "cosine" if mode.startswith("unroll") else metric
+        kw = dict(k=28, metric=m, block_rows=2048, precision_name=precision)
+        got = cuda_extract.run_kernel(mode, *args, **kw)
+        want = cuda_extract.run_kernel(mode, *args, plain=True, **kw)
+        torch.cuda.synchronize()
+        x_agree("f32x3", m, args, got, want)
+        assert cuda_extract.launches[f"extract_{mode}[f32x3-{m}]"] == 1
+    fargs, _ = make_state(rng, 65536, 768, 256, cuda_device, "f32-dot", 7)
+    th = dict(k=28, metric="dot", block_rows=16384, s_blocks=2,
+              precision=precision)
+    got = cuda_floor.fused_theta(*fargs, **th)
+    want = cuda_floor.fused_theta_plain(*fargs, **th)
+    torch.cuda.synchronize()
+    msg = cuda_topk.topk_disagreement(*got, *want, cuda_topk.score_error_bound(
+        *fargs, metric="dot", precision=precision))
+    assert msg is None, msg
+    assert cuda_floor.launches["fused_theta[f32x3-dot]"] == 1
+    assert not any(c for name, c in list(cuda_extract.launches.items())
+                   + list(cuda_floor.launches.items())
+                   if "[f32-" in name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [4, 30])
+def test_cuda_fused_theta_bisect_iters(rng, cuda_device, iters):
+    """The kernel's bisection runs ``bisect_iters`` steps: theta0 bit-equal
+    to bisect_floor of K3's sub-maxima in that many steps, and the top-k
+    EQUAL to K1 without a floor (int8) at every count."""
+    args, kw = make_state(rng, 65536, 768, 256, cuda_device, "int8-cosine", 7)
+    v, i, t0 = cuda_floor.fused_theta(*args, k=28, metric="cosine",
+                                      block_rows=16384, s_blocks=2,
+                                      return_theta=True, bisect_iters=iters)
+    sub = cuda_topk.sampled_submax(*[a[:32768] for a in args[:3]], args[3],
+                                   metric="cosine", block_rows=16384)
+    v0, i0 = cuda_topk.fused_topk(*args, k=28, metric="cosine")
+    torch.cuda.synchronize()
+    assert torch.equal(t0, TD.bisect_floor(sub, 28, iters))
+    assert torch.equal(v, v0) and torch.equal(i, i0)
 
 
 @pytest.mark.cuda
@@ -800,13 +886,19 @@ def test_cuda_kexp2_count_matches_closed_form(rng, cuda_device, blk, k):
 
 @pytest.mark.cuda
 def test_cuda_extract_refuses_what_it_cannot_score(rng, cuda_device):
-    """float32 rows at precision high/exact raise on the card (no exact
-    scorer; TF32 never stands in), and so do rows TMA cannot load."""
+    """Rows TMA cannot load raise on the card. float32 rows at precision
+    high/exact, which raised before the kernels had an f32x3 build, now
+    launch it (three TF32 products; TF32 never stands in) and agree with
+    the plain version."""
     args = x_args(rng, 2048, 128, 8, cuda_device, "f32", 0)
     for prec in ("high", "exact"):
-        with pytest.raises(ValueError, match="no exact scorer"):
-            cuda_extract.kexp3_call(*args, k=8, metric="dot", block_rows=1024,
-                                    precision_name=prec)
+        cuda_extract.reset_launches()
+        kw = dict(k=8, metric="dot", block_rows=1024, precision_name=prec)
+        got = cuda_extract.kexp3_call(*args, **kw)
+        want = cuda_extract.kexp3_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert cuda_extract.launches["extract_pingpong[f32x3-dot]"] == 1
+        x_agree("f32x3", "dot", args, got, want)
     args = x_args(rng, 2048, 30, 8, cuda_device, "int8", 0)
     with pytest.raises(ValueError, match="TMA"):
         cuda_extract.kexp_call("gate", *args, k=8, metric="dot",

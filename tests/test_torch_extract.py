@@ -16,9 +16,11 @@ nothing in ``experiments/`` changes. Every state has dead slots (mask
 block, whose tail neither package reads. Tolerances: int8 rows (int8
 query) score exact integer dots followed by the same rounded float32 op,
 so values, slots and counts are EQUAL; float32 rows at precision "exact"
-sum their products in another order than XLA, so values agree within
-``cuda_topk.score_error_bound`` and slots outside near-ties. The tie
-states make every score exact, so there too all is EQUAL.
+and "high" (the port's f32x3 leg: three TF32 products, against XLA's full
+float32 on the CPU) sum their products in another order than XLA, so
+values agree within ``cuda_topk.score_error_bound(precision="exact")``
+and slots outside near-ties. The tie states make every score exact, so
+there too all is EQUAL.
 """
 
 import importlib.util
@@ -108,7 +110,7 @@ class State:
         x, aux, mask, q, _ = self.torch()
         return cuda_topk.score_error_bound(
             x, aux.reshape(N), torch.isfinite(mask.reshape(N)), q,
-            metric=metric).numpy()
+            metric=metric, precision=precision(self.dtype)).numpy()
 
 
 _STATES = {}
@@ -121,8 +123,12 @@ def state(dtype, ties=False):
     return _STATES[key]
 
 
-def precision(dtype):
-    return "exact" if dtype == "f32" else "fast"
+def precision(dtype, high=False):
+    """The experiments' precision_name of a case: float32 rows at "exact"
+    (``high``: "high"), the others at "fast"."""
+    if dtype != "f32":
+        return "fast"
+    return "high" if high else "exact"
 
 
 def assert_agree(got, want, bound):
@@ -144,14 +150,24 @@ KEXP_CASES = (
                                                        "gate")]
     + [("f32", "cosine", v) for v in X.KEXP_VARIANTS]
     + [("f32", m, v) for m in ("dot", "l2") for v in ("floor", "base")])
+# The same at precision "high": (dtype, metric, variant, "high").
+HIGH = "high"
+KEXP_CASES = [c + ("",) for c in KEXP_CASES] + [
+    ("f32", "cosine", v, HIGH) for v in ("floor", "base", "gate")] + [
+    ("f32", m, "gate", HIGH) for m in ("dot", "l2")]
 
 
-@pytest.mark.parametrize("dtype,metric,variant", KEXP_CASES,
-                         ids=["-".join(c) for c in KEXP_CASES])
-def test_kexp_plain_matches_jax(kexp, interpret, dtype, metric, variant):
+def _ids(cases):
+    return ["-".join(str(p) for p in c if p != "") for c in cases]
+
+
+@pytest.mark.parametrize("dtype,metric,variant,high", KEXP_CASES,
+                         ids=_ids(KEXP_CASES))
+def test_kexp_plain_matches_jax(kexp, interpret, dtype, metric, variant,
+                                high):
     st = state(dtype)
     kw = dict(k=K, metric=metric, block_rows=BLOCK,
-              precision_name=precision(dtype))
+              precision_name=precision(dtype, high == HIGH))
     want = kexp["kexp"].make_call(variant, **kw)(*st.jax())
     got = X.kexp_plain(variant, *st.torch(), **kw)
     assert_agree(got, want, st.bound(metric))
@@ -160,20 +176,21 @@ def test_kexp_plain_matches_jax(kexp, interpret, dtype, metric, variant):
         assert (got[0] == got[0][:, :1]).all()
 
 
-KEXP2_CASES = ([("int8", "cosine", t, c) for t in (1, 2, 4)
+KEXP2_CASES = ([("int8", "cosine", t, c, "") for t in (1, 2, 4)
                 for c in (False, True)]
-               + [("f32", "l2", 2, c) for c in (False, True)])
+               + [("f32", "l2", 2, c, "") for c in (False, True)]
+               + [("f32", "dot", 2, c, HIGH) for c in (False, True)])
 
 
-@pytest.mark.parametrize("dtype,metric,tiles,count", KEXP2_CASES, ids=[
-    f"{d}-{m}-t{t}-{'count' if c else 'nocount'}"
-    for d, m, t, c in KEXP2_CASES])
+@pytest.mark.parametrize("dtype,metric,tiles,count,high", KEXP2_CASES, ids=[
+    f"{d}-{m}-t{t}-{'count' if c else 'nocount'}" + (f"-{h}" if h else "")
+    for d, m, t, c, h in KEXP2_CASES])
 def test_kexp2_plain_matches_jax(kexp, interpret, dtype, metric, tiles,
-                                 count):
+                                 count, high):
     st = state(dtype)
     interpret(count)
     kw = dict(k=K, metric=metric, block_rows=BLOCK,
-              precision_name=precision(dtype))
+              precision_name=precision(dtype, high == HIGH))
     jv, ji, jc = kexp["kexp2"].make_call(tiles=tiles, **kw)(*st.jax())
     tv, ti, tc = X.kexp2_plain(*st.torch(), tiles=tiles, count=count, **kw)
     assert_agree((tv, ti), (jv, ji), st.bound(metric))
@@ -182,24 +199,28 @@ def test_kexp2_plain_matches_jax(kexp, interpret, dtype, metric, tiles,
     assert (int(tc[0]) > 0) == count
 
 
-KEXP3_CASES = [("int8", "l2"), ("int8", "dot"), ("f32", "cosine")]
+KEXP3_CASES = [("int8", "l2", ""), ("int8", "dot", ""),
+               ("f32", "cosine", ""), ("f32", "cosine", HIGH),
+               ("f32", "l2", HIGH)]
 
 
-@pytest.mark.parametrize("dtype,metric", KEXP3_CASES,
-                         ids=["-".join(c) for c in KEXP3_CASES])
-def test_kexp3_plain_matches_jax(kexp, interpret, dtype, metric):
+@pytest.mark.parametrize("dtype,metric,high", KEXP3_CASES,
+                         ids=_ids(KEXP3_CASES))
+def test_kexp3_plain_matches_jax(kexp, interpret, dtype, metric, high):
     st = state(dtype)
     kw = dict(k=K, metric=metric, block_rows=BLOCK,
-              precision_name=precision(dtype))
+              precision_name=precision(dtype, high == HIGH))
     want = kexp["kexp3"].make_call(**kw)(*st.jax())
     assert_agree(X.kexp3_plain(*st.torch(), **kw), want, st.bound(metric))
 
 
-@pytest.mark.parametrize("dtype", ["int8", "f32"])
+@pytest.mark.parametrize("dtype", ["int8", "f32", "f32-high"])
 @pytest.mark.parametrize("variant", list(X.KEXP5_VARIANTS))
 def test_kexp5_plain_matches_jax(kexp, interpret, dtype, variant):
+    dtype, _, high = dtype.partition("-")
     st = state(dtype)
-    kw = dict(k=K, block_rows=BLOCK, precision_name=precision(dtype))
+    kw = dict(k=K, block_rows=BLOCK,
+              precision_name=precision(dtype, high == HIGH))
     want = kexp["kexp5"].make_call(variant, **kw)(*st.jax())
     assert_agree(X.kexp5_plain(variant, *st.torch(), **kw), want,
                  st.bound("cosine"))
@@ -325,3 +346,29 @@ def test_kexp_extract_pairs_agree_on_the_cpu():
                 (dtype, exp, variant)
         v, i, c = ke.count_of(args, 24, block_rows=1024, tiles=2)
         assert int(c[0]) > 0
+
+
+@pytest.mark.parametrize("precision,metric", [("high", "cosine"),
+                                              ("exact", "dot")])
+def test_kexp_extract_pairs_agree_at_f32x3_on_the_cpu(precision, metric):
+    """The A/B entry point's pairs on float32 rows at its ``--precision``
+    "high"/"exact" (leg f32x3): every variant EQUALS K1 at that precision
+    (X4, cosine only, drops out under dot), X2's count its closed form."""
+    spec = importlib.util.spec_from_file_location(
+        "_kexp_extract", EXPERIMENTS.parent / "tools" / "kexp_extract.py")
+    ke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ke)
+    args = ke.make_state("f32", 4096 + 100, 64, 8, 3, torch.device("cpu"))
+    assert cuda_topk.leg_name(args[0], metric, precision=precision) \
+        == f"f32x3-{metric}"
+    todo = ke.pairs(args, 24, ke.EXPERIMENTS, block_rows=1024, metric=metric,
+                    precision=precision)
+    assert [e for e, *_ in todo].count("x4") == (3 if metric == "cosine"
+                                                 else 0)
+    for exp, variant, kern, ref, fn in todo:
+        got, want = fn(), ref()
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), \
+            (exp, variant)
+    v, i, c = ke.count_of(args, 24, block_rows=1024, tiles=2, metric=metric,
+                          precision=precision)
+    assert int(c[0]) > 0

@@ -4,7 +4,10 @@
 kernels in interpret mode, on identical state:
 
 - ``kexp20.fused_theta_gated`` (X8) and ``kexp17.fused_theta`` (X6, margin
-  0 and a per-query margin) against ``fused_theta_plain``;
+  0 and a per-query margin) against ``fused_theta_plain``, on int8 and
+  bfloat16 rows at precision "fast", on float32 rows at "high" and
+  "exact" (the f32x3 leg: three TF32 products) under each metric, and at a
+  ``bisect_iters`` other than the harnesses' 14;
 - ``kexp18.fused_gated`` (X7) against ``fused_topk_plain`` with the same
   theta0;
 - ``kexp22.fused_intgate`` (X9) against ``fused_intgate_plain``.
@@ -13,7 +16,10 @@ The experiments are imported from their files; nothing in ``experiments/``
 changes. Tolerances are those of ``test_torch_kernels_plain.py``: int8
 scores are exact integer dots followed by the same rounded float32 op, so
 values and slots are EQUAL; bfloat16 values agree within
-``cuda_topk.score_error_bound`` and slots outside near-ties. The rows
+``cuda_topk.score_error_bound`` and slots outside near-ties, float32 at
+"high"/"exact" within ``score_error_bound(precision="exact")`` (the JAX
+kernels score in full float32 on the CPU, the port in three TF32
+products) and slots outside near-ties. The rows
 number a multiple of the experiments' block (they scan whole blocks only),
 so both packages see the same rows.
 """
@@ -36,7 +42,7 @@ from vrod_tpu_torch.ops import distances as TD
 
 EXPERIMENTS = Path(__file__).resolve().parent.parent / "experiments"
 N, DIM, BATCH, BLOCK, S_BLOCKS = 4096, 128, 8, 512, 2
-_JAX_DTYPE = {"int8": jnp.int8, "bf16": jnp.bfloat16}
+_JAX_DTYPE = {"int8": jnp.int8, "bf16": jnp.bfloat16, "f32": jnp.float32}
 
 
 def _experiment(name):
@@ -57,9 +63,10 @@ class State:
     """Cosine (or dot) rows of one dtype with dead slots, the kernel-ready
     query, as numpy, and both packages' views of them."""
 
-    def __init__(self, seed, dtype, metric="cosine", dead_group=False):
+    def __init__(self, seed, dtype, metric="cosine", dead_group=False,
+                 precision="fast"):
         rng = np.random.default_rng(seed)
-        self.dtype, self.metric = dtype, metric
+        self.dtype, self.metric, self.precision = dtype, metric, precision
         x = rng.standard_normal((N, DIM)).astype(np.float32)
         rows, aux = JD.prepare_rows(jnp.asarray(x), metric=metric,
                                     dtype=_JAX_DTYPE[dtype])
@@ -86,7 +93,8 @@ class State:
 
     def bound(self):
         return cuda_topk.score_error_bound(*self.torch_args(),
-                                           metric=self.metric).numpy()
+                                           metric=self.metric,
+                                           precision=self.precision).numpy()
 
 
 def assert_agree(tv, ti, jv, ji, bound):
@@ -133,6 +141,80 @@ def test_fused_theta_plain_matches_kexp(kexp, dtype, k, skip, exp):
                                        metric="cosine")
     assert torch.isfinite(t0).all()
     assert (t0[:, 0] <= fv[:, k - 1]).all()
+
+
+THETA_F32_CASES = [(p, m, exp) for p in ("high", "exact")
+                   for m in ("cosine", "dot", "l2")
+                   for exp in ("kexp20", "kexp17-margin")]
+
+
+@pytest.mark.parametrize("precision,metric,exp", THETA_F32_CASES, ids=[
+    f"f32-{p}-{m}-{e}" for p, m, e in THETA_F32_CASES])
+def test_fused_theta_plain_f32x3_matches_kexp(kexp, precision, metric, exp):
+    """float32 rows at the experiments' precision_name "high" and "exact"
+    (leg f32x3): margin 0 (X8) and a per-query margin (X6), sample dots
+    skipped at "high"."""
+    k, skip = 24, precision == "high"
+    st_ = State(61, "f32", metric, precision=precision)
+    x, aux2d, mask2d, q, offset = st_.jax_args()
+    common = dict(k=k, metric=metric, block_rows=BLOCK, b_tile=BATCH,
+                  s_blocks=S_BLOCKS, bisect_iters=14,
+                  precision_name=precision, interpret=True,
+                  skip_sample_dots=skip)
+    margin = None
+    if exp == "kexp20":
+        jv, ji = kexp["kexp20"].fused_theta_gated(x, aux2d, mask2d, q, offset,
+                                                  **common)
+    else:
+        margin = np.linspace(0.0, 0.02, BATCH, dtype=np.float32)[:, None]
+        jv, ji = kexp["kexp17"].fused_theta(x, aux2d, mask2d, q, offset,
+                                            jnp.asarray(margin), **common)
+        margin = torch.from_numpy(margin)
+    targs = st_.torch_args()
+    tv, ti, t0 = cuda_floor.fused_theta(
+        *targs, k=k, metric=metric, block_rows=BLOCK, s_blocks=S_BLOCKS,
+        margin=margin, skip_sample_dots=skip, return_theta=True,
+        precision=precision)
+    assert_agree(tv, ti, jv, ji, st_.bound())
+    # The floor is the f32x3 sample's: bisect_floor of the leg's sub-maxima
+    # less the margin, and sound against the leg's own scan.
+    sub = cuda_topk.sampled_submax_plain(
+        *[a[:S_BLOCKS * BLOCK] for a in targs[:3]], targs[3], metric=metric,
+        block_rows=BLOCK, precision=precision)
+    want_t0 = TD.bisect_floor(sub, k) - (0.0 if margin is None else margin)
+    assert torch.equal(t0, want_t0)
+    fv, _ = cuda_topk.fused_topk_plain(*targs, k=k, metric=metric,
+                                       precision=precision)
+    assert torch.isfinite(t0).all() and (t0[:, 0] <= fv[:, k - 1]).all()
+
+
+@pytest.mark.parametrize("dtype,iters", [("int8", 4), ("int8", 30),
+                                         ("f32", 6)])
+def test_fused_theta_plain_bisect_iters_matches_kexp20(kexp, dtype, iters):
+    """bisect_iters other than the harnesses' 14: theta0 is kexp20's
+    bisection (kexp20.py:110-123, ``bisect_np``) of the sub-maxima in that
+    many steps, bit for bit, and the top-k is kexp20's at that count."""
+    k = 24
+    precision = "exact" if dtype == "f32" else "fast"
+    st_ = State(71, dtype, precision=precision)
+    x, aux2d, mask2d, q, offset = st_.jax_args()
+    jv, ji = kexp["kexp20"].fused_theta_gated(
+        x, aux2d, mask2d, q, offset, k=k, metric="cosine", block_rows=BLOCK,
+        b_tile=BATCH, s_blocks=S_BLOCKS, bisect_iters=iters,
+        precision_name=precision, interpret=True, skip_sample_dots=False)
+    targs = st_.torch_args()
+    tv, ti, t0 = cuda_floor.fused_theta(
+        *targs, k=k, metric="cosine", block_rows=BLOCK, s_blocks=S_BLOCKS,
+        return_theta=True, precision=precision, bisect_iters=iters)
+    assert_agree(tv, ti, jv, ji, st_.bound())
+    sub = cuda_topk.sampled_submax_plain(
+        *[a[:S_BLOCKS * BLOCK] for a in targs[:3]], targs[3],
+        metric="cosine", block_rows=BLOCK, precision=precision)
+    np.testing.assert_array_equal(t0.numpy().view(np.int32),
+                                  bisect_np(sub.numpy(), k, iters)
+                                  .view(np.int32))
+    assert torch.equal(t0, TD.bisect_floor(sub, k, iters))
+    assert not torch.equal(t0, TD.bisect_floor(sub, k))
 
 
 @pytest.mark.parametrize("dtype", ["int8", "bf16"])
@@ -337,3 +419,28 @@ def test_kexp_floor_pairs_agree_on_the_cpu(dtype, k_scan):
             sv, si = stock()
             vv, vi = fn()
             assert torch.equal(sv, vv) and torch.equal(si, vi), (leg, variant)
+
+
+@pytest.mark.parametrize("precision,metric", [("exact", "dot"),
+                                              ("high", "cosine")])
+def test_kexp_floor_pairs_agree_at_f32x3_on_the_cpu(precision, metric):
+    """The A/B entry point's pairs on float32 rows at "high"/"exact" (its
+    ``--precision``): the stock composition (K3, the count threshold, K1)
+    and X6/X7/X8 all on the f32x3 leg, equal results."""
+    spec = importlib.util.spec_from_file_location(
+        "_kexp_floor", EXPERIMENTS.parent / "tools" / "kexp_floor.py")
+    kf = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kf)
+    args = kf.make_state("f32", 131072, 32, 8, 5, torch.device("cpu"))
+    todo, (blk, s_blocks) = kf.pairs(args, 108, kf.LEGS, metric=metric,
+                                     precision=precision)
+    assert [(leg, v) for leg, v, *_ in todo] == [
+        ("x6", "plain"), ("x6", "skip"), ("x7", "no floor"),
+        ("x8", "plain"), ("x8", "skip")]
+    for leg, variant, stock, fn in todo:
+        sv, si = stock()
+        vv, vi = fn()
+        assert torch.equal(sv, vv) and torch.equal(si, vi), (leg, variant)
+    want = cuda_topk.fused_topk_plain(*args, k=108, metric=metric,
+                                      precision=precision)
+    assert torch.equal(sv, want[0]) and torch.equal(si, want[1])

@@ -2,7 +2,9 @@
 plan, K1's small-scan plan and where it takes over from the long scan, the
 tensor-map cache's key, and the mask the kernels now read from ``valid`` and
 ``row_bias`` themselves, held to the mask the plain versions build and to
-``vrod_tpu``'s search after every write, delete and growth."""
+``vrod_tpu``'s search after every write, delete and growth. Also the split
+query of the f32x3 leg (float32 rows at "high"/"exact") as the floor and
+extraction wrappers hand it to their kernels."""
 
 import numpy as np
 import pytest
@@ -190,3 +192,61 @@ def test_kernel_mask_inputs_are_the_plain_mask(bias):
     assert ptrs[1:3] == (call.aux.data_ptr(), valid.data_ptr())
     assert ptrs[3] == (rb.data_ptr() if bias else None)
     assert ptrs[5] == (qs.data_ptr() if bias else None)
+
+
+@pytest.mark.parametrize("precision", ["fast", "high", "exact"])
+@pytest.mark.parametrize("metric", ["cosine", "dot", "l2"])
+def test_split_query_of_the_float32_legs(precision, metric):
+    """float32 rows at "high"/"exact" go to every kernel as leg f32x3 with
+    the query split into its TF32 big then small parts, (B, 2D), read
+    through two maps of the block's group (the second at row_bytes, both
+    at the split row's stride): K1's and X6/X8's ``_Call`` and X1-X4's
+    ``_XCall`` alike, and the experiments' plain scores are K1's. At
+    "fast" the leg is f32 with the query rounded to TF32. The CPU runs
+    the plain versions and counts no launch."""
+    from vrod_tpu_torch.ops import cuda_extract as X
+    from vrod_tpu_torch.ops import cuda_floor as F
+    rng = np.random.default_rng(5)
+    n, d, b = 2048, 96, 40
+    x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32))
+    q = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32))
+    aux = torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32))
+    valid = torch.from_numpy(rng.random(n) < 0.9)
+    split = precision != "fast"
+    kind = "f32x3" if split else "f32"
+    call = K._Call(x, aux, valid, q, metric, None, None, False, precision)
+    xcall = X._XCall(x, aux[None], call.mask[None], q,
+                     torch.zeros(1, dtype=torch.int32), k=8, metric=metric,
+                     block_rows=1024, precision_name=precision)
+    assert call.leg == xcall.leg == f"{kind}-{metric}"
+    assert call.elem == xcall.elem == {"f32": 3, "f32x3": 4}[kind]
+    want_q = torch.cat(K.split_tf32(q), dim=1) if split else K.tf32_round(q)
+    assert torch.equal(call.q, want_q) and torch.equal(xcall.q, want_q)
+    assert torch.equal(xcall.scores(0, n), call.scores(0, n))
+    seen = []
+
+    def encode(*key):
+        seen.append(key)
+        return None, len(seen)
+
+    old = K.tensor_maps
+    K.tensor_maps = K.TensorMaps(encode)
+    try:
+        maps = call.maps(K.GROUP_QUERIES)
+    finally:
+        K.tensor_maps = old
+    rb, qrow = 4 * d, call.q.shape[1] * 4
+    assert seen[:2] == [(x.data_ptr(), rb, n, rb, 128),
+                        (call.q.data_ptr(), rb, b, qrow, 64)]
+    if split:
+        assert seen[2] == (call.q.data_ptr() + rb, rb, b, qrow, 64)
+    else:
+        assert maps[2] is None and len(seen) == 2
+    F.reset_launches()
+    X.reset_launches()
+    F.fused_theta(x, aux, valid, q, k=8, metric=metric, block_rows=1024,
+                  s_blocks=1, precision=precision)
+    X.kexp_call("gate", x, aux[None], call.mask[None], q,
+                torch.zeros(1, dtype=torch.int32), k=8, metric=metric,
+                block_rows=1024, precision_name=precision)
+    assert not any(F.launches.values()) and not any(X.launches.values())

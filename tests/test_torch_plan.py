@@ -467,3 +467,22 @@ def test_topk_scratch_holds_the_handed_over_lists(b, k):
     assert K.scratch_bytes(plan, b, k) == 4 * (
         2 * plan.parts * b * stride + plan.parts * b
         + 2 * b * plan.parts * k)
+
+
+def test_floor_and_extraction_kernels_count_every_f32x3_leg():
+    """X6/X8 take every leg of K1, f32x3 included, and X1-X3 every leg the
+    experiments take at each precision (int8, bf16, f32 and f32x3 under
+    cosine, dot and l2), X4 cosine only; the plans of these kernels depend
+    on k and the shapes alone, as the split query's stage is the same
+    row box and 128-byte query box as any other leg's."""
+    from vrod_tpu_torch.ops import cuda_floor as F
+    assert F.LEGS == K.LEGS
+    assert [n for n in F.launches if "f32x3" in n] == [
+        f"fused_theta[f32x3-{m}]" for m in ("cosine", "dot", "l2")]
+    for kern in cuda_extract.KERNELS:
+        metrics = ("cosine",) if kern.startswith("unroll") \
+            else ("cosine", "dot", "l2")
+        assert [n for n in cuda_extract.launches
+                if n.startswith(f"extract_{kern}[f32x3")] == [
+            f"extract_{kern}[f32x3-{m}]" for m in metrics]
+    assert cuda_extract.STAGE_BYTES == 128 * 128 + cuda_extract.NARROW * 128

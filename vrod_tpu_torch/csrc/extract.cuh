@@ -10,8 +10,10 @@
 // rows (rows after the last whole block are never read) with the
 // experiments' epilogue, score = epi(g) + mask with epi cosine g * aux, l2
 // 2g - aux, dot g, for int8 rows (int8 query, exact int32 dots), bfloat16
-// and float32 rows (TF32), and returns the exact top-k by (value desc, slot
-// asc), slots col + offset[0], (-inf, -1) on empty ranks. All four ask what
+// and float32 rows (TF32 at precision_name "fast", three TF32 products,
+// score.cuh's F32X3, at "high" and "exact": the experiments' HIGH and
+// HIGHEST), and returns the exact top-k by (value desc, slot asc), slots
+// col + offset[0], (-inf, -1) on empty ranks. All four ask what
 // the extraction of the top-k from a scored block costs. Every mode but the
 // floor runs query groups of 64 (wgmma m64n64, kNarrow: measured faster
 // than n128 for each), keeps its lists or carry in shared memory beside the
@@ -85,7 +87,8 @@ constexpr int kNarrow = kWidth;
 // One launch's arguments (ops/cuda_extract.py: _launch).
 struct XArgs {
   const int8_t* x;      // (n, row_bytes): the whole blocks only
-  const int8_t* q;      // (b, row_bytes), as the kernel reads it
+  const int8_t* q;      // (b, row_bytes), as the kernel reads it (F32X3:
+                        // (b, 2 * row_bytes), big then small parts)
   const float* aux;     // (n,)
   const float* mask;    // (n,) additive
   const int* offset;    // (1,) added to every slot
@@ -987,7 +990,7 @@ struct LaunchExtract {
   static int run(const XArgs& a, void* merge_v, void* merge_i, void* out_v,
                  void* out_i, cudaStream_t s) {
     Maps maps{};
-    int e = make_maps(&maps, false, a.x, a.q, a.n, a.b, a.row_bytes,
+    int e = make_maps(&maps, Kind::kPacked, a.x, a.q, a.n, a.b, a.row_bytes,
                       kMode == kXFloor ? kGroup : kNarrow);
     if (e != 0) return e;
     if constexpr (kMode != kXFloor) {
@@ -1014,8 +1017,11 @@ struct LaunchExtract {
 };
 
 // The legs the experiments take: int8 (int8 query), bfloat16 and float32
-// (TF32) rows, each with the experiments' cosine (kScale: g * aux), l2
-// (kL2: 2g - aux) and dot (kDot: g) epilogues; kCosineOnly for X4.
+// rows, float32 in TF32 at precision_name "fast" and in three TF32
+// products (F32X3: the query as (b, 2 * dim), its big then its small TF32
+// parts, read through the second query map) at "high" and "exact", each
+// with the experiments' cosine (kScale: g * aux), l2 (kL2: 2g - aux) and
+// dot (kDot: g) epilogues; kCosineOnly for X4.
 template <class L, bool kCosineOnly, class... A>
 int dispatch_x(int elem, int epi, A... a) {
   if (kCosineOnly && epi != kScale) return (int)cudaErrorInvalidValue;
@@ -1023,6 +1029,7 @@ int dispatch_x(int elem, int epi, A... a) {
     case kI8 * 4 + kScale: return L::template run<I8, kScale>(a...);
     case kBF16 * 4 + kScale: return L::template run<BF16, kScale>(a...);
     case kF32 * 4 + kScale: return L::template run<TF32, kScale>(a...);
+    case kF32X3 * 4 + kScale: return L::template run<F32X3, kScale>(a...);
     default: break;
   }
   if constexpr (!kCosineOnly) {
@@ -1033,6 +1040,8 @@ int dispatch_x(int elem, int epi, A... a) {
       case kBF16 * 4 + kDot: return L::template run<BF16, kDot>(a...);
       case kF32 * 4 + kL2: return L::template run<TF32, kL2>(a...);
       case kF32 * 4 + kDot: return L::template run<TF32, kDot>(a...);
+      case kF32X3 * 4 + kL2: return L::template run<F32X3, kL2>(a...);
+      case kF32X3 * 4 + kDot: return L::template run<F32X3, kDot>(a...);
       default: break;
     }
   }

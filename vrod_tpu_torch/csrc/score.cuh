@@ -56,6 +56,9 @@
 // zeros (TMA's out-of-bounds fill), which add nothing to a dot: 0 as int8,
 // an int4 nibble pair, bf16 and float32.
 //
+// Every kernel of the port takes F32X3 where it takes float32 rows: K1, K3,
+// X6/X8 and the extraction experiments X1-X4.
+//
 // The query group is 64 wide for K1's long scans and X6/X8 (topk.cuh's
 // kWidth); the sampled sub-max pre-pass (K3) takes groups of 64 or 128,
 // K1's small scans groups of 16 and X1's floor 256 (kGroup): the same
@@ -486,20 +489,35 @@ struct F32X3 : TF32 {
   }
 };
 
+// Calls L::run<F32X3, kEpi, kTma>(a...) for the f32x3 leg of epilogue code
+// epi (kScale, kL2, kDot).
+template <class L, bool kTma, class... A>
+int dispatch_f32x3(int epi, A... a) {
+  switch (epi) {
+    case kScale: return L::template run<F32X3, kScale, kTma>(a...);
+    case kL2: return L::template run<F32X3, kL2, kTma>(a...);
+    case kDot: return L::template run<F32X3, kDot, kTma>(a...);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The f32x3 legs alone, for a source that builds them apart from its
+// other legs (fused_theta_f32x3.cu), so that nvcc compiles both halves at
+// once.
+template <class L, class... A>
+int dispatch_split(int epi, bool tma, A... a) {
+  return tma ? dispatch_f32x3<L, true>(epi, a...)
+             : dispatch_f32x3<L, false>(epi, a...);
+}
+
 // Calls L::run<Kind, kEpi, kTma>(a...) for the leg of host codes (elem,
 // epi): the integer kinds take kScale (cosine, dot) and kScaleQs (l2), the
 // float kinds kScale (cosine), kL2 and kDot. F32X3 is built only where
-// kSplitF32 (K1 and K3).
+// kSplitF32 (K1 and K3; X6/X8 build it apart, by dispatch_split).
 template <class L, bool kTma, bool kSplitF32, class... A>
 int dispatch_kind(int elem, int epi, A... a) {
   if constexpr (kSplitF32) {
-    switch (elem * 4 + epi) {
-      case kF32X3 * 4 + kScale:
-        return L::template run<F32X3, kScale, kTma>(a...);
-      case kF32X3 * 4 + kL2: return L::template run<F32X3, kL2, kTma>(a...);
-      case kF32X3 * 4 + kDot: return L::template run<F32X3, kDot, kTma>(a...);
-      default: break;
-    }
+    if (elem == kF32X3) return dispatch_f32x3<L, kTma>(epi, a...);
   }
   switch (elem * 4 + epi) {
     case kI8 * 4 + kScale: return L::template run<I8, kScale, kTma>(a...);

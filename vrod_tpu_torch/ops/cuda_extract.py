@@ -35,12 +35,13 @@ the exact int32 dot, not K1's scaled one), and returns the exact top-k by
 
 The query is read as the experiments cast it (``q.astype(x.dtype)``): int8
 rows need an int8 query (a float one raises); bfloat16 rows round it to
-bfloat16 (to nearest even); float32 rows score in TF32 on the card (both
-operands rounded to nearest, ``cuda_topk.tf32_round``), which is
-``precision_name="fast"``; "high" and "exact" on float32 rows raise on the
-card (it has no exact scorer) and score in full float32 in the plain
-versions. Packed int4 rows are not accepted: the experiments unpack no
-nibbles.
+bfloat16 (to nearest even); float32 rows score as K1 scores them: in TF32
+at ``precision_name="fast"`` (both operands rounded to nearest,
+``cuda_topk.tf32_round``) and at "high" and "exact" (the experiments'
+HIGH and HIGHEST) in three TF32 products, leg ``f32x3``
+(``cuda_topk.split_tf32``: the query goes to the card as its big then its
+small TF32 parts, (B, 2D)), on the card and in the plain versions alike.
+Packed int4 rows are not accepted: the experiments unpack no nibbles.
 
 Each wrapper validates its inputs and dispatches on the device of the
 tensors: a CPU tensor goes to its ``*_plain`` twin, a CUDA tensor launches
@@ -62,11 +63,10 @@ from . import cuda_topk as K
 from . import distances as D
 
 NEG_INF = float("-inf")
-X_DTYPES = ("int8", "bf16", "f32")
+# The row kinds (f32x3: float32 rows at "high" and "exact") and metrics.
+X_DTYPES = ("int8", "bf16", "f32", "f32x3")
 X_METRICS = ("cosine", "dot", "l2")
 PRECISIONS = ("fast", "high", "exact")
-_X_ELEM = {torch.int8: ("int8", 0), torch.bfloat16: ("bf16", 2),
-           torch.float32: ("f32", 3)}
 # score.cuh's Epi codes of the experiments' epilogues.
 _X_EPI = {"cosine": 0, "l2": 2, "dot": 3}
 
@@ -266,7 +266,8 @@ class _XCall:
         if precision_name not in PRECISIONS:
             raise ValueError(f"precision_name {precision_name!r}: expected "
                              f"one of {PRECISIONS}")
-        if x.dim() != 2 or x.dtype not in _X_ELEM:
+        if x.dim() != 2 or x.dtype not in (torch.int8, torch.bfloat16,
+                                           torch.float32):
             raise TypeError(f"x must be (N, D) int8, bfloat16 or float32, "
                             f"got {tuple(x.shape)} {x.dtype}")
         if q.dim() != 2 or q.shape[1] != x.shape[1]:
@@ -307,23 +308,21 @@ class _XCall:
         self.n_scan = self.nblocks * block_rows
         self.x, self.offset = x, offset
         self.aux, self.mask = aux2d.reshape(self.n), mask2d.reshape(self.n)
-        kind, self.elem = _X_ELEM[x.dtype]
+        # float32 rows at "high"/"exact": three TF32 products (f32x3).
+        kind = K._row_kind(x, False, precision_name)
+        self.split = kind == "f32x3"
+        self.elem = K._ELEM[kind]
         self.leg = f"{kind}-{metric}"
         self.epi = _X_EPI[metric]
-        # float32 rows in full float32 (plain only) or TF32 (the card).
-        self.exact = x.dtype == torch.float32 and precision_name != "fast"
         if self.quant:
             self.q = q
         elif x.dtype == torch.bfloat16:
             self.q = q.to(torch.bfloat16).contiguous()
+        elif self.split:
+            self.q = torch.cat(K.split_tf32(q), dim=1).contiguous()
         else:
-            self.q = q.float().contiguous() if self.exact else K.tf32_round(q)
+            self.q = K.tf32_round(q)
         if self.device.type == "cuda":
-            if self.exact:
-                raise ValueError(
-                    f"precision_name {precision_name!r} on float32 rows: the "
-                    "card scores float32 rows in TF32 ('fast') and has no "
-                    "exact scorer for them")
             if not K.use_tma(x, self.q, self.row_bytes):
                 raise ValueError(
                     "the extraction kernels load by TMA: rows of a multiple "
@@ -339,9 +338,12 @@ class _XCall:
         the kernels round them, then the epilogue and the mask, each op
         rounded once."""
         x = self.x[lo:hi]
-        if x.dtype == torch.float32 and not self.exact:
-            x = K.tf32_round(x)
-        g = D._matmul_f32(self.q, x)  # int8: exact; bf16: exact products
+        if self.split:
+            g = K.split_dots(self.q, x)
+        else:
+            if x.dtype == torch.float32:
+                x = K.tf32_round(x)
+            g = D._matmul_f32(self.q, x)  # int8: exact; bf16: exact products
         aux = self.aux[lo:hi][None, :]
         if self.metric == "cosine":
             s = g * aux

@@ -17,7 +17,11 @@ to the plain version.
   tile whose block maxima beat no gate pass without its dots. Stock, the
   engine runs K3, the count threshold and K1 for the same result. Its
   grid and shared memory are K1's (``cuda_topk.topk_plan``: query groups
-  of 64, lists on chip where they fit).
+  of 64, lists on chip where they fit). It takes every leg of K1: float32
+  rows at ``precision`` "high" or "exact" (the experiments'
+  ``precision_name``) score in three TF32 products (leg ``f32x3``,
+  ``csrc/fused_theta_f32x3.cu``), the sample and the scan alike;
+  ``bisect_iters`` is the experiments' bisection count.
 - ``fused_intgate`` (X9, ``csrc/fused_topk.cu`` with the int gate) replaces
   the Pallas kernel ``kexp22.fused_intgate``: K1 for int8 rows under cosine
   or dot that holds each int32 dot against an integer bound derived from
@@ -44,7 +48,8 @@ from . import _build
 from . import cuda_topk as K
 from . import distances as D
 
-# Bisection steps of the in-kernel floor (kexp17/kexp20: bisect_iters=14).
+# Bisection steps of the in-kernel floor: what kexp17/kexp20's harnesses
+# pass as bisect_iters, the wrappers' default.
 BISECT_ITERS = 14
 INTGATE_LEGS = ("int8-cosine", "int8-dot")
 # The int gate's integer range: every dot |g| <= 127 * 127 * dim stays
@@ -53,8 +58,8 @@ INTGATE_MAX_DIM = 65536
 INT32_MIN, INT32_MAX = -(2 ** 31), 2 ** 31 - 1
 _COOP_TOO_LARGE = 720  # cudaErrorCooperativeLaunchTooLarge
 
-# fused_theta's legs: K1's, float32 in TF32 only (no f32x3 leg).
-LEGS = tuple(leg for leg in K.LEGS if not leg.startswith("f32x3"))
+# fused_theta's legs: K1's, f32x3 (float32 at "high"/"exact") included.
+LEGS = K.LEGS
 launches = {f"fused_theta[{leg}]": 0 for leg in LEGS}
 launches.update({f"fused_intgate[{leg}]": 0 for leg in INTGATE_LEGS})
 
@@ -124,21 +129,25 @@ def _margin(margin, b, device):
 
 def fused_theta_plain(x, aux, valid, q, *, k, metric, block_rows, s_blocks,
                       margin=None, skip_sample_dots=False, row_bias=None,
-                      q_scale=None, packed=False, return_theta=False):
+                      q_scale=None, packed=False, return_theta=False,
+                      precision="fast", bisect_iters=BISECT_ITERS):
     """Plain PyTorch X6/X8: ``sampled_submax_plain`` over the first
     ``s_blocks * block_rows`` rows (the experiments' grouping), then
-    ``bisect_floor``, then ``- margin``, then ``fused_topk_plain`` from that
-    theta0; (values, slots) and with ``return_theta`` theta0 (B, 1).
+    ``bisect_floor`` in ``bisect_iters`` steps, then ``- margin``, then
+    ``fused_topk_plain`` from that theta0, both scored at ``precision``;
+    (values, slots) and with ``return_theta`` theta0 (B, 1).
     ``skip_sample_dots`` changes the kernel's work, never the result."""
     del skip_sample_dots
-    call = K._Call(x, aux, valid, q, metric, row_bias, q_scale, packed)
+    call = K._Call(x, aux, valid, q, metric, row_bias, q_scale, packed,
+                   precision)
     theta_plan(call.n, call.b, k, block_rows, s_blocks, 1)
     ns = s_blocks * block_rows
     sub = K.sampled_submax_plain(
         x[:ns], aux[:ns], valid[:ns], q, metric=metric,
         block_rows=block_rows, q_scale=q_scale, packed=packed,
-        row_bias=None if row_bias is None else row_bias.reshape(-1)[:ns])
-    theta0 = D.bisect_floor(sub, k, BISECT_ITERS) \
+        row_bias=None if row_bias is None else row_bias.reshape(-1)[:ns],
+        precision=precision)
+    theta0 = D.bisect_floor(sub, k, bisect_iters) \
         - _margin(margin, call.b, call.device)[:, None]
     vals, idx = K._topk_plain(call, k, 0, theta0)
     return (vals, idx, theta0) if return_theta else (vals, idx)
@@ -146,19 +155,24 @@ def fused_theta_plain(x, aux, valid, q, *, k, metric, block_rows, s_blocks,
 
 def fused_theta(x, aux, valid, q, *, k, metric, block_rows, s_blocks,
                 margin=None, skip_sample_dots=False, row_bias=None,
-                q_scale=None, packed=False, return_theta=False):
+                q_scale=None, packed=False, return_theta=False,
+                precision="fast", bisect_iters=BISECT_ITERS):
     """Exact top-k of q (B, D) against rows x, with the floor taken in the
     same launch from a prefix sample of ``s_blocks`` blocks of
     ``block_rows`` rows: the contract of ``kexp20.fused_theta_gated``
     (``margin`` None) and ``kexp17.fused_theta`` (``margin`` (B,) or (B,
-    1), subtracted from the floor). Arguments as for ``fused_topk``; with
-    ``return_theta`` also theta0 (B, 1), the floor the scan started from."""
-    call = K._Call(x, aux, valid, q, metric, row_bias, q_scale, packed)
+    1), subtracted from the floor), their ``precision_name`` and
+    ``bisect_iters`` as ``precision`` and ``bisect_iters``. Arguments as
+    for ``fused_topk``; with ``return_theta`` also theta0 (B, 1), the floor
+    the scan started from."""
+    call = K._Call(x, aux, valid, q, metric, row_bias, q_scale, packed,
+                   precision)
     if k < 1:
         raise ValueError("k must be >= 1")
     kw = dict(k=k, metric=metric, block_rows=block_rows, s_blocks=s_blocks,
               margin=margin, row_bias=row_bias, q_scale=q_scale,
-              packed=packed, return_theta=return_theta)
+              packed=packed, return_theta=return_theta, precision=precision,
+              bisect_iters=bisect_iters)
     if call.device.type == "cpu":
         return fused_theta_plain(x, aux, valid, q, **kw)
     n, b, dev = call.n, call.b, call.device
@@ -188,7 +202,8 @@ def fused_theta(x, aux, valid, q, *, k, metric, block_rows, s_blocks,
             K._ptr(call.qs2), m.data_ptr(), n, call.row_bytes, b, k, 0,
             plan.groups, parts, plan.cap, int(plan.on_chip), plan.ring,
             plan.sample_tiles, plan.blk_tiles,
-            BISECT_ITERS, int(bool(skip_sample_dots)), sub_keys.data_ptr(),
+            int(bisect_iters), int(bool(skip_sample_dots)),
+            sub_keys.data_ptr(),
             bmax.data_ptr(), theta0.data_ptr(), cand_v.data_ptr(),
             cand_i.data_ptr(), cand_n.data_ptr(), merge_v.data_ptr(),
             merge_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),

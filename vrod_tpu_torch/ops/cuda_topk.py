@@ -179,6 +179,18 @@ def split_tf32(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return big, tf32_round(t.float() - big)
 
 
+def split_dots(q2: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The f32x3 leg's dots (B, N) of the split query q2 (B, 2D: its TF32
+    big parts, then its small parts) and float32 rows x (N, D): the exact
+    products big.big + big.small + small.big summed in float32, in that
+    order."""
+    d = x.shape[1]
+    xb, xs = split_tf32(x)
+    qb, qs = q2[:, :d], q2[:, d:]
+    return (D._matmul_f32(qb, xb) + D._matmul_f32(qb, xs)) \
+        + D._matmul_f32(qs, xb)
+
+
 class _Call:
     """A validated kernel call: the leg, and the inputs as both the kernel
     and the plain version take them."""
@@ -287,11 +299,7 @@ class _Call:
         if self.packed:
             g = D._matmul_f32(self.q, D.unpack_int4_rows(x))
         elif self.split:
-            d = x.shape[1]
-            xb, xs = split_tf32(x)
-            qb, qs = self.q[:, :d], self.q[:, d:]
-            g = (D._matmul_f32(qb, xb) + D._matmul_f32(qb, xs)) \
-                + D._matmul_f32(qs, xb)
+            g = split_dots(self.q, x)
         elif x.dtype == torch.float32:
             g = D._matmul_f32(tf32_round(self.q), tf32_round(x))
         else:

@@ -62,8 +62,9 @@ nothing falls back to the CPU or to a plain version):
      (the depth cut for the time limit: the least rows at which their
      floor opens);
    - (iii) bfloat16 cosine, top-100, with the same reopen (the bfloat16
-     snapshot path, which needs no ml_dtypes); (iv) float32 dot, top-100
-     (with the float control): ``--rows`` rows each;
+     snapshot path, which needs no ml_dtypes): ``--rows`` rows; (iv)
+     float32 dot, top-100 (with the float control): CUT_ROWS rows (the
+     depth cut for the time limit; its floor opens from 131,072 rows);
    - every leg (15 collections), 2 searches each: int8/int4 at top-16 on
      262,144 rows, bfloat16/float32 at top-100 on 131,072 rows (f32x3: a
      float32 collection searched at precision "exact").
@@ -104,7 +105,22 @@ nothing falls back to the CPU or to a plain version):
    dot; X4 cosine) at b256 k 28, and
    X2's count at tiles 1, 2 and 4, each against its plain twin or closed
    form; and the plans' shared memory equal to the built kernels' own, k
-   1 to 256.
+   1 to 256, in the TMA and the copying builds. Then rows TMA cannot load,
+   which every kernel takes through its copying build (the producer warp
+   copies each stage; ``copy_launches`` counts those launches), not
+   counted: every kernel x every leg it takes at 16,384 x 30 (no row a
+   whole number of 16-byte units), b256, k 28 and 211 (``copy_edges``),
+   then each kernel on an 8-byte-offset contiguous view of int8 dim-768
+   rows, each against its plain twin (int8 EXACT, floats within the
+   bound), every kernel and leg launching its copying build. Last, the
+   copying builds' path at full width (``glove_path``): a state the size
+   of ann-benchmarks' glove-100-angular, 1,183,514 x 100 seeded cosine
+   rows (int8 rows of 100 bytes, bfloat16 of 200), int8 and bfloat16, b256,
+   k 28, through the A/B pairs of ``tools/kexp_extract.py`` against K1
+   with no floor, with the extraction counters set to 0 before and read
+   after (every kernel must launch, every launch its copying build); then,
+   not counted, each kernel against its plain twin there; their times go
+   to the kernels line as ``extract_<kernel>_copy[<leg>]``.
 6. Serving, on the main path. During its ingest every chunk is also
    quantized on the port's CPU path: the share of stored bytes that differ
    (a cosine norm whose last ulp differs flips a byte at a rounding edge)
@@ -184,16 +200,23 @@ nothing falls back to the CPU or to a plain version):
    (``examples/torch_quickstart.py``, whose lines must equal its lines on
    the CPU, every name and score to 3 decimals; ``torch_serving.py``;
    ``torch_replication.py``, read-your-writes and the cutover lines) and
-   ``tools/repl_drill.py`` at DRILL_ROWS x 768 with a 100,000-row tail
-   (the one depth cut of its 10M: one bootstrap, then a resume after a
-   SIGKILL with no bootstrap or resync, spot records bit-identical). Each
+   ``tools/repl_drill.py`` at DRILL_ROWS x 768 with a DRILL_TAIL_ROWS
+   tail (131,072 and 50,000: the depth cut of its 10M rows and
+   100,000-row tail, for the time limit; one bootstrap, then a resume
+   after a SIGKILL with no bootstrap or resync, spot records
+   bit-identical). Each
    tool's JSON summary is printed on a line of its own; the launches in
    the tools' processes are printed apart and join no count of the
    kernels' line.
 11. The port's bench, ``bench_torch.py``, each run a process on
    ``cuda:0``: the headline at its defaults (1,000,000 x 768 int8 cosine,
    b256, top-16), then ``--quick`` runs: l2, int4 dot, and the workloads
-   batch-sweep, scaling, mixed, serve and serve-batch (BENCH_RUNS). Each
+   batch-sweep, scaling, mixed, serve and serve-batch (BENCH_RUNS),
+   BENCH_QUICK_AT_ONCE processes at a time (for the time limit: each
+   spends most of its time starting up and reaching the card). The
+   ``--quick`` runs are checks, not measurements: their queries/s and
+   latencies are taken while other runs hold the card, and a line before
+   each says so; only the headline runs alone. Each
    run's line is printed and must hold a positive ``value``, no
    ``error``, this card's line, recall 1.0 in every
    ``recall_full_scan@k``, the mixed workload's ``final_count`` (its
@@ -222,7 +245,11 @@ space, so their ``library_ms`` is the leg's GEMM then
 phase's rows; the extraction kernels: the whole blocks; the floor
 variant X1's too, though it returns a max); beside it the floor kernels
 keep the stock composition's time (``stock_ms``) and the extraction
-kernels K1 with no floor on the same tensors (``k1_ms``).
+kernels K1 with no floor on the same tensors (``k1_ms``). The copying
+builds' entries (``extract_<kernel>_copy[<leg>]``) are timed on the
+glove-100 path; there the int8 GEMM is ``torch._int_mm`` on the rows and
+the query zero-padded from 100 to 104 bytes before timing (it takes inner
+dims that are multiples of 8 only; the zeros add nothing to a dot).
 
 The last two lines of standard output are one JSON object per line: the
 kernels' account (one entry per kernel and leg), then ``{"ok": true,
@@ -256,8 +283,8 @@ RECALL_EPS = 1e-5  # tie tolerance of the recall check (bench.py's)
 # (131,072 rows; their floor opens from k_scan 64).
 LEG_SHAPES = {"quant": (262144, 16), "float": (131072, 100)}
 LEG_SEARCHES = 2
-# Phases (i) and (ii): their rows (the depth cut of ``--rows``, for the
-# time limit; the least at which int8/int4 top-16's floor opens).
+# Phases (i), (ii) and (iv): their rows (the depth cut of ``--rows``, for
+# the time limit; the least at which int8/int4 top-16's floor opens).
 CUT_ROWS = 262144
 DB_DTYPE = {"int8": "int8", "int4": "int4", "bf16": "bfloat16",
             "f32": "float32", "f32x3": "float32"}
@@ -304,6 +331,14 @@ EDGE_KS = (1, 33, 34, 112, 128, 150, 210, 211, 230)
 EDGE_KS_F32X3 = (150, 211)
 EDGE_KERNELS = ("carry", "store", "gate", "unroll2", "unroll4", "pingpong")
 EDGE_BATCHES = (1, 200, 300)
+# Phase 5's rows that TMA cannot load (each kernel's copying build): every
+# leg of every kernel at COPY_ROWS x COPY_DIM (30: no row a whole number of
+# 16-byte units), b256, at k 28 and 211 (past the gated lists' on-chip
+# edge); then the slice's path at full width, a state the size of
+# ann-benchmarks' glove-100-angular (GLOVE_ROWS x GLOVE_DIM: int8 rows of
+# 100 bytes, bfloat16 of 200), int8 and bfloat16 cosine, b256, k 28.
+COPY_ROWS, COPY_DIM, COPY_KS = 16384, 30, (28, 211)
+GLOVE_ROWS, GLOVE_DIM, GLOVE_KSCAN = 1_183_514, 100, 28
 # The serve phase (6): client processes and connections in each (256 in
 # flight: one full batch of the server's QueryBatcher), their single
 # queries (batches of the main path's queries), and the replica's rows.
@@ -333,10 +368,10 @@ VERB_BATCHES, VERB_TOP_K, VERB_TOP_K_WIDE = 5, 16, 100
 FILTER_IDS, REINDEX_DELETE = 100_000, 250_000
 FUZZ_BACKUP_SEED, FUZZ_COLD_SEED, FUZZ_MODEL_CONFIGS = 2, 0, (1, 2)
 # Phase 10: the soak's minutes (no 2-minute plateau mark within them), the
-# drill's rows and tail (the depth cut of tools/repl_drill.py's 10M rows),
-# and the time limit of each tool's process.
+# drill's rows and tail (the depth cut of tools/repl_drill.py's 10M rows
+# and 100,000-row tail), and the time limit of each tool's process.
 SOAK_MINUTES = 1.5
-DRILL_ROWS, DRILL_TAIL_ROWS = 524_288, 100_000
+DRILL_ROWS, DRILL_TAIL_ROWS = 131_072, 50_000
 TOOL_TIMEOUT_S = 600
 # Phase 11: bench_torch.py's runs (the headline at its defaults first),
 # and the final count of its mixed workload at --quick (65,536 rows, 3
@@ -350,6 +385,8 @@ BENCH_RUNS = (("headline", []),
               ("serve", ["--workload", "serve", "--quick"]),
               ("serve-batch", ["--workload", "serve-batch", "--quick"]))
 MIXED_QUICK_COUNT = 65536 + 128 * 3
+# The --quick runs that go at once (each its own process on cuda:0).
+BENCH_QUICK_AT_ONCE = 3
 
 
 def log(*a):
@@ -537,13 +574,20 @@ def bound_of(tensors, out_bytes, ops, dtype):
 
 def library_gemm(leg, x, q):
     """The yardstick's GEMM of one leg: a function returning q @ x.T as the
-    library computes it (rows unpacked for int4 before timing; TF32 on for
-    float32 while it runs, off for f32x3: a float32 GEMM)."""
+    library computes it (rows unpacked for int4 before timing; int8 rows
+    and query whose width is no multiple of 8, which ``torch._int_mm``
+    refuses, zero-padded to one before timing, which leaves every dot
+    unchanged; TF32 on for float32 while it runs, off for f32x3: a float32
+    GEMM)."""
     import torch
+    import torch.nn.functional as F
     from vrod_tpu_torch.ops import distances as D
     dtype = leg.split("-")[0]
     if dtype in ("int8", "int4"):
         rows = D.unpack_int4_rows(x, torch.int8) if dtype == "int4" else x
+        pad = -rows.shape[1] % 8
+        if pad:
+            rows, q = F.pad(rows, (0, pad)), F.pad(q, (0, pad))
         return lambda: torch._int_mm(q, rows.t())
     rows, qq = x, q.to(x.dtype)
 
@@ -578,7 +622,8 @@ class Compare:
         from vrod_tpu_torch.ops import cuda_extract as X
         from vrod_tpu_torch.ops import cuda_floor as F
         from vrod_tpu_torch.ops import cuda_topk as K
-        names = list(K.launches) + list(F.launches) + list(X.launches)
+        names = list(K.launches) + list(F.launches) + list(X.launches) \
+            + [copy_name(n) for n in X.copy_launches]
         self.max_err = {name: 0.0 for name in names}
         # Largest |kernel - plain| / bound (float legs), and per float leg
         # the smallest such share that a truncating control reached.
@@ -747,14 +792,19 @@ class Compare:
                 exact=False):
         """An extraction kernel against its plain twin on the experiments'
         inputs ``xargs``: int8 (and with ``exact``, every leg) EXACT, float
-        legs within the bound."""
+        legs within the bound. A call that took the copying build (rows TMA
+        cannot load) is recorded under ``copy_name``."""
         import torch
         from vrod_tpu_torch.ops import cuda_extract as X
         from vrod_tpu_torch.ops import cuda_topk as K
         metric = leg.split("-")[1]
         kw = dict(k=k, metric=metric, block_rows=block_rows,
                   precision_name=leg_precision(leg))
+        name = f"extract_{kern}[{leg}]"
+        copies = X.copy_launches[name]
         got = X.run_kernel(kern, *xargs, **kw)
+        if X.copy_launches[name] > copies:
+            name = copy_name(name)
         want = X.run_kernel(kern, *xargs, plain=True, **kw)
         n = xargs[0].shape[0]
         if exact or xargs[0].dtype == torch.int8:
@@ -768,8 +818,8 @@ class Compare:
         self._same_form(got, want, f"{what}: extract_{kern}")
         msg = K.topk_disagreement(*got, *want, bound)
         if msg:
-            raise AssertionError(f"{what}: extract_{kern} vs plain: {msg}")
-        self._err(f"extract_{kern}[{leg}]", got[0], want[0], bound)
+            raise AssertionError(f"{what}: {name} vs plain: {msg}")
+        self._err(name, got[0], want[0], bound)
         return got
 
     def floor_sound(self, leg, args, kw, k, theta0, what):
@@ -778,6 +828,13 @@ class Compare:
         v, _ = K.fused_topk(*args, k=k, metric=leg.split("-")[1], **kw)
         if not bool((theta0[:, 0] <= v[:, k - 1]).all()):
             raise AssertionError(f"{what}: theta0 above K1's k-th value")
+
+
+def copy_name(name):
+    """The kernels line's name of an extraction kernel's copying build:
+    ``extract_gate[int8-cosine]`` -> ``extract_gate_copy[int8-cosine]``."""
+    kern, leg = name.split("[", 1)
+    return f"{kern}_copy[{leg}"
 
 
 def truncated(t, drop):
@@ -1138,8 +1195,10 @@ def extract_phase(cmp, card, name, leg, args, k_scans):
     only, runs the same rows under cosine where the leg's metric is
     another), then, not counted, each kernel against its plain twin on this
     state and on the ties across list cuts, and X2's count against its
-    closed form. Returns (launches, records, times at the first k_scan,
-    each with the leg its kernel took)."""
+    closed form. On the main path also ``extract_edges``, ``copy_edges``
+    and ``glove_path``. Returns (launches, records, times at the first
+    k_scan, each with the leg its kernel took, the glove-100 path's
+    copying builds or None)."""
     import torch
     from vrod_tpu_torch.ops import cuda_extract as X
     ke = tool_module("kexp_extract")
@@ -1226,10 +1285,13 @@ def extract_phase(cmp, card, name, leg, args, k_scans):
             plain_ms=cuda_time_ms(lambda kern=kern, kw=kw: X.run_kernel(
                 kern, *xargs, plain=True, **kw), iters=2, warmup=1),
             bound=bound, library_ms=r["library_ms"], k_scan=k, rows=n)
+    copies = None
     if leg == "int8-cosine":
         extract_edges(cmp, card, args[0].device)
+        copy_edges(cmp, card, args[0].device)
+        copies = glove_path(cmp, card, args[0].device)
     log(f"{name} extraction experiments: {time.perf_counter() - wall0:.1f} s")
-    return launches, recs, times
+    return launches, recs, times, copies
 
 
 def extract_edges(cmp, card, dev):
@@ -1250,25 +1312,24 @@ def extract_edges(cmp, card, dev):
     from vrod_tpu_torch.ops import cuda_extract as X
     wall0 = time.perf_counter()
     lib = _build.load()
-    for k in range(1, 257):
+    for tma, k in ((tma, k) for tma in (1, 0) for k in range(1, 257)):
         for stage in X.CARRY_STAGES:
             for on_chip in (True, False):
-                got = lib.vrod_extract_carry_smem(k, stage, int(on_chip))
+                got = X.entry(lib, "carry", tma, "_smem")(k, stage,
+                                                         int(on_chip))
                 if got != X.carry_smem(k, stage, on_chip):
                     raise AssertionError(
                         f"carry_smem({k}, {stage}, {on_chip}) = "
                         f"{X.carry_smem(k, stage, on_chip)}, the kernel "
-                        f"needs {got}")
-        for plan, smem, fn in ((X.store_plan, X.store_smem,
-                                lib.vrod_extract_store_smem),
-                               (X.gate_plan, X.gate_smem,
-                                lib.vrod_extract_gate_smem)):
+                        f"(tma {tma}) needs {got}")
+        for plan, smem, mode in ((X.store_plan, X.store_smem, "store"),
+                                 (X.gate_plan, X.gate_smem, "gate")):
             cap, on_chip = plan(k)
-            got = fn(cap, int(on_chip))
+            got = X.entry(lib, mode, tma, "_smem")(cap, int(on_chip))
             if got != smem(cap, on_chip):
                 raise AssertionError(f"{smem.__name__}({cap}, {on_chip}) = "
                                      f"{smem(cap, on_chip)}, the kernel "
-                                     f"needs {got}")
+                                     f"(tma {tma}) needs {got}")
     off = {kern: [k for k in EDGE_KS if not X.extract_plan(
         kern, EDGE_ROWS, BATCH, k, 132).on_chip] for kern in EDGE_KERNELS}
     if not all(off.values()):
@@ -1278,8 +1339,9 @@ def extract_edges(cmp, card, dev):
     if edge not in EDGE_KS or edge + 1 not in EDGE_KS:
         raise AssertionError(f"EDGE_KS {EDGE_KS} miss the gated lists' "
                              f"on-chip edge, k {edge} and {edge + 1}")
-    log(f"edge cases: the plans' shared memory equals the kernels' at k "
-        f"1-256; in global memory: the carry at k {off['carry']}, the "
+    log(f"edge cases: the plans' shared memory equals the kernels' (TMA "
+        f"and copying builds) at k 1-256; in global memory: the carry at "
+        f"k {off['carry']}, the "
         f"store's lists at k {off['store']}, the gated kernels' lists at k "
         f"{off['gate']} (on chip to k {edge})")
     ke = tool_module("kexp_extract")
@@ -1321,6 +1383,128 @@ def extract_edges(cmp, card, dev):
             f"closed form in {calls[kern]} calls, {n / calls[kern]:g} launch "
             f"a call [{card}]")
     log(f"edge cases: {time.perf_counter() - wall0:.1f} s")
+
+
+def copy_edges(cmp, card, dev):
+    """Phase 5's rows that TMA cannot load, not counted: every kernel on
+    every leg it takes (int8, bfloat16, float32 and f32x3 x cosine, l2,
+    dot; X4 cosine) at COPY_ROWS x COPY_DIM seeded cosine rows, b256, at
+    each of COPY_KS, then each kernel once on an 8-byte-offset contiguous
+    view of int8 dim-768 rows at k 28; each against its plain twin (int8
+    EXACT, the float legs within the bound). Every kernel and leg must
+    have launched its copying build (``copy_launches``) in each."""
+    import torch
+    from vrod_tpu_torch.ops import cuda_extract as X
+    wall0 = time.perf_counter()
+    ke = tool_module("kexp_extract")
+    X.reset_launches()
+    for i, dtype in enumerate(X.X_DTYPES):
+        state = ke.make_state("f32" if dtype == "f32x3" else dtype,
+                              COPY_ROWS, COPY_DIM, BATCH, 70 + i, dev)
+        xargs = ke.experiment_args(state)
+        for metric in X.X_METRICS:
+            for kern in X.KERNELS:
+                if f"{dtype}-{metric}" not in X.kernel_legs(kern):
+                    continue
+                for k in COPY_KS:
+                    cmp.extract(kern, f"{dtype}-{metric}", xargs, k,
+                                f"dim {COPY_DIM} {dtype}-{metric} k {k}")
+    copies = dict(X.copy_launches)
+    short = [n for n, c in copies.items() if c != len(COPY_KS)]
+    if short or copies != X.launches:
+        raise AssertionError(f"dim {COPY_DIM}: the copying builds launched "
+                             f"{copies}, of {X.launches} launches; short: "
+                             f"{short}")
+    log(f"rows TMA cannot load: {len(copies)} kernel-legs x k {COPY_KS} at "
+        f"{COPY_ROWS} x {COPY_DIM}, b{BATCH}: each agrees with its plain "
+        f"twin, each launched its copying build {len(COPY_KS)} times [{card}]")
+    state = ke.make_state("int8", COPY_ROWS, DIM, BATCH, 78, dev)
+    flat = torch.empty(state[0].numel() + 8, dtype=torch.int8, device=dev)
+    view = flat[8:].view(state[0].shape)
+    view.copy_(state[0])
+    if view.data_ptr() % 16 != 8 or not view.is_contiguous():
+        raise AssertionError("the offset view is not 8 bytes past a 16-byte "
+                             "boundary")
+    xargs = ke.experiment_args([view] + state[1:])
+    X.reset_launches()
+    for kern in X.KERNELS:
+        cmp.extract(kern, "int8-cosine", xargs, 28,
+                    f"offset view {COPY_ROWS} x {DIM}")
+    if any(X.copy_launches[f"extract_{kern}[int8-cosine]"] != 1
+           for kern in X.KERNELS):
+        raise AssertionError(f"offset view: copying launches "
+                             f"{X.copy_launches}")
+    log(f"rows TMA cannot load: each kernel on an 8-byte-offset view of "
+        f"{COPY_ROWS} x {DIM} int8 rows agrees with its plain twin through "
+        f"its copying build; {time.perf_counter() - wall0:.1f} s [{card}]")
+
+
+def glove_path(cmp, card, dev):
+    """The copying builds' path at full width: X1-X4 through their entry
+    points (``tools/kexp_extract.run_pairs``: every variant name, each
+    agreeing with K1 with no floor, which copies at this width too, or X1's
+    floor with its plain version) on GLOVE_ROWS x GLOVE_DIM seeded cosine
+    rows, int8 and bfloat16, b256, k GLOVE_KSCAN; the launch counters set
+    to 0 just before each dtype's pairs and read just after: every kernel
+    must have launched, each launch its copying build. Then, not counted,
+    each kernel against its plain twin on the same state, and its plain
+    twin timed. Returns each kernel-leg's times and launches for the
+    kernels line."""
+    import torch
+    from vrod_tpu_torch.ops import cuda_extract as X
+    ke = tool_module("kexp_extract")
+    wall0 = time.perf_counter()
+    out = {}
+    for i, dtype in enumerate(("int8", "bf16")):
+        leg = f"{dtype}-cosine"
+        state = ke.make_state(dtype, GLOVE_ROWS, GLOVE_DIM, BATCH, 90 + i,
+                              dev)
+        X.reset_launches()
+        recs = ke.run_pairs(state, dtype, (GLOVE_KSCAN,), ke.EXPERIMENTS,
+                            block_rows=EXTRACT_BLOCK, iters=5, card=card)
+        torch.cuda.synchronize()
+        launches, copies = dict(X.launches), dict(X.copy_launches)
+        for kern in X.KERNELS:
+            name = f"extract_{kern}[{leg}]"
+            if launches[name] == 0 or copies[name] != launches[name]:
+                raise AssertionError(
+                    f"glove-100 {leg}: {name} launched {launches[name]} "
+                    f"times, {copies[name]} of them its copying build")
+        xargs = ke.experiment_args(state)
+        kw = dict(k=GLOVE_KSCAN, metric="cosine", block_rows=EXTRACT_BLOCK,
+                  precision_name="fast")
+        first = {r["kernel"]: r for r in recs if "variant_ms" in r}
+        k1 = first["gate"]
+        for kern in X.KERNELS:
+            r = first[kern]
+            cmp.extract(kern, leg, xargs, GLOVE_KSCAN,
+                        f"glove-100 {leg} k {GLOVE_KSCAN}")
+            plain_ms = cuda_time_ms(lambda kern=kern: X.run_kernel(
+                kern, *xargs, plain=True, **kw), iters=2, warmup=1)
+            name = copy_name(f"extract_{kern}[{leg}]")
+            lib = r["library_ms"]
+            out[name] = dict(
+                kern=kern, launches=copies[f"extract_{kern}[{leg}]"],
+                ms=r["variant_ms"], graph_ms=r["variant_graph_ms"],
+                plain_ms=plain_ms, bound=(r["bound_ms"], r["bound_by"]),
+                library_ms=lib, k1_ms=k1["reference_ms"])
+            log(f"{name}: {out[name]['launches']} launches on the glove-100 "
+                f"path; at {GLOVE_ROWS:,} x {GLOVE_DIM} (whole blocks of "
+                f"{EXTRACT_BLOCK}), b{BATCH}, k {GLOVE_KSCAN}: "
+                f"{r['variant_ms']:.4f} ms (profiler: device "
+                f"{r['variant_device_ms']:.4f} ms, "
+                f"{r['variant_kernels_per_call']:g} kernels a call; graph "
+                f"replay {r['variant_graph_ms']:.4f} ms) vs plain "
+                f"{plain_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}; {r['bound_ms'] / r['variant_ms']:.1%} "
+                f"of it reached by events); K1 with no floor "
+                f"{k1['reference_ms']:.4f} ms (device "
+                f"{k1['reference_device_ms']:.4f}); library (GEMM + topk) "
+                f"{lib:.4f} ms [{card}]")
+        del state, xargs
+        torch.cuda.empty_cache()
+    log(f"glove-100 path: {time.perf_counter() - wall0:.1f} s")
+    return out
 
 
 def oracle_kth(eng, q, top_k, state=None):
@@ -2494,11 +2678,21 @@ def bench_phase(card):
     on cuda:0, then the headline search's host syncs."""
     import torch
     torch.cuda.empty_cache()
-    log(f"phase 11: bench_torch.py, each run a process on cuda:0 [{card}]")
+    log(f"phase 11: bench_torch.py, each run a process on cuda:0, the "
+        f"--quick runs {BENCH_QUICK_AT_ONCE} at a time [{card}]")
+    from concurrent.futures import ThreadPoolExecutor
     launches = {}
-    for what, argv in BENCH_RUNS:
-        out = run_tool(["bench_torch.py", *argv], f"bench_torch {what}")
+    (head, head_argv), quick = BENCH_RUNS[0], BENCH_RUNS[1:]
+    outs = [run_tool(["bench_torch.py", *head_argv], f"bench_torch {head}")]
+    with ThreadPoolExecutor(BENCH_QUICK_AT_ONCE) as pool:
+        outs += list(pool.map(
+            lambda run: run_tool(["bench_torch.py", *run[1]],
+                                 f"bench_torch {run[0]}"), quick))
+    for (what, _), out in zip(BENCH_RUNS, outs):
         line = json.loads(out.strip().splitlines()[-1])
+        if what != head:
+            print(f"bench_torch {what} (a check, not a measurement: it ran "
+                  f"beside other --quick runs on cuda:0):", flush=True)
         print(json.dumps(line), flush=True)
         check_bench_line(line, what, card)
         for name, c in line["extra"]["launches"].items():
@@ -2577,7 +2771,7 @@ def main(argv=None) -> int:
         ("(i)", "int8-l2", 16, min(args.rows, CUT_ROWS), True),
         ("(ii)", "int4-l2", 16, min(args.rows, CUT_ROWS), False),
         ("(iii)", "bf16-cosine", 100, args.rows, True),
-        ("(iv)", "f32-dot", 100, args.rows, False),
+        ("(iv)", "f32-dot", 100, min(args.rows, CUT_ROWS), False),
     ]
     for leg in K.LEGS:
         rows, top_k = LEG_SHAPES[
@@ -2709,7 +2903,7 @@ def main(argv=None) -> int:
                 "bound_by": bound_by, "library_ms": t["library_ms"],
                 "stock_ms": t["stock_ms"]})
     from vrod_tpu_torch.ops import cuda_extract as X
-    for name, (xl, _, xtimes) in extracts:
+    for name, (xl, _, xtimes, _) in extracts:
         for kern, t in xtimes.items():
             kname = f"extract_{kern}[{t['leg']}]"
             fn = X.KERNEL_CALLS[kern][0]
@@ -2740,6 +2934,24 @@ def main(argv=None) -> int:
                 "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": t["library_ms"],
                 "k1_ms": t["k1_ms"]})
+    # The copying builds, on the glove-100 path (phase 5).
+    copies = [c for _, (*_, c) in extracts if c]
+    if len(copies) != 1:
+        raise AssertionError("the glove-100 path ran no copying build")
+    for kname, t in copies[0].items():
+        kern = t["kern"]
+        fn = X.KERNEL_CALLS[kern][0]
+        bound_ms, bound_by = t["bound"]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"vrod_tpu_torch/csrc/extract_"
+                      f"{X.KERNELS[kern][0]}_copy.cu",
+            "replaces": f"experiments/{fn}.py:{EXTRACT_PALLAS_LINE[fn]}",
+            "launches": t["launches"], "max_abs_err": cmp.max_err[kname],
+            "ms": t["ms"], "graph_ms": t["graph_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": t["library_ms"],
+            "k1_ms": t["k1_ms"], "rows": GLOVE_ROWS, "dim": GLOVE_DIM})
     for leg, share in cmp.control_share.items():
         log(f"float control {leg}: truncated inputs reached at least "
             f"{share:.4g} x the bound (the kernels: K1 "

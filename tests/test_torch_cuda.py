@@ -844,21 +844,26 @@ def test_cuda_extract_smem_is_the_kernels(cuda_device):
     ``gate_smem``: the ring, the stages or the score tile, the carry or the
     lists, the static part) is the kernels' own, as the library reports it
     from the built kernels (their static size and ``narrow_smem``), on chip
-    and off, at every k to 256 and the capacities of both placements."""
+    and off, at every k to 256 and the capacities of both placements, in
+    the TMA builds and the copying builds alike."""
     lib = _build.load()
-    for k in range(1, 257):
-        for stage in cuda_extract.CARRY_STAGES:
-            for on_chip in (True, False):
-                assert lib.vrod_extract_carry_smem(k, stage, int(on_chip)) \
-                    == cuda_extract.carry_smem(k, stage, on_chip), (k, stage)
-        cap, on_chip = cuda_extract.store_plan(k)
-        assert lib.vrod_extract_store_smem(cap, int(on_chip)) \
-            == cuda_extract.store_smem(cap, on_chip), k
-        cap, on_chip = cuda_extract.gate_plan(k)
-        assert lib.vrod_extract_gate_smem(cap, int(on_chip)) \
-            == cuda_extract.gate_smem(cap, on_chip), k
-    assert lib.vrod_extract_store_smem(177, 1) > cuda_extract.SMEM_BYTES
-    assert lib.vrod_extract_gate_smem(243, 1) > cuda_extract.SMEM_BYTES
+    for tma in (True, False):
+        carry, store, gate = (cuda_extract.entry(lib, mode, tma, "_smem")
+                              for mode in ("carry", "store", "gate"))
+        for k in range(1, 257):
+            for stage in cuda_extract.CARRY_STAGES:
+                for on_chip in (True, False):
+                    assert carry(k, stage, int(on_chip)) \
+                        == cuda_extract.carry_smem(k, stage, on_chip), \
+                        (k, stage, tma)
+            cap, on_chip = cuda_extract.store_plan(k)
+            assert store(cap, int(on_chip)) \
+                == cuda_extract.store_smem(cap, on_chip), (k, tma)
+            cap, on_chip = cuda_extract.gate_plan(k)
+            assert gate(cap, int(on_chip)) \
+                == cuda_extract.gate_smem(cap, on_chip), (k, tma)
+        assert store(177, 1) > cuda_extract.SMEM_BYTES
+        assert gate(243, 1) > cuda_extract.SMEM_BYTES
 
 
 @pytest.mark.cuda
@@ -886,10 +891,13 @@ def test_cuda_kexp2_count_matches_closed_form(rng, cuda_device, blk, k):
 
 @pytest.mark.cuda
 def test_cuda_extract_refuses_what_it_cannot_score(rng, cuda_device):
-    """Rows TMA cannot load raise on the card. float32 rows at precision
-    high/exact, which raised before the kernels had an f32x3 build, now
-    launch it (three TF32 products; TF32 never stands in) and agree with
-    the plain version."""
+    """Nothing the experiments take is refused. float32 rows at precision
+    high/exact, which raised before the kernels had an f32x3 build, launch
+    it (three TF32 products; TF32 never stands in) and agree with the
+    plain version. Rows TMA cannot load, which raised before the kernels
+    had a copying build (int8 dim 30, and an 8-byte-offset contiguous view
+    of int8 dim-128 rows), launch each of the seven kernels' copying build
+    (``copy_launches``) and EQUAL its plain twin."""
     args = x_args(rng, 2048, 128, 8, cuda_device, "f32", 0)
     for prec in ("high", "exact"):
         cuda_extract.reset_launches()
@@ -898,12 +906,29 @@ def test_cuda_extract_refuses_what_it_cannot_score(rng, cuda_device):
         want = cuda_extract.kexp3_plain(*args, **kw)
         torch.cuda.synchronize()
         assert cuda_extract.launches["extract_pingpong[f32x3-dot]"] == 1
+        assert cuda_extract.copy_launches["extract_pingpong[f32x3-dot]"] == 0
         x_agree("f32x3", "dot", args, got, want)
-    args = x_args(rng, 2048, 30, 8, cuda_device, "int8", 0)
-    with pytest.raises(ValueError, match="TMA"):
-        cuda_extract.kexp_call("gate", *args, k=8, metric="dot",
-                               block_rows=1024, precision_name="fast")
-
+    dim30 = x_args(rng, 2048 + 77, 30, 40, cuda_device, "int8", 5)
+    aligned = x_args(rng, 2048 + 77, 128, 40, cuda_device, "int8", 5)
+    flat = torch.empty(aligned[0].numel() + 8, dtype=torch.int8,
+                       device=cuda_device)
+    view = flat[8:].view(aligned[0].shape)
+    view.copy_(aligned[0])
+    assert view.data_ptr() % 16 == 8 and view.is_contiguous()
+    for what, args in (("dim 30", dim30),
+                       ("offset view", [view] + aligned[1:])):
+        for kern in X_KERNELS:
+            leg = "int8-cosine" if kern.startswith("unroll") else "int8-dot"
+            kw = dict(k=28, metric=leg.split("-")[1], block_rows=1024,
+                      precision_name="fast")
+            cuda_extract.reset_launches()
+            got = cuda_extract.run_kernel(kern, *args, **kw)
+            want = cuda_extract.run_kernel(kern, *args, plain=True, **kw)
+            torch.cuda.synchronize()
+            name = f"extract_{kern}[{leg}]"
+            assert cuda_extract.launches[name] == 1, (what, kern)
+            assert cuda_extract.copy_launches[name] == 1, (what, kern)
+            x_agree("int8", leg.split("-")[1], args, got, want)
 
 
 @pytest.mark.cuda

@@ -25,7 +25,7 @@ score bound of ``cuda_topk.topk_disagreement`` at the leg's precision). Variant 
 build (``cuda_extract.KERNELS``) are timed once, by the first of them; the
 timing is warm: CUDA events (mean of ``--iters`` calls back to back), the
 card's kernel time and kernels per call (torch.profiler over 5 calls), the
-device time of 20 calls captured in a CUDA graph and replayed
+device time of ``--iters`` calls captured in a CUDA graph and replayed
 (``chip_smoke.graph_ms``; not for the plain floor reference) and the
 host's enqueue time per call (``perf_counter`` around ``--iters`` calls,
 no synchronize), K1 once per k_scan. Beside them, once per k_scan:
@@ -160,10 +160,10 @@ def count_of(args, k_scan, block_rows=2048, tiles=1, metric="cosine",
 
 def yardsticks(args, leg, k_scan, block_rows=2048, iters=5):
     """(bound_ms, bound_by, library_ms) of one k_scan over the whole blocks
-    of K1's inputs ``args`` on ``leg``: the bound of the experiments'
-    inputs and (B, k) outputs at the leg's operations (f32x3: three TF32
-    products), and the library's GEMM (f32x3: float32 with TF32 off) +
-    ``torch.topk(k_scan)`` by events."""
+    of K1's inputs ``args`` on ``leg``: the bound of the experiments' inputs
+    and (B, k) outputs at the leg's operations (f32x3: three TF32
+    products), and the library's GEMM (``chip_smoke.library_gemm``; f32x3:
+    float32 with TF32 off) + ``torch.topk(k_scan)`` by events."""
     xa = experiment_args(args)
     n, d = args[0].shape
     ns = n // block_rows * block_rows
@@ -214,7 +214,7 @@ def run_pairs(args, dtype, k_scans, experiments, *, block_rows=2048,
     def timed(f, graph=True):
         dev_ms, per_call = device_ms(f)
         return (events_ms(f, iters), dev_ms, per_call, host_ms(f, iters),
-                graph_ms(f) if graph else None)
+                graph_ms(f, iters) if graph else None)
 
     for k_scan in k_scans:
         first, k1 = {}, None

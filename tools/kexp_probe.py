@@ -56,7 +56,7 @@ def launch(lib, kernel, call, k, cnt):
     t = [torch.empty(size[n], dtype=d, device=dev) for n, d in
          (("cand_v", f32), ("cand_i", i32), ("cand_n", i32), ("merge", f32),
           ("merge", i32))]
-    rc = getattr(lib, f"vrod_extract_{mode}")(
+    rc = X.entry(lib, mode, call.tma)(
         call.elem, call.epi, variant, call.x.data_ptr(), call.aux.data_ptr(),
         call.mask.data_ptr(), call.q.data_ptr(), call.offset.data_ptr(),
         call.n_scan, call.row_bytes, call.b, k, plan.groups, plan.parts,

@@ -1,8 +1,14 @@
 // The extraction experiments of the JAX package, X1-X4, on K1's scoring
 // core (score.cuh's producer, ring and wgmma consumers; topk.cuh's radix
 // select and merge). Each mode is built in a .cu file of its own
-// (extract_*.cu), one C entry point per file (the gated modes, the store
-// and the carry add their shared-memory account).
+// (extract_<mode>.cu), one C entry point per file (the gated modes, the
+// store and the carry add their shared-memory account), in two builds, as
+// K1's: rows and queries loaded by TMA, and for the shapes TMA cannot load
+// (row bytes not a multiple of 16, unaligned bases: int8 dim 30 or 100,
+// bfloat16 dim 100, float32 dim 25) the same kernel with the producer warp
+// copying each stage into the same swizzled layout (score.cuh: copy_stage;
+// kTma false), built apart in extract_<mode>_copy.cu so that nvcc compiles
+// both at once. The wrapper picks the build by shape (cuda_topk.use_tma).
 //
 // Replaces the Pallas kernels experiments/kexp.py: make_call -> build_kernel
 // (X1), kexp2.py: make_call (X2), kexp3.py: make_call (X3) and kexp5.py:
@@ -83,6 +89,24 @@ enum XMode : int {
 // measured faster than n128 for the store, the carry and the gate
 // (PERF.md).
 constexpr int kNarrow = kWidth;
+
+// The register budget (setmaxnreg) of a build's producer and consumers:
+// kProducerRegs / kConsumerRegs, or with kWide K1's gated budget,
+// kGateProducerRegs / kGateConsumerRegs. At 40 registers the copying
+// producer (score.cuh: copy_stage) keeps too few loads in flight: the
+// copying builds of the store, the carry, X1's gate and X4 take the gated
+// budget (33-37% faster at glove-100's shape, 0 spills: PERF.md). X3's
+// copying build (two accumulator sets, which spill at 224), X1's n256
+// floor and every TMA build keep 40 / 232.
+template <bool kWide>
+__device__ __forceinline__ void x_producer_regs() {
+  producer_regs<kWide ? kGateProducerRegs : kProducerRegs>();
+}
+
+template <bool kWide>
+__device__ __forceinline__ void x_consumer_regs() {
+  consumer_regs<kWide ? kGateConsumerRegs : kConsumerRegs>();
+}
 
 // One launch's arguments (ops/cuda_extract.py: _launch).
 struct XArgs {
@@ -404,7 +428,7 @@ __device__ __forceinline__ void carry_consume(const Geometry& geo,
   }
 }
 
-template <class Kind, int kEpi, int kN>
+template <class Kind, int kEpi, int kN, bool kTma>
 __global__ void __launch_bounds__(kThreads, 1) extract_carry(
     const __grid_constant__ Maps maps, const __grid_constant__ XArgs a) {
   extern __shared__ uint8_t smem_raw[];
@@ -446,13 +470,13 @@ __global__ void __launch_bounds__(kThreads, 1) extract_carry(
   ring_init(ring);
   __syncthreads();
   if (threadIdx.x >= kConsumers) {
-    producer_regs();
+    x_producer_regs<!kTma>();
     if (threadIdx.x < kConsumers + 32) {
-      produce<Kind, true, kN>(maps, Loads{a.x, a.q, a.n, a.b}, geo, ring, q0,
+      produce<Kind, kTma, kN>(maps, Loads{a.x, a.q, a.n, a.b}, geo, ring, q0,
                               part, tiles, a.parts);
     }
   } else {
-    consumer_regs();
+    x_consumer_regs<!kTma>();
     carry_consume<Kind, kEpi, kN>(geo, ring, a, part, tiles, q0, gate,
                                   staged, cv, ci, sv, si);
   }
@@ -590,7 +614,7 @@ __device__ __forceinline__ void store_consume(
   }
 }
 
-template <class Kind, int kEpi, int kN>
+template <class Kind, int kEpi, int kN, bool kTma>
 __global__ void __launch_bounds__(kThreads, 1) extract_store(
     const __grid_constant__ Maps maps, const __grid_constant__ XArgs a) {
   extern __shared__ uint8_t smem_raw[];
@@ -624,13 +648,13 @@ __global__ void __launch_bounds__(kThreads, 1) extract_store(
   ring_init(ring);
   __syncthreads();
   if (threadIdx.x >= kConsumers) {
-    producer_regs();
+    x_producer_regs<!kTma>();
     if (threadIdx.x < kConsumers + 32) {
-      produce<Kind, true, kN>(maps, Loads{a.x, a.q, a.n, a.b}, geo, ring, q0,
+      produce<Kind, kTma, kN>(maps, Loads{a.x, a.q, a.n, a.b}, geo, ring, q0,
                               part, tiles, a.parts);
     }
   } else {
-    consumer_regs();
+    x_consumer_regs<!kTma>();
     store_consume<Kind, kEpi, kN>(geo, ring, a, part, tiles, q0, gate, len,
                                   hist, store, lv, li);
   }
@@ -757,7 +781,7 @@ __device__ __forceinline__ void overlap_consume(const Geometry& geo,
 
 // X1's gate and X4 (kOverlap false: gate_consume) and X3 (kOverlap true:
 // overlap_consume).
-template <class Kind, int kEpi, int kE, bool kOverlap>
+template <class Kind, int kEpi, int kE, bool kOverlap, bool kTma>
 __global__ void __launch_bounds__(kThreads, 1) extract_gate(
     const __grid_constant__ Maps maps, const __grid_constant__ XArgs a) {
   extern __shared__ uint8_t smem_raw[];
@@ -795,13 +819,13 @@ __global__ void __launch_bounds__(kThreads, 1) extract_gate(
   ring_init(ring);
   __syncthreads();
   if (threadIdx.x >= kConsumers) {
-    producer_regs();
+    x_producer_regs<!kTma && !kOverlap>();
     if (threadIdx.x < kConsumers + 32) {
-      produce<Kind, true, kNarrow>(maps, Loads{a.x, a.q, a.n, a.b}, geo, ring, q0,
-                              part, tiles, a.parts);
+      produce<Kind, kTma, kNarrow>(maps, Loads{a.x, a.q, a.n, a.b}, geo,
+                                   ring, q0, part, tiles, a.parts);
     }
   } else {
-    consumer_regs();
+    x_consumer_regs<!kTma && !kOverlap>();
     constexpr int kOwn = kNarrow / (kConsumers / 32);
     const int own0 = (threadIdx.x >> 5) * kOwn;
     const int own1 = min(own0 + kOwn, a.b - q0);
@@ -883,7 +907,7 @@ __device__ __forceinline__ void floor_consume(const Geometry& geo,
   }
 }
 
-template <class Kind, int kEpi>
+template <class Kind, int kEpi, bool kTma>
 __global__ void __launch_bounds__(kThreads, 1) extract_local(
     const __grid_constant__ Maps maps, const __grid_constant__ XArgs a) {
   extern __shared__ uint8_t smem_raw[];
@@ -900,7 +924,7 @@ __global__ void __launch_bounds__(kThreads, 1) extract_local(
   if (threadIdx.x >= kConsumers) {
     producer_regs();
     if (threadIdx.x < kConsumers + 32) {
-      produce<Kind, true>(maps, Loads{a.x, a.q, a.n, a.b}, geo, ring, q0,
+      produce<Kind, kTma>(maps, Loads{a.x, a.q, a.n, a.b}, geo, ring, q0,
                           part, tiles, a.parts);
     }
   } else {
@@ -942,37 +966,51 @@ int narrow_smem(const XArgs& a) {
   return smem;
 }
 
-// The kernel of one leg of a mode; kV: X4's kE.
-template <int kMode, int kV, class Kind, int kEpi>
+// The kernel of one leg of a mode, TMA or copying build; kV: X4's kE.
+template <int kMode, int kV, class Kind, int kEpi, bool kTma>
 constexpr auto narrow_kernel() {
   if constexpr (kMode == kXStore) {
-    return extract_store<Kind, kEpi, kNarrow>;
+    return extract_store<Kind, kEpi, kNarrow, kTma>;
   } else if constexpr (kMode == kXCarry) {
-    return extract_carry<Kind, kEpi, kNarrow>;
+    return extract_carry<Kind, kEpi, kNarrow, kTma>;
   } else {
-    return extract_gate<Kind, kEpi, kV, kMode == kXPingPong>;
+    return extract_gate<Kind, kEpi, kV, kMode == kXPingPong, kTma>;
   }
 }
 
-// A block's whole shared memory: the kernel's static part (the same in
-// every leg and variant) and narrow_smem; -1 if the card cannot say.
-template <int kMode, int kV = 1>
+// A block's whole shared memory in the TMA (kTma) or the copying build:
+// the kernel's static part (the same in every leg and variant) and
+// narrow_smem; -1 if the card cannot say.
+template <int kMode, bool kTma>
 int narrow_need(const XArgs& a) {
   cudaFuncAttributes attr{};
-  if (cudaFuncGetAttributes(&attr, narrow_kernel<kMode, kV, I8, kScale>()) !=
+  if (cudaFuncGetAttributes(&attr,
+                            narrow_kernel<kMode, 1, I8, kScale, kTma>()) !=
       cudaSuccess) {
     return -1;
   }
   return (int)attr.sharedSizeBytes + narrow_smem<kMode>(a);
 }
 
+// The C entry point of a mode's shared-memory account: (k, stage, cap,
+// on_chip) as the mode reads them.
+template <int kMode, bool kTma>
+int extract_smem(int k, int stage, int cap, int on_chip) {
+  XArgs a{};
+  a.k = k;
+  a.stage = stage;
+  a.cap = cap;
+  a.on_chip = on_chip;
+  return narrow_need<kMode, kTma>(a);
+}
+
 template <int kMode, int kV>
 struct LaunchExtract {
   // Every mode but the floor: a need above the card's limit fails
   // ensure_smem.
-  template <class Kind, int kEpi>
+  template <class Kind, int kEpi, bool kTma>
   static int narrow(const XArgs& a, const Maps& maps, cudaStream_t s) {
-    constexpr auto kern = narrow_kernel<kMode, kV, Kind, kEpi>();
+    constexpr auto kern = narrow_kernel<kMode, kV, Kind, kEpi, kTma>();
     if (kMode == kXCarry && (a.stage < 1 || a.stage > 32)) {
       return (int)cudaErrorInvalidValue;
     }
@@ -986,23 +1024,26 @@ struct LaunchExtract {
     return (int)cudaGetLastError();
   }
 
-  template <class Kind, int kEpi>
+  // The copying build encodes no tensor map (topk.cuh: launch_maps): its
+  // producer warp reads a.x and a.q itself.
+  template <class Kind, int kEpi, bool kTma>
   static int run(const XArgs& a, void* merge_v, void* merge_i, void* out_v,
                  void* out_i, cudaStream_t s) {
-    Maps maps{};
-    int e = make_maps(&maps, Kind::kPacked, a.x, a.q, a.n, a.b, a.row_bytes,
-                      kMode == kXFloor ? kGroup : kNarrow);
+    Maps maps;
+    int e = launch_maps<Kind, kTma>(&maps, nullptr, a.x, a.q, a.n, a.b,
+                                    a.row_bytes,
+                                    kMode == kXFloor ? kGroup : kNarrow);
     if (e != 0) return e;
     if constexpr (kMode != kXFloor) {
-      e = narrow<Kind, kEpi>(a, maps, s);
+      e = narrow<Kind, kEpi, kTma>(a, maps, s);
       if (e != 0) return e;
       return launch_merge(a.cand_v, a.cand_i, a.cand_n, a.parts,
                           a.on_chip || kMode == kXCarry ? a.k : a.cap, a.b,
                           a.k, merge_v, merge_i, out_v, out_i, s);
     } else {
       const int smem = 1024 + kRing * kStageBytes;
-      auto* kern = extract_local<Kind, kEpi>;
-      e = ensure_smem<extract_local<Kind, kEpi>>(smem);
+      auto* kern = extract_local<Kind, kEpi, kTma>;
+      e = ensure_smem<extract_local<Kind, kEpi, kTma>>(smem);
       if (e != 0) return e;
       kern<<<a.groups * a.parts, kThreads, smem, s>>>(maps, a);
       cudaError_t err = cudaGetLastError();
@@ -1019,50 +1060,68 @@ struct LaunchExtract {
 // The legs the experiments take: int8 (int8 query), bfloat16 and float32
 // rows, float32 in TF32 at precision_name "fast" and in three TF32
 // products (F32X3: the query as (b, 2 * dim), its big then its small TF32
-// parts, read through the second query map) at "high" and "exact", each
-// with the experiments' cosine (kScale: g * aux), l2 (kL2: 2g - aux) and
-// dot (kDot: g) epilogues; kCosineOnly for X4.
-template <class L, bool kCosineOnly, class... A>
+// parts, read through the second query map, or by the copying producer at
+// its row's byte offset) at "high" and "exact", each with the experiments'
+// cosine (kScale: g * aux), l2 (kL2: 2g - aux) and dot (kDot: g)
+// epilogues; kCosineOnly for X4. kTma: the build's producer.
+template <class L, bool kCosineOnly, bool kTma, class... A>
 int dispatch_x(int elem, int epi, A... a) {
   if (kCosineOnly && epi != kScale) return (int)cudaErrorInvalidValue;
   switch (elem * 4 + epi) {
-    case kI8 * 4 + kScale: return L::template run<I8, kScale>(a...);
-    case kBF16 * 4 + kScale: return L::template run<BF16, kScale>(a...);
-    case kF32 * 4 + kScale: return L::template run<TF32, kScale>(a...);
-    case kF32X3 * 4 + kScale: return L::template run<F32X3, kScale>(a...);
+    case kI8 * 4 + kScale: return L::template run<I8, kScale, kTma>(a...);
+    case kBF16 * 4 + kScale: return L::template run<BF16, kScale, kTma>(a...);
+    case kF32 * 4 + kScale: return L::template run<TF32, kScale, kTma>(a...);
+    case kF32X3 * 4 + kScale:
+      return L::template run<F32X3, kScale, kTma>(a...);
     default: break;
   }
   if constexpr (!kCosineOnly) {
     switch (elem * 4 + epi) {
-      case kI8 * 4 + kL2: return L::template run<I8, kL2>(a...);
-      case kI8 * 4 + kDot: return L::template run<I8, kDot>(a...);
-      case kBF16 * 4 + kL2: return L::template run<BF16, kL2>(a...);
-      case kBF16 * 4 + kDot: return L::template run<BF16, kDot>(a...);
-      case kF32 * 4 + kL2: return L::template run<TF32, kL2>(a...);
-      case kF32 * 4 + kDot: return L::template run<TF32, kDot>(a...);
-      case kF32X3 * 4 + kL2: return L::template run<F32X3, kL2>(a...);
-      case kF32X3 * 4 + kDot: return L::template run<F32X3, kDot>(a...);
+      case kI8 * 4 + kL2: return L::template run<I8, kL2, kTma>(a...);
+      case kI8 * 4 + kDot: return L::template run<I8, kDot, kTma>(a...);
+      case kBF16 * 4 + kL2: return L::template run<BF16, kL2, kTma>(a...);
+      case kBF16 * 4 + kDot: return L::template run<BF16, kDot, kTma>(a...);
+      case kF32 * 4 + kL2: return L::template run<TF32, kL2, kTma>(a...);
+      case kF32 * 4 + kDot: return L::template run<TF32, kDot, kTma>(a...);
+      case kF32X3 * 4 + kL2: return L::template run<F32X3, kL2, kTma>(a...);
+      case kF32X3 * 4 + kDot:
+        return L::template run<F32X3, kDot, kTma>(a...);
       default: break;
     }
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// The C entry point of one mode file: XArgs and the merge's scratch and
-// outputs; rc is cudaGetLastError() after the launches. kV: X4's kE.
-template <int kMode, int kV, bool kCosineOnly>
-int run_extract(int elem, int epi, const XArgs& a, void* merge_v,
-                void* merge_i, void* out_v, void* out_i, void* stream) {
-  return dispatch_x<LaunchExtract<kMode, kV>, kCosineOnly>(
-      elem, epi, a, merge_v, merge_i, out_v, out_i,
-      static_cast<cudaStream_t>(stream));
+// One build of a mode file's C entry point: XArgs and the merge's scratch
+// and outputs; rc is cudaGetLastError() after the launches. kUnroll: X4's
+// unrolled builds, variant = kE (2 or 4), cosine only; kTma: the TMA
+// build, else the copying one.
+template <int kMode, bool kUnroll, bool kTma>
+int extract_entry(int elem, int epi, int variant, const XArgs& a,
+                  void* merge_v, void* merge_i, void* out_v, void* out_i,
+                  void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (kUnroll) {
+    if (variant == 2) {
+      return dispatch_x<LaunchExtract<kMode, 2>, true, kTma>(
+          elem, epi, a, merge_v, merge_i, out_v, out_i, s);
+    }
+    if (variant == 4) {
+      return dispatch_x<LaunchExtract<kMode, 4>, true, kTma>(
+          elem, epi, a, merge_v, merge_i, out_v, out_i, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  } else {
+    return dispatch_x<LaunchExtract<kMode, 1>, false, kTma>(
+        elem, epi, a, merge_v, merge_i, out_v, out_i, s);
+  }
 }
 
 }  // namespace
 }  // namespace vrod
 
 // The parameters of every extract_*.cu entry point (ops/cuda_extract.py
-// binds them), and the XArgs they make.
+// binds them) and the XArgs they make.
 #define VROD_EXTRACT_PARAMS                                                  \
   int elem, int epi, int variant, const void *x, const void *aux,            \
       const void *mask, const void *q, const void *offset, int n,            \
@@ -1071,13 +1130,25 @@ int run_extract(int elem, int epi, const XArgs& a, void* merge_v,
       void *cand_v, void *cand_i, void *cand_n, void *cnt,                   \
       void *merge_v, void *merge_i, void *out_v, void *out_i, void *stream
 #define VROD_EXTRACT_XARGS                                                   \
-  vrod::XArgs{static_cast<const int8_t*>(x),                           \
-                    static_cast<const int8_t*>(q),                           \
-                    static_cast<const float*>(aux),                          \
-                    static_cast<const float*>(mask),                         \
-                    static_cast<const int*>(offset),                         \
-                    n, b, k, row_bytes, groups, parts, cap, block_rows,      \
-                    count, on_chip, stage,                                   \
-                    static_cast<float*>(cand_v),                             \
-                    static_cast<int*>(cand_i), static_cast<int*>(cand_n),    \
-                    static_cast<int*>(cnt)}
+  vrod::XArgs{static_cast<const int8_t*>(x),                                 \
+              static_cast<const int8_t*>(q),                                 \
+              static_cast<const float*>(aux),                                \
+              static_cast<const float*>(mask),                               \
+              static_cast<const int*>(offset),                               \
+              n, b, k, row_bytes, groups, parts, cap, block_rows,            \
+              count, on_chip, stage,                                         \
+              static_cast<float*>(cand_v),                                   \
+              static_cast<int*>(cand_i), static_cast<int*>(cand_n),          \
+              static_cast<int*>(cnt)}
+// The entry point `fn` of one build of a mode (mode: an XMode; unroll:
+// X4's, variant = kE; tma: the TMA build, else the copying one). Mode file
+// extract_<name>.cu defines vrod_extract_<name> (TMA), its twin
+// extract_<name>_copy.cu vrod_extract_<name>_copy (the copying build), so
+// that nvcc compiles the two builds at once; ops/cuda_extract.py picks the
+// entry by the rows' shape.
+#define VROD_EXTRACT_ENTRY(fn, mode, unroll, tma)                            \
+  extern "C" int fn(VROD_EXTRACT_PARAMS) {                                   \
+    return vrod::extract_entry<mode, unroll, tma>(                           \
+        elem, epi, variant, VROD_EXTRACT_XARGS, merge_v, merge_i, out_v,     \
+        out_i, stream);                                                      \
+  }

@@ -8,24 +8,17 @@
 // stage into the carry. With `count` one part per query group walks the
 // rows in order and writes, per whole block and query, the carry entries
 // that block holds after it; ops/cuda_extract.py turns those into kexp2's
-// count. The mode: extract.cuh (kXCarry). Bound: K1's, the rows once.
+// count. The mode: extract.cuh (kXCarry). Bound: K1's, the rows once. This
+// file builds the TMA producer; rows TMA cannot load go to the copying
+// build, extract_carry_copy.cu.
 
 #include "extract.cuh"
 
-extern "C" int vrod_extract_carry(VROD_EXTRACT_PARAMS) {
-  (void)variant;
-  const vrod::XArgs a = VROD_EXTRACT_XARGS;
-  return vrod::run_extract<vrod::kXCarry, 1, false>(elem, epi, a, merge_v,
-                                                     merge_i, out_v, out_i,
-                                                     stream);
-}
+VROD_EXTRACT_ENTRY(vrod_extract_carry, vrod::kXCarry, false, true)
 
 // X2's whole shared memory a block at top-k with `stage` places a query,
-// the carry on chip or not (bytes; -1 if the card cannot say).
+// the carry on chip or not, in the TMA build (bytes; -1 if the card cannot
+// say; the copying build's: vrod_extract_carry_copy_smem).
 extern "C" int vrod_extract_carry_smem(int k, int stage, int on_chip) {
-  vrod::XArgs a{};
-  a.k = k;
-  a.stage = stage;
-  a.on_chip = on_chip;
-  return vrod::narrow_need<vrod::kXCarry>(a);
+  return vrod::extract_smem<vrod::kXCarry, true>(k, stage, 0, on_chip);
 }

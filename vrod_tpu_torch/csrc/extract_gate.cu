@@ -11,23 +11,17 @@
 // vote barrier a tile; a list is cut, by the warp that owns its query, only
 // when a tile's passing scores found it full. The mode: extract.cuh
 // (kXGate, kE = 1). Bound: K1's, the rows once.
+// This file builds the TMA producer; rows TMA cannot load go to the
+// copying build, extract_gate_copy.cu.
 
 #include "extract.cuh"
 
-extern "C" int vrod_extract_gate(VROD_EXTRACT_PARAMS) {
-  (void)variant;
-  const vrod::XArgs a = VROD_EXTRACT_XARGS;
-  return vrod::run_extract<vrod::kXGate, 1, false>(elem, epi, a, merge_v,
-                                                    merge_i, out_v, out_i,
-                                                    stream);
-}
+VROD_EXTRACT_ENTRY(vrod_extract_gate, vrod::kXGate, false, true)
 
 // The gated modes' whole shared memory a block with lists of `cap`, on
-// chip or not (bytes; -1 if the card cannot say). X3 and X4 declare the
+// chip or not, in the TMA build (bytes; -1 if the card cannot say; the
+// copying build's: vrod_extract_gate_copy_smem). X3 and X4 declare the
 // same shared arrays.
 extern "C" int vrod_extract_gate_smem(int cap, int on_chip) {
-  vrod::XArgs a{};
-  a.cap = cap;
-  a.on_chip = on_chip;
-  return vrod::narrow_need<vrod::kXGate>(a);
+  return vrod::extract_smem<vrod::kXGate, true>(0, 0, cap, on_chip);
 }

@@ -4,13 +4,10 @@
 // kXGate) with the gate of tile t under the wgmmas of tile t + 1: each
 // consumer warpgroup issues the next tile's stages into a second set of
 // accumulators and gates a share of this tile's scores between the
-// issues. The mode: extract.cuh (kXPingPong). Bound: K1's.
+// issues. The mode: extract.cuh (kXPingPong). Bound: K1's. This file
+// builds the TMA producer; rows TMA cannot load go to the copying build,
+// extract_pingpong_copy.cu.
 
 #include "extract.cuh"
 
-extern "C" int vrod_extract_pingpong(VROD_EXTRACT_PARAMS) {
-  (void)variant;
-  const vrod::XArgs a = VROD_EXTRACT_XARGS;
-  return vrod::run_extract<vrod::kXPingPong, 1, false>(
-      elem, epi, a, merge_v, merge_i, out_v, out_i, stream);
-}
+VROD_EXTRACT_ENTRY(vrod_extract_pingpong, vrod::kXPingPong, false, true)

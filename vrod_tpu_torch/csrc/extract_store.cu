@@ -7,22 +7,16 @@
 // k only when full (query groups of 64: ops/cuda_extract.py,
 // store_plan). The mode and its design: extract.cuh (kXStore). Bound:
 // K1's, the rows once.
+// This file builds the TMA producer; rows TMA cannot load go to the
+// copying build, extract_store_copy.cu.
 
 #include "extract.cuh"
 
-extern "C" int vrod_extract_store(VROD_EXTRACT_PARAMS) {
-  (void)variant;
-  const vrod::XArgs a = VROD_EXTRACT_XARGS;
-  return vrod::run_extract<vrod::kXStore, 1, false>(elem, epi, a, merge_v,
-                                                     merge_i, out_v, out_i,
-                                                     stream);
-}
+VROD_EXTRACT_ENTRY(vrod_extract_store, vrod::kXStore, false, true)
 
 // The store's whole shared memory a block with lists of `cap`, on chip
-// or not (bytes; -1 if the card cannot say).
+// or not, in the TMA build (bytes; -1 if the card cannot say; the copying
+// build's: vrod_extract_store_copy_smem).
 extern "C" int vrod_extract_store_smem(int cap, int on_chip) {
-  vrod::XArgs a{};
-  a.cap = cap;
-  a.on_chip = on_chip;
-  return vrod::narrow_need<vrod::kXStore>(a);
+  return vrod::extract_smem<vrod::kXStore, true>(0, 0, cap, on_chip);
 }

@@ -5,21 +5,9 @@
 // appends inside predicated per score: fewer branch points for more wasted
 // tests, as the TPU traded loop plumbing for overshoot. kexp5's only
 // epilogue is cosine. The mode: extract.cuh (kXGate, kE = variant). Bound:
-// K1's.
+// K1's. This file builds the TMA producer; rows TMA cannot load go to the
+// copying build, extract_unroll_copy.cu.
 
 #include "extract.cuh"
 
-extern "C" int vrod_extract_unroll(VROD_EXTRACT_PARAMS) {
-  const vrod::XArgs a = VROD_EXTRACT_XARGS;
-  if (variant == 2) {
-    return vrod::run_extract<vrod::kXGate, 2, true>(elem, epi, a, merge_v,
-                                                     merge_i, out_v, out_i,
-                                                     stream);
-  }
-  if (variant == 4) {
-    return vrod::run_extract<vrod::kXGate, 4, true>(elem, epi, a, merge_v,
-                                                     merge_i, out_v, out_i,
-                                                     stream);
-  }
-  return (int)cudaErrorInvalidValue;
-}
+VROD_EXTRACT_ENTRY(vrod_extract_unroll, vrod::kXGate, true, true)

@@ -114,8 +114,10 @@ constexpr int kThreads = kConsumers + 128;     // and a producer warpgroup
 // setmaxnreg.inc takes only what other warps of the block released: the
 // split keeps the launch's 168 a thread in all (kThreads x 168). K1's
 // kernels and X6/X8 (topk.cuh's gated core, whose copying producer needs
-// more than 40 registers and whose consumers fewer than 232) take
-// kGateProducerRegs / kGateConsumerRegs.
+// more than 40 registers and whose consumers fewer than 232), and the
+// extraction kernels' copying builds but X3's and X1's floor
+// (extract.cuh: x_producer_regs), take kGateProducerRegs /
+// kGateConsumerRegs.
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 constexpr int kGateProducerRegs = 56;

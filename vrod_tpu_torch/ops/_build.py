@@ -37,7 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: dict[tuple[str, ...], ctypes.CDLL] = {}
 
-# The extraction modes, one csrc/extract_<mode>.cu each.
+# The extraction modes, one csrc/extract_<mode>.cu each (and its copying
+# build, csrc/extract_<mode>_copy.cu).
 EXTRACT_MODES = ("floor", "store", "gate", "unroll", "pingpong", "carry")
 
 
@@ -188,21 +189,24 @@ def load(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.vrod_fused_intgate_floor.restype = ci
     lib.vrod_fused_intgate_floor.argtypes = [ci] + [vp] * 5 + [ci] * 8 \
         + [vp] * 4
-    # The extraction experiments X1-X4, one entry point per mode file
-    # (csrc/extract.cuh: VROD_EXTRACT_PARAMS): (elem, epi, variant, x, aux,
-    # mask, q, offset, n, row_bytes, b, k, groups, parts, cap, block_rows,
-    # count, on_chip, stage, 8 scratch/output pointers, stream)
+    # The extraction experiments X1-X4, one entry point per mode file and
+    # build (csrc/extract.cuh: VROD_EXTRACT_PARAMS; vrod_extract_<mode> the
+    # TMA build, vrod_extract_<mode>_copy the copying one,
+    # extract_<mode>_copy.cu): (elem, epi, variant, x, aux, mask, q,
+    # offset, n, row_bytes, b, k, groups, parts, cap, block_rows, count,
+    # on_chip, stage, 8 scratch/output pointers, stream)
     for mode in EXTRACT_MODES:
-        fn = getattr(lib, f"vrod_extract_{mode}")
-        fn.restype = ci
-        fn.argtypes = [ci] * 3 + [vp] * 5 + [ci] * 11 + [vp] * 9
+        for copy in ("", "_copy"):
+            fn = getattr(lib, f"vrod_extract_{mode}{copy}")
+            fn.restype = ci
+            fn.argtypes = [ci] * 3 + [vp] * 5 + [ci] * 11 + [vp] * 9
     # The carry's, the store's and the gated kernels' whole shared memory
-    # a block: (k, stage, on_chip), (cap, on_chip) and (cap, on_chip)
-    lib.vrod_extract_carry_smem.restype = ci
-    lib.vrod_extract_carry_smem.argtypes = [ci] * 3
-    lib.vrod_extract_store_smem.restype = ci
-    lib.vrod_extract_store_smem.argtypes = [ci] * 2
-    lib.vrod_extract_gate_smem.restype = ci
-    lib.vrod_extract_gate_smem.argtypes = [ci] * 2
+    # a block in each build (vrod_extract_<mode>[_copy]_smem): (k, stage,
+    # on_chip), (cap, on_chip) and (cap, on_chip)
+    for mode, n in (("carry", 3), ("store", 2), ("gate", 2)):
+        for copy in ("", "_copy"):
+            fn = getattr(lib, f"vrod_extract_{mode}{copy}_smem")
+            fn.restype = ci
+            fn.argtypes = [ci] * n
     _libs[defines] = lib
     return lib

@@ -43,13 +43,21 @@ HIGH and HIGHEST) in three TF32 products, leg ``f32x3``
 small TF32 parts, (B, 2D)), on the card and in the plain versions alike.
 Packed int4 rows are not accepted: the experiments unpack no nibbles.
 
-Each wrapper validates its inputs and dispatches on the device of the
-tensors: a CPU tensor goes to its ``*_plain`` twin, a CUDA tensor launches
-the hand-written CUDA kernel of its mode (``csrc/extract_<mode>.cu``, see
-``csrc/extract.cuh``) or raises. No wrapper falls back, and no mode maps
-to K1's build at run time. ``launches`` counts kernel launches per kernel
-and leg (e.g. ``extract_carry[bf16-l2]``, ``extract_unroll4[int8-cosine]``);
-only a CUDA launch adds to it.
+Rows of any width are taken, as the experiments take them. Each wrapper
+validates its inputs and dispatches on the device of the tensors: a CPU
+tensor goes to its ``*_plain`` twin, a CUDA tensor launches the
+hand-written CUDA kernel of its mode (``csrc/extract_<mode>.cu``, see
+``csrc/extract.cuh``) or raises. Each mode has two builds, picked by shape
+as K1's are (``cuda_topk.use_tma``): rows of whole 16-byte units at
+16-byte aligned bases (rows and the query as the kernel reads it) load by
+TMA; any other rows (int8 dim 30 or 100, bfloat16 dim 100, float32 dim 25,
+an unaligned view) take the same kernel with the producer warp copying
+each stage (``csrc/extract_<mode>_copy.cu``). Rows are never padded into a
+TMA shape. No wrapper falls back, and no mode maps to K1's build at run
+time. ``launches`` counts kernel launches per kernel and leg (e.g.
+``extract_carry[bf16-l2]``, ``extract_unroll4[int8-cosine]``), and
+``copy_launches``, with the same keys, those of them that took the copying
+build; only a CUDA launch adds to them.
 """
 
 from __future__ import annotations
@@ -92,11 +100,13 @@ def kernel_legs(kernel: str) -> tuple[str, ...]:
 
 launches = {f"extract_{kern}[{leg}]": 0 for kern in KERNELS
             for leg in kernel_legs(kern)}
+copy_launches = dict(launches)
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+        copy_launches[name] = 0
 
 
 # -- Launch plans ------------------------------------------------------------
@@ -322,12 +332,9 @@ class _XCall:
             self.q = torch.cat(K.split_tf32(q), dim=1).contiguous()
         else:
             self.q = K.tf32_round(q)
-        if self.device.type == "cuda":
-            if not K.use_tma(x, self.q, self.row_bytes):
-                raise ValueError(
-                    "the extraction kernels load by TMA: rows of a multiple "
-                    f"of 16 bytes (got {self.row_bytes}) at 16-byte aligned "
-                    "addresses")
+        # The build on the card: TMA, or the copying producer (f32x3: the
+        # query as the kernel reads it, the split (B, 2D) copy).
+        self.tma = K.use_tma(x, self.q, self.row_bytes)
 
     @property
     def row_bytes(self) -> int:
@@ -399,6 +406,13 @@ def _topk_plain(call, tiles=1, count=False):
     return vals, idx, cnt.to(torch.int32).reshape(1)
 
 
+def entry(lib, mode, tma, what=""):
+    """The library's function ``vrod_extract_<mode><what>`` of the TMA
+    build, or where not ``tma`` the copying build's
+    (``vrod_extract_<mode>_copy<what>``, csrc/extract_<mode>_copy.cu)."""
+    return getattr(lib, f"vrod_extract_{mode}{'' if tma else '_copy'}{what}")
+
+
 def _launch(kernel, call, *, count=False):
     """One kernel's launches on the card; (values, slots, per-block counts
     (n_scan / block_rows, B) or None)."""
@@ -418,7 +432,7 @@ def _launch(kernel, call, *, count=False):
         cnt = torch.empty(size["cnt"], dtype=i32, device=dev)
         merge_v = torch.empty(size["merge"], dtype=f32, device=dev)
         merge_i = torch.empty(size["merge"], dtype=i32, device=dev)
-        rc = getattr(lib, f"vrod_extract_{mode}")(
+        rc = entry(lib, mode, call.tma)(
             call.elem, call.epi, unroll, call.x.data_ptr(),
             call.aux.data_ptr(), call.mask.data_ptr(), call.q.data_ptr(),
             call.offset.data_ptr(), call.n_scan, call.row_bytes, b, k,
@@ -428,7 +442,10 @@ def _launch(kernel, call, *, count=False):
             cnt.data_ptr(), merge_v.data_ptr(), merge_i.data_ptr(),
             out_v.data_ptr(), out_i.data_ptr(), K._stream(dev))
     K._ok(rc, f"extract_{mode} launch")
-    launches[f"extract_{kernel}[{call.leg}]"] += 1
+    name = f"extract_{kernel}[{call.leg}]"
+    launches[name] += 1
+    if not call.tma:
+        copy_launches[name] += 1
     return out_v, out_i, cnt.reshape(call.nblocks, b) if count else None
 
 

@@ -106,13 +106,20 @@ nothing falls back to the CPU or to a plain version):
    X2's count at tiles 1, 2 and 4, each against its plain twin or closed
    form; and the plans' shared memory equal to the built kernels' own, k
    1 to 256, in the TMA and the copying builds. Then rows TMA cannot load,
-   which every kernel takes through its copying build (the producer warp
-   copies each stage; ``copy_launches`` counts those launches), not
-   counted: every kernel x every leg it takes at 16,384 x 30 (no row a
-   whole number of 16-byte units), b256, k 28 and 211 (``copy_edges``),
-   then each kernel on an 8-byte-offset contiguous view of int8 dim-768
-   rows, each against its plain twin (int8 EXACT, floats within the
-   bound), every kernel and leg launching its copying build. Last, the
+   which every kernel takes through its copying build (the producer
+   warpgroup copies each stage by the widest granule the shape allows,
+   ``cuda_topk.copy_granule``: cp.async of 8 or 4 bytes, plain loads of 2
+   or 1; ``copy_launches`` counts those launches), not counted: every
+   extraction kernel x every leg it takes at 16,384 x 30 (no row a whole
+   number of 16-byte units) and at 16,384 rows of glove-100's widths
+   (``COPY_WIDTHS``: int8 and bfloat16 dim 100, float32 and f32x3 dim
+   25), b256, k 28 and 211 (``copy_edges``), then each kernel on an
+   8-byte-offset contiguous view of int8 dim-768 rows; then K3, K1 (the
+   gated core and the scan from a floor, k 28 and 211), X6/X8 and X9 on
+   every leg at ``COPY_WIDTHS`` (packed int4 dim 100: 50 bytes) and
+   69,709 rows (``copy_scans``); each against its plain twin (int8 EXACT,
+   floats within the bound), every kernel and leg launching its copying
+   build by the granule its width gives. Last, the
    copying builds' path at full width (``glove_path``): a state the size
    of ann-benchmarks' glove-100-angular, 1,183,514 x 100 seeded cosine
    rows (int8 rows of 100 bytes, bfloat16 of 200), int8 and bfloat16, b256,
@@ -120,7 +127,17 @@ nothing falls back to the CPU or to a plain version):
    with no floor, with the extraction counters set to 0 before and read
    after (every kernel must launch, every launch its copying build); then,
    not counted, each kernel against its plain twin there; their times go
-   to the kernels line as ``extract_<kernel>_copy[<leg>]``.
+   to the kernels line as ``extract_<kernel>_copy[<leg>]``. Then the main
+   path on a GloVe-shaped collection (``glove_engine``):
+   ``DeviceEngine.write`` of the same shape, int8 and bfloat16 cosine, and
+   10 ``engine.search`` batches of 256 at top-16 (int8: the floor opens,
+   K3 and K1's scan from a floor; bfloat16: the floor stays closed, K1's
+   gated core), K1's and K3's counters set to 0 before the searches and
+   read after (every launch a copying one), every answer recall 1.0
+   against the exact float32 scan; then, not counted, K1 and K3 at a
+   search's inputs against their plain versions, timed beside their bound
+   and library call: the kernels line's ``fused_topk_copy[<leg>]`` and
+   ``sampled_submax_copy[int8-cosine]``, with the search p50.
 6. Serving, on the main path. During its ingest every chunk is also
    quantized on the port's CPU path: the share of stored bytes that differ
    (a cosine norm whose last ulp differs flips a byte at a rounding edge)
@@ -339,6 +356,18 @@ EDGE_BATCHES = (1, 200, 300)
 # 100 bytes, bfloat16 of 200), int8 and bfloat16 cosine, b256, k 28.
 COPY_ROWS, COPY_DIM, COPY_KS = 16384, 30, (28, 211)
 GLOVE_ROWS, GLOVE_DIM, GLOVE_KSCAN = 1_183_514, 100, 28
+# The copying producer's wider granules (cuda_topk.copy_granule), each row
+# kind at a width of its own: int8 dim 100 (glove-100's 100 bytes) copies
+# by 4 bytes, bfloat16 dim 100 by 8, float32 (and f32x3's split query) at
+# dim 25 by 4, packed int4 dim 100 (50 bytes) by 2; the extraction kernels
+# at COPY_ROWS rows, K1, K3, X6/X8 and X9 at COPY_SCAN_ROWS (past K1's
+# small scan at b256, no multiple of 128).
+COPY_WIDTHS = {"int8": (100, 4), "int4": (100, 2), "bf16": (100, 8),
+               "f32": (25, 4), "f32x3": (25, 4)}
+COPY_SCAN_ROWS = 69632 + 77
+# The main path on a GloVe-shaped collection (phase 5's ``glove_engine``):
+# top-k and searches of each dtype.
+GLOVE_TOPK, GLOVE_SEARCHES = 16, 10
 # The serve phase (6): client processes and connections in each (256 in
 # flight: one full batch of the server's QueryBatcher), their single
 # queries (batches of the main path's queries), and the replica's rows.
@@ -623,7 +652,8 @@ class Compare:
         from vrod_tpu_torch.ops import cuda_floor as F
         from vrod_tpu_torch.ops import cuda_topk as K
         names = list(K.launches) + list(F.launches) + list(X.launches) \
-            + [copy_name(n) for n in X.copy_launches]
+            + [copy_name(n) for n in list(X.copy_launches)
+               + list(K.copy_launches)]
         self.max_err = {name: 0.0 for name in names}
         # Largest |kernel - plain| / bound (float legs), and per float leg
         # the smallest such share that a truncating control reached.
@@ -657,7 +687,9 @@ class Compare:
         self.max_share[name] = max(self.max_share[name],
                                    self._share(got, want, bound))
 
-    def submax(self, leg, args, kw, blk, what):
+    def submax(self, leg, args, kw, blk, what, name=None):
+        """K3 against its plain version (``name``: the kernels line's name
+        its error goes to, by default its leg's)."""
         import torch
         from vrod_tpu_torch.ops import cuda_topk as K
         metric = leg.split("-")[1]
@@ -673,7 +705,7 @@ class Compare:
         if ((got - want).abs().where(fin, 0.0) > bound).any():
             raise AssertionError(f"{what}: K3 differs from plain beyond "
                                  "the bound")
-        self._err(f"sampled_submax[{leg}]", got, want, bound)
+        self._err(name or f"sampled_submax[{leg}]", got, want, bound)
         # K3 scores with K1's code: its maximum is K1's top-1, bit for bit.
         top1, _ = K.fused_topk(*args, k=1, metric=metric, **kw)
         if not torch.equal(top1[:, 0], got.amax(dim=1)):
@@ -688,7 +720,7 @@ class Compare:
         return got
 
     def topk(self, leg, args, kw, k, what, offset=0, theta0=None,
-             bound=None):
+             bound=None, name=None):
         import torch
         from vrod_tpu_torch.ops import cuda_topk as K
         metric = leg.split("-")[1]
@@ -703,7 +735,7 @@ class Compare:
         msg = K.topk_disagreement(*got, *want, bound)
         if msg:
             raise AssertionError(f"{what}: K1 vs plain: {msg}")
-        self._err(f"fused_topk[{leg}]", got[0], want[0], bound)
+        self._err(name or f"fused_topk[{leg}]", got[0], want[0], bound)
         return got
 
     def control(self, leg, args, kw, k, what):
@@ -739,25 +771,25 @@ class Compare:
             self.control_share[leg] = min(
                 self.control_share.get(leg, share), share)
 
-    def theta(self, leg, args, k, blk, s_blocks, margin, skip, what):
+    def theta(self, leg, args, k, blk, s_blocks, margin, skip, what,
+              extra=None):
         """fused_theta (X6/X8) against its plain version: int8/int4
         EXACT, theta0 too; float legs within the bound. On every leg theta0
         is bisect_floor of K3's sub-maxima (K1's scores) less the margin,
-        bit for bit."""
+        bit for bit. ``extra``: the leg's keywords (``kernel_inputs``)."""
         import torch
         from vrod_tpu_torch.ops import cuda_floor as F
         from vrod_tpu_torch.ops import cuda_topk as K
         from vrod_tpu_torch.ops import distances as D
-        metric, precision = leg.split("-")[1], leg_precision(leg)
+        metric = leg.split("-")[1]
+        extra = dict(extra or {}, precision=leg_precision(leg))
         kw = dict(k=k, metric=metric, block_rows=blk, s_blocks=s_blocks,
                   margin=margin, skip_sample_dots=skip, return_theta=True,
-                  precision=precision)
+                  **extra)
         got = F.fused_theta(*args, **kw)
         want = F.fused_theta_plain(*args, **kw)
-        ns = blk * s_blocks
-        sub = K.sampled_submax(*[a[:ns] for a in args[:3]], args[3],
-                               metric=metric, block_rows=blk,
-                               precision=precision)
+        sample, skw = sample_of(args, extra, blk * s_blocks)
+        sub = K.sampled_submax(*sample, metric=metric, block_rows=blk, **skw)
         bound = error_bound(args, leg)
         torch.cuda.synchronize()
         self._same_form(got, want, f"{what}: fused_theta")
@@ -831,7 +863,7 @@ class Compare:
 
 
 def copy_name(name):
-    """The kernels line's name of an extraction kernel's copying build:
+    """The kernels line's name of a kernel's copying build:
     ``extract_gate[int8-cosine]`` -> ``extract_gate_copy[int8-cosine]``."""
     kern, leg = name.split("[", 1)
     return f"{kern}_copy[{leg}"
@@ -1386,38 +1418,53 @@ def extract_edges(cmp, card, dev):
 
 
 def copy_edges(cmp, card, dev):
-    """Phase 5's rows that TMA cannot load, not counted: every kernel on
-    every leg it takes (int8, bfloat16, float32 and f32x3 x cosine, l2,
-    dot; X4 cosine) at COPY_ROWS x COPY_DIM seeded cosine rows, b256, at
-    each of COPY_KS, then each kernel once on an 8-byte-offset contiguous
-    view of int8 dim-768 rows at k 28; each against its plain twin (int8
-    EXACT, the float legs within the bound). Every kernel and leg must
-    have launched its copying build (``copy_launches``) in each."""
+    """Phase 5's rows that TMA cannot load, not counted: every extraction
+    kernel on every leg it takes (int8, bfloat16, float32 and f32x3 x
+    cosine, l2, dot; X4 cosine) at COPY_ROWS seeded cosine rows, b256, at
+    each of COPY_KS, at two widths: COPY_DIM (30: granules of 2 bytes at
+    int8, 4 at bfloat16, 8 at float32 and f32x3) and each row kind's
+    COPY_WIDTHS (4 at int8, float32 and f32x3, 8 at bfloat16: glove-100's
+    widths); then each kernel once on an
+    8-byte-offset contiguous view of int8 dim-768 rows at k 28; then
+    ``copy_scans`` (K1, K3, X6/X8, X9 at COPY_WIDTHS). Each against its
+    plain twin (int8 EXACT, the float legs within the bound). Every kernel
+    and leg must have launched its copying build (``copy_launches``) in
+    each, by the granule its width gives (``cuda_topk.copy_granule``)."""
     import torch
     from vrod_tpu_torch.ops import cuda_extract as X
     wall0 = time.perf_counter()
     ke = tool_module("kexp_extract")
-    X.reset_launches()
-    for i, dtype in enumerate(X.X_DTYPES):
-        state = ke.make_state("f32" if dtype == "f32x3" else dtype,
-                              COPY_ROWS, COPY_DIM, BATCH, 70 + i, dev)
-        xargs = ke.experiment_args(state)
-        for metric in X.X_METRICS:
-            for kern in X.KERNELS:
-                if f"{dtype}-{metric}" not in X.kernel_legs(kern):
-                    continue
-                for k in COPY_KS:
-                    cmp.extract(kern, f"{dtype}-{metric}", xargs, k,
-                                f"dim {COPY_DIM} {dtype}-{metric} k {k}")
-    copies = dict(X.copy_launches)
-    short = [n for n, c in copies.items() if c != len(COPY_KS)]
-    if short or copies != X.launches:
-        raise AssertionError(f"dim {COPY_DIM}: the copying builds launched "
-                             f"{copies}, of {X.launches} launches; short: "
-                             f"{short}")
-    log(f"rows TMA cannot load: {len(copies)} kernel-legs x k {COPY_KS} at "
-        f"{COPY_ROWS} x {COPY_DIM}, b{BATCH}: each agrees with its plain "
-        f"twin, each launched its copying build {len(COPY_KS)} times [{card}]")
+    for width in ("dim", "wide"):
+        X.reset_launches()
+        granules = {}
+        for i, dtype in enumerate(X.X_DTYPES):
+            d = COPY_DIM if width == "dim" else COPY_WIDTHS[dtype][0]
+            state = ke.make_state("f32" if dtype == "f32x3" else dtype,
+                                  COPY_ROWS, d, BATCH, 70 + i, dev)
+            xargs = ke.experiment_args(state)
+            granules[dtype] = X._XCall(
+                *xargs, k=28, metric="cosine", block_rows=EXTRACT_BLOCK,
+                precision_name=leg_precision(f"{dtype}-cosine")).granule
+            if width == "wide" and granules[dtype] != COPY_WIDTHS[dtype][1]:
+                raise AssertionError(f"{dtype} dim {d}: granule "
+                                     f"{granules[dtype]}")
+            for metric in X.X_METRICS:
+                for kern in X.KERNELS:
+                    if f"{dtype}-{metric}" not in X.kernel_legs(kern):
+                        continue
+                    for k in COPY_KS:
+                        cmp.extract(kern, f"{dtype}-{metric}", xargs, k,
+                                    f"dim {d} {dtype}-{metric} k {k}")
+        copies = dict(X.copy_launches)
+        short = [n for n, c in copies.items() if c != len(COPY_KS)]
+        if short or copies != X.launches:
+            raise AssertionError(f"{width}: the copying builds launched "
+                                 f"{copies}, of {X.launches} launches; "
+                                 f"short: {short}")
+        log(f"rows TMA cannot load: {len(copies)} kernel-legs x k "
+            f"{COPY_KS} at {COPY_ROWS} rows of granules {granules} bytes, "
+            f"b{BATCH}: each agrees with its plain twin, each launched its "
+            f"copying build {len(COPY_KS)} times [{card}]")
     state = ke.make_state("int8", COPY_ROWS, DIM, BATCH, 78, dev)
     flat = torch.empty(state[0].numel() + 8, dtype=torch.int8, device=dev)
     view = flat[8:].view(state[0].shape)
@@ -1437,6 +1484,59 @@ def copy_edges(cmp, card, dev):
     log(f"rows TMA cannot load: each kernel on an 8-byte-offset view of "
         f"{COPY_ROWS} x {DIM} int8 rows agrees with its plain twin through "
         f"its copying build; {time.perf_counter() - wall0:.1f} s [{card}]")
+    copy_scans(cmp, card, dev)
+
+
+def copy_scans(cmp, card, dev):
+    """K1, K3, X6/X8 and X9 on rows TMA cannot load, not counted: every
+    leg at its row kind's COPY_WIDTHS (granules of 4, 8 and packed int4's
+    2), COPY_SCAN_ROWS seeded rows with dead slots, b256: K3 on an
+    8,192-row sample (its max K1's top-1 from the small scan and the long
+    scan, bit for bit), K1 at each of COPY_KS without a floor (the gated
+    core) and from K3's floor (the scan from a floor), X6/X8 at k 28, and
+    X9 (int8 cosine and dot) without and with the floor, each against its
+    plain version. Every K1 and K3 launch must have copied, by the
+    granule the width gives."""
+    import torch
+    from vrod_tpu_torch.ops import cuda_topk as K
+    wall0 = time.perf_counter()
+    rng = np.random.default_rng(85)
+    K.reset_launches()
+    for leg in K.LEGS:
+        dtype = leg.split("-")[0]
+        d, granule = COPY_WIDTHS[dtype]
+        x = torch.from_numpy(rng.standard_normal((COPY_SCAN_ROWS, d),
+                                                 dtype=np.float32))
+        q = torch.from_numpy(rng.standard_normal((BATCH, d),
+                                                 dtype=np.float32))
+        args, kw = kernel_inputs(x, q, leg, dev, dead_every=7)
+        got = K._Call(*args, leg.split("-")[1], kw.get("row_bias"),
+                      kw.get("q_scale"), kw["packed"],
+                      kw.get("precision", "fast")).granule
+        if got != granule:
+            raise AssertionError(f"{leg} dim {d}: granule {got}")
+        what = f"{leg} dim {d} ({granule}-byte copies)"
+        sample, skw = sample_of(args, kw, 8192)
+        sub = cmp.submax(leg, sample, skw, 2048, f"{what} K3")
+        for k in COPY_KS:
+            cmp.topk(leg, args, kw, k, f"{what} K1 k {k}")
+            theta0 = floor_theta(sub, k, args, leg)
+            cmp.topk(leg, args, kw, k, f"{what} K1 k {k}, floor",
+                     theta0=theta0)
+        cmp.theta(leg, args, 28, 2048, 8, None, False, f"{what} X8", kw)
+        if leg in ("int8-cosine", "int8-dot"):
+            for t0 in (None, floor_theta(sub, 28, args, leg)):
+                cmp.intgate(leg, args, 28, t0, f"{what} X9")
+    if K.copy_launches != K.launches or \
+            any(K.launches[f"fused_topk[{leg}]"] == 0 for leg in K.LEGS):
+        raise AssertionError(f"rows TMA cannot load: K1/K3 launched "
+                             f"{K.launches}, copying {K.copy_launches}")
+    log(f"rows TMA cannot load: K3, K1 (gated core and scan from a floor; "
+        f"k {COPY_KS}), X6/X8 and X9 on every leg at {COPY_SCAN_ROWS} rows "
+        f"of {json.dumps(COPY_WIDTHS)} (dim, granule), b{BATCH}: each "
+        f"agrees with its plain version; K1/K3 launches "
+        f"{sum(K.launches.values())}, every one copying; "
+        f"{time.perf_counter() - wall0:.1f} s [{card}]")
 
 
 def glove_path(cmp, card, dev):
@@ -1504,6 +1604,160 @@ def glove_path(cmp, card, dev):
         del state, xargs
         torch.cuda.empty_cache()
     log(f"glove-100 path: {time.perf_counter() - wall0:.1f} s")
+    out.update(glove_engine(cmp, card, dev))
+    return out
+
+
+def glove_engine(cmp, card, dev):
+    """The main path on a GloVe-shaped collection: ``DeviceEngine.write``
+    of GLOVE_ROWS x GLOVE_DIM seeded cosine rows, then GLOVE_SEARCHES
+    ``engine.search`` batches of BATCH queries at top-GLOVE_TOPK, int8 (its
+    floor opens: K3 and K1's scan from a floor) and bfloat16 (its floor
+    stays closed: K1's gated core), every row of 100 or 200 bytes, which
+    TMA cannot load. K1's and K3's launch and copy counters are set to 0
+    just before the searches and read just after: every launch must have
+    copied. Every answer has recall 1.0 against the exact float32 scan on
+    the card. Then, not counted, K1 (and K3) at a search's inputs against
+    their plain versions, timed beside their bound and library call.
+    Returns their kernels-line entries (``copy_name``)."""
+    import torch
+    from vrod_tpu_torch.config import CollectionConfig
+    from vrod_tpu_torch.engine import DeviceEngine, FloorSettings, floor_gate
+    from vrod_tpu_torch.ops import cuda_topk as K
+    from vrod_tpu_torch.ops import distances as D
+    wall0 = time.perf_counter()
+    out = {}
+    for i, dtype in enumerate(("int8", "bf16")):
+        leg = f"{dtype}-cosine"
+        rng = np.random.default_rng(95 + i)
+        eng = DeviceEngine(CollectionConfig(
+            name="glove", dim=GLOVE_DIM, metric="cosine",
+            dtype=DB_DTYPE[dtype]), device=dev)
+        eng.ensure_capacity(GLOVE_ROWS)
+        t0 = time.perf_counter()
+        step = eng.WRITE_CHUNK_ROWS
+        for lo in range(0, GLOVE_ROWS, step):
+            hi = min(GLOVE_ROWS, lo + step)
+            eng.write(np.arange(lo, hi), rng.standard_normal(
+                (hi - lo, GLOVE_DIM), dtype=np.float32))
+        torch.cuda.synchronize(dev)
+        write_s = time.perf_counter() - t0
+        queries = [rng.standard_normal((BATCH, GLOVE_DIM), dtype=np.float32)
+                   for _ in range(GLOVE_SEARCHES)]
+        eng.search(queries[0], GLOVE_TOPK)  # warm-up, not timed
+        K.reset_launches()
+        lat, found = [], []
+        for qb in queries:
+            t1 = time.perf_counter()
+            found.append(eng.search(qb, GLOVE_TOPK))
+            lat.append((time.perf_counter() - t1) * 1e3)
+        launches, copies = dict(K.launches), dict(K.copy_launches)
+        floor = dtype == "int8"
+        want = {f"fused_topk[{leg}]": GLOVE_SEARCHES,
+                f"sampled_submax[{leg}]": GLOVE_SEARCHES if floor else 0}
+        ran = {n: c for n, c in launches.items() if c}
+        if ran != {n: c for n, c in want.items() if c} or \
+                copies != launches or \
+                K.floor_scans[leg] != (GLOVE_SEARCHES if floor else 0):
+            raise AssertionError(
+                f"glove-100 {leg} searches: launches {ran}, copying "
+                f"{ {n: c for n, c in copies.items() if c} }, from a floor "
+                f"{K.floor_scans[leg]}; want {want}, every one copying")
+        for qb, (vals, slots) in zip(queries, found):
+            kth = oracle_kth(eng, qb, GLOVE_TOPK)
+            for b in range(BATCH):
+                ids = slots[b].tolist()
+                tol = RECALL_EPS * max(abs(float(kth[b])), 1.0)
+                if len(set(ids)) != GLOVE_TOPK or min(ids) < 0 or \
+                        max(ids) >= GLOVE_ROWS or \
+                        (vals[b] < kth[b] - tol).any():
+                    raise AssertionError(
+                        f"glove-100 {leg}: query {b} recall < 1 (slots "
+                        f"{ids}, scores {vals[b]}, exact k-th {kth[b]})")
+        p50 = float(np.percentile(lat, 50))
+        log(f"glove-100 {leg}: DeviceEngine.write of {GLOVE_ROWS:,} x "
+            f"{GLOVE_DIM} in {write_s:.2f} s; engine.search b{BATCH} "
+            f"top-{GLOVE_TOPK} p50 {p50:.3f} ms, max {max(lat):.3f} ms over "
+            f"{GLOVE_SEARCHES} batches, recall 1.0; launches {ran}, every "
+            f"one copying [{card}]")
+        # The kernels at a search's inputs (not counted).
+        k_scan = eng.scan_widths(GLOVE_TOPK)[1]
+        q = torch.from_numpy(queries[0]).to(dev)
+        q_scan, extras = eng.scan_inputs(q, D.prepare_queries(
+            q, metric="cosine"))
+        ok, ns, blk = floor_gate(eng.capacity, k_scan, eng.storage_dim,
+                                 eng.x.element_size(), eng.quant,
+                                 FloorSettings.from_env())
+        if ok != floor:
+            raise AssertionError(f"glove-100 {leg}: floor gate {ok}")
+        a1 = [eng.x, eng.aux, eng.valid, q_scan]
+        granule = K._Call(*a1, "cosine", None, None, False).granule
+        name1 = copy_name(f"fused_topk[{leg}]")
+        theta0, times = None, {}
+        gemm = library_gemm(leg, a1[0], a1[3])
+        library = {"fused_topk_library": cuda_time_ms(
+            lambda: gemm().topk(k_scan, dim=1), iters=5)}
+        del gemm
+        if floor:
+            a3, kw3 = sample_of(a1, extras, ns)
+            name3 = copy_name(f"sampled_submax[{leg}]")
+            sub = cmp.submax(leg, a3, kw3, blk, f"glove-100 {leg} K3",
+                             name=name3)
+            theta0 = floor_theta(sub, k_scan, a1, leg)
+            kw3 = dict(metric="cosine", block_rows=blk, **kw3)
+            times[name3] = dict(
+                ms=cuda_time_ms(lambda: K.sampled_submax(*a3, **kw3)),
+                device_ms=graph_ms(lambda: K.sampled_submax(*a3, **kw3)),
+                plain_ms=cuda_time_ms(
+                    lambda: K.sampled_submax_plain(*a3, **kw3), iters=2,
+                    warmup=1),
+                bound=bound_of(a3, BATCH * 128 * (ns // blk) * 4,
+                               2 * BATCH * ns * GLOVE_DIM, dtype),
+                library_ms=library_times(leg, a1, k_scan, a3, blk)[
+                    "sampled_submax_library"],
+                launches=launches[f"sampled_submax[{leg}]"],
+                source=SOURCES["sampled_submax"][0],
+                replaces=SOURCES["sampled_submax"][1], sample=ns)
+        cmp.topk(leg, a1, extras, k_scan, f"glove-100 {leg} K1",
+                 theta0=theta0, name=name1)
+        kw1 = dict(k=k_scan, metric="cosine", theta0=theta0, **extras)
+        times[name1] = dict(
+            ms=cuda_time_ms(lambda: K.fused_topk(*a1, **kw1)),
+            device_ms=graph_ms(lambda: K.fused_topk(*a1, **kw1)),
+            plain_ms=cuda_time_ms(lambda: K.fused_topk_plain(*a1, **kw1),
+                                  iters=2, warmup=1),
+            bound=bound_of(a1 + ([theta0] if floor else []),
+                           BATCH * k_scan * 8,
+                           2 * BATCH * eng.capacity * GLOVE_DIM, dtype),
+            library_ms=library["fused_topk_library"],
+            launches=launches[f"fused_topk[{leg}]"],
+            source=SOURCES["fused_topk"][0] if floor
+            else "vrod_tpu_torch/csrc/fused_topk.cu",
+            replaces=SOURCES["fused_topk"][1])
+        for name, t in times.items():
+            bound_ms, bound_by = t["bound"]
+            log(f"{name}: {t['launches']} launches on the glove-100 "
+                f"{leg} searches; at their inputs ({eng.capacity:,} rows of "
+                f"{GLOVE_DIM}, {granule}-byte copies, b{BATCH}, k_scan "
+                f"{k_scan}{', from a floor' if floor else ', no floor'}): "
+                f"{t['ms']:.4f} ms (graph replay {t['device_ms']:.4f} ms) "
+                f"vs plain {t['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}; {bound_ms / t['ms']:.1%} of it reached), "
+                f"library (two calls) {t['library_ms']:.4f} ms; "
+                f"engine.search p50 {p50:.3f} ms; max abs err vs plain "
+                f"{cmp.max_err[name]:.6g} [{card}]")
+            out[name] = {"entry": {
+                "name": name, "route": "cuda", "source": t["source"],
+                "replaces": t["replaces"], "launches": t["launches"],
+                "max_abs_err": cmp.max_err[name], "ms": t["ms"],
+                "graph_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": t["library_ms"], "rows": GLOVE_ROWS,
+                "dim": GLOVE_DIM, "granule": granule,
+                "search_p50_ms": p50}}
+        del eng, a1, found
+        torch.cuda.empty_cache()
+    log(f"glove-100 engine path: {time.perf_counter() - wall0:.1f} s")
     return out
 
 
@@ -2939,6 +3193,9 @@ def main(argv=None) -> int:
     if len(copies) != 1:
         raise AssertionError("the glove-100 path ran no copying build")
     for kname, t in copies[0].items():
+        if "entry" in t:  # K1 and K3 on the glove-100 engine path
+            kernels.append(t["entry"])
+            continue
         kern = t["kern"]
         fn = X.KERNEL_CALLS[kern][0]
         bound_ms, bound_by = t["bound"]

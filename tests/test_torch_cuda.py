@@ -931,6 +931,106 @@ def test_cuda_extract_refuses_what_it_cannot_score(rng, cuda_device):
             x_agree("int8", leg.split("-")[1], args, got, want)
 
 
+# Rows TMA cannot load, by each granule of the copying producer
+# (cuda_topk.copy_granule): dim and granule of each row kind. int8 dim 100
+# (glove-100's 100 bytes) copies by 4, bfloat16 dim 100 (200 bytes) by 8,
+# packed int4 dim 100 (50 bytes) by 2, float32 dim 25 (100 bytes; f32x3's
+# split query too) by 4.
+COPY_WIDTHS = {"int8": (100, 4), "int4": (100, 2), "bf16": (100, 8),
+               "f32": (25, 4), "f32x3": (25, 4)}
+COPY_ROWS = 69632 + 77  # past the small scan at b256, no multiple of 128
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leg", cuda_topk.LEGS)
+def test_cuda_copy_granules_match_plain(rng, cuda_device, leg):
+    """K3, K1 (its scan from a floor and its gated core), X6/X8 and, on its
+    legs, X9 on rows TMA cannot load, at the leg's COPY_WIDTHS and
+    COPY_ROWS rows, b256, with dead slots, at k 28 and 211 (past the
+    gated lists' on-chip edge), against their plain versions (int8/int4
+    EQUAL, float legs within the bound; K3's max K1's top-1 bit for bit):
+    every K1 and K3 launch copied, by the granule the shape gives."""
+    dtype, metric = leg.split("-")
+    d, granule = COPY_WIDTHS[dtype]
+    args, kw = make_state(rng, COPY_ROWS, d, 256, cuda_device, leg, 7)
+    call = cuda_topk._Call(*args, metric, kw.get("row_bias"),
+                           kw.get("q_scale"), kw["packed"],
+                           kw.get("precision", "fast"))
+    assert call.granule == granule
+    bound = bound_of(args, kw, metric)
+    cuda_topk.reset_launches()
+    sample, skw = sample_of(args, kw, 8192)
+    sub = cuda_topk.sampled_submax(*sample, metric=metric, block_rows=2048,
+                                   **skw)
+    subp = cuda_topk.sampled_submax_plain(*sample, metric=metric,
+                                          block_rows=2048, **skw)
+    top1, _ = cuda_topk.fused_topk(*sample, k=1, metric=metric, **skw)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isneginf(sub), torch.isneginf(subp))
+    fin = torch.isfinite(subp)
+    assert not ((sub - subp).abs().where(fin, 0.0)
+                > bound_of(sample, skw, metric)).any()
+    assert torch.equal(top1[:, 0], sub.amax(dim=1))
+    for k in (28, 211):
+        for floor in (False, True):
+            theta0 = TD.threshold_from_submax(sub, k, method="count") \
+                if floor else None
+            v, i = cuda_topk.fused_topk(*args, k=k, metric=metric,
+                                        theta0=theta0, **kw)
+            vp, ip = cuda_topk.fused_topk_plain(*args, k=k, metric=metric,
+                                                theta0=theta0, **kw)
+            torch.cuda.synchronize()
+            msg = cuda_topk.topk_disagreement(v, i, vp, ip, bound)
+            assert msg is None, f"k {k}, floor {floor}: {msg}"
+    assert cuda_topk.floor_scans[leg] == 2
+    assert cuda_topk.copy_launches == cuda_topk.launches
+    assert cuda_topk.launches[f"fused_topk[{leg}]"] == 5
+    th = dict(k=28, metric=metric, block_rows=2048, s_blocks=8, **kw)
+    v, i, t0 = cuda_floor.fused_theta(*args, return_theta=True, **th)
+    vp, ip, t0p = cuda_floor.fused_theta_plain(*args, return_theta=True,
+                                               **th)
+    torch.cuda.synchronize()
+    assert cuda_topk.topk_disagreement(v, i, vp, ip, bound) is None
+    if dtype in ("int8", "int4"):
+        assert torch.equal(t0, t0p)
+    if leg in ("int8-cosine", "int8-dot"):
+        theta0 = TD.threshold_from_submax(sub, 28, method="count")
+        for t in (None, theta0):
+            v, i = cuda_floor.fused_intgate(*args, k=28, metric=metric,
+                                            theta0=t)
+            vp, ip = cuda_floor.fused_intgate_plain(*args, k=28,
+                                                    metric=metric, theta0=t)
+            torch.cuda.synchronize()
+            assert torch.equal(v, vp) and torch.equal(i, ip)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [28, 211])
+@pytest.mark.parametrize("mode,leg", [
+    (kern, leg) for kern in X_KERNELS
+    for leg in cuda_extract.kernel_legs(kern)])
+def test_cuda_extract_copy_granules_match_plain(rng, cuda_device, k, mode,
+                                                leg):
+    """Every extraction kernel on every leg it takes, on rows TMA cannot
+    load at its row kind's COPY_WIDTHS (int8 by 4 bytes, bfloat16 by 8,
+    float32 and f32x3 by 4), 4,173 rows (no multiple of 128; whole blocks
+    of 1,024), b256, k 28 and 211: one launch of the copying build, EQUAL
+    to the plain twin at int8, within the bound at the float legs."""
+    dtype, metric = leg.split("-")
+    d, granule = COPY_WIDTHS[dtype]
+    args = x_args(rng, 4096 + 77, d, 256, cuda_device, dtype, 3)
+    kw = dict(k=k, metric=metric, block_rows=1024,
+              precision_name=x_precision(dtype))
+    cuda_extract.reset_launches()
+    got = cuda_extract.run_kernel(mode, *args, **kw)
+    want = cuda_extract.run_kernel(mode, *args, plain=True, **kw)
+    torch.cuda.synchronize()
+    name = f"extract_{mode}[{leg}]"
+    assert cuda_extract.launches[name] == 1
+    assert cuda_extract.copy_launches[name] == 1
+    x_agree(dtype, metric, args, got, want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,metric", [("int8", "cosine"),
                                           ("int8", "l2"),

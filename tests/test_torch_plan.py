@@ -156,6 +156,49 @@ def test_tma_dispatch_by_shape(dtype, dim, packed, tma):
         assert not K.use_tma(flat[1:].view(64, dim), q, row_bytes)
 
 
+def _view(dtype, n, dim, offset):
+    """(n, dim) rows ``offset`` bytes past the 64-byte aligned base of a
+    flat tensor (a contiguous view, as a slice of a larger store is)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    flat = torch.zeros(n * dim + offset // size, dtype=dtype)
+    return flat[offset // size:].view(n, dim)
+
+
+@pytest.mark.parametrize("dtype,dim,packed,precision,offset,granule", [
+    (torch.int8, 100, False, "fast", 0, 4),       # glove-100 int8: 100 B
+    (torch.bfloat16, 100, False, "fast", 0, 8),   # 200 B
+    (torch.int8, 30, False, "fast", 0, 2),
+    (torch.int8, 15, True, "fast", 0, 1),         # packed int4 dim 30
+    (torch.int8, 50, True, "fast", 0, 2),         # packed int4 dim 100
+    (torch.float32, 25, False, "fast", 0, 4),
+    (torch.float32, 25, False, "high", 0, 4),     # f32x3: the split query
+    (torch.float32, 26, False, "exact", 0, 8),    # f32x3, 104 B rows
+    (torch.int8, 768, False, "fast", 8, 8),       # 8-byte-offset view
+    (torch.int8, 768, False, "fast", 4, 4),       # 4-byte-offset view
+    (torch.int8, 768, False, "fast", 0, 16),      # whole 16-byte rows: TMA
+    (torch.bfloat16, 96, False, "fast", 0, 16),
+    (torch.float32, 96, False, "high", 0, 16),
+])
+def test_copy_granule_by_shape(dtype, dim, packed, precision, offset,
+                               granule):
+    """The launch's granule, as the wrapper passes it (the query as the
+    kernel reads it: f32x3's (B, 2D) split, packed int4's full-width int8
+    query): the widest of 16, 8, 4, 2, 1 bytes dividing the row bytes and
+    both bases; 16 is TMA."""
+    n, b = 256, 40
+    x = _view(dtype, n, dim, offset)
+    qdim = 2 * dim if packed else dim
+    q = torch.zeros((b, qdim), dtype=torch.int8 if dtype == torch.int8
+                    else torch.float32)
+    call = K._Call(x, torch.ones(n), torch.ones(n, dtype=torch.bool), q,
+                   "cosine", None, None, packed, precision)
+    assert call.granule == granule
+    assert K.copy_granule(call.x, call.q, call.row_bytes) == granule
+    assert K.use_tma(call.x, call.q, call.row_bytes) is (granule == 16)
+    if granule != 16:   # the copying build encodes no tensor map
+        assert call.maps(64) == (None, None, None)
+
+
 @pytest.mark.parametrize("defines", [("VROD_K1_RING=3",),
                                      ("VROD_PROBE_NO_GATE",),
                                      ("VROD_PROBE_NO_GATE",

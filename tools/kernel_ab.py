@@ -20,7 +20,11 @@ not waited for), and
 ``engine.search`` (host clock, median of 20 batches of 256 queries).
 
 At the main path's shapes it also times K1 without the floor (theta0
-None), as a search whose floor gate is closed runs it.
+None), as a search whose floor gate is closed runs it. The two glove-100
+phases (ann-benchmarks' glove-100-angular: 1,183,514 rows of dim 100,
+cosine, top-16) store rows TMA cannot load (100 int8 bytes, 200 bfloat16
+bytes), so their K1 and K3 take the copying builds; at bfloat16 the
+floor's gate stays closed and the search runs K1 alone, without K3.
 ``--ring 2,3,4``: the main path's K1 built at each ring depth
 (``-DVROD_K1_RING=N``, a library beside the default one) and timed in
 turns (2, 3, 4, 4, 3, 2), in trees whose ``cuda_topk`` has
@@ -61,6 +65,10 @@ for _d in ("int8", "int4", "bf16", "f32"):
         _quant = _d in ("int8", "int4")
         PHASES.append((f"leg {_d}-{_m}", f"{_d}-{_m}", 16 if _quant else 100,
                        262144 if _quant else 131072))
+PHASES += [("glove-100 int8", "int8-cosine", 16, 1_183_514),
+           ("glove-100 bf16", "bf16-cosine", 16, 1_183_514)]
+# The phases whose rows are not DIM wide.
+PHASE_DIMS = {"glove-100 int8": 100, "glove-100 bf16": 100}
 
 
 def card_line() -> str:
@@ -84,14 +92,15 @@ def events_ms(fn, iters=ITERS, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def make_engine(leg, rows, seed, dev):
+def make_engine(leg, rows, seed, dev, dim=DIM):
     """A DeviceEngine of the tree on ``sys.path`` holding ``rows`` seeded
-    random normal rows of one leg, capacity padded to whole segments."""
+    random normal rows of one leg and ``dim``, capacity padded to whole
+    segments."""
     import torch
     from vrod_tpu_torch.engine import DeviceEngine
     from vrod_tpu_torch.ops import distances as D
     dtype, metric = leg.split("-")
-    cfg = SimpleNamespace(name="ab", dim=DIM, metric=metric,
+    cfg = SimpleNamespace(name="ab", dim=dim, metric=metric,
                           dtype=DB_DTYPE[dtype], segment_rows=SEGMENT,
                           shards=1, rescore_margin=8)
     eng = DeviceEngine(cfg, device=dev)
@@ -103,7 +112,7 @@ def make_engine(leg, rows, seed, dev):
     kind = "int4" if dtype == "int4" else eng.dtype
     for lo in range(0, rows, SEGMENT):
         hi = min(rows, lo + SEGMENT)
-        v = torch.randn((hi - lo, DIM), generator=gen, device=dev)
+        v = torch.randn((hi - lo, dim), generator=gen, device=dev)
         x[lo:hi], aux[lo:hi] = D.prepare_rows(v, metric=metric, dtype=kind)
     valid[:rows] = True
     eng.load_state(x, aux, valid)
@@ -111,8 +120,9 @@ def make_engine(leg, rows, seed, dev):
 
 
 def kernel_inputs(eng, q, k_scan):
-    """(K1 args, K1 keywords, K3 args, K3 keywords) of one search, as
-    ``DeviceEngine._scan`` builds them (the floor gate must be open)."""
+    """(K1 args, K1 keywords, K3 args, K3 keywords, (sample, block)) of one
+    search, as ``DeviceEngine._scan`` builds them; where the floor's gate
+    is closed, K1's without a floor and None for K3's."""
     from vrod_tpu_torch import engine as E
     from vrod_tpu_torch.engine import floor_gate, floor_threshold
     from vrod_tpu_torch.ops import cuda_topk as K
@@ -124,7 +134,10 @@ def kernel_inputs(eng, q, k_scan):
     q_scan, extras = eng.scan_inputs(q, D.prepare_queries(q, metric=metric))
     ok, ns, blk = floor_gate(eng.capacity, k_scan, eng.storage_dim,
                              eng.x.element_size(), eng.quant, **fs)
-    assert ok, "floor gate closed"
+    a1 = [eng.x, eng.aux, eng.valid, q_scan]
+    if not ok:
+        return a1, dict(k=k_scan, metric=metric, theta0=None, **extras), \
+            None, None, (0, 0)
     kw3 = dict(extras)
     if "row_bias" in kw3:
         kw3["row_bias"] = kw3["row_bias"][:ns]
@@ -134,7 +147,6 @@ def kernel_inputs(eng, q, k_scan):
     theta0 = floor_threshold(sub, k_scan, q_scan, eng.aux, eng.valid,
                              metric=metric, quant=eng.quant,
                              dim=eng.storage_dim, **fs)
-    a1 = [eng.x, eng.aux, eng.valid, q_scan]
     kw1 = dict(k=k_scan, metric=metric, theta0=theta0, **extras)
     return a1, kw1, a3, kw3, (ns, blk)
 
@@ -224,23 +236,26 @@ def run_tree(tree: str, rings, profile: bool, library: bool,
     for i, (name, leg, top_k, rows) in enumerate(PHASES):
         if phases and name not in phases:
             continue
-        eng = make_engine(leg, rows, 100 + i, dev)
+        dim = PHASE_DIMS.get(name, DIM)
+        eng = make_engine(leg, rows, 100 + i, dev, dim)
         rng = np.random.default_rng(200 + i)
-        queries = [rng.standard_normal((BATCH, DIM), dtype=np.float32)
+        queries = [rng.standard_normal((BATCH, dim), dtype=np.float32)
                    for _ in range(SEARCHES)]
         k_scan = eng.scan_widths(top_k)[1]
         q = torch.from_numpy(queries[0]).to(dev)
         a1, kw1, a3, kw3, (ns, blk) = kernel_inputs(eng, q, k_scan)
         rec = {"tree": tree, "phase": name, "leg": leg, "rows": rows,
-               "capacity": eng.capacity, "k_scan": k_scan, "sample": ns,
-               "block_rows": blk,
+               "dim": dim, "capacity": eng.capacity, "k_scan": k_scan,
+               "sample": ns, "block_rows": blk, "floor": a3 is not None,
                "k1_ms": events_ms(lambda: K.fused_topk(*a1, **kw1)),
-               "k3_ms": events_ms(lambda: K.sampled_submax(*a3, **kw3)),
                "k1_device_ms": device_ms(
                    lambda: K.fused_topk(*a1, **kw1))[0],
-               "k3_device_ms": device_ms(
-                   lambda: K.sampled_submax(*a3, **kw3))[0],
                "k1_host_ms": host_ms(lambda: K.fused_topk(*a1, **kw1))}
+        if a3 is not None:
+            rec.update(
+                k3_ms=events_ms(lambda: K.sampled_submax(*a3, **kw3)),
+                k3_device_ms=device_ms(
+                    lambda: K.sampled_submax(*a3, **kw3))[0])
         if name == "main path":  # K1 as a search with the floor closed
             kw0 = dict(kw1, theta0=None)
             rec["k1_nofloor_ms"] = events_ms(
@@ -257,14 +272,20 @@ def run_tree(tree: str, rings, profile: bool, library: bool,
         if smoke is not None:
             dtype = leg.split("-")[0]
             extra1 = [v for v in kw1.values() if hasattr(v, "numel")]
-            extra3 = [v for v in kw3.values() if hasattr(v, "numel")]
             rec["k1_bound"] = smoke.bound_of(
                 a1 + extra1, BATCH * k_scan * 8,
-                2 * BATCH * eng.capacity * DIM, dtype)
-            rec["k3_bound"] = smoke.bound_of(
-                a3 + extra3, BATCH * 128 * (ns // blk) * 4,
-                2 * BATCH * ns * DIM, dtype)
-            rec.update(smoke.library_times(leg, a1, k_scan, a3, blk))
+                2 * BATCH * eng.capacity * dim, dtype)
+            if a3 is not None:
+                extra3 = [v for v in kw3.values() if hasattr(v, "numel")]
+                rec["k3_bound"] = smoke.bound_of(
+                    a3 + extra3, BATCH * 128 * (ns // blk) * 4,
+                    2 * BATCH * ns * dim, dtype)
+                rec.update(smoke.library_times(leg, a1, k_scan, a3, blk))
+            else:
+                gemm = smoke.library_gemm(leg, a1[0], a1[3])
+                rec["fused_topk_library"] = smoke.cuda_time_ms(
+                    lambda: gemm().topk(k_scan, dim=1), iters=5)
+                del gemm
         eng.search(queries[0], top_k)
         lat = []
         for qb in queries:

@@ -60,7 +60,7 @@ def launch(lib, kernel, call, k, cnt):
         call.elem, call.epi, variant, call.x.data_ptr(), call.aux.data_ptr(),
         call.mask.data_ptr(), call.q.data_ptr(), call.offset.data_ptr(),
         call.n_scan, call.row_bytes, call.b, k, plan.groups, plan.parts,
-        plan.cap, call.block_rows, 0, int(plan.on_chip), 0,
+        plan.cap, call.block_rows, 0, int(plan.on_chip), 0, call.granule,
         t[0].data_ptr(), t[1].data_ptr(), t[2].data_ptr(), cnt.data_ptr(),
         t[3].data_ptr(), t[4].data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
         K._stream(dev))

@@ -5,10 +5,11 @@
 // store and the carry add their shared-memory account), in two builds, as
 // K1's: rows and queries loaded by TMA, and for the shapes TMA cannot load
 // (row bytes not a multiple of 16, unaligned bases: int8 dim 30 or 100,
-// bfloat16 dim 100, float32 dim 25) the same kernel with the producer warp
-// copying each stage into the same swizzled layout (score.cuh: copy_stage;
-// kTma false), built apart in extract_<mode>_copy.cu so that nvcc compiles
-// both at once. The wrapper picks the build by shape (cuda_topk.use_tma).
+// bfloat16 dim 100, float32 dim 25) the same kernel with the producer
+// warpgroup copying each stage into the same swizzled layout (score.cuh:
+// copy_stage, by the granule the wrapper picks; kTma false), built apart
+// in extract_<mode>_copy.cu so that nvcc compiles both at once. The
+// wrapper picks the build by shape (cuda_topk.copy_granule).
 //
 // Replaces the Pallas kernels experiments/kexp.py: make_call -> build_kernel
 // (X1), kexp2.py: make_call (X2), kexp3.py: make_call (X3) and kexp5.py:
@@ -90,24 +91,6 @@ enum XMode : int {
 // (PERF.md).
 constexpr int kNarrow = kWidth;
 
-// The register budget (setmaxnreg) of a build's producer and consumers:
-// kProducerRegs / kConsumerRegs, or with kWide K1's gated budget,
-// kGateProducerRegs / kGateConsumerRegs. At 40 registers the copying
-// producer (score.cuh: copy_stage) keeps too few loads in flight: the
-// copying builds of the store, the carry, X1's gate and X4 take the gated
-// budget (33-37% faster at glove-100's shape, 0 spills: PERF.md). X3's
-// copying build (two accumulator sets, which spill at 224), X1's n256
-// floor and every TMA build keep 40 / 232.
-template <bool kWide>
-__device__ __forceinline__ void x_producer_regs() {
-  producer_regs<kWide ? kGateProducerRegs : kProducerRegs>();
-}
-
-template <bool kWide>
-__device__ __forceinline__ void x_consumer_regs() {
-  consumer_regs<kWide ? kGateConsumerRegs : kConsumerRegs>();
-}
-
 // One launch's arguments (ops/cuda_extract.py: _launch).
 struct XArgs {
   const int8_t* x;      // (n, row_bytes): the whole blocks only
@@ -121,6 +104,7 @@ struct XArgs {
   int on_chip;          // kXStore: the lists, kXCarry: the carry, in shared
                         // memory (handed over as (parts, b, k) lists)
   int stage;            // kXCarry: entries of each stage a query (<= 32)
+  int granule;          // the copying build's (score.cuh: Maps)
   float* cand_v;        // lists (parts, b, cap, or k when on_chip);
   int* cand_i;          // kXFloor: maxima (parts, b)
   int* cand_n;          // (parts, b)
@@ -436,7 +420,7 @@ __global__ void __launch_bounds__(kThreads, 1) extract_carry(
   __shared__ float gate[kN];       // the carried k-th; +inf past the batch
   __shared__ int staged[2 * kN];   // entries of each stage, two buffers
   uint8_t* base = align1024(smem_raw);
-  const Ring ring{base, full, empty, kRing};
+  const Ring ring{base, full, empty, kRing, !kTma};
   const Geometry geo = make_geometry<Kind>(a.row_bytes);
   const int part = blockIdx.x / a.groups;
   const int q0 = blockIdx.x % a.groups * kN;
@@ -470,13 +454,13 @@ __global__ void __launch_bounds__(kThreads, 1) extract_carry(
   ring_init(ring);
   __syncthreads();
   if (threadIdx.x >= kConsumers) {
-    x_producer_regs<!kTma>();
-    if (threadIdx.x < kConsumers + 32) {
+    producer_regs();
+    if (ring_loader<kTma>()) {
       produce<Kind, kTma, kN>(maps, Loads{a.x, a.q, a.n, a.b}, geo, ring, q0,
                               part, tiles, a.parts);
     }
   } else {
-    x_consumer_regs<!kTma>();
+    consumer_regs();
     carry_consume<Kind, kEpi, kN>(geo, ring, a, part, tiles, q0, gate,
                                   staged, cv, ci, sv, si);
   }
@@ -623,7 +607,7 @@ __global__ void __launch_bounds__(kThreads, 1) extract_store(
   __shared__ int len[kN];     // list lengths
   __shared__ __align__(16) unsigned hist[kConsumers / 32 * 256];
   uint8_t* base = align1024(smem_raw);
-  const Ring ring{base, full, empty, kRing};
+  const Ring ring{base, full, empty, kRing, !kTma};
   const Geometry geo = make_geometry<Kind>(a.row_bytes);
   const int part = blockIdx.x / a.groups;
   const int q0 = blockIdx.x % a.groups * kN;
@@ -648,13 +632,13 @@ __global__ void __launch_bounds__(kThreads, 1) extract_store(
   ring_init(ring);
   __syncthreads();
   if (threadIdx.x >= kConsumers) {
-    x_producer_regs<!kTma>();
-    if (threadIdx.x < kConsumers + 32) {
+    producer_regs();
+    if (ring_loader<kTma>()) {
       produce<Kind, kTma, kN>(maps, Loads{a.x, a.q, a.n, a.b}, geo, ring, q0,
                               part, tiles, a.parts);
     }
   } else {
-    x_consumer_regs<!kTma>();
+    consumer_regs();
     store_consume<Kind, kEpi, kN>(geo, ring, a, part, tiles, q0, gate, len,
                                   hist, store, lv, li);
   }
@@ -790,7 +774,7 @@ __global__ void __launch_bounds__(kThreads, 1) extract_gate(
   __shared__ int len[kNarrow];     // list lengths
   __shared__ __align__(16) unsigned hist[kConsumers / 32 * 256];
   uint8_t* base = align1024(smem_raw);
-  const Ring ring{base, full, empty, kRing};
+  const Ring ring{base, full, empty, kRing, !kTma};
   const Geometry geo = make_geometry<Kind>(a.row_bytes);
   const int part = blockIdx.x / a.groups;
   const int q0 = blockIdx.x % a.groups * kNarrow;
@@ -819,13 +803,13 @@ __global__ void __launch_bounds__(kThreads, 1) extract_gate(
   ring_init(ring);
   __syncthreads();
   if (threadIdx.x >= kConsumers) {
-    x_producer_regs<!kTma && !kOverlap>();
-    if (threadIdx.x < kConsumers + 32) {
+    producer_regs();
+    if (ring_loader<kTma>()) {
       produce<Kind, kTma, kNarrow>(maps, Loads{a.x, a.q, a.n, a.b}, geo,
                                    ring, q0, part, tiles, a.parts);
     }
   } else {
-    x_consumer_regs<!kTma && !kOverlap>();
+    consumer_regs();
     constexpr int kOwn = kNarrow / (kConsumers / 32);
     const int own0 = (threadIdx.x >> 5) * kOwn;
     const int own1 = min(own0 + kOwn, a.b - q0);
@@ -914,7 +898,7 @@ __global__ void __launch_bounds__(kThreads, 1) extract_local(
   __shared__ uint64_t full[kRing], empty[kRing];
   __shared__ __align__(16) unsigned hist[kConsumers / 32 * 256];  // maxima
   uint8_t* base = align1024(smem_raw);
-  const Ring ring{base, full, empty, kRing};
+  const Ring ring{base, full, empty, kRing, !kTma};
   const Geometry geo = make_geometry<Kind>(a.row_bytes);
   const int part = blockIdx.x / a.groups;
   const int q0 = blockIdx.x % a.groups * kGroup;
@@ -923,7 +907,7 @@ __global__ void __launch_bounds__(kThreads, 1) extract_local(
   __syncthreads();
   if (threadIdx.x >= kConsumers) {
     producer_regs();
-    if (threadIdx.x < kConsumers + 32) {
+    if (ring_loader<kTma>()) {
       produce<Kind, kTma>(maps, Loads{a.x, a.q, a.n, a.b}, geo, ring, q0,
                           part, tiles, a.parts);
     }
@@ -1025,14 +1009,15 @@ struct LaunchExtract {
   }
 
   // The copying build encodes no tensor map (topk.cuh: launch_maps): its
-  // producer warp reads a.x and a.q itself.
+  // producer warpgroup copies a.x and a.q by a.granule.
   template <class Kind, int kEpi, bool kTma>
   static int run(const XArgs& a, void* merge_v, void* merge_i, void* out_v,
                  void* out_i, cudaStream_t s) {
     Maps maps;
     int e = launch_maps<Kind, kTma>(&maps, nullptr, a.x, a.q, a.n, a.b,
                                     a.row_bytes,
-                                    kMode == kXFloor ? kGroup : kNarrow);
+                                    kMode == kXFloor ? kGroup : kNarrow,
+                                    a.granule);
     if (e != 0) return e;
     if constexpr (kMode != kXFloor) {
       e = narrow<Kind, kEpi, kTma>(a, maps, s);
@@ -1126,7 +1111,7 @@ int extract_entry(int elem, int epi, int variant, const XArgs& a,
   int elem, int epi, int variant, const void *x, const void *aux,            \
       const void *mask, const void *q, const void *offset, int n,            \
       int row_bytes, int b, int k, int groups, int parts, int cap,           \
-      int block_rows, int count, int on_chip, int stage,                     \
+      int block_rows, int count, int on_chip, int stage, int granule,        \
       void *cand_v, void *cand_i, void *cand_n, void *cnt,                   \
       void *merge_v, void *merge_i, void *out_v, void *out_i, void *stream
 #define VROD_EXTRACT_XARGS                                                   \
@@ -1136,7 +1121,7 @@ int extract_entry(int elem, int epi, int variant, const XArgs& a,
               static_cast<const float*>(mask),                               \
               static_cast<const int*>(offset),                               \
               n, b, k, row_bytes, groups, parts, cap, block_rows,            \
-              count, on_chip, stage,                                         \
+              count, on_chip, stage, granule,                                \
               static_cast<float*>(cand_v),                                   \
               static_cast<int*>(cand_i), static_cast<int*>(cand_n),          \
               static_cast<int*>(cnt)}

@@ -1,5 +1,5 @@
 // X2's copying build (extract_carry.cu): the same kernel with the producer
-// warp copying each stage, for rows TMA cannot load (row bytes not a
+// warpgroup copying each stage, for rows TMA cannot load (row bytes not a
 // multiple of 16, unaligned bases). The mode: extract.cuh (kXCarry).
 
 #include "extract.cuh"

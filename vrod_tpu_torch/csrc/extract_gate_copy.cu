@@ -1,7 +1,7 @@
 // X1 gate's copying build (extract_gate.cu, which X4's nostore shares):
-// the same kernel with the producer warp copying each stage, for rows TMA
-// cannot load (row bytes not a multiple of 16, unaligned bases). The mode:
-// extract.cuh (kXGate, kE = 1).
+// the same kernel with the producer warpgroup copying each stage, for rows
+// TMA cannot load (row bytes not a multiple of 16, unaligned bases). The
+// mode: extract.cuh (kXGate, kE = 1).
 
 #include "extract.cuh"
 

@@ -1,5 +1,5 @@
 // X3's copying build (extract_pingpong.cu): the same kernel with the
-// producer warp copying each stage, in the ring's order, for rows TMA
+// producer warpgroup copying each stage, in the ring's order, for rows TMA
 // cannot load (row bytes not a multiple of 16, unaligned bases). The
 // mode: extract.cuh (kXPingPong).
 

@@ -1,6 +1,7 @@
 // X1 store's copying build (extract_store.cu): the same kernel with the
-// producer warp copying each stage, for rows TMA cannot load (row bytes
-// not a multiple of 16, unaligned bases). The mode: extract.cuh (kXStore).
+// producer warpgroup copying each stage, for rows TMA cannot load (row
+// bytes not a multiple of 16, unaligned bases). The mode: extract.cuh
+// (kXStore).
 
 #include "extract.cuh"
 

@@ -240,7 +240,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_theta_local(
   cg::grid_group grid = cg::this_grid();
   uint8_t* base = align1024(smem_raw);
   const Geometry geo = make_geometry<Kind>(row_bytes);
-  const Ring ring{base, full, empty, lay.ring};
+  const Ring ring{base, full, empty, lay.ring, !kTma};
   const int cap = lay.cap;
   const int part = blockIdx.x / groups;
   const int q0 = blockIdx.x % groups * kWidth;
@@ -251,7 +251,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_theta_local(
   const int s0 = (int)((long)part * sample_tiles / parts);
   const int s1 = (int)((long)(part + 1) * sample_tiles / parts);
   const bool producer = threadIdx.x >= kConsumers;
-  const bool loader = producer && threadIdx.x < kConsumers + 32;
+  const bool loader = producer && ring_loader<kTma>();
   const Loads ld{x, q, n, b};
   GateLists L{nullptr, nullptr, len, gate, nullptr, 0.0f, 0.0f, cap, k};
   if (lay.on_chip) {
@@ -329,14 +329,15 @@ struct LaunchTheta {
                  int sample_tiles, int blk_tiles, int iters, int skip,
                  void* sub_keys, void* bmax, void* theta0, void* cand_v,
                  void* cand_i, void* cand_n, void* merge_v, void* merge_i,
-                 void* out_v, void* out_i, cudaStream_t s) {
+                 void* out_v, void* out_i, int granule, cudaStream_t s) {
     if (lay.cap < k + 32 || lay.ring < 2 || lay.ring > kRing) {
       return (int)cudaErrorInvalidValue;
     }
     Maps maps{};
-    if constexpr (kTma) {
-      const int e = make_maps(&maps, Kind::kPacked, x, q, n, b, row_bytes,
-                              kWidth);
+    {
+      const int e = kTma ? make_maps(&maps, Kind::kPacked, x, q, n, b,
+                                     row_bytes, kWidth)
+                         : copy_maps(&maps, x, q, row_bytes, granule);
       if (e != 0) return e;
     }
     const int smem = lay.smem();

@@ -98,7 +98,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_topk_local(
   __shared__ __align__(16) unsigned hist[kConsumers / 32 * 256];
   uint8_t* base = align1024(smem_raw);
   const Geometry geo = make_geometry<Kind>(row_bytes);
-  const Ring ring{base, full, empty, lay.ring};
+  const Ring ring{base, full, empty, lay.ring, !kTma};
   const int part = blockIdx.x / groups;
   const int q0 = blockIdx.x % groups * kWidth;
   const int tiles = (n + kTileRows - 1) / kTileRows;
@@ -134,7 +134,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_topk_local(
   // compiles it under that role's register budget (setmaxnreg).
   if (threadIdx.x >= kConsumers) {
     producer_regs<kGateProducerRegs>();
-    if (threadIdx.x < kConsumers + 32) {
+    if (ring_loader<kTma>()) {
       produce<Kind, kTma, kWidth>(maps, Loads{x, q, n, b}, geo, ring, q0,
                                   part, tiles, parts);
     }
@@ -168,12 +168,13 @@ struct LaunchTopk {
                  const void* q_scale, int row_bytes, const void* theta0,
                  int n, int b, int k, int offset, int groups, int parts,
                  const Layout& lay, void* scratch, void* out_v, void* out_i,
-                 const void* const* m3, cudaStream_t s) {
+                 int granule, const void* const* m3, cudaStream_t s) {
     if (lay.cap < k + 32 || lay.ring < 2 || lay.ring > kRing) {
       return (int)cudaErrorInvalidValue;
     }
     Maps maps;
-    int e = launch_maps<Kind, kTma>(&maps, m3, x, q, n, b, row_bytes, kWidth);
+    int e = launch_maps<Kind, kTma>(&maps, m3, x, q, n, b, row_bytes, kWidth,
+                                    granule);
     if (e != 0) return e;
     const int smem = lay.smem();
     e = ensure_smem<fused_topk_local<Kind, kEpi, kTma, kIntGate>>(smem);
@@ -194,9 +195,10 @@ struct LaunchTopk {
   }
 };
 
-// elem/epi: score.cuh's Elem and Epi codes; tma: rows and queries load by
-// TMA (row bytes a multiple of 16, 16-byte aligned bases), else the
-// producer warp copies them. valid (n,) bool and bias (n,) or null: the
+// elem/epi: score.cuh's Elem and Epi codes; granule: 16, rows and queries
+// load by TMA (row bytes a multiple of 16, 16-byte aligned bases), else
+// the producer warpgroup copies them by granules of 8, 4, 2 or 1 bytes
+// (ops/cuda_topk.py: copy_granule). valid (n,) bool and bias (n,) or null: the
 // rows' mask (RowMask). q_scale (b,) is read by kScaleQs only; theta0 (b,)
 // or null (no floor). row_bytes: bytes per stored row (int4: dim / 2).
 // groups, parts, cap, on_chip, ring: the plan (ops/cuda_topk.py:
@@ -205,7 +207,7 @@ struct LaunchTopk {
 // group), null without TMA. The short scans' kernel is
 // fused_topk_small.cu's.
 extern "C" int vrod_fused_topk(
-    int elem, int epi, int tma, const void* x, const void* aux,
+    int elem, int epi, int granule, const void* x, const void* aux,
     const void* valid, const void* bias, const void* q, const void* q_scale,
     const void* theta0, int n, int row_bytes, int b, int k, int offset,
     int groups, int parts, int cap, int on_chip, int ring, void* scratch,
@@ -218,23 +220,24 @@ extern "C" int vrod_fused_topk(
   const void* const* maps = x_map != nullptr ? m3 : nullptr;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch_leg<LaunchTopk<false>, true>(
-      elem, epi, tma != 0, x, aux, mask, q, q_scale, row_bytes, theta0, n, b,
-      k, offset, groups, parts, lay, scratch, out_v, out_i, maps, s);
+      elem, epi, granule == 16, x, aux, mask, q, q_scale, row_bytes, theta0,
+      n, b, k, offset, groups, parts, lay, scratch, out_v, out_i, granule,
+      maps, s);
 }
 
 // X9: K1 with the int32 gate bound, int8 rows under cosine or dot only
 // (epilogue kScale, mask 0 or -inf: no bias); arguments as
 // vrod_fused_topk's, its maps encoded here.
 extern "C" int vrod_fused_intgate(
-    int tma, const void* x, const void* aux, const void* valid,
+    int granule, const void* x, const void* aux, const void* valid,
     const void* q, const void* theta0, int n, int row_bytes, int b, int k,
     int offset, int groups, int parts, int cap, int on_chip, int ring,
     void* scratch, void* out_v, void* out_i, void* stream) {
-  auto* run = tma ? &LaunchTopk<true>::run<I8, kScale, true>
-                  : &LaunchTopk<true>::run<I8, kScale, false>;
+  auto* run = granule == 16 ? &LaunchTopk<true>::run<I8, kScale, true>
+                            : &LaunchTopk<true>::run<I8, kScale, false>;
   return run(x, aux, RowMask{static_cast<const uint8_t*>(valid), nullptr},
              q, nullptr, row_bytes, theta0, n, b, k, offset, groups, parts,
-             Layout{ring, cap, on_chip}, scratch, out_v, out_i,
+             Layout{ring, cap, on_chip}, scratch, out_v, out_i, granule,
              nullptr, static_cast<cudaStream_t>(stream));
 }
 

@@ -206,7 +206,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_topk_floor(
   // The int gate's G per query (read as int2 pairs) and aux range.
   __shared__ __align__(16) int gint[kIntGate ? kGroup : 2];
   __shared__ float arange[2];
-  const Ring ring{align1024(smem_raw), full, empty, kFloorRing};
+  const Ring ring{align1024(smem_raw), full, empty, kFloorRing, !kTma};
   const Geometry geo = make_geometry<Kind>(row_bytes);
   const int part = blockIdx.x / groups;
   const int q0 = blockIdx.x % groups * kGroup;
@@ -225,7 +225,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_topk_floor(
   __syncthreads();
   if (threadIdx.x >= kConsumers) {
     producer_regs();
-    if (threadIdx.x < kConsumers + 32) {
+    if (ring_loader<kTma>()) {
       produce<Kind, kTma>(maps, Loads{x, q, n, b}, geo, ring, q0, part,
                           tiles, parts);
     }
@@ -245,12 +245,13 @@ struct LaunchFloor {
                  const void* q_scale, int row_bytes, const void* theta0,
                  int n, int b, int k, int offset, int groups, int parts,
                  int cap, void* scratch, void* out_v, void* out_i,
-                 const void* const* m3, cudaStream_t s) {
+                 int granule, const void* const* m3, cudaStream_t s) {
     if (theta0 == nullptr || cap != k + (kFloorCutTiles + 1) * kTileRows) {
       return (int)cudaErrorInvalidValue;
     }
     Maps maps;
-    int e = launch_maps<Kind, kTma>(&maps, m3, x, q, n, b, row_bytes, kGroup);
+    int e = launch_maps<Kind, kTma>(&maps, m3, x, q, n, b, row_bytes, kGroup,
+                                    granule);
     if (e != 0) return e;
     const int smem = 1024 + kFloorRing * kStageBytes;
     e = ensure_smem<fused_topk_floor<Kind, kEpi, kTma, kIntGate>>(smem);
@@ -280,7 +281,7 @@ using namespace vrod;
 // groups of 256, lists of k + 5 tiles in scratch); maps: the queries in
 // boxes of 256.
 extern "C" int vrod_fused_topk_floor(
-    int elem, int epi, int tma, const void* x, const void* aux,
+    int elem, int epi, int granule, const void* x, const void* aux,
     const void* valid, const void* bias, const void* q, const void* q_scale,
     const void* theta0, int n, int row_bytes, int b, int k, int offset,
     int groups, int parts, int cap, void* scratch, void* out_v, void* out_i,
@@ -291,22 +292,22 @@ extern "C" int vrod_fused_topk_floor(
   const void* m3[3] = {x_map, q_map, q_hi_map};
   const void* const* maps = x_map != nullptr ? m3 : nullptr;
   return dispatch_leg<LaunchFloor<false>, true>(
-      elem, epi, tma != 0, x, aux, mask, q, q_scale, row_bytes, theta0, n, b,
-      k, offset, groups, parts, cap, scratch, out_v, out_i, maps,
-      static_cast<cudaStream_t>(stream));
+      elem, epi, granule == 16, x, aux, mask, q, q_scale, row_bytes, theta0,
+      n, b, k, offset, groups, parts, cap, scratch, out_v, out_i, granule,
+      maps, static_cast<cudaStream_t>(stream));
 }
 
 // X9 from a floor: vrod_fused_intgate's arguments without on_chip and
 // ring, the plan as vrod_fused_topk_floor's.
 extern "C" int vrod_fused_intgate_floor(
-    int tma, const void* x, const void* aux, const void* valid,
+    int granule, const void* x, const void* aux, const void* valid,
     const void* q, const void* theta0, int n, int row_bytes, int b, int k,
     int offset, int groups, int parts, int cap, void* scratch, void* out_v,
     void* out_i, void* stream) {
-  auto* run = tma ? &LaunchFloor<true>::run<I8, kScale, true>
-                  : &LaunchFloor<true>::run<I8, kScale, false>;
+  auto* run = granule == 16 ? &LaunchFloor<true>::run<I8, kScale, true>
+                            : &LaunchFloor<true>::run<I8, kScale, false>;
   return run(x, aux, RowMask{static_cast<const uint8_t*>(valid), nullptr},
              q, nullptr, row_bytes, theta0, n, b, k, offset, groups, parts,
-             cap, scratch, out_v, out_i, nullptr,
+             cap, scratch, out_v, out_i, granule, nullptr,
              static_cast<cudaStream_t>(stream));
 }

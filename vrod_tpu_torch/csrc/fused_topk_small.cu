@@ -39,7 +39,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_topk_small(
   __shared__ float gate[kSmallGroup];
   __shared__ int len[kSmallGroup];
   __shared__ unsigned hist[kConsumers / 32 * 256];
-  const Ring ring{align1024(smem_raw), full, empty, kSmallRing};
+  const Ring ring{align1024(smem_raw), full, empty, kSmallRing, !kTma};
   float* lv = reinterpret_cast<float*>(ring.base + kSmallRingBytes);
   int* li = reinterpret_cast<int*>(lv + (size_t)kSmallGroup * cap);
   const Geometry geo = make_geometry<Kind>(row_bytes);
@@ -62,7 +62,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_topk_small(
   // register budget); only the consumer warps merge.
   if (threadIdx.x >= kConsumers) {
     producer_regs<kGateProducerRegs>();
-    if (threadIdx.x < kConsumers + 32) {
+    if (ring_loader<kTma>()) {
       produce<Kind, kTma, kSmallGroup>(maps, Loads{x, q, n, b}, geo, ring,
                                        q0, part, tiles, parts);
     }
@@ -121,15 +121,15 @@ struct LaunchSmall {
   static int run(const void* x, const void* aux, RowMask mask, const void* q,
                  const void* q_scale, int row_bytes, const void* theta0,
                  int n, int b, int k, int offset, int groups, int parts,
-                 int cap, void* out_v, void* out_i, const void* const* m3,
-                 cudaStream_t s) {
+                 int cap, void* out_v, void* out_i, int granule,
+                 const void* const* m3, cudaStream_t s) {
     if (parts < 1 || parts > kMaxCluster || cap < k + 32 ||
         parts * k * 8 * (kConsumers / 32) > kSmallRingBytes) {
       return (int)cudaErrorInvalidValue;
     }
     Maps maps;
     int e = launch_maps<Kind, kTma>(&maps, m3, x, q, n, b, row_bytes,
-                                    kSmallGroup);
+                                    kSmallGroup, granule);
     if (e != 0) return e;
     const int smem = 1024 + kSmallRingBytes + kSmallGroup * cap * 8;
     e = ensure_smem<fused_topk_small<Kind, kEpi, kTma>>(smem);
@@ -147,7 +147,7 @@ struct LaunchSmall {
 // The small-scan kernel: arguments as vrod_fused_topk's, the plan
 // small_plan's (groups, parts, cap), no scratch.
 extern "C" int vrod_fused_topk_small(
-    int elem, int epi, int tma, const void* x, const void* aux,
+    int elem, int epi, int granule, const void* x, const void* aux,
     const void* valid, const void* bias, const void* q, const void* q_scale,
     const void* theta0, int n, int row_bytes, int b, int k, int offset,
     int groups, int parts, int cap, void* out_v, void* out_i,
@@ -158,7 +158,7 @@ extern "C" int vrod_fused_topk_small(
   const void* m3[3] = {x_map, q_map, q_hi_map};
   const void* const* maps = x_map != nullptr ? m3 : nullptr;
   return dispatch_leg<LaunchSmall, true>(
-      elem, epi, tma != 0, x, aux, mask, q, q_scale, row_bytes, theta0, n,
-      b, k, offset, groups, parts, cap, out_v, out_i, maps,
+      elem, epi, granule == 16, x, aux, mask, q, q_scale, row_bytes, theta0,
+      n, b, k, offset, groups, parts, cap, out_v, out_i, granule, maps,
       static_cast<cudaStream_t>(stream));
 }

@@ -73,7 +73,7 @@ __global__ void __launch_bounds__(kThreads, 1) submax_kernel(
   constexpr int kRing = Width<kN>::kRing;
   __shared__ uint64_t full[kRing], empty[kRing];
   __shared__ float qsv[kN];
-  const Ring ring{align1024(smem_raw), full, empty, kRing};
+  const Ring ring{align1024(smem_raw), full, empty, kRing, !kTma};
   float* best = reinterpret_cast<float*>(ring.base);  // after the scan
   const Geometry geo = make_geometry<Kind>(row_bytes);
   const int sg = cluster_rank();
@@ -89,7 +89,7 @@ __global__ void __launch_bounds__(kThreads, 1) submax_kernel(
   __syncthreads();
   if (threadIdx.x >= kConsumers) {
     producer_regs();
-    if (threadIdx.x < kConsumers + 32) {
+    if (ring_loader<kTma>()) {
       produce<Kind, kTma, kN>(maps, Loads{x, q, n, b}, geo, ring, q0, t0,
                               t0 + seg_tiles, 1);
     }
@@ -159,14 +159,20 @@ struct LaunchSubmax {
   static int launch(const void* x, const void* aux, RowMask mask,
                     const void* q, const void* q_scale, int row_bytes, int n,
                     int b, int blk, int spb, int groups, void* out,
-                    const void* const* m3, cudaStream_t s) {
+                    int granule, const void* const* m3, cudaStream_t s) {
     if (spb < 1 || spb > kMaxCluster || kN % spb != 0) {
       return (int)cudaErrorInvalidValue;
     }
     Maps maps{};
-    if constexpr (kTma) maps = maps_from(m3[0], m3[1], m3[2]);
+    int e = 0;
+    if constexpr (kTma) {
+      maps = maps_from(m3[0], m3[1], m3[2]);
+    } else {
+      e = copy_maps(&maps, x, q, row_bytes, granule);
+      if (e != 0) return e;
+    }
     constexpr int kSmem = Width<kN>::kSmem;
-    const int e = ensure_smem<submax_kernel<Kind, kEpi, kTma, kN>>(kSmem);
+    e = ensure_smem<submax_kernel<Kind, kEpi, kTma, kN>>(kSmem);
     if (e != 0) return e;
     return launch_clusters(
         submax_kernel<Kind, kEpi, kTma, kN>, dim3((n / blk) * spb, groups),
@@ -179,22 +185,23 @@ struct LaunchSubmax {
   static int run(int width, const void* x, const void* aux, RowMask mask,
                  const void* q, const void* q_scale, int row_bytes, int n,
                  int b, int blk, int spb, int groups, void* out,
-                 const void* const* m3, cudaStream_t s) {
+                 int granule, const void* const* m3, cudaStream_t s) {
     auto* go = width == 128 ? &LaunchSubmax::launch<Kind, kEpi, kTma, 128>
                             : &LaunchSubmax::launch<Kind, kEpi, kTma, 64>;
     if (width != 64 && width != 128) return (int)cudaErrorInvalidValue;
     return go(x, aux, mask, q, q_scale, row_bytes, n, b, blk, spb, groups,
-              out, m3, s);
+              out, granule, m3, s);
   }
 };
 
-// elem/epi: score.cuh's Elem and Epi codes; tma as for vrod_fused_topk,
+// elem/epi: score.cuh's Elem and Epi codes; granule as for vrod_fused_topk,
 // with the maps encoded by the wrapper (x, q, q_hi; null without TMA).
 // valid (n,) bool and bias (n,) or null: the rows' mask (RowMask).
 // row_bytes: bytes per stored row (int4: dim / 2). q_scale (b,) is read by
 // kScaleQs only. width, spb, groups: the plan (ops/cuda_topk.py:
 // submax_plan), width the queries a block takes (64 or 128).
-extern "C" int vrod_sampled_submax(int elem, int epi, int tma, const void* x,
+extern "C" int vrod_sampled_submax(int elem, int epi, int granule,
+                                   const void* x,
                                    const void* aux, const void* valid,
                                    const void* bias, const void* q,
                                    const void* q_scale, int n, int row_bytes,
@@ -204,9 +211,9 @@ extern "C" int vrod_sampled_submax(int elem, int epi, int tma, const void* x,
                                    void* stream) {
   const void* m3[3] = {x_map, q_map, q_hi_map};
   return dispatch_leg<LaunchSubmax, true>(
-      elem, epi, tma != 0, width, x, aux,
+      elem, epi, granule == 16, width, x, aux,
       RowMask{static_cast<const uint8_t*>(valid),
               static_cast<const float*>(bias)},
-      q, q_scale, row_bytes, n, b, blk, spb, groups, out,
+      q, q_scale, row_bytes, n, b, blk, spb, groups, out, granule,
       static_cast<const void* const*>(m3), static_cast<cudaStream_t>(stream));
 }

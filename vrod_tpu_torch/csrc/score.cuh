@@ -10,24 +10,22 @@
 // sample's scores are its scan's.
 //
 // The product. Rows are the wgmma M side, in 64-row warpgroup tiles; the
-// queries are the N side, a group of kN of them per block (K1's long
-// scans and X6/X8: 64, topk.cuh's kWidth; the blocks of a part read each
-// row tile from L2 once per group). A block has two consumer warpgroups
-// and a producer warpgroup, of which one warp loads and the other three only
-// hand their registers to the consumers (setmaxnreg). The producer warp
-// walks the block's row tiles (128 rows, kTileRows) in k-blocks of 128
-// bytes of dim; per k-block it loads the row tile's slice (16 KB) and the
-// query group's slice (kN x 128 bytes) into one stage of a ring in shared
-// memory, by
+// queries are the N side, a group of kN of them per block (K1's long scans and
+// X6/X8: 64, topk.cuh's kWidth; the blocks of a part read each row tile from L2
+// once per group). A block has two consumer warpgroups and a producer
+// warpgroup, of which one warp loads (the copying build: all four) and the
+// others only hand their registers to the consumers (setmaxnreg). The producer
+// warp walks the block's row tiles (128 rows, kTileRows) in k-blocks of 128
+// bytes of dim; per k-block it loads the row tile's slice (16 KB) and the query
+// group's slice (kN x 128 bytes) into one stage of a ring in shared memory, by
 // TMA with the 128-byte swizzle, and signals the stage's full barrier
-// (mbarrier, transaction bytes). Each consumer
-// warpgroup takes its 64 rows of the stage into registers (ldmatrix: the
-// swizzle makes the eight rows of each 8x16-byte matrix hit distinct banks),
-// applies its kind's transform, and issues wgmma m64nN with A from
-// registers and B (the queries) from shared memory, then releases the stage
-// (empty barrier) once its wgmmas have completed. The queries stream with
-// the rows, so any dim fits the same stage. A from registers is what
-// lets one core serve every kind:
+// (mbarrier, transaction bytes). Each consumer warpgroup takes its 64 rows of
+// the stage into registers (ldmatrix: the swizzle makes the eight rows of each
+// 8x16-byte matrix hit distinct banks), applies its kind's transform, and
+// issues wgmma m64nN with A from registers and B (the queries) from shared
+// memory, then releases the stage (empty barrier) once its wgmmas have
+// completed. The queries stream with the rows, so any dim fits the same stage.
+// A from registers is what lets one core serve every kind:
 //   kind  rows          query          transform in registers  wgmma
 //   I8    int8          int8           none                    m64nNk32 s8
 //   I4    packed int4   int8 (full D)  nibbles -> s8 (lo or hi  m64nNk32 s8
@@ -73,9 +71,20 @@
 // the extraction and floor experiments keep their float mask (FloatMask).
 //
 // Shapes TMA cannot take (row bytes not a multiple of 16, or unaligned
-// bases: int8 dim 30, packed int4 D/2 = 15) take the same kernel with the
-// producer warp copying each stage with plain loads into the same swizzled
-// layout (kTma = false): a shape dispatch, chosen on the host.
+// bases: int8 dim 30 or 100, bfloat16 dim 100, float32 dim 25, packed int4
+// D/2 = 15) take the same kernel with the whole producer warpgroup copying
+// each stage into the same swizzled layout (kTma = false): a shape
+// dispatch, chosen on the host, which also picks the copy's granule (a
+// runtime argument, Maps::granule), the widest of 8 and 4 bytes that
+// divides the row bytes and the rows' and the query's bases: each granule
+// one cp.async straight to its swizzled place (no granule of 16 bytes or
+// less crosses a 16-byte chunk of the swizzle), the stage's full barrier
+// armed by the 128 copying threads' cp.async.mbarrier.arrive, so that the
+// producer runs ahead by the whole ring as TMA does. Granules of 2 and 1
+// bytes (int8 dim 30, packed int4 D/2 = 15) copy by plain loads, eight in
+// flight a thread. The consumers fence the async proxy after each wait
+// (the copies write through the generic proxy, wgmma reads the queries
+// through the async one).
 //
 // Each score then gets its epilogue, every op rounded once (__fmul_rn and
 // friends, which the compiler never contracts into an FMA):
@@ -96,6 +105,7 @@
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <type_traits>
 #include <utility>
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -113,11 +123,10 @@ constexpr int kThreads = kConsumers + 128;     // and a producer warpgroup
 // launch's even split of 168 ptxas serializes the wgmmas of 128).
 // setmaxnreg.inc takes only what other warps of the block released: the
 // split keeps the launch's 168 a thread in all (kThreads x 168). K1's
-// kernels and X6/X8 (topk.cuh's gated core, whose copying producer needs
-// more than 40 registers and whose consumers fewer than 232), and the
-// extraction kernels' copying builds but X3's and X1's floor
-// (extract.cuh: x_producer_regs), take kGateProducerRegs /
-// kGateConsumerRegs.
+// kernels and X6/X8 (topk.cuh's gated core, whose consumers need fewer
+// than 232) take kGateProducerRegs / kGateConsumerRegs; every other
+// kernel, the copying builds included (the copy keeps its loads in flight
+// by cp.async, not in registers), kProducerRegs / kConsumerRegs.
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 constexpr int kGateProducerRegs = 56;
@@ -155,10 +164,13 @@ __host__ __device__ inline Geometry make_geometry(int row_bytes) {
   return Geometry{row_bytes, kbs, Kind::kPacked ? 2 * kbs : kbs};
 }
 
-// The three tensor maps of a launch: rows, queries (packed int4: the low
-// half), and the packed int4 queries' high half.
+// How a launch loads its stages: the three tensor maps of the TMA build
+// (rows, queries (packed int4: the low half), and the packed int4 queries'
+// high half), and the copying build's granule, the bytes each of its
+// copies moves (8, 4, 2 or 1; 16 is the TMA build's shape).
 struct Maps {
   CUtensorMap x, q, q_hi;
+  int granule;
 };
 
 // The additive mask of row r as K1 and K3 read it: -inf on a dead slot,
@@ -545,13 +557,18 @@ int dispatch_leg(int elem, int epi, bool tma, A... a) {
 // -- The ring -------------------------------------------------------------
 
 // Shared state of the ring: ring_n stages of kStageBytes (row box, then
-// query box), 1024-byte aligned, with a full and an empty barrier each.
+// query box), 1024-byte aligned, with a full and an empty barrier each;
+// copy: the copying build's ring (kTma false), filled by the producer
+// warpgroup's copies.
 struct Ring {
   uint8_t* base;
   uint64_t* full;
   uint64_t* empty;
   int n;
+  bool copy;
 };
+
+constexpr int kCopyThreads = 128;  // the producer warpgroup, copying
 
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   const uint32_t s = smem_u32(p);
@@ -559,12 +576,13 @@ __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
 }
 
 // Thread 0: full barriers take the producer's one arrival (plus the TMA
-// bytes), empty barriers one arrival per consumer warp. The caller
-// synchronizes the block before the roles split.
+// bytes), or in the copying build one arrival of each copying thread;
+// empty barriers one arrival per consumer warp. The caller synchronizes
+// the block before the roles split.
 __device__ __forceinline__ void ring_init(const Ring& r) {
   if (threadIdx.x == 0) {
     for (int s = 0; s < r.n; ++s) {
-      mbar_init(&r.full[s], 1);
+      mbar_init(&r.full[s], r.copy ? kCopyThreads : 1);
       mbar_init(&r.empty[s], kConsumers / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -579,34 +597,110 @@ struct Loads {
   int n, b;
 };
 
-// The producer warp's copy of one stage without TMA: the row tile's and
-// the query group's k-block kb (packed int4: the high query half when hi)
-// into the swizzled layout TMA would write, zeros outside the data.
-template <class Kind, int kN = kGroup>
-__device__ void copy_stage(const Loads& ld, const Geometry& geo, int t,
-                           int q0, int kb, bool hi, uint8_t* rows,
-                           uint8_t* qs) {
-  const int lane = threadIdx.x & 31;
-  const int rb = geo.row_bytes;
-  for (int e = lane; e < kTileRows * kKBlock; e += 32) {
-    const int r = e / kKBlock, c = e % kKBlock;
-    const long gr = (long)t * kTileRows + r;
-    const int col = kb * kKBlock + c;
-    rows[swizzled(r, c)] =
-        gr < ld.n && col < rb ? ld.x[gr * rb + col] : (int8_t)0;
+// Whether this thread of the producer warpgroup fills the ring: one warp
+// issues the TMA loads, the whole warpgroup copies.
+template <bool kTma>
+__device__ __forceinline__ bool ring_loader() {
+  return !kTma || threadIdx.x < kConsumers + 32;
+}
+
+// One asynchronous copy of kBytes (4 or 8) from global to shared memory;
+// src_bytes 0 writes zeros and reads nothing.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+               :: "r"(dst), "l"(src), "n"(kBytes), "r"(src_bytes)
+               : "memory");
+}
+
+// The full barrier's arrival of this thread once its cp.async's so far
+// have landed (noinc: the barrier counts the copying threads).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// A plain store of a byte or of two bytes to shared memory.
+__device__ __forceinline__ void st_shared(uint32_t a, uint8_t v) {
+  asm volatile("st.shared.u8 [%0], %1;\n"
+               :: "r"(a), "h"((unsigned short)v) : "memory");
+}
+
+__device__ __forceinline__ void st_shared(uint32_t a, uint16_t v) {
+  asm volatile("st.shared.u16 [%0], %1;\n" :: "r"(a), "h"(v) : "memory");
+}
+
+// A box of `rows` rows x 128 bytes into the swizzled layout TMA would
+// write at shared address dst, by copying thread p of kCopyThreads:
+// columns [0, w) of the first `live` rows (>= 1) from src (row r at src +
+// r * stride), zeros elsewhere, in granules of kG bytes. Thread p takes
+// column (p * kG) % 128 of every kG-th row from row p * kG / 128. kG 8 or
+// 4: cp.async (a zero fill names src and reads nothing); 2 or 1: plain
+// loads, eight in flight, then their stores.
+template <int kG>
+__device__ __forceinline__ void copy_box(uint32_t dst, const int8_t* src,
+                                         int stride, int live, int w,
+                                         int rows, int p) {
+  const int c = p * kG % kKBlock;
+  const int r0 = p * kG / kKBlock;
+  const bool col = c < w;
+  if constexpr (kG >= 4) {
+#pragma unroll 2
+    for (int r = r0; r < rows; r += kG) {
+      const bool in = col && r < live;
+      cp_async<kG>(dst + swizzled(r, c), src + (in ? r * stride + c : 0),
+                   in ? kG : 0);
+    }
+  } else {
+    using T = std::conditional_t<kG == 2, uint16_t, uint8_t>;
+    constexpr int kU = 8;
+    for (int r = r0; r < rows; r += kU * kG) {
+      T v[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int ru = r + u * kG;
+        v[u] = col && ru < live
+                   ? __ldg(reinterpret_cast<const T*>(src + ru * stride + c))
+                   : T(0);
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        st_shared(dst + swizzled(r + u * kG, c), v[u]);
+      }
+    }
   }
+}
+
+// The producer warpgroup's copy of one stage without TMA, to shared
+// address `rows` (the row box, then the query box): the row tile's and the
+// query group's k-block kb (packed int4 and F32X3: the high query half
+// when hi) by granules of kG bytes, zeros past the row (the last k-block's
+// columns from row_bytes), past n and past b; then this thread's arrival
+// on the stage's full barrier.
+template <class Kind, int kN, int kG>
+__device__ __forceinline__ void copy_stage(const Loads& ld,
+                                           const Geometry& geo, int t,
+                                           int q0, int kb, bool hi,
+                                           uint32_t rows, uint64_t* full) {
+  // Every box is whole rounds of the plain loads' eight rows a thread.
+  static_assert(kN % 16 == 0, "copy rounds");
+  const int p = threadIdx.x - kConsumers;
+  const int rb = geo.row_bytes;
+  const int w = min(kKBlock, rb - kb * kKBlock);
+  const int r0 = t * kTileRows;  // < n
+  copy_box<kG>(rows, ld.x + (long)r0 * rb + kb * kKBlock, rb,
+               min(kTileRows, ld.n - r0), w, kTileRows, p);
   const int qstride = Kind::kPacked ? 2 * rb : rb;
   const int qcol0 = Kind::kPacked && hi ? rb : 0;
-  for (int e = lane; e < kN * kKBlock; e += 32) {
-    const int r = e / kKBlock, c = e % kKBlock;
-    const int qq = q0 + r;
-    const int col = kb * kKBlock + c;
-    qs[swizzled(r, c)] = qq < ld.b && col < rb
-                             ? ld.q[(long)qq * qstride + qcol0 + col]
-                             : (int8_t)0;
+  copy_box<kG>(rows + kRowBox,
+               ld.q + (long)q0 * qstride + qcol0 + kb * kKBlock, qstride,
+               min(kN, ld.b - q0), w, kN, p);
+  if constexpr (kG >= 4) {
+    cp_async_arrive(full);
+  } else {
+    mbar_arrive(full);
   }
-  // The consumers read the queries through the async proxy (wgmma).
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // The roles' register budgets (setmaxnreg: every warp of the warpgroup).
@@ -620,15 +714,17 @@ __device__ __forceinline__ void consumer_regs() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kRegs));
 }
 
-// The producer warp: fills the ring with the stages of row tiles t0, t0 +
+// The producer: fills the ring with the stages of row tiles t0, t0 +
 // step, ... < t1, in the order the consumers take them, from ring position
 // (stage, phase), which it advances (a kernel with two passes over the
-// rows continues the ring where the first pass left it).
-template <class Kind, bool kTma, int kN = kGroup>
-__device__ __forceinline__ void produce_tiles(
+// rows continues the ring where the first pass left it). Called by the
+// ring's loaders (ring_loader): the TMA build's warp, whose lane 0 issues
+// the loads, or the copying build's warpgroup, which copies by granules
+// of kG bytes and waits on no copy before the next stage.
+template <class Kind, bool kTma, int kN, int kG>
+__device__ __forceinline__ void produce_stages(
     const Maps& maps, const Loads& ld, const Geometry& geo, const Ring& ring,
     int q0, int t0, int t1, int step, int& stage, int& phase) {
-  const int lane = threadIdx.x & 31;
   for (int t = t0; t < t1; t += step) {
     for (int v = 0; v < geo.nv; ++v) {
       const bool hi = Kind::kPacked && v >= geo.kbs;
@@ -637,7 +733,7 @@ __device__ __forceinline__ void produce_tiles(
       uint8_t* rows = ring.base + stage * stage_bytes(kN);
       uint8_t* qs = rows + kRowBox;
       if constexpr (kTma) {
-        if (lane == 0) {
+        if ((threadIdx.x & 31) == 0) {
           mbar_expect(&ring.full[stage], stage_bytes(kN));
           tma_load(rows, &maps.x, kb * kKBlock, t * kTileRows,
                    &ring.full[stage]);
@@ -645,14 +741,47 @@ __device__ __forceinline__ void produce_tiles(
                    &ring.full[stage]);
         }
       } else {
-        copy_stage<Kind, kN>(ld, geo, t, q0, kb, hi, rows, qs);
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&ring.full[stage]);
+        copy_stage<Kind, kN, kG>(ld, geo, t, q0, kb, hi, smem_u32(rows),
+                                 &ring.full[stage]);
       }
       if (++stage == ring.n) {
         stage = 0;
         phase ^= 1;
       }
+    }
+  }
+  // No copying thread leaves with its copies in flight.
+  if constexpr (!kTma && kG >= 4) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  }
+}
+
+// produce_stages by the launch's load: TMA, or the copying build's
+// granule (maps.granule), chosen once for the whole walk.
+template <class Kind, bool kTma, int kN = kGroup>
+__device__ __forceinline__ void produce_tiles(
+    const Maps& maps, const Loads& ld, const Geometry& geo, const Ring& ring,
+    int q0, int t0, int t1, int step, int& stage, int& phase) {
+  if constexpr (kTma) {
+    produce_stages<Kind, true, kN, 16>(maps, ld, geo, ring, q0, t0, t1, step,
+                                       stage, phase);
+  } else {
+    switch (maps.granule) {
+      case 8:
+        produce_stages<Kind, false, kN, 8>(maps, ld, geo, ring, q0, t0, t1,
+                                           step, stage, phase);
+        break;
+      case 4:
+        produce_stages<Kind, false, kN, 4>(maps, ld, geo, ring, q0, t0, t1,
+                                           step, stage, phase);
+        break;
+      case 2:
+        produce_stages<Kind, false, kN, 2>(maps, ld, geo, ring, q0, t0, t1,
+                                           step, stage, phase);
+        break;
+      default:
+        produce_stages<Kind, false, kN, 1>(maps, ld, geo, ring, q0, t0, t1,
+                                           step, stage, phase);
     }
   }
 }
@@ -716,6 +845,11 @@ __device__ __forceinline__ void issue_stage(typename Kind::Acc (&acc)[kA],
   const int chunk_hi = lane >> 4;
   const bool hi = Kind::kPacked && v >= geo.kbs;
   mbar_wait(&ring.full[stage], phase);
+  // The copying producer's writes went through the generic proxy; wgmma
+  // reads the queries through the async proxy.
+  if (ring.copy) {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
   const uint8_t* rows = ring.base + stage * stage_bytes(kN);
   const uint32_t rows_a = smem_u32(rows) + r * kKBlock;
   const uint32_t qs_a = smem_u32(rows + kRowBox);
@@ -898,6 +1032,23 @@ inline Maps maps_from(const void* x, const void* q, const void* q_hi) {
   std::memcpy(&m.q, q, sizeof(CUtensorMap));
   std::memcpy(&m.q_hi, q_hi != nullptr ? q_hi : q, sizeof(CUtensorMap));
   return m;
+}
+
+// The Maps of a copying launch: its granule, which must divide the row
+// bytes and the rows' and the query's bases (the query's stride and its
+// high half's offset are multiples of the row bytes); any other fails the
+// launch.
+inline int copy_maps(Maps* m, const void* x, const void* q, int row_bytes,
+                     int granule) {
+  *m = Maps{};
+  m->granule = granule;
+  const bool known = granule == 1 || granule == 2 || granule == 4 ||
+                     granule == 8;
+  return known && row_bytes % granule == 0 &&
+                 reinterpret_cast<uintptr_t>(x) % granule == 0 &&
+                 reinterpret_cast<uintptr_t>(q) % granule == 0
+             ? 0
+             : (int)cudaErrorInvalidValue;
 }
 
 // Raise a kernel's dynamic shared memory limit to `smem` on the current

@@ -814,14 +814,13 @@ struct Scratch {
 };
 
 // The maps of a K1 launch: the wrapper's cached encodings when it gives
-// them, else encoded here (X9), the queries in boxes of a group.
+// them, else encoded here (X9), the queries in boxes of a group; in the
+// copying build the granule.
 template <class Kind, bool kTma>
 int launch_maps(Maps* maps, const void* const* m3, const void* x,
-                const void* q, int n, int b, int row_bytes, int q_box) {
-  if constexpr (!kTma) {
-    *maps = Maps{};
-    return 0;
-  }
+                const void* q, int n, int b, int row_bytes, int q_box,
+                int granule) {
+  if constexpr (!kTma) return copy_maps(maps, x, q, row_bytes, granule);
   if (m3 != nullptr) {
     *maps = maps_from(m3[0], m3[1], m3[2]);
     return 0;

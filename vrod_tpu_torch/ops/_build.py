@@ -142,13 +142,14 @@ def load(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
         return _libs[defines]
     lib = ctypes.CDLL(str(build(defines)))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    # (elem, epi, tma, x, aux, valid, bias, q, q_scale, theta0, n,
+    # (elem, epi, granule, x, aux, valid, bias, q, q_scale, theta0, n,
     #  row_bytes, b, k, offset, groups, parts, cap, on_chip, ring, scratch,
-    #  out_v, out_i, x_map, q_map, q_hi_map, stream)
+    #  out_v, out_i, x_map, q_map, q_hi_map, stream); granule: 16 for TMA,
+    #  else the copy's (cuda_topk.copy_granule)
     lib.vrod_fused_topk.restype = ci
     lib.vrod_fused_topk.argtypes = [ci] * 3 + [vp] * 7 + [ci] * 10 \
         + [vp] * 7
-    # The small scan: (elem, epi, tma, x, aux, valid, bias, q, q_scale,
+    # The small scan: (elem, epi, granule, x, aux, valid, bias, q, q_scale,
     #  theta0, n, row_bytes, b, k, offset, groups, parts, cap, out_v,
     #  out_i, x_map, q_map, q_hi_map, stream)
     lib.vrod_fused_topk_small.restype = ci
@@ -165,7 +166,7 @@ def load(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.vrod_k1_ring.argtypes = []
     lib.vrod_topk_smem.restype = ci
     lib.vrod_topk_smem.argtypes = [ci] * 3
-    # (elem, epi, tma, x, aux, valid, bias, q, q_scale, n, row_bytes, b,
+    # (elem, epi, granule, x, aux, valid, bias, q, q_scale, n, row_bytes, b,
     #  blk, width, spb, groups, out, x_map, q_map, q_hi_map, stream)
     lib.vrod_sampled_submax.restype = ci
     lib.vrod_sampled_submax.argtypes = [ci] * 3 + [vp] * 6 + [ci] * 7 \
@@ -174,13 +175,13 @@ def load(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.vrod_encode_map.restype = ci
     lib.vrod_encode_map.argtypes = [vp, vp, ci, ctypes.c_long,
                                     ctypes.c_long, ci]
-    # (elem, epi, tma, x, aux, mask, q, qs2, margin, n, row_bytes, b, k,
+    # (elem, epi, granule, x, aux, mask, q, qs2, margin, n, row_bytes, b, k,
     #  offset, groups, parts, cap, on_chip, ring, sample_tiles, blk_tiles,
     #  iters, skip, 10 scratch/output pointers, stream)
     lib.vrod_fused_theta.restype = ci
     lib.vrod_fused_theta.argtypes = [ci] * 3 + [vp] * 6 + [ci] * 14 \
         + [vp] * 11
-    # (tma, x, aux, valid, q, theta0, n, row_bytes, b, k, offset, groups,
+    # (granule, x, aux, valid, q, theta0, n, row_bytes, b, k, offset, groups,
     #  parts, cap, on_chip, ring, scratch, out_v, out_i, stream)
     lib.vrod_fused_intgate.restype = ci
     lib.vrod_fused_intgate.argtypes = [ci] + [vp] * 5 + [ci] * 10 \
@@ -194,12 +195,12 @@ def load(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     # TMA build, vrod_extract_<mode>_copy the copying one,
     # extract_<mode>_copy.cu): (elem, epi, variant, x, aux, mask, q,
     # offset, n, row_bytes, b, k, groups, parts, cap, block_rows, count,
-    # on_chip, stage, 8 scratch/output pointers, stream)
+    # on_chip, stage, granule, 8 scratch/output pointers, stream)
     for mode in EXTRACT_MODES:
         for copy in ("", "_copy"):
             fn = getattr(lib, f"vrod_extract_{mode}{copy}")
             fn.restype = ci
-            fn.argtypes = [ci] * 3 + [vp] * 5 + [ci] * 11 + [vp] * 9
+            fn.argtypes = [ci] * 3 + [vp] * 5 + [ci] * 12 + [vp] * 9
     # The carry's, the store's and the gated kernels' whole shared memory
     # a block in each build (vrod_extract_<mode>[_copy]_smem): (k, stage,
     # on_chip), (cap, on_chip) and (cap, on_chip)

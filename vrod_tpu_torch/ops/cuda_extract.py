@@ -48,11 +48,12 @@ validates its inputs and dispatches on the device of the tensors: a CPU
 tensor goes to its ``*_plain`` twin, a CUDA tensor launches the
 hand-written CUDA kernel of its mode (``csrc/extract_<mode>.cu``, see
 ``csrc/extract.cuh``) or raises. Each mode has two builds, picked by shape
-as K1's are (``cuda_topk.use_tma``): rows of whole 16-byte units at
+as K1's are (``cuda_topk.copy_granule``): rows of whole 16-byte units at
 16-byte aligned bases (rows and the query as the kernel reads it) load by
 TMA; any other rows (int8 dim 30 or 100, bfloat16 dim 100, float32 dim 25,
-an unaligned view) take the same kernel with the producer warp copying
-each stage (``csrc/extract_<mode>_copy.cu``). Rows are never padded into a
+an unaligned view) take the same kernel with the producer warpgroup
+copying each stage by the granule the shape allows
+(``csrc/extract_<mode>_copy.cu``). Rows are never padded into a
 TMA shape. No wrapper falls back, and no mode maps to K1's build at run
 time. ``launches`` counts kernel launches per kernel and leg (e.g.
 ``extract_carry[bf16-l2]``, ``extract_unroll4[int8-cosine]``), and
@@ -332,9 +333,11 @@ class _XCall:
             self.q = torch.cat(K.split_tf32(q), dim=1).contiguous()
         else:
             self.q = K.tf32_round(q)
-        # The build on the card: TMA, or the copying producer (f32x3: the
-        # query as the kernel reads it, the split (B, 2D) copy).
-        self.tma = K.use_tma(x, self.q, self.row_bytes)
+        # The build on the card: TMA (granule 16), or the copying producer
+        # by its granule (f32x3: the query as the kernel reads it, the
+        # split (B, 2D) copy).
+        self.granule = K.copy_granule(x, self.q, self.row_bytes)
+        self.tma = self.granule == 16
 
     @property
     def row_bytes(self) -> int:
@@ -437,7 +440,7 @@ def _launch(kernel, call, *, count=False):
             call.aux.data_ptr(), call.mask.data_ptr(), call.q.data_ptr(),
             call.offset.data_ptr(), call.n_scan, call.row_bytes, b, k,
             plan.groups, plan.parts, plan.cap, call.block_rows, int(count),
-            int(plan.on_chip), plan.stage,
+            int(plan.on_chip), plan.stage, call.granule,
             cand_v.data_ptr(), cand_i.data_ptr(), cand_n.data_ptr(),
             cnt.data_ptr(), merge_v.data_ptr(), merge_i.data_ptr(),
             out_v.data_ptr(), out_i.data_ptr(), K._stream(dev))

@@ -197,7 +197,7 @@ def fused_theta(x, aux, valid, q, *, k, metric, block_rows, s_blocks,
         merge_v = torch.empty(b * parts * k, dtype=torch.float32, device=dev)
         merge_i = torch.empty(b * parts * k, dtype=torch.int32, device=dev)
         rc = lib.vrod_fused_theta(
-            call.elem, call.epi, int(call.tma), call.x.data_ptr(),
+            call.elem, call.epi, call.granule, call.x.data_ptr(),
             call.aux.data_ptr(), call.mask.data_ptr(), call.q.data_ptr(),
             K._ptr(call.qs2), m.data_ptr(), n, call.row_bytes, b, k, 0,
             plan.groups, parts, plan.cap, int(plan.on_chip), plan.ring,
@@ -329,7 +329,7 @@ def fused_intgate(x, aux, valid, q, *, k, metric, theta0=None):
         return out_v, out_i
     t0 = K._theta(theta0, b, dev)
     lib = _build.load()
-    head = (int(call.tma), call.x.data_ptr(), call.aux.data_ptr(),
+    head = (call.granule, call.x.data_ptr(), call.aux.data_ptr(),
             call.valid.data_ptr(), call.q.data_ptr(), t0.data_ptr(), n,
             call.row_bytes, b, k, 0)
     with torch.cuda.device(dev):

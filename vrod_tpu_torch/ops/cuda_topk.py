@@ -59,16 +59,24 @@ dead ones and every float op rounded once:
   a bound (``score_error_bound``), not bit for bit; the engine's exact
   float32 rescore restores exactness.
 
+Rows TMA cannot load (row bytes not a multiple of 16, or unaligned
+bases: int8 dim 30 or 100, bfloat16 dim 100, float32 dim 25) take the same
+kernels with the producer warpgroup copying each stage by the widest
+granule the shape allows (``copy_granule``: cp.async of 8 or 4 bytes,
+plain loads of 2 or 1), a runtime argument of the launch.
+
 ``launches`` counts kernel launches per kernel and leg (e.g.
-``fused_topk[int8-l2]``); only a CUDA launch adds to it. ``small_scans``
-and ``floor_scans`` count, per leg, the K1 launches that took the
-small-scan kernel and the floor's kernel.
+``fused_topk[int8-l2]``); only a CUDA launch adds to it. ``copy_launches``,
+with the same keys, counts those of them that copied. ``small_scans`` and
+``floor_scans`` count, per leg, the K1 launches that took the small-scan
+kernel and the floor's kernel.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import math
 import threading
 from collections import OrderedDict
@@ -138,6 +146,7 @@ FLOOR_CUT_TILES = 4
 
 launches = {f"{kern}[{leg}]": 0 for kern in ("fused_topk", "sampled_submax")
             for leg in LEGS}
+copy_launches = dict(launches)
 small_scans = dict.fromkeys(LEGS, 0)
 floor_scans = dict.fromkeys(LEGS, 0)
 
@@ -145,6 +154,7 @@ floor_scans = dict.fromkeys(LEGS, 0)
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+        copy_launches[name] = 0
     for leg in LEGS:
         small_scans[leg] = 0
         floor_scans[leg] = 0
@@ -325,14 +335,15 @@ class _Call:
                 self.valid.data_ptr(), _ptr(self.bias), self.q.data_ptr(),
                 _ptr(self.q_scale))
 
-    @property
-    def tma(self) -> bool:
-        return use_tma(self.x, self.q, self.row_bytes)
+    @functools.cached_property
+    def granule(self) -> int:
+        """The launch's load: 16 (TMA) or the copy's granule."""
+        return copy_granule(self.x, self.q, self.row_bytes)
 
     def maps(self, group: int):
         """The encoded tensor maps (x, q, q_hi) of a launch whose blocks
         take ``group`` queries; (None, None, None) without TMA."""
-        if not self.tma:
+        if self.granule != 16:
             return None, None, None
         rb, n, b = self.row_bytes, self.n, self.b
         qstride = self.q.shape[1] * self.q.element_size()
@@ -661,13 +672,27 @@ def submax_tiles(block: int, segment: int, block_rows: int, spb: int
     return range(t0, t0 + seg)
 
 
+def copy_granule(x: torch.Tensor, q: torch.Tensor, row_bytes: int) -> int:
+    """How the kernels load rows ``x`` and the query ``q`` as they read
+    it: the largest of 16, 8, 4, 2 and 1 bytes that divides the row bytes
+    and both bases. 16 is TMA's shape (whole 16-byte units per row at
+    16-byte aligned bases); any other takes the same kernels with the
+    producer warpgroup copying each stage by that granule (8 and 4:
+    cp.async, 2 and 1: plain loads). The query's stride and the column of
+    its second half (packed int4's high nibbles' query, f32x3's small
+    parts) are multiples of the row bytes, so they allow what the row
+    bytes allow."""
+    for g in (16, 8, 4, 2):
+        if row_bytes % g == 0 and x.data_ptr() % g == 0 \
+                and q.data_ptr() % g == 0:
+            return g
+    return 1
+
+
 def use_tma(x: torch.Tensor, q: torch.Tensor, row_bytes: int) -> bool:
-    """Whether the kernels load rows and queries by TMA: whole 16-byte
-    units per row and 16-byte aligned bases. Other shapes (int8 dim 30,
-    packed int4 dim 30) take the same kernels with the producer warp
-    copying each stage."""
-    return row_bytes % 16 == 0 and x.data_ptr() % 16 == 0 \
-        and q.data_ptr() % 16 == 0
+    """Whether the kernels load rows and queries by TMA
+    (``copy_granule`` 16)."""
+    return copy_granule(x, q, row_bytes) == 16
 
 
 _SMS: dict = {}
@@ -773,7 +798,7 @@ def _topk_cuda(lib, call, k, index_offset, theta0):
     out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     t0 = None if theta0 is None else _theta(theta0, b, dev)
-    head = (call.elem, call.epi, int(call.tma), *call.pointers(), _ptr(t0),
+    head = (call.elem, call.epi, call.granule, *call.pointers(), _ptr(t0),
             n, call.row_bytes, b, k, int(index_offset))
     sms = _sms(dev)
     route = scan_route(n, b, k, sms, t0 is not None)
@@ -800,6 +825,8 @@ def _topk_cuda(lib, call, k, index_offset, theta0):
                 *call.maps(GROUP_QUERIES), _stream(dev))
     _ok(rc, "fused_topk launch")
     launches[f"fused_topk[{call.leg}]"] += 1
+    if call.granule != 16:
+        copy_launches[f"fused_topk[{call.leg}]"] += 1
     if route == "small":
         small_scans[call.leg] += 1
     elif route == "floor":
@@ -859,9 +886,11 @@ def _submax_cuda(lib, call, block_rows):
     maps = call.maps(width)
     with _on(dev):
         rc = lib.vrod_sampled_submax(
-            call.elem, call.epi, int(call.tma), *call.pointers(), n,
+            call.elem, call.epi, call.granule, *call.pointers(), n,
             call.row_bytes, b, block_rows, width,
             spb, groups, out.data_ptr(), *maps, _stream(dev))
     _ok(rc, "sampled_submax launch")
     launches[f"sampled_submax[{call.leg}]"] += 1
+    if call.granule != 16:
+        copy_launches[f"sampled_submax[{call.leg}]"] += 1
     return out

@@ -64,7 +64,10 @@ nothing falls back to the CPU or to a plain version):
    - (iii) bfloat16 cosine, top-100, with the same reopen (the bfloat16
      snapshot path, which needs no ml_dtypes): ``--rows`` rows; (iv)
      float32 dot, top-100 (with the float control): CUT_ROWS rows (the
-     depth cut for the time limit; its floor opens from 131,072 rows);
+     depth cut for the time limit; its floor opens from 131,072 rows),
+     then EXACT_CORE_SEARCHES batches at precision "exact", top-16: k_scan
+     24 keeps the floor closed, so K1 runs its gated core at f32x3 (no K3,
+     no scan from a floor), recall 1.0 against the exact float32 scan;
    - every leg (15 collections), 2 searches each: int8/int4 at top-16 on
      262,144 rows, bfloat16/float32 at top-100 on 131,072 rows (f32x3: a
      float32 collection searched at precision "exact").
@@ -300,6 +303,11 @@ RECALL_EPS = 1e-5  # tie tolerance of the recall check (bench.py's)
 # (131,072 rows; their floor opens from k_scan 64).
 LEG_SHAPES = {"quant": (262144, 16), "float": (131072, 100)}
 LEG_SEARCHES = 2
+# Phase (iv)'s searches whose floor stays closed: float32 rows at "exact",
+# top-16 (k_scan 24, below engine.THETA0_MINK_FLOAT), the engine path of
+# K1's gated core at f32x3.
+EXACT_CORE = {"(iv)": 16}
+EXACT_CORE_SEARCHES = 5
 # Phases (i), (ii) and (iv): their rows (the depth cut of ``--rows``, for
 # the time limit; the least at which int8/int4 top-16's floor opens).
 CUT_ROWS = 262144
@@ -343,9 +351,11 @@ EXTRACT_BLOCK = 2048
 # five groups of 64).
 EDGE_ROWS = 65536
 EDGE_KS = (1, 33, 34, 112, 128, 150, 210, 211, 230)
-# The f32x3 builds' edges: the store's lists past their on-chip limit
-# (150) and the gated lists past theirs (211).
-EDGE_KS_F32X3 = (150, 211)
+# The f32x3 builds' edges (their stages hold both query halves, 32 KB):
+# the store's lists past their on-chip limit (81), the gated lists' last
+# on-chip k and the first past it (146, 147), X2's carry in global memory
+# (163) and past K1's 3-stage edge (211).
+EDGE_KS_F32X3 = (81, 146, 147, 163, 211)
 EDGE_KERNELS = ("carry", "store", "gate", "unroll2", "unroll4", "pingpong")
 EDGE_BATCHES = (1, 200, 300)
 # Phase 5's rows that TMA cannot load (each kernel's copying build): every
@@ -955,13 +965,19 @@ def kernel_cases(cmp, rng, dev, leg):
     cmp.floor_sound(leg, args, kw, 112, theta_c, f"{leg} (c)")
     cmp.topk(leg, args, kw, 1280, f"{leg} (c) k 1280")
     # (h) K1's long scan at every k its lists take: 1, 16, 28, 112, 136,
-    # the largest k whose lists fit on chip and the next, at 69,632 rows
-    # (past the small scan at b256), dims 768 and 30 (the copying
-    # producer), no floor; and at k 28 from a floor below every score (the
-    # scan from a floor, whose lists then fill and are cut every few tiles).
+    # and at each edge of the leg's layout (the last k at a ring depth or
+    # on chip, and the next: 210/211 and 258/259, at f32x3 146/147 and
+    # 210/211), at 69,632 rows (past the small scan at b256), dims 768 and
+    # 30 (the copying producer), no floor; and at k 28 from a floor below
+    # every score (the scan from a floor, whose lists then fill and are
+    # cut every few tiles).
     from vrod_tpu_torch.ops import _build
     ring = K.lib_ring(_build.load())
-    edge = max(k for k in range(1, 1281) if K.topk_layout(k, ring).on_chip)
+    lays = [K.topk_layout(k, ring, leg.startswith("f32x3"))
+            for k in range(1, 1282)]
+    edges = [e for k in range(1, 1281)
+             if (lays[k - 1].ring, lays[k - 1].on_chip)
+             != (lays[k].ring, lays[k].on_chip) for e in (k, k + 1)]
     for d in (DIM, 30):
         xh = torch.from_numpy(rng.standard_normal((69632, d),
                                                   dtype=np.float32))
@@ -969,8 +985,8 @@ def kernel_cases(cmp, rng, dev, leg):
                                                   dtype=np.float32))
         ah, kh = kernel_inputs(xh, qh, leg, dev, dead_every=7)
         low = torch.full((BATCH, 1), -1e30, device=dev)
-        for k, t0 in [(k, None) for k in (1, 16, 28, 112, 136, edge,
-                                          edge + 1)] + [(28, low)]:
+        for k, t0 in [(k, None) for k in (1, 16, 28, 112, 136, *edges)] \
+                + [(28, low)]:
             small = K.small_scans[leg]
             what = f"{leg} (h) dim {d} k {k}" + (", floor" if t0 is not None
                                                   else "")
@@ -1337,45 +1353,50 @@ def extract_edges(cmp, card, dev):
     bound. First, the
     plans' shared memory (``carry_smem``, ``store_smem``, ``gate_smem``)
     EQUAL to the library's account of the built kernels at every k to 256,
-    and EDGE_KS reaching past every on-chip limit. Prints each kernel's
+    on the f32x3 legs and every other, and EDGE_KS reaching past every
+    on-chip limit. Prints each kernel's
     launches a call and the wall time."""
     import torch
     from vrod_tpu_torch.ops import _build
     from vrod_tpu_torch.ops import cuda_extract as X
     wall0 = time.perf_counter()
     lib = _build.load()
-    for tma, k in ((tma, k) for tma in (1, 0) for k in range(1, 257)):
+    for tma, split, k in ((tma, split, k) for tma in (1, 0)
+                          for split in (0, 1) for k in range(1, 257)):
         for stage in X.CARRY_STAGES:
             for on_chip in (True, False):
-                got = X.entry(lib, "carry", tma, "_smem")(k, stage,
-                                                         int(on_chip))
-                if got != X.carry_smem(k, stage, on_chip):
+                got = X.entry(lib, "carry", tma, "_smem")(
+                    k, stage, int(on_chip), split)
+                if got != X.carry_smem(k, stage, on_chip, split):
                     raise AssertionError(
-                        f"carry_smem({k}, {stage}, {on_chip}) = "
-                        f"{X.carry_smem(k, stage, on_chip)}, the kernel "
-                        f"(tma {tma}) needs {got}")
+                        f"carry_smem({k}, {stage}, {on_chip}, {split}) = "
+                        f"{X.carry_smem(k, stage, on_chip, split)}, the "
+                        f"kernel (tma {tma}) needs {got}")
         for plan, smem, mode in ((X.store_plan, X.store_smem, "store"),
                                  (X.gate_plan, X.gate_smem, "gate")):
-            cap, on_chip = plan(k)
-            got = X.entry(lib, mode, tma, "_smem")(cap, int(on_chip))
-            if got != smem(cap, on_chip):
-                raise AssertionError(f"{smem.__name__}({cap}, {on_chip}) = "
-                                     f"{smem(cap, on_chip)}, the kernel "
-                                     f"(tma {tma}) needs {got}")
-    off = {kern: [k for k in EDGE_KS if not X.extract_plan(
-        kern, EDGE_ROWS, BATCH, k, 132).on_chip] for kern in EDGE_KERNELS}
-    if not all(off.values()):
-        raise AssertionError(f"EDGE_KS {EDGE_KS} leave a kernel's global-"
-                             f"memory path untested: off chip at {off}")
-    edge = max(k for k in range(1, 257) if X.gate_plan(k)[1])
-    if edge not in EDGE_KS or edge + 1 not in EDGE_KS:
-        raise AssertionError(f"EDGE_KS {EDGE_KS} miss the gated lists' "
-                             f"on-chip edge, k {edge} and {edge + 1}")
-    log(f"edge cases: the plans' shared memory equals the kernels' (TMA "
-        f"and copying builds) at k 1-256; in global memory: the carry at "
-        f"k {off['carry']}, the "
-        f"store's lists at k {off['store']}, the gated kernels' lists at k "
-        f"{off['gate']} (on chip to k {edge})")
+            cap, on_chip = plan(k, split)
+            got = X.entry(lib, mode, tma, "_smem")(cap, int(on_chip), split)
+            if got != smem(cap, on_chip, split):
+                raise AssertionError(
+                    f"{smem.__name__}({cap}, {on_chip}, {split}) = "
+                    f"{smem(cap, on_chip, split)}, the kernel (tma {tma}) "
+                    f"needs {got}")
+    for ks, split in ((EDGE_KS, False), (EDGE_KS_F32X3, True)):
+        off = {kern: [k for k in ks if not X.extract_plan(
+            kern, EDGE_ROWS, BATCH, k, 132, split=split).on_chip]
+            for kern in EDGE_KERNELS}
+        if not all(off.values()):
+            raise AssertionError(f"edge ks {ks} leave a kernel's global-"
+                                 f"memory path untested: off chip at {off}")
+        edge = max(k for k in range(1, 257) if X.gate_plan(k, split)[1])
+        if edge not in ks or edge + 1 not in ks:
+            raise AssertionError(f"edge ks {ks} miss the gated lists' "
+                                 f"on-chip edge, k {edge} and {edge + 1}")
+        log(f"edge cases{' (f32x3)' if split else ''}: the plans' shared "
+            f"memory equals the kernels' (TMA and copying builds) at k "
+            f"1-256; in global memory: the carry at k {off['carry']}, the "
+            f"store's lists at k {off['store']}, the gated kernels' lists "
+            f"at k {off['gate']} (on chip to k {edge})")
     ke = tool_module("kexp_extract")
     kerns = EDGE_KERNELS
     calls = dict.fromkeys(kerns, 0)
@@ -1822,6 +1843,33 @@ def search_round(col, queries, leg, top_k, what, lat=None):
     return results
 
 
+def exact_core_round(col, queries, top_k, what):
+    """Searches of a float32 collection at precision "exact" whose floor
+    stays closed: each must launch K1 at f32x3 through its gated core (no
+    K3, no scan from a floor, no small scan); recall 1.0 against the exact
+    float32 scan."""
+    from vrod_tpu_torch.ops import cuda_topk as K
+    leg = f"f32x3-{col.config.metric}"
+    k1, k3 = f"fused_topk[{leg}]", f"sampled_submax[{leg}]"
+    t0 = time.perf_counter()
+    for b, q in enumerate(queries):
+        before = (K.launches[k1], K.launches[k3], K.floor_scans[leg],
+                  K.small_scans[leg])
+        hits = col.search_similar(q, top_k, precision="exact")
+        after = (K.launches[k1], K.launches[k3], K.floor_scans[leg],
+                 K.small_scans[leg])
+        if after[0] <= before[0] or after[1:] != before[1:]:
+            raise AssertionError(f"{what} {b}: K1, K3, floor and small "
+                                 f"scans {before} -> {after}: not K1's "
+                                 "gated core alone")
+        check_hits(hits, oracle_kth(col.engine, q, top_k),
+                   col.config.metric, top_k, f"{what} {b}")
+    log(f"{what}: {len(queries)} x search_similar b{BATCH} top-{top_k} at "
+        f"\"exact\" (k_scan {col.engine.scan_widths(top_k)[1]}, floor "
+        f"closed): {k1} through the gated core, recall 1.0, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def quant_flips(col, chunk, ids, flips):
     """Quantize ``chunk`` on the port's CPU path and add to ``flips`` (count,
     largest difference) how its stored bytes differ from those the card
@@ -2095,6 +2143,9 @@ def db_phase(dev, card, cmp, *, name, leg, top_k, rows, searches, reopen,
             f"{np.percentile(lat_ms, 50):.3f} ms, max {lat_ms.max():.3f} ms "
             f"over {searches} batches after one warm-up, recall 1.0 "
             f"[{card}]")
+        if name in EXACT_CORE:
+            exact_core_round(col, queries[:EXACT_CORE_SEARCHES],
+                             EXACT_CORE[name], f"{name} exact core")
         if reopen:
             col.snapshot()
             top1 = [bq[j][0][0] for bq in before

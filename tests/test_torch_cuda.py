@@ -426,14 +426,17 @@ def test_cuda_k1_batch_sweep_matches_plain(rng, cuda_device, b):
 def test_cuda_topk_smem_is_within_the_plan(cuda_device):
     """The long scan's whole shared memory (the library's account of the
     built kernel, vrod_topk_smem) is at most the plan's ``topk_smem`` and
-    the card's limit at every k to 1280, the lists on chip or not."""
+    the card's limit at every k to 1280, the lists on chip or not, on the
+    f32x3 legs (stages of both query halves) and on every other."""
     lib = _build.load()
     ring = cuda_topk.lib_ring(lib)
-    for k in range(1, 1281):
-        lay = cuda_topk.topk_layout(k, ring)
-        need = lib.vrod_topk_smem(lay.ring, lay.cap, int(lay.on_chip))
-        assert 0 < need <= cuda_topk.topk_smem(lay) \
-            <= cuda_topk.SMEM_LIMIT, (k, lay)
+    for split in (False, True):
+        for k in range(1, 1281):
+            lay = cuda_topk.topk_layout(k, ring, split)
+            need = lib.vrod_topk_smem(lay.ring, lay.cap, int(lay.on_chip),
+                                      int(split))
+            assert 0 < need <= cuda_topk.topk_smem(lay, split) \
+                <= cuda_topk.SMEM_LIMIT, (k, lay, split)
 
 
 # -- The floor and gate kernels (ops/cuda_floor.py) -------------------------
@@ -764,15 +767,18 @@ def test_cuda_pingpong_matches_plain_across_tiles(rng, cuda_device, dtype,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 112, 150, 210, 211, 230])
+@pytest.mark.parametrize("k", [1, 80, 81, 112, 130, 131, 146, 147, 162,
+                               163, 211, 230])
 @pytest.mark.parametrize("b", [1, 200, 300])
 @pytest.mark.parametrize("mode", X_KERNELS)
 def test_cuda_f32x3_extract_edges(rng, cuda_device, mode, b, k):
-    """The f32x3 builds (float32 rows at "exact", cosine) at the plans'
-    edges: k 1, 112, past the store's lists' on-chip limit (150), the gated
-    lists' last on-chip k and the first past it (210, 211) and the carry in
-    global memory (230); one query, 200 and 300: within the bound of the
-    plain twin, one launch a call, every slot of a whole block."""
+    """The f32x3 builds (float32 rows at "exact", cosine; stages of both
+    query halves) at the plans' edges: k 1, 112, the store's lists' last
+    on-chip k and the first past it (80, 81), X2's carry's stage of 32 and
+    16 places (130, 131) and its last on-chip k and the next (162, 163),
+    the gated lists' (146, 147), 211 and 230; one query, 200 and 300:
+    within the bound of the plain twin, one launch a call, every slot of a
+    whole block."""
     n, blk, offset = 16384 + 77, 1024, 3
     args = x_args(rng, n, 128, b, cuda_device, "f32x3", offset)
     kw = dict(k=k, metric="cosine", block_rows=blk, precision_name="exact")
@@ -845,25 +851,31 @@ def test_cuda_extract_smem_is_the_kernels(cuda_device):
     lists, the static part) is the kernels' own, as the library reports it
     from the built kernels (their static size and ``narrow_smem``), on chip
     and off, at every k to 256 and the capacities of both placements, in
-    the TMA builds and the copying builds alike."""
+    the TMA builds and the copying builds alike, on the f32x3 legs (stages
+    of both query halves) and on every other."""
     lib = _build.load()
-    for tma in (True, False):
+    for tma, split in ((t, s) for t in (True, False) for s in (0, 1)):
         carry, store, gate = (cuda_extract.entry(lib, mode, tma, "_smem")
                               for mode in ("carry", "store", "gate"))
         for k in range(1, 257):
             for stage in cuda_extract.CARRY_STAGES:
                 for on_chip in (True, False):
-                    assert carry(k, stage, int(on_chip)) \
-                        == cuda_extract.carry_smem(k, stage, on_chip), \
-                        (k, stage, tma)
-            cap, on_chip = cuda_extract.store_plan(k)
-            assert store(cap, int(on_chip)) \
-                == cuda_extract.store_smem(cap, on_chip), (k, tma)
-            cap, on_chip = cuda_extract.gate_plan(k)
-            assert gate(cap, int(on_chip)) \
-                == cuda_extract.gate_smem(cap, on_chip), (k, tma)
-        assert store(177, 1) > cuda_extract.SMEM_BYTES
-        assert gate(243, 1) > cuda_extract.SMEM_BYTES
+                    assert carry(k, stage, int(on_chip), split) \
+                        == cuda_extract.carry_smem(k, stage, on_chip,
+                                                   split), \
+                        (k, stage, tma, split)
+            cap, on_chip = cuda_extract.store_plan(k, split)
+            assert store(cap, int(on_chip), split) \
+                == cuda_extract.store_smem(cap, on_chip, split), \
+                (k, tma, split)
+            cap, on_chip = cuda_extract.gate_plan(k, split)
+            assert gate(cap, int(on_chip), split) \
+                == cuda_extract.gate_smem(cap, on_chip, split), \
+                (k, tma, split)
+        room = cuda_extract.store_plan(1, split)[0]
+        assert store(room + 1, 1, split) > cuda_extract.SMEM_BYTES
+        room = cuda_extract.gate_plan(1, split)[0]
+        assert gate(room + 1, 1, split) > cuda_extract.SMEM_BYTES
 
 
 @pytest.mark.cuda

@@ -109,7 +109,7 @@ def test_small_plan_switch_point_and_k(b, last):
     assert K.small_smem(K.SMALL_MAX_K) <= K.SMEM_LIMIT
     # The merge gathers parts x k candidates a warp into the freed ring.
     assert K.MAX_CLUSTER * K.SMALL_MAX_K * 8 * 8 <= \
-        K.SMALL_RING * K._SMALL_STAGE
+        K.SMALL_RING * K.stage_bytes(K.SMALL_GROUP)
 
 
 def test_tensor_map_cache_keys_on_everything_encoded():

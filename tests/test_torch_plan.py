@@ -202,13 +202,30 @@ def test_copy_granule_by_shape(dtype, dim, packed, precision, offset,
 @pytest.mark.parametrize("defines", [("VROD_K1_RING=3",),
                                      ("VROD_PROBE_NO_GATE",),
                                      ("VROD_PROBE_NO_GATE",
-                                      "VROD_PROBE_NO_MMA")])
+                                      "VROD_PROBE_NO_MMA"),
+                                     ("VROD_PROBE_PRESPLIT",),
+                                     ("VROD_PROBE_CVT_SPLIT",)])
 def test_build_variants_beside_the_default(defines):
     default = _build.library_path()
     variant = _build.library_path(defines)
     assert variant != default and variant.parent == default.parent
     assert variant == _build.library_path(tuple(defines))
     assert _build.library_path(()) == default
+
+
+@pytest.mark.parametrize("sources", [("fused_topk.cu",),
+                                     ("fused_topk.cu", "sampled_submax.cu")])
+def test_build_of_some_sources_beside_the_whole(sources):
+    """A measurement build of some sources alone (tools/kernel_probe.py
+    --f32x3) lies beside the whole library of the same defines, names the
+    same sources in any order, and compiles exactly those files."""
+    defines = ("VROD_PROBE_PRESPLIT",)
+    whole = _build.library_path(defines)
+    some = _build.library_path(defines, sources)
+    assert some != whole and some.parent == whole.parent
+    assert some == _build.library_path(defines, tuple(reversed(sources)))
+    assert [p.name for p in _build._sources(sources)] == sorted(sources)
+    assert len(_build._sources()) > len(sources)
 
 
 @pytest.mark.parametrize("n,b,k,blk,s_blocks", [
@@ -515,9 +532,8 @@ def test_topk_scratch_holds_the_handed_over_lists(b, k):
 def test_floor_and_extraction_kernels_count_every_f32x3_leg():
     """X6/X8 take every leg of K1, f32x3 included, and X1-X3 every leg the
     experiments take at each precision (int8, bf16, f32 and f32x3 under
-    cosine, dot and l2), X4 cosine only; the plans of these kernels depend
-    on k and the shapes alone, as the split query's stage is the same
-    row box and 128-byte query box as any other leg's."""
+    cosine, dot and l2), X4 cosine only; every other leg's stage is the
+    row box and one 128-byte query box (the f32x3 plans: below)."""
     from vrod_tpu_torch.ops import cuda_floor as F
     assert F.LEGS == K.LEGS
     assert [n for n in F.launches if "f32x3" in n] == [
@@ -528,4 +544,145 @@ def test_floor_and_extraction_kernels_count_every_f32x3_leg():
         assert [n for n in cuda_extract.launches
                 if n.startswith(f"extract_{kern}[f32x3")] == [
             f"extract_{kern}[f32x3-{m}]" for m in metrics]
-    assert cuda_extract.STAGE_BYTES == 128 * 128 + cuda_extract.NARROW * 128
+    assert K.stage_bytes(cuda_extract.NARROW) \
+        == 128 * 128 + cuda_extract.NARROW * 128
+
+
+# -- the f32x3 legs' stages (score.cuh's Walk) -------------------------------
+
+
+@pytest.mark.parametrize("width,split,want", [
+    (16, False, 18432), (16, True, 20480), (64, False, 24576),
+    (64, True, 32768), (128, False, 32768), (128, True, 49152),
+    (256, False, 49152), (256, True, 49152)])
+def test_stage_bytes_by_width_and_leg(width, split, want):
+    """A ring stage is the 16 KB row box and the box of the group's
+    queries; on the f32x3 legs groups of up to 128 queries take the big
+    and the small parts of their queries in one stage (one walk of the row
+    k-blocks), while groups of 256 take them a stage each (the stage of
+    both would be 80 KB)."""
+    assert K.stage_bytes(width, split) == want
+    assert want % 1024 == 0
+
+
+@pytest.mark.parametrize("k,want", [
+    (1, (4, 178, True)), (24, (4, 178, True)), (108, (4, 178, True)),
+    (146, (4, 178, True)), (147, (3, 242, True)), (210, (3, 242, True)),
+    (211, (4, 851, False)), (1280, (4, 1920, False))])
+def test_topk_layout_at_the_default_ring_f32x3(k, want):
+    """The f32x3 legs' gated core (K1 without a floor, X6/X8): 32 KB
+    stages (the row box and 64 queries' big and small parts), 4 of them
+    beside lists of 178 places on chip to k 146, 3 beside lists of 242 to
+    k 210, then k + 640 in global memory beside 4; at a ring of 3 the
+    lists hold 242 from k 1. K1's plan and fused_theta's take that
+    layout."""
+    from vrod_tpu_torch.ops import cuda_floor as F
+    assert tuple(K.topk_layout(k, split=True)) == want
+    three = K.topk_layout(k, 3, True)
+    assert (three.ring, three.on_chip) == (3, want[2])
+    assert three.cap == (242 if want[2] else want[1])
+    four = K.Layout(4, 178, True)
+    assert K.topk_smem(four, True) <= K.SMEM_LIMIT \
+        < K.topk_smem(four._replace(cap=179), True)
+    plan = K.topk_plan(1 << 20, 256, k, 132, split=True)
+    assert (plan.ring, plan.cap, plan.on_chip) == want
+    if 128 * 16 >= 2 * k:
+        assert tuple(F.theta_plan(1 << 20, 256, k, 8192, 16, 132,
+                                  split=True)[:5]) == plan
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_topk_smem_within_the_card_at_every_k(split):
+    """At every k from 1 to 1280 the long scan's layout (on chip or not)
+    fits a block's 232,448 bytes, lists on chip hold k + 32 places at
+    least and one place more would not fit, and a ring one stage deeper
+    (to RING) would leave the lists too few places."""
+    for k in range(1, 1281):
+        lay = K.topk_layout(k, split=split)
+        assert K.topk_smem(lay, split) <= K.SMEM_LIMIT == 232448, k
+        if not lay.on_chip:
+            continue
+        assert lay.cap >= k + K.LIST_SLACK
+        assert K.topk_smem(lay._replace(cap=lay.cap + 1), split) \
+            > K.SMEM_LIMIT
+        assert lay.ring <= K.RING
+        if lay.ring < K.RING:
+            deeper = K.Layout(lay.ring + 1, k + K.LIST_SLACK, True)
+            assert K.topk_smem(deeper, split) > K.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("k,carry,store,gate", [
+    (1, (32, True), (112, True), (178, True)),
+    (80, (32, True), (112, True), (178, True)),
+    (81, (32, True), (81 + 640, False), (178, True)),
+    (108, (32, True), (108 + 640, False), (178, True)),
+    (130, (32, True), (130 + 640, False), (178, True)),
+    (131, (16, True), (131 + 640, False), (178, True)),
+    (146, (16, True), (146 + 640, False), (178, True)),
+    (147, (16, True), (147 + 640, False), (147 + 640, False)),
+    (162, (16, True), (162 + 640, False), (162 + 640, False)),
+    (163, (16, False), (163 + 640, False), (163 + 640, False))])
+def test_extract_plans_f32x3(k, carry, store, gate):
+    """The extraction kernels' f32x3 plans, beside 4 stages of 32 KB: X2's
+    carry on chip with stages of 32 places to k 130 and of 16 to k 162;
+    the store's lists of 112 places (beside its score tile) to k 80; the
+    gated kernels' lists of 178 to k 146; past each edge global memory.
+    ``extract_plan`` takes them where the call is split."""
+    assert K.stage_bytes(cuda_extract.NARROW, True) == 32768
+    assert cuda_extract.carry_plan(k, True) == carry
+    assert cuda_extract.store_plan(k, True) == store
+    assert cuda_extract.gate_plan(k, True) == gate
+    for kernel, (_, on_chip) in (("carry", carry), ("store", store),
+                                 ("gate", gate), ("pingpong", gate)):
+        plan = cuda_extract.extract_plan(kernel, 1 << 20, 256, k, 132,
+                                         split=True)
+        assert plan.on_chip == on_chip, kernel
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_extract_smem_within_the_card_at_every_k(split):
+    """At every k from 1 to 1280 each extraction plan's shared memory
+    fits a block's 232,448 bytes, and lists on chip take k + 32 places."""
+    for k in range(1, 1281):
+        stage, on_chip = cuda_extract.carry_plan(k, split)
+        assert cuda_extract.carry_smem(k, stage, on_chip, split) \
+            <= cuda_extract.SMEM_BYTES
+        for plan, smem in ((cuda_extract.store_plan, cuda_extract.store_smem),
+                           (cuda_extract.gate_plan, cuda_extract.gate_smem)):
+            cap, on_chip = plan(k, split)
+            assert smem(cap, on_chip, split) <= cuda_extract.SMEM_BYTES
+            assert cap >= k + cuda_extract.STORE_SLACK
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_small_scan_and_submax_rings_fit(split):
+    """K1's small scan (4 stages of 16 queries and their lists) and K3's
+    rings (whole stages within 192 KB, 6 or 4 of them at f32x3) fit a
+    block, and the freed ring holds the small scan's merge and K3's
+    maxima."""
+    assert K.small_smem(K.SMALL_MAX_K, split) <= K.SMEM_LIMIT
+    assert K.MAX_CLUSTER * K.SMALL_MAX_K * 8 * 8 \
+        <= K.SMALL_RING * K.stage_bytes(K.SMALL_GROUP, split)
+    for width in K.SUBMAX_GROUPS:
+        smem = K.submax_smem(width, split)
+        stages = (smem - 1024) // K.stage_bytes(width, split)
+        assert smem <= 227 * 1024 and width * 128 * 4 <= smem - 1024
+        assert stages == {(64, False): 8, (128, False): 6, (64, True): 6,
+                          (128, True): 4}[width, split]
+
+
+@pytest.mark.parametrize("n,b,blk", [(131072, 256, 8192),
+                                     (131072, 256, 16384),
+                                     (32768, 256, 16384), (65536, 40, 2048)])
+def test_submax_plan_f32x3_takes_groups_of_64(n, b, blk):
+    """K3 on the f32x3 legs takes query groups of 64 at every shape (its
+    n128 build's stages of both query halves leave the consumers too few
+    registers), with the segments of the other legs' 64-wide plan."""
+    width, groups, spb = K.submax_plan(n, b, blk, 132, split=True)
+    assert width == 64 and groups == -(-b // 64)
+    saved = K.SUBMAX_GROUPS
+    try:
+        K.SUBMAX_GROUPS = (64, 64)
+        assert K.submax_plan(n, b, blk, 132) == (width, groups, spb)
+    finally:
+        K.SUBMAX_GROUPS = saved

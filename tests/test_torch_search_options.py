@@ -172,6 +172,44 @@ def test_float_rows_at_high_precision_take_the_three_product_kernels(
         assert calls == [leg] * len(rescores), (dtype, precision)
 
 
+@pytest.mark.parametrize("metric", ["dot", "cosine", "l2"])
+def test_exact_top16_on_float_rows_takes_the_gated_core(rng, monkeypatch,
+                                                         metric):
+    """float32 rows searched at "exact" for the top 16 scan k 24, below
+    the float floor's least k (``engine.THETA0_MINK_FLOAT``): at
+    chip_smoke's phase (iv) shape (262,144 x 768, b256) the floor stays
+    closed and ``scan_route`` sends K1 to its gated core on an H100's 132
+    SMs, at f32x3. On smaller rows the same search (floor closed, no
+    theta0, leg f32x3) gives the JAX engine's ids at "exact", the values
+    within ``assert_same``'s tolerance."""
+    rows, dim, batch, sms = 262144, 768, 256, 132
+    calls = []
+    orig = cuda_topk.fused_topk
+
+    def spy(x, *a, **kw):
+        calls.append((cuda_topk.leg_name(x, kw["metric"], kw["packed"],
+                                         kw.get("precision", "fast")),
+                      kw.get("theta0")))
+        return orig(x, *a, **kw)
+
+    monkeypatch.setattr(cuda_topk, "fused_topk", spy)
+    jeng, eng = engines(rng, 2048, 64, "float32", metric)
+    k_out, k_scan = eng.scan_widths(16)
+    assert (k_out, k_scan) == (16, 24)
+    for n in (rows, eng.capacity):
+        ok, _, _ = floor_gate(n, k_scan, dim, 4, False, FloorSettings())
+        assert not ok, n
+    assert cuda_topk.small_plan(rows, batch, k_scan, sms) is None
+    assert cuda_topk.scan_route(rows, batch, k_scan, sms, False) == "core"
+    q = rng.standard_normal((8, 64)).astype(np.float32)
+    for rescore in (True, False):
+        kw = dict(precision="exact", rescore=rescore)
+        assert_same(eng.search(q, 16, **kw),
+                    jeng.search(q, 16, impl="pallas", **kw), metric,
+                    err=str(kw))
+    assert calls == [(f"f32x3-{metric}", None)] * 2
+
+
 # -- the floor's variables ------------------------------------------------
 
 # int8 rows at 32,768 x 32 with the pre-pass block forced to 256 rows: at

@@ -2,7 +2,8 @@
 """Where K1's time goes: K1 at the 1M-row phases' shapes built whole and
 with parts of its scan switched off, on one GPU.
 
-    python tools/kernel_probe.py [--small] [--out FILE]
+    python tools/kernel_probe.py [--small | --f32x3] [--variants V,..]
+        [--legs f32x3] [--out FILE]
 
 Builds the kernels once per variant (compile-time switches of csrc/; the
 builds live beside the normal one under csrc/build/, and the port never
@@ -33,12 +34,36 @@ cut, the cut rounds (a block's vote rounds) and the tiles walked
 nothing), at the same inputs. Prints one JSON object per line and writes
 them to ``--out``.
 
+``--f32x3``: instead, K1 without a floor (the gated core) on float32
+rows at "exact" (leg f32x3-dot: three TF32 products) at (iv)'s 1,048,576
+x 768, b256, k 108, CUDA events (mean of 20) in turns, built whole,
+without the split of the rows' registers into their TF32 parts
+(``VROD_PROBE_NO_SPLIT``), with the split by ``cvt.rna.tf32.f32`` in
+place of the integer rounding (``VROD_PROBE_CVT_SPLIT``), with the rows
+split once a stage by the producer warpgroup (``VROD_PROBE_PRESPLIT``:
+its warps 1-3 write the big parts in place and the small parts into a
+third box of the stage, 48 KB, and the consumers load both and split
+nothing; K1's gated core alone, TMA builds), without the second stage of
+a k-block where the build walks one (``VROD_PROBE_ONE_WALK``), with the
+test but no appends (``test_only``), without the test (``no_gate``) and
+with the ring, the loads and the split alone (``ring_alone``)
+(``--variants``: some of them). The variants but ``whole`` build
+``csrc/fused_topk.cu`` alone. Each is timed at its layout (ring, list
+places) of ``F32X3_LAYOUTS`` (default: ``cuda_topk.topk_layout``'s);
+``whole`` also at k 24 beside 4 and 3 stages, three times each in turns.
+Then the counts (``VROD_PROBE_COUNT``) and the whole build's time on
+those rows at f32x3 and as bfloat16 cosine rows, k 108.
+
 ``--small``: instead, K3 on the int8 headline's sample (32,768 x 768 in
 blocks of 16,384, b256) and on a bf16 sample (131,072 x 768), and K1's
 small scan at 8,192 x 96, b256, k 28 (int8 and bf16, no floor) and at
-32,768 x 768 (int8), each by torch.profiler's device time a call, whole,
-without the MMAs (``VROD_PROBE_NO_MMA``: the ring, the loads and for K1
-the gate), without K1's gate and with the ring alone.
+32,768 x 768 (int8); at f32x3 ("exact"), K3 on 32,768 and 131,072 rows
+of 768 in blocks of 8,192 and K1's small scan at 8,192 x 96 and 32,768
+x 768; each by torch.profiler's device time a call, whole, without the
+MMAs (``VROD_PROBE_NO_MMA``: the ring, the loads and for K1 the gate),
+without K1's gate and with the ring alone (``--variants``, ``--legs``:
+some of them). A copy of this file in another checkout's ``tools/`` times
+that checkout's kernels (a parent/change A/B: ``--variants whole``).
 """
 
 from __future__ import annotations
@@ -66,11 +91,134 @@ SMALL_CASES = (("K3", "int8-cosine", 32768, 768, 16384),
                ("K3", "bf16-cosine", 131072, 768, 16384),
                ("K1", "int8-cosine", 8192, 96, 0),
                ("K1", "bf16-cosine", 8192, 96, 0),
-               ("K1", "int8-cosine", 32768, 768, 0))
+               ("K1", "int8-cosine", 32768, 768, 0),
+               # f32x3 ("exact"): K3 on the samples of chip_smoke's phase
+               # (iv) (262,144 rows) and of 1,048,576 rows, K1's small scan
+               ("K3", "f32x3-dot", 32768, 768, 8192),
+               ("K3", "f32x3-dot", 131072, 768, 8192),
+               ("K1", "f32x3-dot", 8192, 96, 0),
+               ("K1", "f32x3-dot", 32768, 768, 0))
 
 
-def small_probe():
-    """The ``--small`` records: K3 and K1's small scan by device time."""
+F32X3_VARIANTS = {"whole": (), "no_split": ("VROD_PROBE_NO_SPLIT",),
+                  "cvt_split": ("VROD_PROBE_CVT_SPLIT",),
+                  "presplit": ("VROD_PROBE_PRESPLIT",),
+                  "one_walk": ("VROD_PROBE_ONE_WALK",),
+                  "test_only": VARIANTS["test_only"],
+                  "no_gate": VARIANTS["no_gate"],
+                  "ring_alone": VARIANTS["ring_alone"]}
+# (ring, list places) of a variant at k 108 beside its default layout:
+# the whole build also at 3 stages of 242 places and of 146 (the places
+# that 3 presplit stages of 48 KB leave), the presplit build at 3 stages
+# of 146 and 2 of 242 (its 4 stages would leave 49).
+F32X3_LAYOUTS = {"whole": [None, (3, 242), (3, 146)],
+                 "presplit": [(3, 146), (2, 242)]}
+
+
+def _fused_topk_lib(defines):
+    """K1's gated core built from ``csrc/fused_topk.cu`` alone with
+    ``defines``, its entry points bound as the default library's."""
+    import ctypes
+    from vrod_tpu_torch.ops import _build
+    if not defines:
+        return _build.load()
+    lib = ctypes.CDLL(str(_build.build(defines, ("fused_topk.cu",))))
+    full = _build.load()
+    for name in ("vrod_fused_topk", "vrod_k1_ring"):
+        f, g = getattr(lib, name), getattr(full, name)
+        f.restype, f.argtypes = g.restype, g.argtypes
+    return lib
+
+
+def f32x3_probe(kab, names=()):
+    """The ``--f32x3`` records: K1's gated core at f32x3 by variant (those
+    of ``names``, else all) and layout, then its counts, and the same at
+    bfloat16 cosine rows for comparison."""
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from vrod_tpu_torch.ops import _build
+    from vrod_tpu_torch.ops import cuda_topk as K
+    spec = importlib.util.spec_from_file_location("smoke",
+                                                  ROOT / "chip_smoke.py")
+    sm = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sm)
+    variants = {v: d for v, d in F32X3_VARIANTS.items()
+                if not names or v in names}
+    # Every build at once (one nvcc a source), the default among them.
+    with ThreadPoolExecutor() as ex:
+        list(ex.map(lambda d: _build.build(d, ("fused_topk.cu",) if d
+                                           else ()),
+                    list(dict.fromkeys(list(variants.values())
+                                       + [(), ("VROD_PROBE_COUNT",)]))))
+    dev = torch.device("cuda", 0)
+    card = kab.card_line()
+    gen = torch.Generator(device=dev).manual_seed(18)
+    x = torch.randn((1 << 20, kab.DIM), generator=gen, device=dev)
+    q = torch.randn((kab.BATCH, kab.DIM), generator=gen, device=dev)
+    calls = {}
+    for leg in ("f32x3-dot", "bf16-cosine"):
+        args, kw = sm.kernel_inputs(x, q, leg, dev)
+        calls[leg] = K._Call(*args, leg.split("-")[1], None, None, False,
+                             kw.get("precision", "fast"))
+    del x
+    call = calls["f32x3-dot"]
+    default_plan = K.card_plan
+
+    def timed(lib, k, lay):
+        """K1's events ms at k beside layout (ring, cap) (None: the
+        default), its plan and its outputs."""
+        plan = default_plan(lib, call, k)
+        if lay is not None:
+            plan = plan._replace(ring=lay[0], cap=lay[1], on_chip=True)
+        K.card_plan = lambda *a: plan
+        try:
+            out = K._topk_cuda(lib, call, k, 0, None)
+            return kab.events_ms(lambda: K._topk_cuda(lib, call, k, 0,
+                                                      None)), plan, out
+        finally:
+            K.card_plan = default_plan
+
+    want = K._topk_cuda(_build.load(), call, 108, 0, None)
+    runs = [(v, lay) for v in variants
+            for lay in F32X3_LAYOUTS.get(v, [None])]
+    for variant, lay in runs + list(reversed(runs)):
+        ms, plan, got = timed(_fused_topk_lib(variants[variant]), 108, lay)
+        # The variants that keep the scores (the split's two forms, the
+        # presplit and every layout) return the whole build's top-k.
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        yield {"variant": variant, "case": "(iv) f32x3-dot no floor",
+               "rows": call.n, "k_scan": 108, "ring": plan.ring,
+               "cap": plan.cap, "on_chip": plan.on_chip, "k1_ms": ms,
+               "equal_to_whole": same, "card": card}
+    if "whole" in variants:
+        for lay in [None, (3, 242)] * 3:
+            ms, plan, _ = timed(_build.load(), 24, lay)
+            yield {"variant": "whole", "case": "(iv) f32x3-dot no floor",
+                   "rows": call.n, "k_scan": 24, "ring": plan.ring,
+                   "cap": plan.cap, "on_chip": plan.on_chip, "k1_ms": ms,
+                   "card": card}
+    import ctypes
+    lib = _fused_topk_lib(("VROD_PROBE_COUNT",))
+    lib.vrod_probe_counts.restype = ctypes.c_int
+    lib.vrod_probe_counts.argtypes = [ctypes.c_void_p]
+    buf = (ctypes.c_int * 8)()
+    for leg, c in calls.items():
+        K._ok(lib.vrod_probe_counts(buf), "probe counts")  # zero them
+        K._topk_cuda(lib, c, 108, 0, None)
+        torch.cuda.synchronize()
+        K._ok(lib.vrod_probe_counts(buf), "probe counts")
+        whole = _build.load(())
+        yield {"variant": "counts", "case": f"{leg} no floor",
+               "rows": c.n, "k_scan": 108, "card": card,
+               "whole_ms": kab.events_ms(
+                   lambda: K._topk_cuda(whole, c, 108, 0, None)),
+               **dict(zip(COUNTS, list(buf)))}
+
+
+def small_probe(names=(), legs=()):
+    """The ``--small`` records: K3 and K1's small scan by device time, by
+    variant (those of ``names``, else all) and case (those of the row
+    kinds ``legs``, e.g. f32x3, else all)."""
     import numpy as np
     import torch
     from vrod_tpu_torch.ops import _build
@@ -81,14 +229,18 @@ def small_probe():
     spec.loader.exec_module(sm)
     dev = torch.device("cuda", 0)
     card = sm.card_line()
-    libs = {v: _build.load(d) for v, d in SMALL_VARIANTS.items()}
+    libs = {v: _build.load(d) for v, d in SMALL_VARIANTS.items()
+            if not names or v in names}
     rng = np.random.default_rng(3)
     for kind, leg, n, d, blk in SMALL_CASES:
+        if legs and leg.split("-")[0] not in legs:
+            continue
         x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32))
         q = torch.from_numpy(rng.standard_normal((256, d), dtype=np.float32))
         args, kw = sm.kernel_inputs(x, q, leg, dev, dead_every=5)
         call = K._Call(*args, leg.split("-")[1], kw.get("row_bias"),
-                       kw.get("q_scale"), kw["packed"])
+                       kw.get("q_scale"), kw["packed"],
+                       kw.get("precision", "fast"))
         rec = {"kernel": kind, "leg": leg, "rows": n, "dim": d,
                "card": card}
         for variant, lib in libs.items():
@@ -102,6 +254,13 @@ def small_probe():
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--small", action="store_true")
+    p.add_argument("--f32x3", action="store_true")
+    p.add_argument("--variants", default="",
+                   help="--f32x3, --small: the variants to build and time "
+                   "(comma-separated; default all)")
+    p.add_argument("--legs", default="",
+                   help="--small: the row kinds of the cases to time "
+                   "(comma-separated, e.g. f32x3; default all)")
     p.add_argument("--out", default="chiprun_out/kernel_probe.jsonl")
     args = p.parse_args(argv)
     import torch
@@ -109,9 +268,16 @@ def main(argv=None) -> int:
         print("kernel_probe: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    if args.small:
+    if args.small or args.f32x3:
         lines = []
-        for rec in small_probe():
+        spec = importlib.util.spec_from_file_location(
+            "kernel_ab", Path(__file__).with_name("kernel_ab.py"))
+        kab = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(kab)
+        names = [v for v in args.variants.split(",") if v]
+        legs = [v for v in args.legs.split(",") if v]
+        for rec in (f32x3_probe(kab, names) if args.f32x3
+                    else small_probe(names, legs)):
             lines.append(json.dumps(rec))
             print(lines[-1], flush=True)
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

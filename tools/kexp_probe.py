@@ -48,7 +48,8 @@ def launch(lib, kernel, call, k, cnt):
     from vrod_tpu_torch.ops import cuda_topk as K
     dev = call.device
     mode, variant = X.KERNELS[kernel]
-    plan = X.extract_plan(mode, call.n_scan, call.b, k, K._sms(dev))
+    plan = X.extract_plan(mode, call.n_scan, call.b, k, K._sms(dev),
+                          split=call.split)
     size = X.scratch_sizes("gate", plan, call.b, k, call.nblocks)
     f32, i32 = torch.float32, torch.int32
     out_v = torch.empty((call.b, k), dtype=f32, device=dev)

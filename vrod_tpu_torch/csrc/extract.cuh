@@ -421,14 +421,14 @@ __global__ void __launch_bounds__(kThreads, 1) extract_carry(
   __shared__ int staged[2 * kN];   // entries of each stage, two buffers
   uint8_t* base = align1024(smem_raw);
   const Ring ring{base, full, empty, kRing, !kTma};
-  const Geometry geo = make_geometry<Kind>(a.row_bytes);
+  const Geometry geo = make_geometry<Kind, kN>(a.row_bytes);
   const int part = blockIdx.x / a.groups;
   const int q0 = blockIdx.x % a.groups * kN;
   const int tiles = (a.n + kTileRows - 1) / kTileRows;
   const int live = min(kN, a.b - q0);
   // Shared memory: the ring, the carry (kN x k values, then slots) when on
   // chip, then the stages (2 x kN x S values, then slots).
-  uint8_t* rest = base + ring.n * stage_bytes(kN);
+  uint8_t* rest = base + ring.n * stage_bytes<Kind>(kN);
   float* cv;
   int* ci;
   if (a.on_chip) {
@@ -608,13 +608,14 @@ __global__ void __launch_bounds__(kThreads, 1) extract_store(
   __shared__ __align__(16) unsigned hist[kConsumers / 32 * 256];
   uint8_t* base = align1024(smem_raw);
   const Ring ring{base, full, empty, kRing, !kTma};
-  const Geometry geo = make_geometry<Kind>(a.row_bytes);
+  const Geometry geo = make_geometry<Kind, kN>(a.row_bytes);
   const int part = blockIdx.x / a.groups;
   const int q0 = blockIdx.x % a.groups * kN;
   const int tiles = (a.n + kTileRows - 1) / kTileRows;
   // Shared memory: the ring, the score tile (kN x kStorePitch), then the
   // lists (kN x cap values, then slots) when on chip.
-  float* store = reinterpret_cast<float*>(base + ring.n * stage_bytes(kN));
+  float* store =
+      reinterpret_cast<float*>(base + ring.n * stage_bytes<Kind>(kN));
   float* lv;
   int* li;
   if (a.on_chip) {
@@ -775,7 +776,7 @@ __global__ void __launch_bounds__(kThreads, 1) extract_gate(
   __shared__ __align__(16) unsigned hist[kConsumers / 32 * 256];
   uint8_t* base = align1024(smem_raw);
   const Ring ring{base, full, empty, kRing, !kTma};
-  const Geometry geo = make_geometry<Kind>(a.row_bytes);
+  const Geometry geo = make_geometry<Kind, kNarrow>(a.row_bytes);
   const int part = blockIdx.x / a.groups;
   const int q0 = blockIdx.x % a.groups * kNarrow;
   const int tiles = (a.n + kTileRows - 1) / kTileRows;
@@ -789,7 +790,8 @@ __global__ void __launch_bounds__(kThreads, 1) extract_gate(
   }
 #endif
   if (a.on_chip) {
-    L.v = reinterpret_cast<float*>(base + ring.n * stage_bytes(kNarrow));
+    L.v = reinterpret_cast<float*>(base +
+                                   ring.n * stage_bytes<Kind>(kNarrow));
     L.i = reinterpret_cast<int*>(L.v + (size_t)kNarrow * a.cap);
   } else {
     const size_t list0 = ((size_t)part * a.b + q0) * a.cap;
@@ -899,7 +901,7 @@ __global__ void __launch_bounds__(kThreads, 1) extract_local(
   __shared__ __align__(16) unsigned hist[kConsumers / 32 * 256];  // maxima
   uint8_t* base = align1024(smem_raw);
   const Ring ring{base, full, empty, kRing, !kTma};
-  const Geometry geo = make_geometry<Kind>(a.row_bytes);
+  const Geometry geo = make_geometry<Kind, kGroup>(a.row_bytes);
   const int part = blockIdx.x / a.groups;
   const int q0 = blockIdx.x % a.groups * kGroup;
   const int tiles = (a.n + kTileRows - 1) / kTileRows;
@@ -935,9 +937,9 @@ __global__ void extract_floor_finish(const float* __restrict__ part_max,
 // The dynamic shared memory of a block of every mode but the floor, past
 // the 1024-byte alignment (ops/cuda_extract.py's plans follow it, and the
 // card tests hold them to vrod_extract_{store,carry,gate}_smem).
-template <int kMode>
+template <int kMode, class Kind>
 int narrow_smem(const XArgs& a) {
-  int smem = 1024 + kRing * stage_bytes(kNarrow);
+  int smem = 1024 + kRing * stage_bytes<Kind>(kNarrow);
   if constexpr (kMode == kXStore) {
     smem += kNarrow * kStorePitch * 4;
     if (a.on_chip) smem += kNarrow * a.cap * 8;
@@ -962,30 +964,32 @@ constexpr auto narrow_kernel() {
   }
 }
 
-// A block's whole shared memory in the TMA (kTma) or the copying build:
-// the kernel's static part (the same in every leg and variant) and
-// narrow_smem; -1 if the card cannot say.
-template <int kMode, bool kTma>
+// A block's whole shared memory in the TMA (kTma) or the copying build
+// of a leg of Kind: the kernel's static part (the same in every leg and
+// variant) and narrow_smem; -1 if the card cannot say.
+template <int kMode, bool kTma, class Kind>
 int narrow_need(const XArgs& a) {
   cudaFuncAttributes attr{};
   if (cudaFuncGetAttributes(&attr,
-                            narrow_kernel<kMode, 1, I8, kScale, kTma>()) !=
+                            narrow_kernel<kMode, 1, Kind, kScale, kTma>()) !=
       cudaSuccess) {
     return -1;
   }
-  return (int)attr.sharedSizeBytes + narrow_smem<kMode>(a);
+  return (int)attr.sharedSizeBytes + narrow_smem<kMode, Kind>(a);
 }
 
 // The C entry point of a mode's shared-memory account: (k, stage, cap,
-// on_chip) as the mode reads them.
+// on_chip) as the mode reads them; split: the f32x3 legs' (whose stages
+// hold both query halves), else every other leg's.
 template <int kMode, bool kTma>
-int extract_smem(int k, int stage, int cap, int on_chip) {
+int extract_smem(int k, int stage, int cap, int on_chip, int split) {
   XArgs a{};
   a.k = k;
   a.stage = stage;
   a.cap = cap;
   a.on_chip = on_chip;
-  return narrow_need<kMode, kTma>(a);
+  return split ? narrow_need<kMode, kTma, F32X3>(a)
+               : narrow_need<kMode, kTma, I8>(a);
 }
 
 template <int kMode, int kV>
@@ -1001,7 +1005,7 @@ struct LaunchExtract {
     if (kMode != kXCarry && a.cap < a.k + 32) {
       return (int)cudaErrorInvalidValue;
     }
-    const int smem = narrow_smem<kMode>(a);
+    const int smem = narrow_smem<kMode, Kind>(a);
     const int e = ensure_smem<kern>(smem);
     if (e != 0) return e;
     kern<<<a.groups * a.parts, kThreads, smem, s>>>(maps, a);

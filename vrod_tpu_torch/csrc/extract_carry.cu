@@ -19,6 +19,8 @@ VROD_EXTRACT_ENTRY(vrod_extract_carry, vrod::kXCarry, false, true)
 // X2's whole shared memory a block at top-k with `stage` places a query,
 // the carry on chip or not, in the TMA build (bytes; -1 if the card cannot
 // say; the copying build's: vrod_extract_carry_copy_smem).
-extern "C" int vrod_extract_carry_smem(int k, int stage, int on_chip) {
-  return vrod::extract_smem<vrod::kXCarry, true>(k, stage, 0, on_chip);
+extern "C" int vrod_extract_carry_smem(int k, int stage, int on_chip,
+                                       int split) {
+  return vrod::extract_smem<vrod::kXCarry, true>(k, stage, 0, on_chip,
+                                                 split);
 }

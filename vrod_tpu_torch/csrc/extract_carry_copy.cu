@@ -6,6 +6,8 @@
 
 VROD_EXTRACT_ENTRY(vrod_extract_carry_copy, vrod::kXCarry, false, false)
 
-extern "C" int vrod_extract_carry_copy_smem(int k, int stage, int on_chip) {
-  return vrod::extract_smem<vrod::kXCarry, false>(k, stage, 0, on_chip);
+extern "C" int vrod_extract_carry_copy_smem(int k, int stage, int on_chip,
+                                            int split) {
+  return vrod::extract_smem<vrod::kXCarry, false>(k, stage, 0, on_chip,
+                                                  split);
 }

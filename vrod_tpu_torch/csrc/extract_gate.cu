@@ -22,6 +22,6 @@ VROD_EXTRACT_ENTRY(vrod_extract_gate, vrod::kXGate, false, true)
 // chip or not, in the TMA build (bytes; -1 if the card cannot say; the
 // copying build's: vrod_extract_gate_copy_smem). X3 and X4 declare the
 // same shared arrays.
-extern "C" int vrod_extract_gate_smem(int cap, int on_chip) {
-  return vrod::extract_smem<vrod::kXGate, true>(0, 0, cap, on_chip);
+extern "C" int vrod_extract_gate_smem(int cap, int on_chip, int split) {
+  return vrod::extract_smem<vrod::kXGate, true>(0, 0, cap, on_chip, split);
 }

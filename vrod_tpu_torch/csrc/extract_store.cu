@@ -17,6 +17,6 @@ VROD_EXTRACT_ENTRY(vrod_extract_store, vrod::kXStore, false, true)
 // The store's whole shared memory a block with lists of `cap`, on chip
 // or not, in the TMA build (bytes; -1 if the card cannot say; the copying
 // build's: vrod_extract_store_copy_smem).
-extern "C" int vrod_extract_store_smem(int cap, int on_chip) {
-  return vrod::extract_smem<vrod::kXStore, true>(0, 0, cap, on_chip);
+extern "C" int vrod_extract_store_smem(int cap, int on_chip, int split) {
+  return vrod::extract_smem<vrod::kXStore, true>(0, 0, cap, on_chip, split);
 }

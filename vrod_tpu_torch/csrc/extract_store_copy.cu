@@ -7,6 +7,7 @@
 
 VROD_EXTRACT_ENTRY(vrod_extract_store_copy, vrod::kXStore, false, false)
 
-extern "C" int vrod_extract_store_copy_smem(int cap, int on_chip) {
-  return vrod::extract_smem<vrod::kXStore, false>(0, 0, cap, on_chip);
+extern "C" int vrod_extract_store_copy_smem(int cap, int on_chip,
+                                          int split) {
+  return vrod::extract_smem<vrod::kXStore, false>(0, 0, cap, on_chip, split);
 }

@@ -3,10 +3,11 @@
 // this header; fused_theta.cu builds the int8, int4, bfloat16 and TF32
 // legs and fused_theta_f32x3.cu the f32x3 legs (float32 at "high" and
 // "exact": score.cuh's F32X3), so that nvcc compiles the two halves at
-// once. At f32x3 the sample and the scan both take F32X3's dots (the row
-// k-blocks walked twice, against the query's big then small parts), so the
-// sample's maxima are the scan's scores bit for bit there too; a sample
-// tile skipped with skip_sample_dots passes both walks of its stages.
+// once. At f32x3 the sample and the scan both take F32X3's dots (each row
+// k-block with the query's big and small parts in one stage: score.cuh's
+// Walk), so the sample's maxima are the scan's scores bit for bit there
+// too; a sample tile skipped with skip_sample_dots passes its stages
+// unscored.
 //
 // Replaces the Pallas kernels experiments/kexp20.py: fused_theta_gated ->
 // _kernel_theta_gated (X8) and experiments/kexp17.py: fused_theta ->
@@ -73,16 +74,6 @@ __device__ __forceinline__ int order_key(float f) {
   return b ^ ((b >> 31) & 0x7fffffff);
 }
 
-// Whether any of the 256 consumer threads holds p (named barrier 2).
-__device__ __forceinline__ bool consumers_any(bool p) {
-  unsigned r;
-  asm volatile(
-      "{\n .reg .pred p, q;\n setp.ne.u32 p, %1, 0;\n"
-      " bar.red.or.pred q, 2, %2, p;\n selp.u32 %0, 1, 0, q;\n}\n"
-      : "=r"(r) : "r"((unsigned)p), "n"(kConsumers) : "memory");
-  return r != 0;
-}
-
 // skip_sample_dots: a sample tile passes without its dots when, for every
 // query of the group, its sample block's maximum is at or below the gate:
 // then no score of the tile can be appended.
@@ -97,7 +88,7 @@ struct SampleSkip {
         threadIdx.x < kWidth && qq < b &&
         __ldcg(bmax + (size_t)qq * s_blocks + t / blk_tiles) >
             gate[threadIdx.x];
-    return !consumers_any(beats);
+    return !consumer_any<kBarSkip>(beats);
   }
 };
 
@@ -239,7 +230,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_theta_local(
   __shared__ __align__(16) unsigned hist[kConsumers / 32 * 256];
   cg::grid_group grid = cg::this_grid();
   uint8_t* base = align1024(smem_raw);
-  const Geometry geo = make_geometry<Kind>(row_bytes);
+  const Geometry geo = make_geometry<Kind, kWidth>(row_bytes);
   const Ring ring{base, full, empty, lay.ring, !kTma};
   const int cap = lay.cap;
   const int part = blockIdx.x / groups;
@@ -255,7 +246,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_theta_local(
   const Loads ld{x, q, n, b};
   GateLists L{nullptr, nullptr, len, gate, nullptr, 0.0f, 0.0f, cap, k};
   if (lay.on_chip) {
-    L.v = reinterpret_cast<float*>(base + lay.ring_bytes());
+    L.v = reinterpret_cast<float*>(base + lay.ring_bytes<Kind>());
     L.i = reinterpret_cast<int*>(L.v + (size_t)kWidth * cap);
   } else {
     const size_t list0 = ((size_t)part * b + q0) * cap;
@@ -335,12 +326,12 @@ struct LaunchTheta {
     }
     Maps maps{};
     {
-      const int e = kTma ? make_maps(&maps, Kind::kPacked, x, q, n, b,
+      const int e = kTma ? make_maps(&maps, Kind::kHalves, x, q, n, b,
                                      row_bytes, kWidth)
                          : copy_maps(&maps, x, q, row_bytes, granule);
       if (e != 0) return e;
     }
-    const int smem = lay.smem();
+    const int smem = lay.smem<Kind>();
     constexpr auto kern = fused_theta_local<Kind, kEpi, kTma>;
     cudaError_t e = (cudaError_t)ensure_smem<kern>(smem);
     if (e != cudaSuccess) return (int)e;

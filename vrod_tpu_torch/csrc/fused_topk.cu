@@ -97,8 +97,14 @@ __global__ void __launch_bounds__(kThreads, 1) fused_topk_local(
   __shared__ float arange[2];   // X9: the aux range of the part's rows
   __shared__ __align__(16) unsigned hist[kConsumers / 32 * 256];
   uint8_t* base = align1024(smem_raw);
-  const Geometry geo = make_geometry<Kind>(row_bytes);
+  const Geometry geo = make_geometry<Kind, kWidth>(row_bytes);
+#ifdef VROD_PROBE_PRESPLIT
+  __shared__ uint64_t ready[kRing];
+  const Ring ring{base, full, empty, lay.ring, !kTma,
+                  kTma && Kind::kSplit ? ready : nullptr};
+#else
   const Ring ring{base, full, empty, lay.ring, !kTma};
+#endif
   const int part = blockIdx.x / groups;
   const int q0 = blockIdx.x % groups * kWidth;
   const int tiles = (n + kTileRows - 1) / kTileRows;
@@ -108,7 +114,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_topk_local(
   L.probe = probe_counts;
 #endif
   if (lay.on_chip) {
-    L.v = reinterpret_cast<float*>(base + lay.ring_bytes());
+    L.v = reinterpret_cast<float*>(base + lay.ring_bytes<Kind>());
     L.i = reinterpret_cast<int*>(L.v + (size_t)kWidth * cap);
   } else {
     const size_t list0 = ((size_t)part * b + q0) * cap;
@@ -176,7 +182,7 @@ struct LaunchTopk {
     int e = launch_maps<Kind, kTma>(&maps, m3, x, q, n, b, row_bytes, kWidth,
                                     granule);
     if (e != 0) return e;
-    const int smem = lay.smem();
+    const int smem = lay.smem<Kind>();
     e = ensure_smem<fused_topk_local<Kind, kEpi, kTma, kIntGate>>(smem);
     if (e != 0) return e;
     const int stride = lay.on_chip ? k : lay.cap;
@@ -245,17 +251,19 @@ extern "C" int vrod_fused_intgate(
 extern "C" int vrod_k1_ring() { return kRing; }
 
 // A long-scan block's whole shared memory at a layout (a ring of `ring`
-// stages, lists of `cap` on chip or not): the kernel's static part (the X9
-// build's, the largest) and the dynamic part (bytes; -1 if the card cannot
-// say).
-extern "C" int vrod_topk_smem(int ring, int cap, int on_chip) {
+// stages, lists of `cap` on chip or not) of the f32x3 legs (split: stages
+// that hold both query halves) or of every other: the kernel's static part
+// (the X9 build's, the largest) and the dynamic part (bytes; -1 if the
+// card cannot say).
+extern "C" int vrod_topk_smem(int ring, int cap, int on_chip, int split) {
   cudaFuncAttributes attr{};
   if (cudaFuncGetAttributes(&attr, fused_topk_local<I8, kScale, true, true>)
       != cudaSuccess) {
     return -1;
   }
+  const Layout lay{ring, cap, on_chip};
   return (int)attr.sharedSizeBytes
-         + Layout{ring, cap, on_chip}.smem();
+         + (split ? lay.smem<F32X3>() : lay.smem<I8>());
 }
 
 #ifdef VROD_PROBE_COUNT

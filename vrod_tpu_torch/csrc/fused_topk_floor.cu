@@ -207,7 +207,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_topk_floor(
   __shared__ __align__(16) int gint[kIntGate ? kGroup : 2];
   __shared__ float arange[2];
   const Ring ring{align1024(smem_raw), full, empty, kFloorRing, !kTma};
-  const Geometry geo = make_geometry<Kind>(row_bytes);
+  const Geometry geo = make_geometry<Kind, kGroup>(row_bytes);
   const int part = blockIdx.x / groups;
   const int q0 = blockIdx.x % groups * kGroup;
   const int tiles = (n + kTileRows - 1) / kTileRows;

@@ -24,7 +24,10 @@ namespace {
 // its shared-memory checks) follow these.
 constexpr int kSmallGroup = 16;
 constexpr int kSmallRing = 4;
-constexpr int kSmallRingBytes = kSmallRing * stage_bytes(kSmallGroup);
+template <class Kind>
+__host__ __device__ constexpr int small_ring_bytes() {
+  return kSmallRing * stage_bytes<Kind>(kSmallGroup);
+}
 
 template <class Kind, int kEpi, bool kTma>
 __global__ void __launch_bounds__(kThreads, 1) fused_topk_small(
@@ -40,9 +43,9 @@ __global__ void __launch_bounds__(kThreads, 1) fused_topk_small(
   __shared__ int len[kSmallGroup];
   __shared__ unsigned hist[kConsumers / 32 * 256];
   const Ring ring{align1024(smem_raw), full, empty, kSmallRing, !kTma};
-  float* lv = reinterpret_cast<float*>(ring.base + kSmallRingBytes);
+  float* lv = reinterpret_cast<float*>(ring.base + small_ring_bytes<Kind>());
   int* li = reinterpret_cast<int*>(lv + (size_t)kSmallGroup * cap);
-  const Geometry geo = make_geometry<Kind>(row_bytes);
+  const Geometry geo = make_geometry<Kind, kSmallGroup>(row_bytes);
   const int part = cluster_rank();
   const int q0 = blockIdx.y * kSmallGroup;
   const int tiles = (n + kTileRows - 1) / kTileRows;
@@ -124,14 +127,14 @@ struct LaunchSmall {
                  int cap, void* out_v, void* out_i, int granule,
                  const void* const* m3, cudaStream_t s) {
     if (parts < 1 || parts > kMaxCluster || cap < k + 32 ||
-        parts * k * 8 * (kConsumers / 32) > kSmallRingBytes) {
+        parts * k * 8 * (kConsumers / 32) > small_ring_bytes<Kind>()) {
       return (int)cudaErrorInvalidValue;
     }
     Maps maps;
     int e = launch_maps<Kind, kTma>(&maps, m3, x, q, n, b, row_bytes,
                                     kSmallGroup, granule);
     if (e != 0) return e;
-    const int smem = 1024 + kSmallRingBytes + kSmallGroup * cap * 8;
+    const int smem = 1024 + small_ring_bytes<Kind>() + kSmallGroup * cap * 8;
     e = ensure_smem<fused_topk_small<Kind, kEpi, kTma>>(smem);
     if (e != 0) return e;
     return launch_clusters(

@@ -44,13 +44,15 @@ constexpr int kLanes = 128;
 static_assert(kLanes == kTileRows, "tile row t feeds lane t");
 
 // The ring of a kN-query block: 8 stages of 24 KB (n64) or 6 of 32 KB
-// (n128); the block's maxima (kN x 128 floats) reuse it after the scan.
+// (n128), at F32X3 6 of 32 KB or 4 of 48 KB (both query halves a stage);
+// the block's maxima (kN x 128 floats) reuse it after the scan.
 // ops/cuda_topk.py's SUBMAX_GROUPS and SUBMAX_RING_BYTES follow these.
-template <int kN>
+template <class Kind, int kN>
 struct Width {
-  static constexpr int kRing = 192 * 1024 / stage_bytes(kN);
-  static constexpr int kSmem = 1024 + kRing * stage_bytes(kN);
-  static_assert(kN * kLanes * 4 <= kRing * stage_bytes(kN), "maxima");
+  static constexpr int kRing = 192 * 1024 / stage_bytes<Kind>(kN);
+  static constexpr int kSmem = 1024 + kRing * stage_bytes<Kind>(kN);
+  static_assert(kN * kLanes * 4 <= kRing * stage_bytes<Kind>(kN),
+                "maxima");
   static_assert(kSmem <= 227 * 1024, "a block's shared memory");
 };
 
@@ -70,12 +72,12 @@ __global__ void __launch_bounds__(kThreads, 1) submax_kernel(
     const float* __restrict__ q_scale, int row_bytes,
     int n, int b, int blk, int spb, float* __restrict__ out) {
   extern __shared__ uint8_t smem_raw[];
-  constexpr int kRing = Width<kN>::kRing;
+  constexpr int kRing = Width<Kind, kN>::kRing;
   __shared__ uint64_t full[kRing], empty[kRing];
   __shared__ float qsv[kN];
   const Ring ring{align1024(smem_raw), full, empty, kRing, !kTma};
   float* best = reinterpret_cast<float*>(ring.base);  // after the scan
-  const Geometry geo = make_geometry<Kind>(row_bytes);
+  const Geometry geo = make_geometry<Kind, kN>(row_bytes);
   const int sg = cluster_rank();
   const int j = blockIdx.x / spb;
   const int q0 = blockIdx.y * kN;
@@ -171,7 +173,7 @@ struct LaunchSubmax {
       e = copy_maps(&maps, x, q, row_bytes, granule);
       if (e != 0) return e;
     }
-    constexpr int kSmem = Width<kN>::kSmem;
+    constexpr int kSmem = Width<Kind, kN>::kSmem;
     e = ensure_smem<submax_kernel<Kind, kEpi, kTma, kN>>(kSmem);
     if (e != 0) return e;
     return launch_clusters(
@@ -186,11 +188,22 @@ struct LaunchSubmax {
                  const void* q, const void* q_scale, int row_bytes, int n,
                  int b, int blk, int spb, int groups, void* out,
                  int granule, const void* const* m3, cudaStream_t s) {
-    auto* go = width == 128 ? &LaunchSubmax::launch<Kind, kEpi, kTma, 128>
-                            : &LaunchSubmax::launch<Kind, kEpi, kTma, 64>;
-    if (width != 64 && width != 128) return (int)cudaErrorInvalidValue;
-    return go(x, aux, mask, q, q_scale, row_bytes, n, b, blk, spb, groups,
-              out, granule, m3, s);
+    if constexpr (Kind::kSplit) {
+      // F32X3 takes groups of 64 alone (cuda_topk.submax_plan): at 128
+      // the stages of both query halves leave the consumers too few
+      // registers.
+      if (width != 64) return (int)cudaErrorInvalidValue;
+      return LaunchSubmax::launch<Kind, kEpi, kTma, 64>(
+          x, aux, mask, q, q_scale, row_bytes, n, b, blk, spb, groups, out,
+          granule, m3, s);
+    } else {
+      auto* go = width == 128
+                     ? &LaunchSubmax::launch<Kind, kEpi, kTma, 128>
+                     : &LaunchSubmax::launch<Kind, kEpi, kTma, 64>;
+      if (width != 64 && width != 128) return (int)cudaErrorInvalidValue;
+      return go(x, aux, mask, q, q_scale, row_bytes, n, b, blk, spb, groups,
+                out, granule, m3, s);
+    }
   }
 };
 
@@ -199,7 +212,7 @@ struct LaunchSubmax {
 // valid (n,) bool and bias (n,) or null: the rows' mask (RowMask).
 // row_bytes: bytes per stored row (int4: dim / 2). q_scale (b,) is read by
 // kScaleQs only. width, spb, groups: the plan (ops/cuda_topk.py:
-// submax_plan), width the queries a block takes (64 or 128).
+// submax_plan), width the queries a block takes (64 or 128; f32x3: 64).
 extern "C" int vrod_sampled_submax(int elem, int epi, int granule,
                                    const void* x,
                                    const void* aux, const void* valid,

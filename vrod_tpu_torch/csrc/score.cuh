@@ -44,15 +44,18 @@
 // splits into big = tf32(v) and small = tf32(v - big), and the dot sums
 // the exact products big.big + small.big + big.small in float32 (the
 // dropped small.small and small's rounding are below 2^-21 of |x_i q_i|).
-// It walks its row k-blocks twice, as packed int4 does: against the
-// query's big part with the row's big and small parts, then against the
-// query's small part with the row's big part. Each wgmma k-step is 32 bytes
-// of dim for every kind, so a k-block is four k-steps. Packed int4 walks
-// its row k-blocks twice: low nibbles against query bytes [0, D/2) and high
-// nibbles against [D/2, D) (distances.pack_int4), each from its own query
-// tensor map. Bytes past the row (and rows or queries past the end) load as
-// zeros (TMA's out-of-bounds fill), which add nothing to a dot: 0 as int8,
-// an int4 nibble pair, bf16 and float32.
+// Its query comes in two halves, the big parts then the small parts, each
+// through its own query tensor map, and per k-block it issues, k-step by
+// k-step, big.Qbig, then small.Qbig, then big.Qsmall (Walk: at groups of up
+// to 128 queries one stage holds the row box and both halves, so each A
+// fragment is loaded and split once for its three products; at 256 two
+// stages a k-block in turn, the same wgmmas in the same order). Each wgmma
+// k-step is 32 bytes of dim for every kind, so a k-block is four k-steps.
+// Packed int4 walks its row k-blocks twice: low nibbles against query
+// bytes [0, D/2) and high nibbles against [D/2, D) (distances.pack_int4),
+// each from its own query tensor map. Bytes past the row (and rows or
+// queries past the end) load as zeros (TMA's out-of-bounds fill), which add
+// nothing to a dot: 0 as int8, an int4 nibble pair, bf16 and float32.
 //
 // Every kernel of the port takes F32X3 where it takes float32 rows: K1, K3,
 // X6/X8 and the extraction experiments X1-X4.
@@ -140,9 +143,26 @@ constexpr int kAcc = kGroup / 2;               // accumulators per thread
 constexpr int kRowBox = kTileRows * kKBlock;   // 16 KB
 constexpr int kQueryBox = kGroup * kKBlock;    // 32 KB
 constexpr int kStageBytes = kRowBox + kQueryBox;
-// A stage of a kN-query group: the row box, then kN query rows.
+// A stage of a kN-query group of a kind, the bytes its loads bring: the
+// row box, then kN query rows (F32X3 at kN <= 128: kN rows of the query's
+// big parts, then kN of its small parts; Walk).
+template <class Kind>
+__host__ __device__ constexpr int loaded_bytes(int kN) {
+  return kRowBox + (Kind::kSplit && kN <= 128 ? 2 : 1) * kN * kKBlock;
+}
+template <class Kind>
 __host__ __device__ constexpr int stage_bytes(int kN) {
-  return kRowBox + kN * kKBlock;
+#ifdef VROD_PROBE_PRESPLIT
+  return loaded_bytes<Kind>(kN) + (Kind::kSplit && kN <= 128 ? kRowBox : 0);
+#else
+  return loaded_bytes<Kind>(kN);
+#endif
+}
+// tools/kernel_probe.py --f32x3 (VROD_PROBE_PRESPLIT): the rows' small
+// parts, which the producer warpgroup writes past the query boxes.
+template <int kN>
+__host__ __device__ constexpr int presplit_offset() {
+  return kRowBox + 2 * kN * kKBlock;
 }
 constexpr int kMaxCluster = 8;                 // portable cluster size
 
@@ -151,17 +171,62 @@ enum Elem : int { kI8 = 0, kI4 = 1, kBF16 = 2, kF32 = 3, kF32X3 = 4 };
 enum Epi : int { kScale = 0, kScaleQs = 1, kL2 = 2, kDot = 3 };
 
 // One launch's geometry: the stored row's bytes, and the k-blocks a tile
-// walks (packed int4: each row k-block twice, low then high nibbles).
+// walks (Walk: packed int4 each row k-block twice, low then high nibbles;
+// F32X3 at kN 256 two stages a k-block).
 struct Geometry {
   int row_bytes;  // bytes per stored row
   int kbs;        // k-blocks per row
   int nv;         // stages per tile
 };
 
-template <class Kind>
+// How a kind walks a row tile's k-blocks at group width kN: one stage a
+// k-block, but packed int4 walks them all twice (low nibbles, then high:
+// stage v >= kbs takes the query's second half), and F32X3 (its query in
+// two halves, big then small parts) either in one walk whose stages hold
+// both halves (kBoth: groups of up to 128 queries, 32 KB stages at n64) or,
+// at kN 256, where such a stage would be 80 KB, in pairs of stages (kb,
+// big) then (kb, small) (kPairs, 48 KB stages). Both F32X3 walks issue the
+// same wgmmas in the same order, so every width's scores agree bit for
+// bit.
+template <class Kind, int kN>
+struct Walk {
+  static constexpr bool kBoth = Kind::kSplit && kN <= 128;
+  static constexpr bool kPairs = Kind::kSplit && !kBoth;
+  // tools/kernel_probe.py --f32x3 (VROD_PROBE_ONE_WALK): the pairs' first
+  // stages alone (wrong results by design; the one walk has no second).
+#ifdef VROD_PROBE_ONE_WALK
+  static constexpr bool kTwice = Kind::kPacked;
+#else
+  static constexpr bool kTwice = Kind::kPacked || kPairs;
+#endif
+  __host__ __device__ static int stages(int kbs) {
+    return kTwice ? 2 * kbs : kbs;
+  }
+  // Stage v's k-block, and whether it takes the query's second half.
+  __device__ static int kb(const Geometry& g, int v) {
+    if constexpr (Kind::kPacked) {
+      return v >= g.kbs ? v - g.kbs : v;
+    } else if constexpr (kTwice) {
+      return v >> 1;
+    } else {
+      return v;
+    }
+  }
+  __device__ static bool hi(const Geometry& g, int v) {
+    if constexpr (Kind::kPacked) {
+      return v >= g.kbs;
+    } else if constexpr (kTwice) {
+      return (v & 1) != 0;
+    } else {
+      return false;
+    }
+  }
+};
+
+template <class Kind, int kN>
 __host__ __device__ inline Geometry make_geometry(int row_bytes) {
   const int kbs = (row_bytes + kKBlock - 1) / kKBlock;
-  return Geometry{row_bytes, kbs, Kind::kPacked ? 2 * kbs : kbs};
+  return Geometry{row_bytes, kbs, Walk<Kind, kN>::stages(kbs)};
 }
 
 // How a launch loads its stages: the three tensor maps of the TMA build
@@ -426,6 +491,7 @@ struct I8 {
   using Acc = int;
   static constexpr bool kPacked = false;
   static constexpr bool kSplit = false;
+  static constexpr bool kHalves = false;  // the query in two halves
   __device__ static void a_in(uint32_t (&)[4], bool) {}
   template <int kN>
   __device__ static void mma(Acc (&d)[kN / 2], const uint32_t (&a)[4],
@@ -444,6 +510,7 @@ __device__ __forceinline__ uint32_t nibbles(uint32_t w, bool hi) {
 
 struct I4 : I8 {
   static constexpr bool kPacked = true;
+  static constexpr bool kHalves = true;
   __device__ static void a_in(uint32_t (&a)[4], bool hi) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) a[i] = nibbles(a[i], hi);
@@ -454,6 +521,7 @@ struct BF16 {
   using Acc = float;
   static constexpr bool kPacked = false;
   static constexpr bool kSplit = false;
+  static constexpr bool kHalves = false;
   __device__ static void a_in(uint32_t (&)[4], bool) {}
   template <int kN>
   __device__ static void mma(Acc (&d)[kN / 2], const uint32_t (&a)[4],
@@ -469,10 +537,24 @@ __device__ __forceinline__ uint32_t tf32(uint32_t w) {
   return r;
 }
 
+// The same rounding on the bits (add half of the dropped ulp to the
+// magnitude, then drop the low 13 bits): cuda_topk.tf32_round's formula,
+// equal to cvt.rna.tf32.f32 on every finite value, in two integer
+// instructions.
+__device__ __forceinline__ uint32_t tf32_bits(uint32_t w) {
+#ifdef VROD_PROBE_CVT_SPLIT
+  // tools/kernel_probe.py --f32x3: the split by cvt.rna.tf32.f32.
+  return tf32(w);
+#else
+  return (w + 0x1000u) & 0xffffe000u;
+#endif
+}
+
 struct TF32 {
   using Acc = float;
   static constexpr bool kPacked = false;
   static constexpr bool kSplit = false;
+  static constexpr bool kHalves = false;
   __device__ static void a_in(uint32_t (&a)[4], bool) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) a[i] = tf32(a[i]);
@@ -485,18 +567,33 @@ struct TF32 {
 };
 
 // float32 in three TF32 products: the wrapper gives the query as (b, 2 *
-// dim), its big parts then its small parts (kPacked: two query maps, the
-// row k-blocks walked twice); consume_stages splits the rows' registers.
+// dim), its big parts then its small parts (kHalves: two query maps; Walk
+// says how a tile takes them); issue_stage splits the rows' registers.
 struct F32X3 : TF32 {
-  static constexpr bool kPacked = true;
   static constexpr bool kSplit = true;
+  static constexpr bool kHalves = true;
   __device__ static void a_in(uint32_t (&)[4], bool) {}
+  // The big parts alone (a stage of the query's small half: their small
+  // parts meet nothing there).
+  __device__ static void big(uint32_t (&a)[4]) {
+#ifndef VROD_PROBE_NO_SPLIT
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = tf32_bits(a[i]);
+#endif
+  }
   // a -> its big part, small -> its small part (v - big is exact).
   __device__ static void split(uint32_t (&a)[4], uint32_t (&small)[4]) {
+#ifdef VROD_PROBE_NO_SPLIT
+    // tools/kernel_probe.py --f32x3: the products without the split (wrong
+    // results by design).
+#pragma unroll
+    for (int i = 0; i < 4; ++i) small[i] = a[i];
+    return;
+#endif
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const uint32_t big = tf32(a[i]);
-      small[i] = tf32(__float_as_uint(
+      const uint32_t big = tf32_bits(a[i]);
+      small[i] = tf32_bits(__float_as_uint(
           __fsub_rn(__uint_as_float(a[i]), __uint_as_float(big))));
       a[i] = big;
     }
@@ -566,7 +663,21 @@ struct Ring {
   uint64_t* empty;
   int n;
   bool copy;
+#ifdef VROD_PROBE_PRESPLIT
+  // K1's gated core, TMA build: a stage's rows split by the producer
+  // (kPresplitters arrivals); consumers wait here, not on full.
+  uint64_t* ready;
+#endif
 };
+
+#ifdef VROD_PROBE_PRESPLIT
+constexpr int kPresplitters = 96;  // producer warps 1-3
+
+// The barrier a consumer waits on for a stage.
+__device__ __forceinline__ uint64_t* stage_ready(const Ring& r, int s) {
+  return r.ready != nullptr ? &r.ready[s] : &r.full[s];
+}
+#endif
 
 constexpr int kCopyThreads = 128;  // the producer warpgroup, copying
 
@@ -584,6 +695,9 @@ __device__ __forceinline__ void ring_init(const Ring& r) {
     for (int s = 0; s < r.n; ++s) {
       mbar_init(&r.full[s], r.copy ? kCopyThreads : 1);
       mbar_init(&r.empty[s], kConsumers / 32);
+#ifdef VROD_PROBE_PRESPLIT
+      if (r.ready != nullptr) mbar_init(&r.ready[s], kPresplitters);
+#endif
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -601,7 +715,11 @@ struct Loads {
 // issues the TMA loads, the whole warpgroup copies.
 template <bool kTma>
 __device__ __forceinline__ bool ring_loader() {
+#ifdef VROD_PROBE_PRESPLIT
+  return true;  // produce_stages sends the idle warps home
+#else
   return !kTma || threadIdx.x < kConsumers + 32;
+#endif
 }
 
 // One asynchronous copy of kBytes (4 or 8) from global to shared memory;
@@ -674,10 +792,10 @@ __device__ __forceinline__ void copy_box(uint32_t dst, const int8_t* src,
 
 // The producer warpgroup's copy of one stage without TMA, to shared
 // address `rows` (the row box, then the query box): the row tile's and the
-// query group's k-block kb (packed int4 and F32X3: the high query half
-// when hi) by granules of kG bytes, zeros past the row (the last k-block's
-// columns from row_bytes), past n and past b; then this thread's arrival
-// on the stage's full barrier.
+// query group's k-block kb (a query in halves: the second half when hi;
+// Walk's kBoth: both halves, one box each) by granules of kG bytes, zeros
+// past the row (the last k-block's columns from row_bytes), past n and
+// past b; then this thread's arrival on the stage's full barrier.
 template <class Kind, int kN, int kG>
 __device__ __forceinline__ void copy_stage(const Loads& ld,
                                            const Geometry& geo, int t,
@@ -691,11 +809,16 @@ __device__ __forceinline__ void copy_stage(const Loads& ld,
   const int r0 = t * kTileRows;  // < n
   copy_box<kG>(rows, ld.x + (long)r0 * rb + kb * kKBlock, rb,
                min(kTileRows, ld.n - r0), w, kTileRows, p);
-  const int qstride = Kind::kPacked ? 2 * rb : rb;
-  const int qcol0 = Kind::kPacked && hi ? rb : 0;
+  const int qstride = Kind::kHalves ? 2 * rb : rb;
+  const int qcol0 = Kind::kHalves && hi ? rb : 0;
   copy_box<kG>(rows + kRowBox,
                ld.q + (long)q0 * qstride + qcol0 + kb * kKBlock, qstride,
                min(kN, ld.b - q0), w, kN, p);
+  if constexpr (Walk<Kind, kN>::kBoth) {
+    copy_box<kG>(rows + kRowBox + kN * kKBlock,
+                 ld.q + (long)q0 * qstride + rb + kb * kKBlock, qstride,
+                 min(kN, ld.b - q0), w, kN, p);
+  }
   if constexpr (kG >= 4) {
     cp_async_arrive(full);
   } else {
@@ -714,6 +837,36 @@ __device__ __forceinline__ void consumer_regs() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kRegs));
 }
 
+#ifdef VROD_PROBE_PRESPLIT
+// The split of stage s's rows by producer warps 1-3 once its loads landed:
+// the big parts in place, the small parts at presplit_offset, in the same
+// swizzled layout; then their arrival on its ready barrier.
+template <class Kind, int kN>
+__device__ __forceinline__ void presplit_stage(const Ring& ring, int s,
+                                               int phase) {
+  mbar_wait(&ring.full[s], phase);
+  const uint32_t big = smem_u32(ring.base + s * stage_bytes<Kind>(kN));
+  const uint32_t small = big + presplit_offset<kN>();
+  for (int c = threadIdx.x - kConsumers - 32; c < kRowBox / 16;
+       c += kPresplitters) {
+    uint32_t a[4], sm[4];
+    asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+                 : "r"(big + 16 * c) : "memory");
+    Kind::split(a, sm);
+    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n"
+                 :: "r"(big + 16 * c), "r"(a[0]), "r"(a[1]), "r"(a[2]),
+                    "r"(a[3]) : "memory");
+    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n"
+                 :: "r"(small + 16 * c), "r"(sm[0]), "r"(sm[1]), "r"(sm[2]),
+                    "r"(sm[3]) : "memory");
+  }
+  // The stage's next load (async proxy) comes after these writes.
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  mbar_arrive(&ring.ready[s]);
+}
+#endif
+
 // The producer: fills the ring with the stages of row tiles t0, t0 +
 // step, ... < t1, in the order the consumers take them, from ring position
 // (stage, phase), which it advances (a kernel with two passes over the
@@ -725,20 +878,65 @@ template <class Kind, bool kTma, int kN, int kG>
 __device__ __forceinline__ void produce_stages(
     const Maps& maps, const Loads& ld, const Geometry& geo, const Ring& ring,
     int q0, int t0, int t1, int step, int& stage, int& phase) {
+  using W = Walk<Kind, kN>;
+#ifdef VROD_PROBE_PRESPLIT
+  if constexpr (kTma && W::kBoth) {
+    if (ring.ready != nullptr) {
+      // Warp 0 loads stage v while warps 1-3 split stage v - 1.
+      const bool loader = threadIdx.x < kConsumers + 32;
+      int prev = -1, prev_phase = 0;
+      for (int t = t0; t < t1; t += step) {
+        for (int v = 0; v < geo.nv; ++v) {
+          if (loader) {
+            mbar_wait(&ring.empty[stage], phase ^ 1);
+            if (threadIdx.x == kConsumers) {
+              uint8_t* rows = ring.base + stage * stage_bytes<Kind>(kN);
+              const int kb = W::kb(geo, v);
+              mbar_expect(&ring.full[stage], loaded_bytes<Kind>(kN));
+              tma_load(rows, &maps.x, kb * kKBlock, t * kTileRows,
+                       &ring.full[stage]);
+              tma_load(rows + kRowBox, &maps.q, kb * kKBlock, q0,
+                       &ring.full[stage]);
+              tma_load(rows + kRowBox + kN * kKBlock, &maps.q_hi,
+                       kb * kKBlock, q0, &ring.full[stage]);
+            }
+          } else if (prev >= 0) {
+            presplit_stage<Kind, kN>(ring, prev, prev_phase);
+          }
+          prev = stage;
+          prev_phase = phase;
+          if (++stage == ring.n) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+      if (!loader && prev >= 0) {
+        presplit_stage<Kind, kN>(ring, prev, prev_phase);
+      }
+      return;
+    }
+  }
+  if (kTma && threadIdx.x >= kConsumers + 32) return;
+#endif
   for (int t = t0; t < t1; t += step) {
     for (int v = 0; v < geo.nv; ++v) {
-      const bool hi = Kind::kPacked && v >= geo.kbs;
-      const int kb = hi ? v - geo.kbs : v;
+      const bool hi = W::hi(geo, v);
+      const int kb = W::kb(geo, v);
       mbar_wait(&ring.empty[stage], phase ^ 1);
-      uint8_t* rows = ring.base + stage * stage_bytes(kN);
+      uint8_t* rows = ring.base + stage * stage_bytes<Kind>(kN);
       uint8_t* qs = rows + kRowBox;
       if constexpr (kTma) {
         if ((threadIdx.x & 31) == 0) {
-          mbar_expect(&ring.full[stage], stage_bytes(kN));
+          mbar_expect(&ring.full[stage], loaded_bytes<Kind>(kN));
           tma_load(rows, &maps.x, kb * kKBlock, t * kTileRows,
                    &ring.full[stage]);
           tma_load(qs, hi ? &maps.q_hi : &maps.q, kb * kKBlock, q0,
                    &ring.full[stage]);
+          if constexpr (W::kBoth) {
+            tma_load(qs + kN * kKBlock, &maps.q_hi, kb * kKBlock, q0,
+                     &ring.full[stage]);
+          }
         }
       } else {
         copy_stage<Kind, kN, kG>(ld, geo, t, q0, kb, hi, smem_u32(rows),
@@ -807,7 +1005,11 @@ __device__ __forceinline__ void pass_tile(const Geometry& geo,
                                           const Ring& ring, int& stage,
                                           int& phase) {
   for (int v = 0; v < geo.nv; ++v) {
+#ifdef VROD_PROBE_PRESPLIT
+    mbar_wait(stage_ready(ring, stage), phase);
+#else
     mbar_wait(&ring.full[stage], phase);
+#endif
     release_stage(ring, stage);
     if (++stage == ring.n) {
       stage = 0;
@@ -821,15 +1023,17 @@ template <class Kind>
 struct StageA {
   uint32_t a[kKSteps][4];
   // F32X3: the rows' small parts, multiplied with the query's big part
-  // (the first walk of the k-blocks) after their big parts.
+  // after their big parts.
   uint32_t small[Kind::kSplit ? kKSteps : 1][4];
 };
 
-// A consumer warpgroup's wgmmas of stage v of a row tile (its k-block v,
-// packed int4 and F32X3: the second walk from v = kbs), at ring position
-// `stage`: waits for the stage, loads this warp's 16 rows into A's
-// registers, applies the kind's transform, issues the wgmmas (accumulating
-// from zero at v = 0) and commits them as one group.
+// A consumer warpgroup's wgmmas of stage v of a row tile (Walk: its
+// k-block, and the query half it takes), at ring position `stage`: waits
+// for the stage, loads this warp's 16 rows into A's registers, applies the
+// kind's transform, issues the wgmmas (accumulating from zero at v = 0)
+// and commits them as one group. F32X3 issues, k-step by k-step,
+// big.Qbig, small.Qbig (a stage of the big half) and big.Qsmall (a stage
+// of the small half, or the second box of a stage that holds both).
 template <class Kind, int kA>
 __device__ __forceinline__ void issue_stage(typename Kind::Acc (&acc)[kA],
                                             StageA<Kind>& st,
@@ -843,21 +1047,38 @@ __device__ __forceinline__ void issue_stage(typename Kind::Acc (&acc)[kA],
   // 16 bytes. Register j then holds the A fragment's word j.
   const int r = (threadIdx.x >> 5) * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
   const int chunk_hi = lane >> 4;
-  const bool hi = Kind::kPacked && v >= geo.kbs;
+  using W = Walk<Kind, kN>;
+  const bool hi = W::hi(geo, v);
+#ifdef VROD_PROBE_PRESPLIT
+  mbar_wait(stage_ready(ring, stage), phase);
+#else
   mbar_wait(&ring.full[stage], phase);
+#endif
   // The copying producer's writes went through the generic proxy; wgmma
   // reads the queries through the async proxy.
   if (ring.copy) {
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
-  const uint8_t* rows = ring.base + stage * stage_bytes(kN);
+  const uint8_t* rows = ring.base + stage * stage_bytes<Kind>(kN);
   const uint32_t rows_a = smem_u32(rows) + r * kKBlock;
   const uint32_t qs_a = smem_u32(rows + kRowBox);
 #pragma unroll
   for (int s = 0; s < kKSteps; ++s) {
     ldmatrix_x4(st.a[s], rows_a + ((((2 * s + chunk_hi) ^ lane) & 7) << 4));
     if constexpr (Kind::kSplit) {
-      Kind::split(st.a[s], st.small[s]);
+      if (hi) {
+        Kind::big(st.a[s]);
+      } else {
+#ifdef VROD_PROBE_PRESPLIT
+        if (ring.ready != nullptr) {
+          ldmatrix_x4(st.small[s], rows_a + presplit_offset<kN>() +
+                                       ((((2 * s + chunk_hi) ^ lane) & 7)
+                                        << 4));
+          continue;
+        }
+#endif
+        Kind::split(st.a[s], st.small[s]);
+      }
     } else {
       Kind::a_in(st.a[s], hi);
     }
@@ -881,6 +1102,15 @@ __device__ __forceinline__ void issue_stage(typename Kind::Acc (&acc)[kA],
                                1);
 #endif
       }
+    }
+  }
+  if constexpr (W::kBoth) {
+    const uint32_t qsmall_a = qs_a + kN * kKBlock;
+#pragma unroll
+    for (int s = 0; s < kKSteps; ++s) {
+#ifndef VROD_PROBE_NO_MMA
+      Kind::template mma<kN>(acc, st.a[s], sw128_desc(qsmall_a + s * 32), 1);
+#endif
     }
   }
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -1007,15 +1237,15 @@ inline int encode_map(CUtensorMap* m, const void* base, int inner,
 }
 
 // The maps of a launch on rows x (n, row_bytes) and queries q (b,
-// row_bytes; packed int4 (b, 2 * row_bytes), split into its halves), the
-// queries in boxes of a group of q_box.
-inline int make_maps(Maps* m, bool packed, const void* x, const void* q,
+// row_bytes; with `halves` (b, 2 * row_bytes), split into its halves:
+// packed int4, F32X3), the queries in boxes of a group of q_box.
+inline int make_maps(Maps* m, bool halves, const void* x, const void* q,
                      int n, int b, int row_bytes, int q_box = kGroup) {
   int e = encode_map(&m->x, x, row_bytes, n, row_bytes, kTileRows);
   if (e != 0) return e;
-  const long qstride = packed ? 2L * row_bytes : row_bytes;
+  const long qstride = halves ? 2L * row_bytes : row_bytes;
   e = encode_map(&m->q, q, row_bytes, b, qstride, q_box);
-  if (e != 0 || !packed) {
+  if (e != 0 || !halves) {
     m->q_hi = m->q;
     return e;
   }

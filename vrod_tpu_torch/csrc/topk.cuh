@@ -29,7 +29,8 @@ namespace {
 #define VROD_K1_RING 4
 #endif
 constexpr int kRing = VROD_K1_RING;
-static_assert(kRing >= 2 && 1024 + kRing * stage_bytes(64) <= 227 * 1024,
+static_assert(kRing >= 2 &&
+                  1024 + kRing * stage_bytes<F32X3>(64) <= 227 * 1024,
               "K1's ring: 2 stages or more, within a block's shared memory");
 
 constexpr int kMergeThreads = 64;  // two queries a block: b / 2 blocks
@@ -235,31 +236,37 @@ constexpr int kWidth = 64;
 
 // The shape of a long scan's shared memory (K1's, X6/X8's;
 // ops/cuda_topk.py: topk_layout): ring stages of the row box and the query
-// box, then the lists when on chip.
+// box (F32X3: both query halves), then the lists when on chip.
 struct Layout {
   int ring;     // stages (<= kRing)
   int cap;      // a list's places
   int on_chip;  // the lists in shared memory
+  template <class Kind>
   __host__ __device__ int ring_bytes() const {
-    return ring * stage_bytes(kWidth);
+    return ring * stage_bytes<Kind>(kWidth);
   }
   // Dynamic shared memory, past the 1024-byte alignment.
+  template <class Kind>
   __host__ __device__ int smem() const {
-    return 1024 + ring_bytes() + (on_chip ? kWidth * cap * 8 : 0);
+    return 1024 + ring_bytes<Kind>() + (on_chip ? kWidth * cap * 8 : 0);
   }
 };
 
-// A consumer barrier that also votes (bar.red.or on its own id): true in
-// every consumer thread when `v` holds in any of them.
+// A consumer barrier that also votes (bar.red.or on named barrier kBar):
+// true in every consumer thread when `v` holds in any of them. The gated
+// core's tiles vote on kBarVote, fused_theta.cuh's sample skip on
+// kBarSkip.
+constexpr int kBarSkip = 2;
 constexpr int kBarVote = 4;
 
+template <int kBar = kBarVote>
 __device__ __forceinline__ bool consumer_any(bool v) {
   int r;
   asm volatile(
       "{\n .reg .pred p, q;\n setp.ne.b32 q, %1, 0;\n"
       " bar.red.or.pred p, %2, %3, q;\n selp.b32 %0, 1, 0, p;\n}\n"
       : "=r"(r)
-      : "r"((int)v), "n"(kBarVote), "n"(kConsumers)
+      : "r"((int)v), "n"(kBar), "n"(kConsumers)
       : "memory");
   return r != 0;
 }
@@ -825,7 +832,7 @@ int launch_maps(Maps* maps, const void* const* m3, const void* x,
     *maps = maps_from(m3[0], m3[1], m3[2]);
     return 0;
   }
-  return make_maps(maps, Kind::kPacked, x, q, n, b, row_bytes, q_box);
+  return make_maps(maps, Kind::kHalves, x, q, n, b, row_bytes, q_box);
 }
 
 }  // namespace

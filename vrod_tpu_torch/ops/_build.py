@@ -8,8 +8,10 @@ under ``csrc/build/`` (ignored by git). The build publishes atomically
 load a half-written file. There is no fallback: a missing ``nvcc`` or a
 failed compile raises, with the compiler's output. ``defines`` (extra
 ``-D`` flags) build a variant beside the default library, for the
-measurement scripts under ``tools/``; the port itself always loads the
-default.
+measurement scripts under ``tools/``, which may also build it from some of
+the sources alone (``sources``: file names; such a library holds only
+their entry points, and the scripts bind those themselves); the port
+itself always loads the default.
 
 The library is bound with ``ctypes``: pointers and the stream go as
 ``c_void_p`` (a bare Python int would be cut to 32 bits), and every entry
@@ -54,36 +56,41 @@ def _nvcc() -> str:
         "are built from source on first use")
 
 
-def _sources() -> list[Path]:
-    return sorted(_CSRC.glob("*.cu"))
+def _sources(names: tuple[str, ...] = ()) -> list[Path]:
+    return sorted(p for p in _CSRC.glob("*.cu")
+                  if not names or p.name in names)
 
 
 def _flags(defines: tuple[str, ...]) -> tuple[str, ...]:
     return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
 
 
-def library_path(defines: tuple[str, ...] = ()) -> Path:
+def library_path(defines: tuple[str, ...] = (),
+                 sources: tuple[str, ...] = ()) -> Path:
     h = hashlib.sha256()
     for p in sorted(_CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(_flags(defines)).encode())
+    if sources:
+        h.update(" ".join(sorted(sources)).encode())
     return BUILD_DIR / f"libvrodkernels-{h.hexdigest()[:16]}.so"
 
 
-def build(defines: tuple[str, ...] = ()) -> Path:
-    """Compile the kernels, with ``-D`` for each of ``defines``, unless this
-    exact build exists; return its path. The compiler's output (``-Xptxas
+def build(defines: tuple[str, ...] = (),
+          sources: tuple[str, ...] = ()) -> Path:
+    """Compile the kernels (of ``sources`` alone if given), with ``-D`` for
+    each of ``defines``, unless this exact build exists; return its path. The compiler's output (``-Xptxas
     -v``: registers, shared memory, spills per kernel) and each source's
     compile time (``nvcc <source>: <s> s``) are kept beside the library as
     ``<name>.log``."""
-    out = library_path(defines)
+    out = library_path(defines, sources)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        srcs = _sources()
+        srcs = _sources(sources)
         objs = [Path(tmp) / (src.stem + ".o") for src in srcs]
         cmds = [[nvcc, *_flags(defines), "-c", "-o", str(obj), str(src)]
                 for src, obj in zip(srcs, objs)]
@@ -161,11 +168,11 @@ def load(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.vrod_fused_topk_floor.argtypes = [ci] * 3 + [vp] * 7 + [ci] * 8 \
         + [vp] * 7
     # K1's ring depth; a long-scan block's shared memory (ring, cap,
-    # on_chip)
+    # on_chip, split: the f32x3 legs')
     lib.vrod_k1_ring.restype = ci
     lib.vrod_k1_ring.argtypes = []
     lib.vrod_topk_smem.restype = ci
-    lib.vrod_topk_smem.argtypes = [ci] * 3
+    lib.vrod_topk_smem.argtypes = [ci] * 4
     # (elem, epi, granule, x, aux, valid, bias, q, q_scale, n, row_bytes, b,
     #  blk, width, spb, groups, out, x_map, q_map, q_hi_map, stream)
     lib.vrod_sampled_submax.restype = ci
@@ -203,8 +210,9 @@ def load(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
             fn.argtypes = [ci] * 3 + [vp] * 5 + [ci] * 12 + [vp] * 9
     # The carry's, the store's and the gated kernels' whole shared memory
     # a block in each build (vrod_extract_<mode>[_copy]_smem): (k, stage,
-    # on_chip), (cap, on_chip) and (cap, on_chip)
-    for mode, n in (("carry", 3), ("store", 2), ("gate", 2)):
+    # on_chip, split), (cap, on_chip, split) and (cap, on_chip, split);
+    # split: the f32x3 legs'
+    for mode, n in (("carry", 4), ("store", 3), ("gate", 3)):
         for copy in ("", "_copy"):
             fn = getattr(lib, f"vrod_extract_{mode}{copy}_smem")
             fn.restype = ci

@@ -113,7 +113,6 @@ def reset_launches() -> None:
 # -- Launch plans ------------------------------------------------------------
 
 SMEM_BYTES = 232448         # a block's shared memory on the H100 (227 KB)
-ROW_BOX = 128 * 128         # a stage's row tile (score.cuh: kRowBox)
 RING = 4                    # stages of every kernel's ring (topk.cuh: kRing)
 # The query group of every kernel but the floor (wgmma n64; extract.cuh:
 # kNarrow): n64 measured faster than n128 for the store, the carry and the
@@ -137,7 +136,6 @@ STORE_SLACK = 32
 CARRY_STATIC_BYTES = 8 * 8 + 3 * NARROW * 4
 STORE_STATIC_BYTES = 8 * 8 + 2 * NARROW * 4 + 8 * 256 * 4
 GATE_STATIC_BYTES = STORE_STATIC_BYTES
-STAGE_BYTES = ROW_BOX + NARROW * 128  # one ring stage: rows' and queries'
 
 
 class XPlan(NamedTuple):
@@ -150,71 +148,79 @@ class XPlan(NamedTuple):
     stage: int      # X2: places of a query's stage (0 for the others)
 
 
-def carry_smem(k: int, stage: int, on_chip: bool = True) -> int:
+def carry_smem(k: int, stage: int, on_chip: bool = True,
+               split: bool = False) -> int:
     """X2's shared memory a block (csrc/extract.cuh: narrow_smem, plus the
-    static part): the ring, two stages of ``stage`` places a query, and the
-    carry (NARROW x k values and slots) when on chip."""
-    return (1024 + RING * STAGE_BYTES + 2 * NARROW * stage * 8
+    static part): the ring (``cuda_topk.stage_bytes``; ``split``: the
+    f32x3 legs', whose stages hold both query halves),
+    two stages of ``stage`` places a query, and the carry (NARROW x k
+    values and slots) when on chip."""
+    return (1024 + RING * K.stage_bytes(NARROW, split)
+            + 2 * NARROW * stage * 8
             + (NARROW * k * 8 if on_chip else 0) + CARRY_STATIC_BYTES)
 
 
-def carry_plan(k: int) -> tuple[int, bool]:
+def carry_plan(k: int, split: bool = False) -> tuple[int, bool]:
     """X2's (stage, on_chip) for top-k: the largest stage at which the
     carry fits in shared memory beside a 4-stage ring (32 to k 194, 16 to
-    k 226); past that the carry in global memory (L2) with the least
-    stage."""
+    k 226; at f32x3 32 to k 130, 16 to k 162); past that the carry in
+    global memory (L2) with the least stage."""
     for stage in CARRY_STAGES:
-        if carry_smem(k, stage) <= SMEM_BYTES:
+        if carry_smem(k, stage, True, split) <= SMEM_BYTES:
             return stage, True
     return CARRY_STAGES[-1], False
 
 
-def store_smem(cap: int, on_chip: bool = True) -> int:
+def store_smem(cap: int, on_chip: bool = True, split: bool = False) -> int:
     """The store's shared memory a block (as ``carry_smem``): the ring,
     the score tile (NARROW x STORE_PITCH floats) and the lists (NARROW x
     cap values and slots) when on chip."""
-    return (1024 + RING * STAGE_BYTES + NARROW * STORE_PITCH * 4
+    return (1024 + RING * K.stage_bytes(NARROW, split)
+            + NARROW * STORE_PITCH * 4
             + (NARROW * cap * 8 if on_chip else 0) + STORE_STATIC_BYTES)
 
 
-def store_plan(k: int) -> tuple[int, bool]:
+def store_plan(k: int, split: bool = False) -> tuple[int, bool]:
     """The store's (cap, on_chip) for top-k: lists of as many entries as
-    fit in shared memory beside the ring and the score tile (176), where
-    that is k + 32 at least (to k 144); else the lists in global memory
-    with K1's capacity there (k + ``cuda_topk.GLOBAL_SLACK``)."""
-    room = (SMEM_BYTES - store_smem(0)) // (NARROW * 8)
+    fit in shared memory beside the ring and the score tile (176; at f32x3
+    112), where that is k + 32 at least (to k 144; at f32x3 80); else the
+    lists in global memory with K1's capacity there (k +
+    ``cuda_topk.GLOBAL_SLACK``)."""
+    room = (SMEM_BYTES - store_smem(0, True, split)) // (NARROW * 8)
     if room >= k + STORE_SLACK:
         return room, True
     return k + K.GLOBAL_SLACK, False
 
 
-def gate_smem(cap: int, on_chip: bool = True) -> int:
+def gate_smem(cap: int, on_chip: bool = True, split: bool = False) -> int:
     """The gated kernels' shared memory a block (X1's gate, X3, X4; as
     ``carry_smem``): the ring and the lists (NARROW x cap values and
     slots) when on chip; no score tile."""
-    return (1024 + RING * STAGE_BYTES
+    return (1024 + RING * K.stage_bytes(NARROW, split)
             + (NARROW * cap * 8 if on_chip else 0) + GATE_STATIC_BYTES)
 
 
-def gate_plan(k: int) -> tuple[int, bool]:
+def gate_plan(k: int, split: bool = False) -> tuple[int, bool]:
     """The gated kernels' (cap, on_chip) for top-k: lists of as many
-    entries as fit in shared memory beside the ring (242), where that is k
-    + 32 at least (to k 210); else the lists in global memory with K1's
-    capacity there (k + ``cuda_topk.GLOBAL_SLACK``)."""
-    room = (SMEM_BYTES - gate_smem(0)) // (NARROW * 8)
+    entries as fit in shared memory beside the ring (242; at f32x3 178),
+    where that is k + 32 at least (to k 210; at f32x3 146); else the lists
+    in global memory with K1's capacity there (k +
+    ``cuda_topk.GLOBAL_SLACK``)."""
+    room = (SMEM_BYTES - gate_smem(0, True, split)) // (NARROW * 8)
     if room >= k + STORE_SLACK:
         return room, True
     return k + K.GLOBAL_SLACK, False
 
 
 def extract_plan(kernel: str, n: int, b: int, k: int, sms: int,
-                 count: bool = False) -> XPlan:
+                 count: bool = False, split: bool = False) -> XPlan:
     """A kernel's grid for n rows (whole blocks), b queries, top-k on
     ``sms`` SMs. The floor runs groups of FLOOR_GROUP queries in about one
     block per SM, one max a part and query (cap 0). The others
     take groups of NARROW in as many parts as leave about one block per
     SM, with the lists of ``store_plan`` or of ``gate_plan`` (gate,
-    unroll2/4, pingpong), or X2's carry (``carry_plan``). With ``count``
+    unroll2/4, pingpong), or X2's carry (``carry_plan``), sized by the
+    leg's stages (``split``: the f32x3 legs'). With ``count``
     X2 runs one part per query group, so that it walks the rows in global
     order."""
     if kernel not in KERNELS:
@@ -227,12 +233,12 @@ def extract_plan(kernel: str, n: int, b: int, k: int, sms: int,
         return XPlan(groups, parts, 0, False, FLOOR_GROUP, 0)
     stage = 0
     if mode == "store":
-        cap, on_chip = store_plan(k)
+        cap, on_chip = store_plan(k, split)
     elif mode == "carry":
         cap = k
-        stage, on_chip = carry_plan(k)
+        stage, on_chip = carry_plan(k, split)
     else:
-        cap, on_chip = gate_plan(k)
+        cap, on_chip = gate_plan(k, split)
     groups = -(-b // NARROW)
     parts = 1 if count and mode == "carry" else \
         max(1, min(-(-n // K.TILE_ROWS), sms // groups))
@@ -424,7 +430,8 @@ def _launch(kernel, call, *, count=False):
         return out_v, out_i, None
     b, k, dev = call.b, call.k, call.device
     mode, unroll = KERNELS[kernel]
-    plan = extract_plan(kernel, call.n_scan, b, k, K._sms(dev), count)
+    plan = extract_plan(kernel, call.n_scan, b, k, K._sms(dev), count,
+                        call.split)
     size = scratch_sizes(kernel, plan, b, k, call.nblocks, count)
     lib = _build.load()
     f32, i32 = torch.float32, torch.int32

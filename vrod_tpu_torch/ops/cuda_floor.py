@@ -91,11 +91,12 @@ class ThetaPlan(NamedTuple):
 
 
 def theta_plan(n: int, b: int, k: int, block_rows: int, s_blocks: int,
-               sms: int, ring: int = K.RING) -> ThetaPlan:
+               sms: int, ring: int = K.RING,
+               split: bool = False) -> ThetaPlan:
     """fused_theta's grid for n rows, b queries, top-k and a sample of
     ``s_blocks`` blocks of ``block_rows`` rows on ``sms`` SMs. The grid is
-    K1's persistent one (``topk_plan`` at ``ring``), which must be
-    co-resident for the kernel's
+    K1's persistent one (``topk_plan`` at ``ring``, ``split`` on the f32x3
+    legs), which must be co-resident for the kernel's
     barriers; the sample is rows [0, 128 * sample_tiles), block j its tiles
     [j * blk_tiles, (j + 1) * blk_tiles), and part p scores the p-th of
     ``parts`` equal runs of its tiles (``sample_run``)."""
@@ -108,7 +109,7 @@ def theta_plan(n: int, b: int, k: int, block_rows: int, s_blocks: int,
     if s_blocks * K.TILE_ROWS < 2 * k:
         raise ValueError(f"the floor needs >= 2k sub-maxima: {s_blocks} "
                          f"blocks give {s_blocks * K.TILE_ROWS} for k {k}")
-    plan = K.topk_plan(n, b, k, sms, ring)
+    plan = K.topk_plan(n, b, k, sms, ring, split)
     return ThetaPlan(*plan, s_blocks * block_rows // K.TILE_ROWS,
                      block_rows // K.TILE_ROWS)
 
@@ -178,7 +179,7 @@ def fused_theta(x, aux, valid, q, *, k, metric, block_rows, s_blocks,
     n, b, dev = call.n, call.b, call.device
     lib = _build.load()
     plan = theta_plan(n, b, k, block_rows, s_blocks, K._sms(dev),
-                      K.lib_ring(lib))
+                      K.lib_ring(lib), call.split)
     parts = plan.parts
     out_v = torch.full((b, k), K.NEG_INF, dtype=torch.float32, device=dev)
     out_i = torch.full((b, k), -1, dtype=torch.int32, device=dev)

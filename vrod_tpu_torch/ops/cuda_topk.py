@@ -118,17 +118,16 @@ GLOBAL_SLACK = 5 * TILE_ROWS
 SMALL_TILES = 4
 SMALL_SPAN = 256
 # K3: queries per block (wgmma n64 or n128) and its ring (192 KB of
-# stages of the 16 KB row box and the query box). K1's small scans:
-# queries per block (wgmma n16), their ring, the largest k whose merge
-# (parts x k candidates a warp) fits the ring it reuses, and their lists'
-# capacity (cut by the warp bitonic sort). Clusters: at most MAX_CLUSTER
+# stages of the 16 KB row box and the query box, ``stage_bytes``). K1's
+# small scans: queries per block (wgmma n16), their ring, the largest k
+# whose merge (parts x k candidates a warp) fits the ring it reuses, and
+# their lists' capacity (cut by the warp bitonic sort). Clusters: at most MAX_CLUSTER
 # blocks (portable).
 SUBMAX_GROUPS = (128, 64)
 SUBMAX_RING_BYTES = 192 * 1024
 SMALL_GROUP = 16
 MAX_CLUSTER = 8
 SMALL_RING = 4
-_SMALL_STAGE = TILE_ROWS * 128 + SMALL_GROUP * 128
 SMALL_MAX_K = 64
 SMALL_CAP = 256
 # Shared memory a block may use; the small-scan kernel's static part
@@ -516,40 +515,50 @@ class Layout(NamedTuple):
     on_chip: bool
 
 
-def topk_smem(layout: Layout) -> int:
+def stage_bytes(width: int, split: bool = False) -> int:
+    """One ring stage of a block of ``width`` queries (csrc/score.cuh:
+    stage_bytes): the 16 KB row box and the queries' box of width x 128
+    bytes; on the f32x3 legs (``split``) at widths to 128 two such boxes,
+    the queries' big parts and their small parts (score.cuh's Walk: one
+    walk of the row k-blocks; at 256 the two halves take a stage each)."""
+    boxes = 2 if split and width <= 128 else 1
+    return TILE_ROWS * 128 + boxes * width * 128
+
+
+def topk_smem(layout: Layout, split: bool = False) -> int:
     """Shared memory of a long-scan block (at most; csrc/fused_topk.cu):
-    the ring's 24 KB stages (the 16 KB row box and the 8 KB box of 64
-    queries), the lists (64 x cap values and slots) when on chip, and
-    TOPK_STATIC_SMEM."""
+    the ring's stages (``stage_bytes``: 24 KB, at f32x3 32 KB), the lists
+    (64 x cap values and slots) when on chip, and TOPK_STATIC_SMEM."""
     ring, cap, on_chip = layout
-    return (1024 + ring * (TILE_ROWS * 128 + GROUP_QUERIES * 128)
+    return (1024 + ring * stage_bytes(GROUP_QUERIES, split)
             + (GROUP_QUERIES * cap * 8 if on_chip else 0) + TOPK_STATIC_SMEM)
 
 
-def topk_layout(k: int, ring: int = RING) -> Layout:
+def topk_layout(k: int, ring: int = RING, split: bool = False) -> Layout:
     """K1's shared memory for top-k: the deepest ring of ``ring`` stages
     down to 3 that leaves lists of k + LIST_SLACK places or more on chip,
-    with as many places as fit (at 4 stages 242, to k 210; at 3, 290, to k
-    258); past that, lists of k + GLOBAL_SLACK in global memory beside a
-    ring of ``ring``."""
+    with as many places as fit (at 4 stages 242, to k 210; at 3, 290, to
+    k 258; on the f32x3 legs, ``split``, whose stages are 32 KB, 178
+    beside 4, to k 146, and 242 beside 3, to k 210); past that, lists of
+    k + GLOBAL_SLACK in global memory beside a ring of ``ring``."""
     for r in range(ring, 2, -1):
-        cap = (SMEM_LIMIT - topk_smem(Layout(r, 0, False))) \
+        cap = (SMEM_LIMIT - topk_smem(Layout(r, 0, False), split)) \
             // (GROUP_QUERIES * 8)
         if cap >= k + LIST_SLACK:
             return Layout(r, cap, True)
     return Layout(ring, k + GLOBAL_SLACK, False)
 
 
-def topk_plan(n: int, b: int, k: int, sms: int,
-              ring: int = RING) -> TopkPlan:
+def topk_plan(n: int, b: int, k: int, sms: int, ring: int = RING,
+              split: bool = False) -> TopkPlan:
     """K1's persistent grid for n rows, b queries, top-k on ``sms`` SMs.
     Block (part p, group g) scores query group g (queries [64 g, 64 g +
     64)) against row tiles p, p + parts, ... (128 rows each;
     ``part_tiles``), about one block per SM. The shared memory:
-    ``topk_layout``."""
+    ``topk_layout`` (``split``: the f32x3 legs')."""
     groups = _cdiv(b, GROUP_QUERIES)
     parts = max(1, min(_cdiv(n, TILE_ROWS), sms // groups))
-    lay = topk_layout(k, ring)
+    lay = topk_layout(k, ring, split)
     return TopkPlan(groups, parts, lay.cap, lay.on_chip, lay.ring)
 
 
@@ -618,13 +627,13 @@ def small_plan(n: int, b: int, k: int, sms: int):
     return _cdiv(b, SMALL_GROUP), parts, SMALL_CAP
 
 
-def small_smem(k: int) -> int:
+def small_smem(k: int, split: bool = False) -> int:
     """Shared memory of a small-scan block at top-k: the dynamic part (the
-    ring and the 16 queries' lists of SMALL_CAP) and the static part; the
-    same at every k to SMALL_MAX_K."""
+    ring of ``stage_bytes`` stages and the 16 queries' lists of SMALL_CAP)
+    and the static part; the same at every k to SMALL_MAX_K."""
     del k
-    return 1024 + SMALL_RING * _SMALL_STAGE + SMALL_GROUP * SMALL_CAP * 8 \
-        + SMALL_STATIC_SMEM
+    return 1024 + SMALL_RING * stage_bytes(SMALL_GROUP, split) \
+        + SMALL_GROUP * SMALL_CAP * 8 + SMALL_STATIC_SMEM
 
 
 def part_tiles(part: int, parts: int, n: int) -> range:
@@ -632,8 +641,8 @@ def part_tiles(part: int, parts: int, n: int) -> range:
     return range(part, _cdiv(n, TILE_ROWS), parts)
 
 
-def submax_plan(n: int, b: int, block_rows: int, sms: int
-                ) -> tuple[int, int, int]:
+def submax_plan(n: int, b: int, block_rows: int, sms: int,
+                split: bool = False) -> tuple[int, int, int]:
     """K3's grid for an n-row sample in blocks of ``block_rows`` (a
     multiple of 128) on ``sms`` SMs: (width, groups, spb). Queries go in
     groups of ``width``; each (row block, query group) pair is one cluster
@@ -641,7 +650,11 @@ def submax_plan(n: int, b: int, block_rows: int, sms: int
     (``submax_tiles``), spb a power of two up to MAX_CLUSTER dividing the
     block's tiles, the largest that keeps the grid (pairs x spb) within one
     block per SM. The width is 128 where that grid has as many blocks as
-    64's (each block then reads its rows for twice the queries), else 64."""
+    64's (each block then reads its rows for twice the queries), else 64;
+    on the f32x3 legs (``split``) always 64: at 128 the stages of both
+    query halves leave the consumers too few registers (ptxas spills;
+    PERF.md: on an H100 0.82-0.89 ms against 0.50-0.55 on a 131,072 x
+    768 sample)."""
     def grid(width):
         groups = _cdiv(b, width)
         pairs = (n // block_rows) * groups
@@ -652,14 +665,16 @@ def submax_plan(n: int, b: int, block_rows: int, sms: int
         return width, groups, spb, pairs * spb
 
     wide, narrow = (grid(w) for w in SUBMAX_GROUPS)
+    if split:
+        return narrow[:3]
     return (wide if wide[3] >= narrow[3] else narrow)[:3]
 
 
-def submax_smem(width: int) -> int:
+def submax_smem(width: int, split: bool = False) -> int:
     """Dynamic shared memory of a K3 block taking ``width`` queries: its
-    ring of whole stages (the row box and the query box) within
-    SUBMAX_RING_BYTES, aligned to 1 KB."""
-    stage = TILE_ROWS * 128 + width * 128
+    ring of whole stages (``stage_bytes``) within SUBMAX_RING_BYTES,
+    aligned to 1 KB."""
+    stage = stage_bytes(width, split)
     return 1024 + SUBMAX_RING_BYTES // stage * stage
 
 
@@ -782,8 +797,9 @@ def lib_ring(lib) -> int:
 
 def card_plan(lib, call, k) -> TopkPlan:
     """``topk_plan`` of a launch of ``call`` from ``lib`` on its card, at
-    the library's ring depth."""
-    return topk_plan(call.n, call.b, k, _sms(call.device), lib_ring(lib))
+    the library's ring depth and the call's leg's stages."""
+    return topk_plan(call.n, call.b, k, _sms(call.device), lib_ring(lib),
+                     call.split)
 
 
 def _topk_cuda(lib, call, k, index_offset, theta0):
@@ -882,7 +898,8 @@ def _submax_cuda(lib, call, block_rows):
     n, b, dev = call.n, call.b, call.device
     out = torch.empty((b, 128 * (n // block_rows)), dtype=torch.float32,
                       device=dev)
-    width, groups, spb = submax_plan(n, b, block_rows, _sms(dev))
+    width, groups, spb = submax_plan(n, b, block_rows, _sms(dev),
+                                     call.split)
     maps = call.maps(width)
     with _on(dev):
         rc = lib.vrod_sampled_submax(

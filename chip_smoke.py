@@ -120,9 +120,11 @@ nothing falls back to the CPU or to a plain version):
    8-byte-offset contiguous view of int8 dim-768 rows; then K3, K1 (the
    gated core and the scan from a floor, k 28 and 211), X6/X8 and X9 on
    every leg at ``COPY_WIDTHS`` (packed int4 dim 100: 50 bytes) and
-   69,709 rows (``copy_scans``); each against its plain twin (int8 EXACT,
-   floats within the bound), every kernel and leg launching its copying
-   build by the granule its width gives. Last, the
+   69,709 rows, and the scan from a floor's ties across its warpgroups'
+   halves of a tile and its cut points, which case (e) also places at
+   dim 768 (``copy_scans``, ``floor_ties``); each against its plain twin
+   (int8 EXACT, floats within the bound), every kernel and leg launching
+   its copying build by the granule its width gives. Last, the
    copying builds' path at full width (``glove_path``): a state the size
    of ann-benchmarks' glove-100-angular, 1,183,514 x 100 seeded cosine
    rows (int8 rows of 100 bytes, bfloat16 of 200), int8 and bfloat16, b256,
@@ -406,6 +408,11 @@ MH_TIMEOUT_S = 300
 VERB_BATCHES, VERB_TOP_K, VERB_TOP_K_WIDE = 5, 16, 100
 FILTER_IDS, REINDEX_DELETE = 100_000, 250_000
 FUZZ_BACKUP_SEED, FUZZ_COLD_SEED, FUZZ_MODEL_CONFIGS = 2, 0, (1, 2)
+# The ties of the scan from a floor across its warpgroups' halves of a
+# tile and its cut points (case (e), and ``copy_scans`` at the copying
+# widths): one leg of each row kind.
+FLOOR_TIE_LEGS = ("int8-cosine", "int4-l2", "bf16-cosine", "f32-dot",
+                  "f32x3-dot")
 # Phase 10: the soak's minutes (no 2-minute plateau mark within them), the
 # drill's rows and tail (the depth cut of tools/repl_drill.py's 10M rows
 # and 100,000-row tail), and the time limit of each tool's process.
@@ -914,31 +921,83 @@ def tie_copies(sms, k, floor=False):
     return (tiles + 1) * parts * K.TILE_ROWS, copies
 
 
-def tie_inputs(leg, dev, rng, n, copies):
-    """Rows with copies of row 7 at the slots ``copies`` and of row 9000 at
-    5000..5039, query 0 = row 7: exact ties inside query 0's top-k and
+def floor_tie_copies(sms, k, placement):
+    """(rows, copies) of the ties cases of the scan from a floor below
+    every score (``floor_plan``: every row passes, so each FLOOR_CUT_TILES
+    tiles of part 0 fill a list past its limit and are cut) at b256, with
+    copies of row 7 in both consumer warpgroups' halves of a tile (rows
+    0-63 and 64-127) of part 0's tiles 0, parts, 2 parts, ...: "halves",
+    rows 8..127 of the first; "cut", on both sides of the first cut point:
+    k - 10 around the halves' border of the first tile, 20 at the start of
+    the second half of the fourth (the last before the cut) and 40 at the
+    start of each half of the fifth (the first after). The k-th copy is
+    among the fourth tile's, so a cut that saw the fifth tile's first half
+    before the fourth tile's second half was tested keeps later slots."""
+    from vrod_tpu_torch.ops import cuda_topk as K
+    parts = K.floor_plan(1 << 30, BATCH, k, sms).parts
+
+    def rows(t, r):
+        return [t * parts * K.TILE_ROWS + i for i in r]
+
+    if placement == "halves":
+        copies = rows(0, range(8, 128))
+    else:
+        h = (k - 10) // 2
+        copies = (rows(0, range(64 - h, 54 + k - h)) + rows(3, range(64, 84))
+                  + rows(4, range(8, 48)) + rows(4, range(64, 104)))
+    return 7 * parts * K.TILE_ROWS, copies
+
+
+def tie_inputs(leg, dev, rng, n, copies, d=DIM):
+    """Rows of dim d with copies of row 7 at the slots ``copies`` and of
+    row 9000 at 5000..5039, query 0 = row 7: exact ties inside query 0's
+    top-k and
     inside other queries' lists. For the float legs every value is small
     and exact (rows of -1/0/1, row 7 four 2s, queries four +-2s), so every
     score is exact in any summation order and the kernel must equal the
     plain version bit for bit."""
     import torch
     if leg.split("-")[0] in ("int8", "int4"):
-        x = torch.from_numpy(rng.standard_normal((n, DIM), dtype=np.float32))
-        q = torch.from_numpy(rng.standard_normal((BATCH, DIM),
+        x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32))
+        q = torch.from_numpy(rng.standard_normal((BATCH, d),
                                                  dtype=np.float32))
     else:
-        x = torch.from_numpy(rng.integers(-1, 2, (n, DIM))
-                             .astype(np.float32))
+        x = torch.from_numpy(rng.integers(-1, 2, (n, d)).astype(np.float32))
         x[7] = 0.0
         x[7, :4] = 2.0
-        q = torch.zeros((BATCH, DIM))
+        q = torch.zeros((BATCH, d))
         for row in q:
-            row[torch.from_numpy(rng.choice(DIM, 4, replace=False))] = \
+            row[torch.from_numpy(rng.choice(d, 4, replace=False))] = \
                 torch.from_numpy(rng.choice([-2.0, 2.0], 4)).float()
     x[torch.tensor(copies)] = x[7].clone()
     x[5000:5040] = x[9000]
     q[0] = x[7]
     return kernel_inputs(x, q, leg, dev)
+
+
+def floor_ties(cmp, rng, dev, leg, d, what):
+    """The scan from a floor's two consumer warpgroups (tile rows 0-63 and
+    64-127; in lockstep in the TMA builds, in turns in the copying builds)
+    cut only where both have tested the same tiles: copies of row 7 in
+    both halves of a tile (k 28) and on both sides of a cut point (k 112)
+    (``floor_tie_copies``), rows of dim d, each EQUAL to the plain version
+    and query 0's copies lowest slot first."""
+    import torch
+    from vrod_tpu_torch.ops import cuda_topk as K
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    exact = torch.zeros((BATCH, 1), device=dev)
+    low = torch.full((BATCH, 1), -1e30, device=dev)
+    for kt_, placement in ((28, "halves"), (112, "cut")):
+        n_t, copies = floor_tie_copies(sms, kt_, placement)
+        at, kt = tie_inputs(leg, dev, rng, n_t, copies, d)
+        name = f"{what} ties, k {kt_}, floor, {placement}"
+        before = K.floor_scans[leg]
+        v, i = cmp.topk(leg, at, kt, kt_, name, 0, low, bound=exact)
+        if K.floor_scans[leg] - before != 1:
+            raise AssertionError(f"{name}: K1 took the wrong scan")
+        if i[0, :kt_].tolist() != [7] + copies[:kt_ - 1]:
+            raise AssertionError(f"{name}: copies of row 7 not lowest slot "
+                                 "first")
 
 
 def kernel_cases(cmp, rng, dev, leg):
@@ -1066,6 +1125,8 @@ def kernel_cases(cmp, rng, dev, leg):
         if i[0, :kt_].tolist() != [7] + copies[:kt_ - 1]:
             raise AssertionError(f"{leg} (e) ties across list cuts {route}:"
                                  " copies of row 7 not lowest slot first")
+    if leg in FLOOR_TIE_LEGS:
+        floor_ties(cmp, rng, dev, leg, DIM, f"{leg} (e)")
     # The same across the small scan's cuts (lists of SMALL_CAP, cut when
     # full): copies in the first seven tiles of part 0 at 16,384 rows, k
     # 28.
@@ -1514,10 +1575,12 @@ def copy_scans(cmp, card, dev):
     2), COPY_SCAN_ROWS seeded rows with dead slots, b256: K3 on an
     8,192-row sample (its max K1's top-1 from the small scan and the long
     scan, bit for bit), K1 at each of COPY_KS without a floor (the gated
-    core) and from K3's floor (the scan from a floor), X6/X8 at k 28, and
-    X9 (int8 cosine and dot) without and with the floor, each against its
-    plain version. Every K1 and K3 launch must have copied, by the
-    granule the width gives."""
+    core) and from K3's floor (the scan from a floor), X6/X8 at k 28, the
+    ties of the scan from a floor, whose copying build takes turns
+    (``floor_ties``, one leg of each row kind), and X9 (int8 cosine and
+    dot) without and with the floor, each against its plain version.
+    Every K1 and K3 launch must have copied, by the granule the width
+    gives."""
     import torch
     from vrod_tpu_torch.ops import cuda_topk as K
     wall0 = time.perf_counter()
@@ -1545,6 +1608,8 @@ def copy_scans(cmp, card, dev):
             cmp.topk(leg, args, kw, k, f"{what} K1 k {k}, floor",
                      theta0=theta0)
         cmp.theta(leg, args, 28, 2048, 8, None, False, f"{what} X8", kw)
+        if leg in FLOOR_TIE_LEGS:
+            floor_ties(cmp, rng, dev, leg, d, what)
         if leg in ("int8-cosine", "int8-dot"):
             for t0 in (None, floor_theta(sub, 28, args, leg)):
                 cmp.intgate(leg, args, 28, t0, f"{what} X9")

@@ -25,6 +25,8 @@ held to their plain versions by the same rules, ties across list cuts
 EXACTLY.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -300,24 +302,45 @@ def tie_rows(dev, b, k, floor=False):
     return (tiles + 1) * parts * cuda_topk.TILE_ROWS, copies
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("leg", cuda_topk.LEGS)
-@pytest.mark.parametrize("k", [112, 300])
-@pytest.mark.parametrize("floor", [False, True])
-def test_cuda_k1_ties_across_list_cuts(leg, cuda_device, k, floor):
-    """Copies of row 7, 40 in each of the first row tiles of K1's part 0
-    (tiles 0, parts, 2 parts, ...: ``tie_rows``), query 0 = row 7: the
-    copies fill query 0's list past k, so a cut raises its gate to the
-    copies' score, and the copies in the later tiles meet a gate equal to
-    their score (and lose the tie by slot). No floor: the gated core, k 112
-    with the lists on chip, 300 in global memory; a floor of -1e30 (below
-    every score): the scan from a floor, at both k. Rows of -1/0/1 and
-    queries of four +-2 make every score exact in any summation order, so
-    K1 must EQUAL the plain version on every leg, ties throughout."""
+def floor_tie_placement(dev, b, k, placement):
+    """(n, copies) of the ties cases of the scan from a floor below every
+    score (every row passes, so each FLOOR_CUT_TILES tiles of part 0 fill
+    a list past its limit and are cut) with copies of row 7 in both
+    consumer warpgroups' halves of a tile (rows 0-63 and 64-127), in part
+    0's tiles 0, parts, 2 parts, ...: "halves", rows 8..127 of its first
+    tile (at k 112 the k-th copy falls in the second half, at k 28 every
+    copy of the second half loses its tie); "cut", on both sides of the
+    first cut point: k - 10 copies around the halves' border of the first
+    tile, 20 at the start of the second half of the fourth (the last
+    before the cut) and 40 at the start of each half of the fifth (the
+    first after). The k-th copy is among the fourth tile's, so a cut that
+    saw the fifth tile's first half before the fourth tile's second half
+    was tested would keep later slots."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    parts = cuda_topk.floor_plan(1 << 30, b, k, sms).parts
+
+    def rows(t, r):
+        return [t * parts * cuda_topk.TILE_ROWS + i for i in r]
+
+    if placement == "halves":
+        copies = rows(0, range(8, 128))
+    else:
+        h = (k - 10) // 2
+        copies = (rows(0, range(64 - h, 54 + k - h)) + rows(3, range(64, 84))
+                  + rows(4, range(8, 48)) + rows(4, range(64, 104)))
+    return 7 * parts * cuda_topk.TILE_ROWS, copies
+
+
+def check_k1_ties(leg, dev, k, n, copies, floor, d=128, lib=None):
+    """K1 at top-k on n rows of -1/0/1 (dim d, b 8) with copies of row 7
+    (four 2s) at the slots ``copies``, query 0 = row 7, other queries four
+    +-2s, so every score is exact in any summation order: K1 (from a floor
+    of -1e30 below every score, or none; by ``fused_topk``, or launched
+    from kernel library ``lib``) EQUALS the plain version on every leg,
+    and query 0's top-k is row 7 and then the copies, lowest slot first."""
     rng = np.random.default_rng(77)
-    b, d = 8, 128
+    b = 8
     dtype, metric = leg.split("-")
-    n, copies = tie_rows(cuda_device, b, k, floor)
     x = rng.integers(-1, 2, (n, d)).astype(np.float32)
     x[7] = 0.0
     x[7, :4] = 2.0
@@ -339,18 +362,81 @@ def test_cuda_k1_ties_across_list_cuts(leg, cuda_device, k, floor):
     else:
         qt = TD.prepare_queries(qt, metric=metric,
                                 quantize=dtype in ("int8", "int4"))
-    args = [t.to(cuda_device) for t in (rows, aux, valid, qt)]
-    kw = {key: v.to(cuda_device) if torch.is_tensor(v) else v
+    args = [t.to(dev) for t in (rows, aux, valid, qt)]
+    kw = {key: v.to(dev) if torch.is_tensor(v) else v
           for key, v in kw.items()}
     if floor:
-        kw["theta0"] = torch.full((b,), -1e30, device=cuda_device)
+        kw["theta0"] = torch.full((b,), -1e30, device=dev)
     before = cuda_topk.floor_scans[leg]
-    v, i = cuda_topk.fused_topk(*args, k=k, metric=metric, **kw)
+    if lib is None:
+        v, i = cuda_topk.fused_topk(*args, k=k, metric=metric, **kw)
+    else:
+        call = cuda_topk._Call(*args, metric, kw.get("row_bias"),
+                               kw.get("q_scale"), kw["packed"],
+                               kw.get("precision", "fast"))
+        v, i = cuda_topk._topk_cuda(lib, call, k, 0, kw.get("theta0"))
     vp, ip = cuda_topk.fused_topk_plain(*args, k=k, metric=metric, **kw)
     torch.cuda.synchronize()
     assert cuda_topk.floor_scans[leg] - before == int(floor)
     assert torch.equal(v, vp) and torch.equal(i, ip)
     assert i[0].tolist() == [7] + copies[:k - 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leg", cuda_topk.LEGS)
+@pytest.mark.parametrize("k", [112, 300])
+@pytest.mark.parametrize("floor", [False, True])
+def test_cuda_k1_ties_across_list_cuts(leg, cuda_device, k, floor):
+    """Copies of row 7, 40 in each of the first row tiles of K1's part 0
+    (tiles 0, parts, 2 parts, ...: ``tie_rows``), query 0 = row 7: the
+    copies fill query 0's list past k, so a cut raises its gate to the
+    copies' score, and the copies in the later tiles meet a gate equal to
+    their score (and lose the tie by slot). No floor: the gated core, k 112
+    with the lists on chip, 300 in global memory; a floor of -1e30 (below
+    every score): the scan from a floor, at both k (``check_k1_ties``)."""
+    n, copies = tie_rows(cuda_device, 8, k, floor)
+    check_k1_ties(leg, cuda_device, k, n, copies, floor)
+
+
+def floor_lib(defines):
+    """The scan from a floor built from ``csrc/fused_topk_floor.cu`` alone
+    with ``defines`` (the library's flags besides), its entry bound."""
+    return _build.bind_floor(ctypes.CDLL(str(
+        _build.build(defines, ("fused_topk_floor.cu",)))))
+
+
+# The scan from a floor's schedules: (row dim, build defines, copying).
+# At dim 128 int8 and bf16 rows (128 and 256 bytes) load by TMA, where the
+# build's two consumer warpgroups run in lockstep, or in turns with
+# VROD_PROBE_PINGPONG (tools/kernel_probe.py's switch); at dim 100 (100
+# and 200 bytes) TMA cannot load them, and the copying build takes turns.
+FLOOR_SCHEDULES = {"tma-lockstep": (128, (), False),
+                   "tma-pingpong": (128, ("VROD_PROBE_PINGPONG",), False),
+                   "copying-pingpong": (100, (), True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leg", ["int8-cosine", "bf16-cosine"])
+@pytest.mark.parametrize("k", [28, 112])
+@pytest.mark.parametrize("placement", ["halves", "cut"])
+@pytest.mark.parametrize("schedule", list(FLOOR_SCHEDULES))
+def test_cuda_floor_ties_across_warpgroups_and_cuts(leg, cuda_device, k,
+                                                    placement, schedule):
+    """The scan from a floor, whose two consumer warpgroups (tile rows 0-63
+    and 64-127) test a tile together, or in turns half a tile apart, and
+    cut only where both have tested the same tiles: copies of row 7 in
+    both halves of one tile, and on both sides of a cut point
+    (``floor_tie_placement``), EQUAL to the plain version, lowest slot
+    first (``check_k1_ties``), in each schedule (``FLOOR_SCHEDULES``; the
+    build of csrc/fused_topk_floor.cu alone), the copying build's launches
+    counted as such (``copy_launches``)."""
+    d, defines, copying = FLOOR_SCHEDULES[schedule]
+    n, copies = floor_tie_placement(cuda_device, 8, k, placement)
+    before = cuda_topk.copy_launches[f"fused_topk[{leg}]"]
+    check_k1_ties(leg, cuda_device, k, n, copies, True, d,
+                  floor_lib(defines))
+    assert cuda_topk.copy_launches[f"fused_topk[{leg}]"] - before == \
+        int(copying)
 
 
 # K1 at every k the lists take: 1, 16, 28, 112, 136, the largest k whose
@@ -427,7 +513,8 @@ def test_cuda_topk_smem_is_within_the_plan(cuda_device):
     """The long scan's whole shared memory (the library's account of the
     built kernel, vrod_topk_smem) is at most the plan's ``topk_smem`` and
     the card's limit at every k to 1280, the lists on chip or not, on the
-    f32x3 legs (stages of both query halves) and on every other."""
+    f32x3 legs (stages of both query halves) and on every other; and the
+    scan from a floor's (vrod_topk_floor_smem) at most ``floor_smem``."""
     lib = _build.load()
     ring = cuda_topk.lib_ring(lib)
     for split in (False, True):
@@ -437,6 +524,12 @@ def test_cuda_topk_smem_is_within_the_plan(cuda_device):
                                       int(split))
             assert 0 < need <= cuda_topk.topk_smem(lay, split) \
                 <= cuda_topk.SMEM_LIMIT, (k, lay, split)
+    # The scan from a floor (every leg's ring of 48 KB stages; the radix
+    # select's histograms past FLOOR_SORT_K), its static part the largest
+    # build's.
+    for k in range(1, 1281):
+        need = lib.vrod_topk_floor_smem(k)
+        assert 0 < need <= cuda_topk.floor_smem(k) <= cuda_topk.SMEM_LIMIT, k
 
 
 # -- The floor and gate kernels (ops/cuda_floor.py) -------------------------

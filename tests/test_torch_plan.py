@@ -119,6 +119,53 @@ def test_floor_scratch_holds_the_lists_and_gather(b, k):
         + 2 * b * plan.parts * k)
 
 
+# The scan from a floor takes every k: below FLOOR_SORT_K, at it and past
+# it (the radix select's histograms join), the on-chip edge of the gated
+# core (258) and the k the tests and the bench take.
+FLOOR_KS = [1, 16, 28, 108, 112, K.FLOOR_SORT_K, K.FLOOR_SORT_K + 1, 258,
+            300, 1280, 4096]
+
+
+@pytest.mark.parametrize("k", FLOOR_KS)
+def test_floor_smem_within_the_card(k):
+    """The scan from a floor's block (csrc/fused_topk_floor.cu): a ring of
+    FLOOR_RING stages of the row box and 256 queries' box (48 KB on every
+    leg: f32x3 takes its query halves in stages of their own), the radix
+    select's histograms only past FLOOR_SORT_K (below it a cut is a warp
+    sort, no shared memory), and the static bound, within the card's
+    shared memory; and the same at every k to 1280."""
+    assert K.stage_bytes(K.FLOOR_GROUP) == K.stage_bytes(K.FLOOR_GROUP,
+                                                         True) == 48 * 1024
+    hist = K.FLOOR_HIST if k > K.FLOOR_SORT_K else 0
+    assert K.floor_smem(k) == (1024 + K.FLOOR_RING * 48 * 1024 + hist
+                               + K.FLOOR_STATIC_SMEM) <= K.SMEM_LIMIT
+    assert max(K.floor_smem(j) for j in range(1, 1281)) == \
+        K.floor_smem(K.FLOOR_SORT_K + 1) <= K.SMEM_LIMIT
+
+
+def test_floor_constants_are_the_kernels():
+    """The plan's account of the scan from a floor names the kernel's own
+    constants (the card checks the whole against vrod_topk_floor_smem):
+    the ring's depth (K1's default ring, at most 4), the cut cadence, the
+    largest k cut by warp sorts alone, and eight warps' histograms of 256
+    counters."""
+    import re
+    from pathlib import Path
+    csrc = Path(_build.__file__).resolve().parent.parent / "csrc"
+    floor = (csrc / "fused_topk_floor.cu").read_text()
+    topk = (csrc / "topk.cuh").read_text()
+
+    def const(text, name):
+        return re.search(rf"constexpr int {name} = ([^;]+);", text).group(1)
+
+    assert const(floor, "kFloorRing") == "kRing < 4 ? kRing : 4"
+    assert min(K.RING, 4) == K.FLOOR_RING
+    assert int(const(floor, "kFloorCutTiles")) == K.FLOOR_CUT_TILES
+    assert int(const(topk, "kSortLongK")) == K.FLOOR_SORT_K
+    assert const(floor, "kFloorHist") == "kConsumers / 32 * 256 * 4"
+    assert K.FLOOR_HIST == 8 * 256 * 4
+
+
 @pytest.mark.parametrize("n,blk", [(32768, 16384), (131072, 16384),
                                    (131072, 8192), (24576, 8192),
                                    (4096, 256), (256, 256), (8192, 4096)])
@@ -204,7 +251,10 @@ def test_copy_granule_by_shape(dtype, dim, packed, precision, offset,
                                      ("VROD_PROBE_NO_GATE",
                                       "VROD_PROBE_NO_MMA"),
                                      ("VROD_PROBE_PRESPLIT",),
-                                     ("VROD_PROBE_CVT_SPLIT",)])
+                                     ("VROD_PROBE_CVT_SPLIT",),
+                                     ("VROD_PROBE_LOCKSTEP",),
+                                     ("VROD_PROBE_PINGPONG",),
+                                     ("VROD_PROBE_RADIX_CUT",)])
 def test_build_variants_beside_the_default(defines):
     default = _build.library_path()
     variant = _build.library_path(defines)
@@ -214,7 +264,8 @@ def test_build_variants_beside_the_default(defines):
 
 
 @pytest.mark.parametrize("sources", [("fused_topk.cu",),
-                                     ("fused_topk.cu", "sampled_submax.cu")])
+                                     ("fused_topk.cu", "sampled_submax.cu"),
+                                     ("fused_topk_floor.cu",)])
 def test_build_of_some_sources_beside_the_whole(sources):
     """A measurement build of some sources alone (tools/kernel_probe.py
     --f32x3) lies beside the whole library of the same defines, names the

@@ -402,6 +402,23 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" :: "n"(kConsumers) : "memory");
 }
 
+// The ping-pong of the two consumer warpgroups over the tensor cores (K1's
+// scan from a floor, fused_topk_floor.cu): warpgroup wg (consumer threads
+// 128 wg .. 128 wg + 127) waits on named barrier kBarTurn + wg for its
+// turn, which the other warpgroup hands over by arriving there. The ids
+// are apart from consumer_sync's 1 and topk.cuh's vote barriers (2, 4).
+constexpr int kBarTurn = 5;
+
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(kBarTurn + wg), "n"(kConsumers)
+               : "memory");
+}
+
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, %1;\n"
+               :: "r"(kBarTurn + (wg ^ 1)), "n"(kConsumers) : "memory");
+}
+
 // wgmma operand descriptor of a K-major tile in the 128-byte swizzle
 // layout: rows of 128 bytes, eight-row atoms 1024 bytes apart (SBO); the
 // leading offset is unused for this layout. Stage buffers are 1024-byte
@@ -1129,18 +1146,27 @@ __device__ __forceinline__ void next_stage(const Ring& ring, int& stage,
 // k-blocks, packed int4: low then high nibbles): acc[i] accumulates the dot
 // of tile row tile_row(i) with query group column query_col(i), from zero
 // at stage 0. Walks the stages in the producer's order, advancing (stage,
-// phase); each stage's wgmmas complete before it goes back. The ping-pong
-// of extract.cuh signals the other warpgroup between two such calls.
+// phase); each stage's wgmmas complete before it goes back. The ping-pongs
+// of extract.cuh and fused_topk_floor.cu signal the other warpgroup
+// between two such calls. A walk in pairs of stages (Walk::kPairs: F32X3
+// at n256) steps a pair at a time from an even v0 to an even v1, so the
+// compiler knows each stage's half of the query and no wgmma sits in a
+// branch (which ptxas serializes).
 template <class Kind, int kA>
 __device__ __forceinline__ void consume_stages(
     typename Kind::Acc (&acc)[kA], const Geometry& geo, const Ring& ring,
     int& stage, int& phase, int v0, int v1) {
   StageA<Kind> st;
-  for (int v = v0; v < v1; ++v) {
+  const auto step = [&](int v) {
     issue_stage<Kind>(acc, st, geo, ring, stage, phase, v);
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     release_stage(ring, stage);
     next_stage(ring, stage, phase);
+  };
+  constexpr bool kPairs = Walk<Kind, 2 * kA>::kPairs;
+  for (int v = v0; v < v1; v += kPairs ? 2 : 1) {
+    step(v);
+    if constexpr (kPairs) step(v + 1);
   }
 }
 

@@ -1,13 +1,13 @@
 // K1's scan machinery, shared by the fused top-k scan (fused_topk.cu,
 // fused_topk_small.cu: K1's long scan without a floor and its small scans,
 // and its int32 gate bound, X9; fused_topk_floor.cu, the long scan from a
-// floor, takes the selects, Scratch and the merge), the one-launch
-// sampled floor (fused_theta.cu: X6/X8) and the extraction experiments'
-// gated builds (extract.cuh: X1's gate, X3, X4): the exact radix select,
-// the gated core (each score tested in its register against its query's
-// k-th, lists on chip filled by warp-aggregated appends and cut only when
-// full, by a warp bitonic sort), and the merge of the part lists. See
-// fused_topk.cu for the design.
+// floor, takes the cuts, the n256 append, Scratch and the merge), the
+// one-launch sampled floor (fused_theta.cu: X6/X8) and the extraction
+// experiments' gated builds (extract.cuh: X1's gate, X3, X4): the exact
+// radix select, the gated core (each score tested in its register against
+// its query's k-th, lists on chip filled by warp-aggregated appends and
+// cut only when full, by a warp bitonic sort), and the merge of the part
+// lists. See fused_topk.cu for the design.
 
 #pragma once
 
@@ -42,7 +42,8 @@ constexpr unsigned kFull = 0xffffffffu;
 // (GateLists::probe: K1's here, read and reset through vrod_probe_counts in
 // fused_topk.cu; the extraction kernels' their launch's cnt): [0] warp
 // appends (a warp's query pair with a passing score), [1] lists cut, [2]
-// rounds of cuts (a block's), [3] tiles walked (a block's).
+// rounds of cuts (a block's), [3] tiles walked (a block's). The scan from
+// a floor keeps its own (fused_topk_floor.cu: vrod_probe_counts_floor).
 #ifdef VROD_PROBE_COUNT
 __device__ int probe_counts[8];
 #endif
@@ -513,6 +514,87 @@ __device__ float sort_cut(float* v, int* ix, int n, int k) {
   }
   __syncwarp();
   return __shfl_sync(kFull, kth, (k - 1) >> 3);
+}
+
+// The cut of a list of n > k entries to its k best for k <= 192
+// (kSortLongK), written sorted to [0, k), and its k-th value, with no
+// shared memory and no atomics: sort_cut of its first 256 entries (or
+// all), then of the k kept beside each next window of 256 - k entries (at
+// least 64), moved behind them. K1's scan from a floor, whose lists in
+// global memory hold k + 5 row tiles.
+constexpr int kSortLongK = 192;
+
+__device__ float sort_cut_long(float* v, int* ix, int n, int k) {
+  const int lane = threadIdx.x & 31;
+  int m = min(n, 256);  // entries [0, m) to sort
+  float kth;
+  for (int w = m;; ) {
+    kth = sort_cut(v, ix, m, k);
+    if (w >= n) return kth;
+    m = min(256 - k, n - w);
+    for (int e = lane; e < m; e += 32) {
+      v[k + e] = v[w + e];
+      ix[k + e] = ix[w + e];
+    }
+    __syncwarp();
+    w += m;
+    m += k;
+  }
+}
+
+// The n256 instance of the gated core's append (gate_append, whose k-ths
+// sit in registers, one 64-query slab): K1's scan from a floor, whose
+// consumer threads hold 32 query pairs of a tile's scores, read their
+// gates from shared memory, and see few scores pass. Its test records each
+// query pair with a passing score (Pending: the pair's four scores, and j
+// | bits << 8: pair j, columns query_col(4j) and + 1, rows slot0 and
+// slot0 + 8, bit e for s[e]), and append_pending appends them all in one
+// loop: one copy of the appends' code a kernel (an append block a pair in
+// the unrolled test measured slower, PERF.md).
+struct Pending {
+  float s[4];
+  int jb;
+};
+
+// Round r takes every lane's r-th record; per score of it the lanes
+// appending to the same column take their places at once: a match, one
+// shared atomic by the lowest of them, and each lane's place by popcount,
+// in the lists of cap places from col * cap (lengths len). The lists
+// never fill between two cuts (the caller's cap), so every score is kept.
+__device__ __forceinline__ void append_pending(const Pending* rec, int n,
+                                               int slot0, int* len,
+                                               float* v, int* ix, int cap) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lt = lanemask_lt();
+  const int rounds = __reduce_max_sync(kFull, n);
+  for (int r = 0; r < rounds; ++r) {
+    Pending p{};
+    if (r < n) p = rec[r];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool bit = (p.jb >> (8 + e)) & 1;
+      if (!__any_sync(kFull, bit)) continue;
+      const int col = bit ? query_col(4 * (p.jb & 255)) + (e & 1) : -1;
+      const unsigned peers = __match_any_sync(kFull, col);
+      const int leader = __ffs(peers) - 1;
+      int base = 0;
+      if (bit && lane == leader) {
+        base = shared_add(len + col, __popc(peers));
+#ifdef VROD_PROBE_COUNT
+        atomicAdd(probe_counts + 4, 1);
+#endif
+      }
+      base = __shfl_sync(kFull, base, leader);
+      if (bit) {
+#ifdef VROD_PROBE_COUNT
+        atomicAdd(probe_counts + 0, 1);
+#endif
+        const size_t w = (size_t)col * cap + base + __popc(peers & lt);
+        v[w] = p.s[e];
+        ix[w] = slot0 + 8 * (e >> 1);
+      }
+    }
+  }
 }
 
 // A cut of a list of n entries to its k best (k < n): sort_cut to 256

@@ -141,6 +141,17 @@ def build(defines: tuple[str, ...] = (),
     return out
 
 
+def bind_floor(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Bind the scan from a floor's entry of ``lib`` (the whole library,
+    or a build of ``fused_topk_floor.cu`` alone): vrod_fused_topk's
+    arguments without on_chip and ring."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.vrod_fused_topk_floor.restype = ci
+    lib.vrod_fused_topk_floor.argtypes = [ci] * 3 + [vp] * 7 + [ci] * 8 \
+        + [vp] * 7
+    return lib
+
+
 def load(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """The bound kernel library built with ``defines``, built on first
     use."""
@@ -162,17 +173,16 @@ def load(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.vrod_fused_topk_small.restype = ci
     lib.vrod_fused_topk_small.argtypes = [ci] * 3 + [vp] * 7 + [ci] * 8 \
         + [vp] * 6
-    # The scan from a floor: vrod_fused_topk's arguments without on_chip
-    # and ring.
-    lib.vrod_fused_topk_floor.restype = ci
-    lib.vrod_fused_topk_floor.argtypes = [ci] * 3 + [vp] * 7 + [ci] * 8 \
-        + [vp] * 7
+    bind_floor(lib)
     # K1's ring depth; a long-scan block's shared memory (ring, cap,
     # on_chip, split: the f32x3 legs')
     lib.vrod_k1_ring.restype = ci
     lib.vrod_k1_ring.argtypes = []
     lib.vrod_topk_smem.restype = ci
     lib.vrod_topk_smem.argtypes = [ci] * 4
+    # The scan from a floor's block at top-k (k)
+    lib.vrod_topk_floor_smem.restype = ci
+    lib.vrod_topk_floor_smem.argtypes = [ci]
     # (elem, epi, granule, x, aux, valid, bias, q, q_scale, n, row_bytes, b,
     #  blk, width, spb, groups, out, x_map, q_map, q_hi_map, stream)
     lib.vrod_sampled_submax.restype = ci

@@ -139,9 +139,19 @@ SMALL_STATIC_SMEM = 2 * SMALL_GROUP * 4 + 8 * 256 * 4 + 2 * SMALL_RING * 8
 TOPK_STATIC_SMEM = 9 * 1024
 # K1's long scan from a floor (csrc/fused_topk_floor.cu): queries per block
 # (wgmma n256) and the tiles between two cuts of its lists, which hold k +
-# FLOOR_CUT_TILES + 1 tiles of candidates in scratch.
+# FLOOR_CUT_TILES + 1 tiles of candidates in scratch; its ring of
+# FLOOR_RING stages of the row box and the 256 queries' box; the largest k
+# whose cuts are warp sorts alone (topk.cuh: kSortLongK; past it the radix
+# select's histograms, FLOOR_HIST bytes, join the dynamic shared memory);
+# and a bound on its static shared memory (gates, lengths, the l2 legs'
+# query scales or X9's G, barriers), which the card checks against
+# vrod_topk_floor_smem.
 FLOOR_GROUP = 256
 FLOOR_CUT_TILES = 4
+FLOOR_RING = 4
+FLOOR_SORT_K = 192
+FLOOR_HIST = 8 * 256 * 4
+FLOOR_STATIC_SMEM = 5 * 1024
 
 launches = {f"{kern}[{leg}]": 0 for kern in ("fused_topk", "sampled_submax")
             for leg in LEGS}
@@ -589,6 +599,15 @@ def floor_plan(n: int, b: int, k: int, sms: int) -> FloorPlan:
     groups = _cdiv(b, FLOOR_GROUP)
     parts = max(1, min(_cdiv(n, TILE_ROWS), sms // groups))
     return FloorPlan(groups, parts, k + (FLOOR_CUT_TILES + 1) * TILE_ROWS)
+
+
+def floor_smem(k: int) -> int:
+    """Shared memory of a scan from a floor's block at top-k (at most;
+    csrc/fused_topk_floor.cu): the ring of FLOOR_RING 48 KB stages
+    (``stage_bytes(FLOOR_GROUP)``), the radix select's histograms past
+    k FLOOR_SORT_K, and FLOOR_STATIC_SMEM."""
+    return (1024 + FLOOR_RING * stage_bytes(FLOOR_GROUP)
+            + (FLOOR_HIST if k > FLOOR_SORT_K else 0) + FLOOR_STATIC_SMEM)
 
 
 def floor_scratch_bytes(plan: FloorPlan, b: int, k: int) -> int:
